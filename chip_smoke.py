@@ -7,8 +7,11 @@ before printing a result:
   1. device: name, power limit (nvidia-smi), torch and CUDA versions
   2. build: compile every CUDA kernel of the port (nvcc, sm_90a)
   3. kernel vs plain: the NW alignment kernel against its plain PyTorch
-     version on the card (map, ragged and long-query shapes, both
-     scorings and modes), exact equality; kernel and plain times, bound
+     version on the card, exact equality: map, ragged and long-query
+     shapes, every compiled strip width at and around its tile edge
+     (both scorings and modes), and the bubble check's shapes; kernel
+     and plain times, G cells/s and the bound at the map shape, kernel
+     time at a bubble shape
   4. slice parity: a reduced error-laden workload through the port on
      the card and on the CPU; every output identical
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
@@ -109,35 +112,83 @@ def map_shape_pairs(rng, B, read_len=150, Lq=152, pad=16):
             np.full(B, read_len + 2 * pad, np.int32))
 
 
+def bubble_pairs(rng, B, L):
+    """The bubble check's shape: two branches padded to a common power
+    of two L.  Half the pairs are a copy with a few substitutions and
+    one short deletion (a length difference); the rest are unrelated."""
+    q = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    t = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    qlen = rng.integers(L // 2 + 1, L + 1, B).astype(np.int32)
+    tlen = rng.integers(L // 2 + 1, L + 1, B).astype(np.int32)
+    half = np.arange(0, B, 2)
+    cut = rng.integers(1, 9, len(half))
+    at = rng.integers(0, L // 2, len(half))
+    j = np.arange(L)[None, :]
+    src = np.minimum(j + (j >= at[:, None]) * cut[:, None], L - 1)
+    t[half] = np.take_along_axis(q[half], src, axis=1)
+    for _ in range(3):
+        t[half, rng.integers(0, L // 2, len(half))] = rng.integers(
+            0, 4, len(half))
+    tlen[half] = qlen[half] - cut
+    q[j >= qlen[:, None]] = 255
+    t[j >= tlen[:, None]] = 255
+    return q, qlen, t, tlen
+
+
 def phase_kernel_vs_plain():
     from turingassembler_tpu_torch.ops import dp, nw_align
     from turingassembler_tpu_torch.ops.align import affine_global_score_batch
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
+    both = (("bwa", dp.SCORING_BWA), ("bubble", dp.SCORING_BUBBLE))
+    max_err = 0
 
     def put(*arrs):
         return [torch.as_tensor(a).to(dev) for a in arrs]
 
-    max_err = 0
-    # the map shape; a ragged shape that crosses column tiles; a long
-    # query whose shared-memory carry needs the opt-in above 48 KB
-    for (B, Lq, Lt) in ((65_536, 152, 184), (300, 37, 1_500),
-                        (8, 3_500, 3_600)):
-        q, ql, t, tl = put(*random_pairs(rng, B, Lq, Lt))
-        for name, sc in (("bwa", dp.SCORING_BWA),
-                         ("bubble", dp.SCORING_BUBBLE)):
-            for mode in ("global", "fit"):
+    def hold(what, q, ql, t, tl, scorings=both, modes=("global", "fit"),
+             strip=None):
+        nonlocal max_err
+        for name, sc in scorings:
+            for mode in modes:
                 got = nw_align.banded_affine_score(q, ql, t, tl, *sc,
-                                                   mode=mode)
+                                                   mode=mode, _strip=strip)
                 want = affine_global_score_batch(q, ql, t, tl, *sc,
                                                  mode=mode)
                 torch.cuda.synchronize()
                 err = int((got.long() - want.long()).abs().max())
                 max_err = max(max_err, err)
-                log(f"kernel vs plain B={B} Lq={Lq} Lt={Lt} {name} {mode}: "
-                    f"max |diff| {err}")
+                log(f"kernel vs plain {what} B={q.shape[0]} Lq={q.shape[1]} "
+                    f"Lt={t.shape[1]} {name} {mode}: max |diff| {err}")
                 if err:
                     raise AssertionError("NW kernel disagrees with plain")
+
+    # the map shape; a ragged shape that crosses column tiles; a long
+    # query; 8 pairs a block whose tile carries need the shared-memory
+    # opt-in above 48 KB
+    for (B, Lq, Lt) in ((65_536, 152, 184), (300, 37, 1_500),
+                        (8, 3_500, 3_600), (2_112, 1_000, 600)):
+        plan = nw_align.launch_plan(B, Lq, Lt)
+        hold(f"(strip {plan[0]}, {plan[1]} pairs a block)",
+             *put(*random_pairs(rng, B, Lq, Lt)))
+    # every compiled strip width S: one column short of a full tile of
+    # 32*S columns, the full tile, and one column into a second tile;
+    # the narrowest width also over three tiles
+    for S in nw_align.STRIPS:
+        edges = (32 * S - 1, 32 * S, 32 * S + 1) + ((150,) if S == 2 else ())
+        for Lt in edges:
+            hold(f"strip {S}", *put(*random_pairs(rng, 512, 40, Lt)),
+                 strip=S)
+    # the bubble check: global mode, bubble scoring, many narrow pairs
+    # and few wide ones
+    bubble = both[1:]
+    for (B, L) in ((4_096, 256), (32, 1_024)):
+        hold("bubble shape", *put(*bubble_pairs(rng, B, L)), scorings=bubble,
+             modes=("global",))
+
+    def rate(ql, tl, ms):
+        cells = int((ql.long() * (tl.long() + 1)).sum())
+        return cells, cells / ms / 1e6
 
     # timing at the map's remainder-DP shape, BWA scoring, fit mode
     q, ql, t, tl = put(*map_shape_pairs(rng, 65_536))
@@ -157,14 +208,24 @@ def phase_kernel_vs_plain():
     ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 3)
     ms_again = cuda_ms(kernel, 20)
-    cells = int((ql.long() * (tl.long() + 1)).sum())
+    cells, gcells = rate(ql, tl, min(ms, ms_again))
     nbytes = q.numel() + t.numel() + 4 * 3 * q.shape[0]  # qlen, tlen, out
     t_ops = nw_align.OPS_PER_CELL * cells / PEAK_OPS_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     log(f"NW kernel at map shape B=65536 Lq=152 Lt=184 (fit, BWA): "
-        f"{ms:.4f} ms then {ms_again:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"{ms:.4f} ms then {ms_again:.4f} ms ({gcells:.1f} G cells/s); "
+        f"plain {plain_ms:.4f} ms; "
         f"{cells} cells; bound {max(t_ops, t_bytes):.5f} ms "
         f"(ops {t_ops:.5f}, bytes {t_bytes:.6f})")
+
+    # timing at the bubble check's shape, bubble scoring, global mode
+    bq, bql, bt, btl = put(*bubble_pairs(rng, 4_096, 256))
+    bms = cuda_ms(lambda: nw_align.banded_affine_score(
+        bq, bql, bt, btl, *dp.SCORING_BUBBLE, mode="global"), 20)
+    bcells, bg = rate(bql, btl, bms)
+    log(f"NW kernel at bubble shape B=4096 Lq=256 Lt=256 (global, bubble): "
+        f"{bms:.4f} ms ({bg:.1f} G cells/s); {bcells} cells; bound "
+        f"{nw_align.OPS_PER_CELL * bcells / PEAK_OPS_S * 1e3:.5f} ms (ops)")
     return dict(max_abs_err=max_err, ms=min(ms, ms_again), plain_ms=plain_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -369,14 +430,18 @@ def phase_full_width():
     return launches
 
 
-def main():
-    smi = device_info()
+def build_kernels():
     from turingassembler_tpu_torch import _build
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'})")
     for name, text in logs.items():
         print(f"[{name}] {text}", file=sys.stderr, flush=True)
+
+
+def main():
+    smi = device_info()
+    build_kernels()
 
     nw = phase_kernel_vs_plain()
     phase_slice_parity()

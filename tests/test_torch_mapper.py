@@ -224,3 +224,87 @@ def test_rescore_hits_parity(world):
                                   device="cpu")
         _eq(ja, ta)
         _eq(jsc, tsc)
+
+
+def _dp_rest_case(seed, Lq=104, N=160):
+    """A pool of five edges, two of them shorter than a read, and reads
+    placed at signed starts from far left of the edge to past its end:
+    head overhang, tail overhang, both at once on the short edges, and
+    lanes with nothing left on the edge (ql_t = 0).  Reads copy the edge
+    where they lie on it, with an edit or a deleted base in some."""
+    rng = np.random.default_rng(seed)
+    lens_e = [7, 300, 51, 1200, 150]
+    seq_off = np.concatenate([[0], np.cumsum(lens_e)]).astype(np.int64)
+    seq_data = rng.integers(0, 4, seq_off[-1]).astype(np.uint8)
+    edges = rng.integers(0, len(lens_e), N).astype(np.int32)
+    elen = np.asarray(lens_e)[edges]
+    lengths = rng.integers(60, 101, N).astype(np.int32)
+    starts = rng.integers(-110, elen + 12).astype(np.int32)
+    starts[:5] = [-100, -104, 0, -3, 7]          # ql_t = 0 when len <= 100
+    edges[:5] = [1, 1, 0, 0, 0]
+    lengths[:2] = 100
+    bases = rng.integers(0, 4, (N, Lq)).astype(np.uint8)
+    for i in range(N):
+        e, s, n = int(edges[i]), int(starts[i]), int(lengths[i])
+        lo, hi = max(s, 0), min(s + n, lens_e[e])
+        if hi > lo:
+            seg = seq_data[seq_off[e] + lo:seq_off[e] + hi].copy()
+            if i % 3 == 1 and len(seg) > 20:     # one deleted base
+                seg = np.delete(seg, len(seg) // 2)
+            elif i % 3 == 2 and len(seg) > 4:    # two substitutions
+                seg[rng.integers(0, len(seg), 2)] ^= 1
+            bases[i, lo - s:lo - s + len(seg)] = seg
+        bases[i, n:] = 255
+    return seq_data, seq_off, edges, starts, bases, lengths
+
+
+@pytest.mark.parametrize("pad", [tm.RESCORE_PAD, 5])
+@pytest.mark.parametrize("held", ["host arrays", "tensors"])
+def test_dp_verify_rest_windows_parity(held, pad):
+    """The remainder DP with its windows cut by tensor operations against
+    the JAX package's host window build, on the same lanes."""
+    sd, so, edges, starts, bases, lengths = _dp_rest_case(seed=21)
+    rest = np.flatnonzero(np.arange(len(edges)) % 7 != 6)
+    elen = (so[1:] - so[:-1])[edges[rest]]
+    s = starts[rest].astype(np.int64)
+    n_on = np.minimum(lengths[rest], elen - s) - np.maximum(-s, 0)
+    assert (n_on <= 0).sum() >= 3                      # ql_t = 0 lanes
+    assert ((s < 0) & (n_on > 0)).sum() >= 10          # head overhang
+    assert ((s + lengths[rest] > elen) & (n_on > 0)).sum() >= 10   # tail
+    assert ((elen < lengths[rest]) & (n_on > 0)).sum() >= 10  # short edge
+    want = jm._dp_verify_rest(sd, so, edges, starts, bases, lengths, rest,
+                              (1, -2, 3, 1), pad)
+    args = (sd, so, edges, starts, bases, lengths)
+    if held == "tensors":
+        args = tuple(_t(a) for a in args)
+    got = tm._dp_verify_rest(*args, rest, (1, -2, 3, 1), pad, device="cpu")
+    assert isinstance(got, np.ndarray) and got.dtype == np.int32
+    _eq(want, got)
+    assert (got[n_on <= 0] == 0).all()
+    assert (got > 40).sum() >= 30                      # real alignments
+
+
+def test_dp_verify_rest_matches_per_lane_windows():
+    """Each lane's score equals the plain DP on a window cut for that
+    lane alone with Python slices."""
+    from turingassembler_tpu_torch.ops import dp as tdp
+    sd, so, edges, starts, bases, lengths = _dp_rest_case(seed=22, N=60)
+    pad = tm.RESCORE_PAD
+    rest = np.arange(len(edges))
+    got = tm._dp_verify_rest(sd, so, edges, starts, bases, lengths, rest,
+                             tdp.SCORING_BWA, device="cpu")
+    for i in rest:
+        e, s, n = int(edges[i]), int(starts[i]), int(lengths[i])
+        elen = int(so[e + 1] - so[e])
+        qlo = max(-s, 0)
+        qhi = max(min(n, elen - s), qlo)
+        if qhi == qlo:
+            assert got[i] == 0
+            continue
+        s0 = min(max(s + qlo, 0), max(elen - 1, 0))
+        w0, w1 = max(s0 - pad, 0), min(s0 + qhi - qlo + pad, elen)
+        q = bases[i, qlo:qhi][None, :]
+        t = sd[so[e] + w0:so[e] + w1][None, :]
+        want = tdp.affine_scores(q, [qhi - qlo], t, [w1 - w0],
+                                 tdp.SCORING_BWA, mode="fit", device="cpu")
+        assert got[i] == want[0], i

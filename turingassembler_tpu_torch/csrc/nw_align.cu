@@ -1,31 +1,48 @@
 // Full-width Gotoh affine-gap alignment score, one (query, target) pair
-// per thread block.  CUDA counterpart of the Pallas kernel
+// per warp.  CUDA counterpart of the Pallas kernel
 // turingassembler_tpu/ops/pallas_align.py (_nw_kernel via
 // banded_affine_score); see ops/nw_align.py for the wrapper.
 //
-// Recurrence, rows i = 1..qlen over the query, columns c = 0..Lt over
-// the target (t[c-1] is column c's base):
+// Recurrence, rows i = 1..qlen over the query, columns c = 0..tlen over
+// the target (t[c-1] is column c's base), go >= 0:
 //   E[i][c] = max(E[i-1][c] - ge, H[i-1][c] - go - ge)
-//   b[i][c] = max(H[i-1][c-1] + s(q[i-1], t[c-1]), E[i][c]);
-//             b[i][0] = -(go + ge*i)
-//   F[i][c] = max_{u<c}(b[i][u] + ge*u) - go - ge*c
-//   H[i][c] = max(b[i][c], F[i][c])
+//   F[i][c] = max(F[i][c-1] - ge, H[i][c-1] - go - ge)
+//   H[i][c] = max(H[i-1][c-1] + s(q[i-1], t[c-1]), E[i][c], F[i][c])
+//   H[i][0] = -(go + ge*i)
 // Row 0: H[0][c] = 0 ("fit") or -(go + ge*c), H[0][0] = 0 ("global").
-// Columns past Lt are NEG.  "global" returns H[qlen][tlen]; "fit"
-// returns max_{c <= tlen} H[qlen][c].  Codes >= 4 always mismatch.
+// "global" returns H[qlen][tlen]; "fit" returns max_{c <= tlen}
+// H[qlen][c].  Codes >= 4 always mismatch.  F is the sequential form of
+// the plain version's max_{u<c}(b[i][u] + ge*u) - go - ge*c: for
+// go >= 0 a gap opened from a cell that a horizontal gap just reached
+// never beats extending that gap, so both give the same H.
 //
-// Layout: one thread per target column.  A thread keeps its column's
-// H and E of the previous row in registers; the diagonal H[i-1][c-1]
-// comes from the left neighbour by warp shuffle (shared memory across
-// warps).  The in-row F chain is a block-wide inclusive max-scan of
-// b + ge*c: warp shuffles, then each warp folds in the totals of the
-// warps to its left.  Two __syncthreads per row.
+// What bounds it: 32-bit integer instruction slots (its bytes are two uint8
+// rows in and one int32 out per pair).  So the design spends as few
+// instructions a cell as it can and never waits on a block barrier:
 //
-// Targets wider than the block are walked in column tiles, left to
-// right; the last column of a tile leaves, per row, its H and the
-// running prefix max in shared memory (ping-pong buffers of Lq+1 ints)
-// for the next tile's first column.  Rows past qlen and columns past
-// tlen never reach the result, so a block stops there.
+// - A warp owns a pair.  Lane l owns a strip of S neighbouring columns
+//   (S is a template parameter, so the strip unrolls into registers):
+//   H of the previous row and E of this row for its columns, and its S
+//   target bases.
+// - The lanes run an anti-diagonal wavefront: at step s lane l is on
+//   row s - l + 1.  From lane l - 1 it needs that lane's last-column H
+//   and the F that leaves that column, both produced one step earlier:
+//   two __shfl_up_sync a step.  The diagonal H is the left H it got the
+//   step before.  No shared-memory hand-off and no __syncthreads().
+// - Inside the strip F is closed sequentially, and a cell is the DPX
+//   instructions viaddmax (max(a + b, c)) for the diagonal term, E and
+//   F, one max and one add.
+// - The query row is staged once into shared memory (8-byte loads where
+//   the row stride allows); a lane reads one query base a step.
+// - Column 0 is never a cell: it is the left boundary of lane 0.
+//   Targets wider than 32*S columns are walked in column tiles, left to
+//   right; lane 31 leaves, per row, its H and outgoing F in shared
+//   memory for lane 0 of the next tile.  The next tile reads row i
+//   before it writes row i, so one buffer of Lq + 1 pairs of ints a
+//   warp is enough.
+// - A warp stops at its pair's own qlen and tlen: the work is
+//   qlen * (tlen + 1) cells a pair, plus the wavefront's fill and drain
+//   (31 steps a tile).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,124 +51,164 @@ namespace {
 
 constexpr int NEG = -(1 << 20);
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_WARPS = 32;
+constexpr int MAX_WARPS = 8;
 
-__global__ void nw_align_kernel(const uint8_t* __restrict__ q,
-                                const uint8_t* __restrict__ t,
-                                const int* __restrict__ qlen,
-                                const int* __restrict__ tlen,
-                                int* __restrict__ out,
-                                int Lq, int Lt, int match, int mismatch,
-                                int go, int ge, int fit) {
-  extern __shared__ int carry[];  // [2 buffers][H | prefix max][Lq + 1]
-  __shared__ int wtot[MAX_WARPS];
-  __shared__ int hlast[MAX_WARPS];
-  __shared__ int red[MAX_WARPS];
+template <int S>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+nw_wavefront_kernel(const uint8_t* __restrict__ q,
+                    const uint8_t* __restrict__ t,
+                    const int* __restrict__ qlen,
+                    const int* __restrict__ tlen, int* __restrict__ out,
+                    int B, int Lq, int Lt, int match, int mismatch, int go,
+                    int ge, int fit, int carry_rows) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int pair = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (pair >= B) return;  // warps are independent: no block barrier below
 
-  const int pair = blockIdx.x;
-  const int x = threadIdx.x;
-  const int lane = x & 31;
-  const int warp = x >> 5;
-  const int T = blockDim.x;
+  // this warp's shared memory: [carry: carry_rows x int2][query bytes]
+  const int qbytes = (Lq + 7) & ~7;
+  unsigned char* mine =
+      smem + (size_t)warp * (8 * (size_t)carry_rows + qbytes);
+  int2* carry = reinterpret_cast<int2*>(mine);
+  uint8_t* qs = mine + 8 * (size_t)carry_rows;
+
   const uint8_t* qp = q + (size_t)pair * Lq;
   const uint8_t* tp = t + (size_t)pair * Lt;
-  const int ql = qlen[pair];
-  const int nrows = min(ql, Lq);
-  const int tl = tlen[pair];
-  const int ncols = min(tl, Lt) + 1;
-  const int ntiles = (ncols + T - 1) / T;
+  const int nrows = min(qlen[pair], Lq);
+  const int ncols = min(tlen[pair], Lt);
   const int goge = go + ge;
-  const int stride = 2 * (Lq + 1);
 
-  int best = NEG;
+  if (((reinterpret_cast<uintptr_t>(q) | (uintptr_t)Lq) & 7) == 0) {
+    for (int j = lane; 8 * j < nrows; j += 32)
+      reinterpret_cast<uint2*>(qs)[j] = reinterpret_cast<const uint2*>(qp)[j];
+  } else {
+    for (int j = lane; j < nrows; j += 32) qs[j] = qp[j];
+  }
+  __syncwarp();
+
+  // column 0 of the last row
+  int best = (fit || ncols <= 0) ? (nrows > 0 ? -(go + ge * nrows) : 0) : NEG;
+
+  constexpr int TILE = 32 * S;
+  const int ntiles = (ncols + TILE - 1) / TILE;
   for (int tile = 0; tile < ntiles; ++tile) {
-    const int c = tile * T + x;
-    const bool live = c <= Lt;
-    const int tc = (c >= 1 && live) ? (int)tp[c - 1] : 255;
-    const bool tc_ok = tc < 4;
-    const int gec = ge * c;
-    const bool at_col = fit ? (c <= tl) : (c == tl);
-    const int* in_h = carry + (tile & 1) * stride;
-    const int* in_cm = in_h + (Lq + 1);
-    int* out_h = carry + ((tile + 1) & 1) * stride;
-    int* out_cm = out_h + (Lq + 1);
-
-    int h = !live ? NEG : (fit || c == 0) ? 0 : -(go + gec);  // row 0
-    int e = NEG;
-    if (ql == 0 && at_col) best = max(best, h);
-    if (lane == 31) hlast[warp] = h;
-    if (x == T - 1) out_h[0] = h;
-    __syncthreads();
-
-    for (int i = 1; i <= nrows; ++i) {
-      const int qi = qp[i - 1];
-      int hd = __shfl_up_sync(FULL, h, 1);
-      if (lane == 0) {
-        hd = warp > 0 ? hlast[warp - 1] : (tile > 0 ? in_h[i - 1] : NEG);
-      }
-      const int sub = (tc == qi && tc_ok && qi < 4) ? match : mismatch;
-      e = max(e - ge, h - goge);
-      int b = max(hd + sub, e);
-      if (c == 0) b = -(go + ge * i);
-      if (!live) b = NEG;
-
-      // inclusive max-scan of b + ge*c along the row
-      int v = b + gec;
+    const int c0 = 1 + tile * TILE + lane * S;  // this lane's first column
+    const bool live = c0 <= ncols;
+    const bool more = tile + 1 < ntiles;
+    int h[S], e[S], tc[S];  // H[i-1][c], E[i][c], target base, c = c0 + k
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int u = __shfl_up_sync(FULL, v, off);
-        if (lane >= off) v = max(v, u);
-      }
-      if (lane == 31) wtot[warp] = v;
-      __syncthreads();
-      int pre = tile > 0 ? in_cm[i] : NEG;  // max over columns left of the warp
-      for (int w = 0; w < warp; ++w) pre = max(pre, wtot[w]);
-      const int incl = max(v, pre);
-      int excl = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl = pre;
-
-      h = max(b, excl - go - gec);
-      if (!live) h = NEG;
-      if (i == ql && at_col) best = max(best, h);
-      if (lane == 31) hlast[warp] = h;
-      if (x == T - 1) {
-        out_h[i] = h;
-        out_cm[i] = incl;
-      }
-      __syncthreads();
+    for (int k = 0; k < S; ++k) {
+      const int c = c0 + k;
+      const int base = c <= ncols ? (int)tp[c - 1] : 255;
+      tc[k] = base < 4 ? base : 0xFE;  // never equal to a query code
+      h[k] = fit ? 0 : -(go + ge * c);
+      e[k] = h[k] - goge;
     }
+    int hdiag = (fit || c0 == 1) ? 0 : -(go + ge * (c0 - 1));  // H[0][c0-1]
+    int h_send = 0, f_send = 0;
+    const int lanes = min(32, (ncols - tile * TILE + S - 1) / S);
+    const int nsteps = nrows > 0 ? nrows + lanes - 1 : 0;
+
+    for (int s = 0; s < nsteps; ++s) {
+      int hl = __shfl_up_sync(FULL, h_send, 1);  // H[i][c0-1]
+      int f = __shfl_up_sync(FULL, f_send, 1);   // F[i][c0]
+      const int i = s - lane + 1;
+      if (live && i >= 1 && i <= nrows) {
+        if (lane == 0) {
+          if (tile == 0) {
+            hl = -(go + ge * i);
+            f = hl - goge;
+          } else {
+            const int2 cv = carry[i];
+            hl = cv.x;
+            f = cv.y;
+          }
+        }
+        int qi = qs[i - 1];
+        qi = qi < 4 ? qi : 0xFF;
+        int hd = hdiag;
+        hdiag = hl;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int sub = tc[k] == qi ? match : mismatch;
+          const int b = __viaddmax_s32(hd, sub, e[k]);
+          const int hn = max(b, f);
+          const int og = hn - goge;
+          e[k] = __viaddmax_s32(e[k], -ge, og);  // E[i+1][c]
+          f = __viaddmax_s32(f, -ge, og);        // F[i][c+1]
+          hd = h[k];
+          h[k] = hn;
+        }
+        h_send = h[S - 1];
+        f_send = f;
+        if (lane == 31 && more) carry[i] = make_int2(h_send, f_send);
+      }
+    }
+
+    // every live lane has stopped on row nrows: h[] is H[nrows][c]
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int c = c0 + k;
+      if (fit ? c <= ncols : c == ncols) best = max(best, h[k]);
+    }
+    __syncwarp();  // lane 31's carry writes before lane 0's reads
   }
 
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    best = max(best, __shfl_down_sync(FULL, best, off));
-  if (lane == 0) red[warp] = best;
-  __syncthreads();
-  if (x == 0) {
-    int m = NEG;
-    for (int w = 0; w < T / 32; ++w) m = max(m, red[w]);
-    out[pair] = m;
+  best = __reduce_max_sync(FULL, best);
+  if (lane == 0) out[pair] = best;
+}
+
+template <int S>
+int launch(const uint8_t* q, const uint8_t* t, const int* qlen,
+           const int* tlen, int* out, int B, int Lq, int Lt, int match,
+           int mismatch, int go, int ge, int fit, int warps,
+           cudaStream_t stream) {
+  const int carry_rows = Lt > 32 * S ? Lq + 1 : 0;
+  const size_t qbytes = ((size_t)Lq + 7) & ~(size_t)7;
+  const size_t smem = (size_t)warps * (8 * (size_t)carry_rows + qbytes);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nw_wavefront_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  const int blocks = (B + warps - 1) / warps;
+  nw_wavefront_kernel<S><<<blocks, 32 * warps, smem, stream>>>(
+      q, t, qlen, tlen, out, B, Lq, Lt, match, mismatch, go, ge, fit,
+      carry_rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-// threads: a multiple of 32, at most 1024.  B >= 1.
+// strip: columns a lane (2, 4, 6, 8, 12 or 16); warps: pairs a block,
+// 1..8; go >= 0; B >= 1.  Shared memory a block: warps * (8 * (Lq + 1)
+// if Lt > 32 * strip, plus Lq rounded up to 8) bytes.
 extern "C" int nw_align_launch(const void* q, const void* t,
                                const void* qlen, const void* tlen, void* out,
                                int B, int Lq, int Lt, int match, int mismatch,
-                               int go, int ge, int fit, int threads,
+                               int go, int ge, int fit, int strip, int warps,
                                void* stream) {
-  const size_t smem = sizeof(int) * 4 * ((size_t)Lq + 1);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nw_align_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (warps < 1 || warps > MAX_WARPS || go < 0 || B < 1)
+    return (int)cudaErrorInvalidValue;
+#define NW_CASE(S)                                                          \
+  case S:                                                                   \
+    return launch<S>((const uint8_t*)q, (const uint8_t*)t,                  \
+                     (const int*)qlen, (const int*)tlen, (int*)out, B, Lq,  \
+                     Lt, match, mismatch, go, ge, fit, warps,               \
+                     (cudaStream_t)stream)
+  switch (strip) {
+    NW_CASE(2);
+    NW_CASE(4);
+    NW_CASE(6);
+    NW_CASE(8);
+    NW_CASE(12);
+    NW_CASE(16);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  nw_align_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)q, (const uint8_t*)t, (const int*)qlen,
-      (const int*)tlen, (int*)out, Lq, Lt, match, mismatch, go, ge, fit);
-  return (int)cudaGetLastError();
+#undef NW_CASE
 }

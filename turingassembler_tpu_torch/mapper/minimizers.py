@@ -371,6 +371,14 @@ def _device_pool(seq_data: np.ndarray, seq_off: np.ndarray,
             torch.as_tensor(np.asarray(seq_off, np.int64)).to(device))
 
 
+def _on_device(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`a`, a host array or a tensor on any device, as a `dtype` tensor
+    on `device` (no copy when it is one already)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.ascontiguousarray(a))
+    return a.to(device=device, dtype=dtype)
+
+
 def _gapless_bound_dev(seq_pk, seq_off, edges, starts, bases, lengths,
                        mt: int, mm: int):
     """Score of the gapless alignment at the voted (signed) offset over
@@ -438,13 +446,12 @@ def rescore_hits(seq_data: np.ndarray, seq_off: np.ndarray,
     if not mapped.any():
         return accept, scores
     sd, sod = _device_pool(seq_data, seq_off, dev)
-
-    def put(a, dt):
-        return torch.as_tensor(np.ascontiguousarray(a, dt)).to(dev)
-
+    edges_d = _on_device(edges, torch.int64, dev)
+    starts_d = _on_device(starts, torch.int64, dev)
+    bases_d = _on_device(bases, torch.uint8, dev)
+    lens_d = _on_device(lengths, torch.int64, dev)
     bound_d, feas_d = _gapless_bound_dev(
-        sd, sod, put(edges, np.int64), put(starts, np.int64),
-        put(bases, np.uint8), put(lengths, np.int64),
+        sd, sod, edges_d, starts_d, bases_d, lens_d,
         int(scoring[0]), int(scoring[1]))
     bound = bound_d.cpu().numpy()
     thr_all = np.broadcast_to(np.asarray(min_score), (N,))
@@ -453,42 +460,50 @@ def rescore_hits(seq_data: np.ndarray, seq_off: np.ndarray,
     accept[fast] = True
     rest = np.flatnonzero(mapped & ~fast)
     if len(rest):
-        sc = _dp_verify_rest(seq_data, seq_off, edges, starts, bases,
-                             lengths, rest, scoring, pad, device=dev)
+        sc = _dp_verify_rest(seq_data, sod, edges_d, starts_d, bases_d,
+                             lens_d, rest, scoring, pad, device=dev)
         scores[rest] = sc
         accept[rest] = sc >= thr_all[rest]
     return accept, scores
 
 
 def _dp_verify_rest(seq_data, seq_off, edges, starts, bases, lengths,
-                    rest: np.ndarray, scoring, pad: int = RESCORE_PAD, *,
+                    rest, scoring, pad: int = RESCORE_PAD, *,
                     device: str | torch.device = "cuda") -> np.ndarray:
-    """Full affine-gap DP ("fit") for the lanes in `rest`; windows are
-    built on the host.  Query bases overhanging either edge end are
-    trimmed first, so only the on-edge part must align.
-    Returns (len(rest),) int32 scores."""
+    """Full affine-gap DP ("fit") for the lanes in `rest`.  Query bases
+    overhanging either edge end are trimmed first, so only the on-edge
+    part must align.
+
+    Every array may be a host array or a tensor; what is not on `device`
+    yet is copied there once (seq_data as uint8 codes), and the target
+    windows and trimmed queries are cut there, so a caller that holds
+    the reads and the votes on the device moves only `rest` in and the
+    scores out.  Returns (len(rest),) int32 host scores."""
+    dev = resolve_device(device)
+    sd = _on_device(seq_data, torch.uint8, dev)
+    so = _on_device(seq_off, torch.int64, dev)
+    r = _on_device(rest, torch.int64, dev)
     Lq = bases.shape[1]
-    e = edges[rest].astype(np.int64)
-    qlen = lengths[rest].astype(np.int64)
-    elen = (seq_off[e + 1] - seq_off[e]).astype(np.int64)
-    s0s = starts[rest].astype(np.int64)
-    qlo = np.maximum(-s0s, 0)                            # head-overhang trim
-    qhi = np.maximum(np.minimum(qlen, elen - s0s), qlo)  # tail trim
+    e = _on_device(edges, torch.int64, dev)[r]
+    qlen = _on_device(lengths, torch.int64, dev)[r]
+    elen = so[e + 1] - so[e]
+    s0s = _on_device(starts, torch.int64, dev)[r]
+    qlo = torch.clamp(-s0s, min=0)                       # head-overhang trim
+    qhi = torch.maximum(torch.minimum(qlen, elen - s0s), qlo)  # tail trim
     ql_t = qhi - qlo
-    s0 = np.clip(s0s + qlo, 0, np.maximum(elen - 1, 0))  # on-edge start
-    w0 = np.maximum(s0 - pad, 0)
-    w1 = np.minimum(s0 + ql_t + pad, elen)
+    s0 = torch.minimum(torch.clamp(s0s + qlo, min=0),
+                       torch.clamp(elen - 1, min=0))     # on-edge start
+    w0 = torch.clamp(s0 - pad, min=0)
+    w1 = torch.minimum(s0 + ql_t + pad, elen)
     Lt = Lq + 2 * pad
-    idx = (seq_off[e] + w0)[:, None] + np.arange(Lt)[None, :]
-    inwin = np.arange(Lt)[None, :] < (w1 - w0)[:, None]
-    t = np.where(inwin, seq_data[np.minimum(idx, len(seq_data) - 1)],
-                 np.uint8(255))
+    j = torch.arange(Lt, device=dev)[None, :]
+    idx = torch.clamp((so[e] + w0)[:, None] + j, max=len(sd) - 1)
+    t = torch.where(j < (w1 - w0)[:, None], sd[idx], 255)
     # per-row left shift by qlo (trim the head overhang off the query)
-    qidx = np.minimum(qlo[:, None] + np.arange(Lq)[None, :], Lq - 1)
-    q = np.take_along_axis(bases[rest], qidx, axis=1)
-    sc = dp.affine_scores(q, ql_t, t, w1 - w0, scoring, mode="fit",
-                          device=device)
-    return np.where(ql_t > 0, sc, 0).astype(np.int32)
+    qidx = torch.clamp(qlo[:, None] + j[:, :Lq], max=Lq - 1)
+    q = torch.gather(_on_device(bases, torch.uint8, dev)[r], 1, qidx)
+    sc = dp.affine_scores_tensors(q, ql_t, t, w1 - w0, scoring, mode="fit")
+    return torch.where(ql_t > 0, sc, 0).to(torch.int32).cpu().numpy()
 
 
 def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
@@ -503,8 +518,8 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
     graph: when given, every voted hit is verified (gapless bound on the
     device, the DP for the rest) and rejects are demoted to unmapped.
     shipped: the (bases, lengths) tensors of these reads already on the
-    device (count_reads_device(return_chunks=True)); `bases`/`lengths`
-    are still needed on the host for the DP windows.
+    device (count_reads_device(return_chunks=True)); the host `bases`
+    and `lengths` then only give the number of reads.
     with_hits=False returns zeros for n_hits."""
     dev = resolve_device(device)
     N = len(bases)
@@ -518,8 +533,8 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
     thr_all = np.broadcast_to(np.asarray(min_score, np.int64), (N,))
     hkeys, vals, salt = index.device_tables(dev)
     if shipped is None:
-        shipped = (torch.as_tensor(np.ascontiguousarray(bases, np.uint8)).to(dev),
-                   torch.as_tensor(np.ascontiguousarray(lengths, np.int32)).to(dev))
+        shipped = (_on_device(bases, torch.uint8, dev),
+                   _on_device(lengths, torch.int32, dev))
     bases_d, lens_d = shipped[0][:N], shipped[1][:N]
     verified = graph is not None
     if verified:
@@ -537,18 +552,20 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
         else:
             outs.append(_vote_core(rb, lb_, hkeys, vals, salt, index.k,
                                    index.w))
-    edges = torch.cat([o[0] for o in outs]).to(torch.int32).cpu().numpy()
+    edges_d = torch.cat([o[0] for o in outs])
+    starts_d = torch.cat([o[2] for o in outs])
+    edges = edges_d.to(torch.int32).cpu().numpy()
     if with_hits:
         hits = torch.cat([o[1] for o in outs]).to(torch.int32).cpu().numpy()
-    starts = torch.cat([o[2] for o in outs]).to(torch.int32).cpu().numpy()
+    starts = starts_d.to(torch.int32).cpu().numpy()
     if verified:
         fast = torch.cat([o[3] for o in outs]).cpu().numpy()
         accept = fast & (edges >= 0)
         rest = np.flatnonzero((edges >= 0) & ~fast)
         if len(rest):
-            sc = _dp_verify_rest(graph.seq_data, graph.seq_off, edges,
-                                 starts, bases, lengths, rest,
-                                 dp.SCORING_BWA, device=dev)
+            sc = _dp_verify_rest(graph.seq_data, sod, edges_d, starts_d,
+                                 bases_d, lens_d, rest, dp.SCORING_BWA,
+                                 device=dev)
             accept[rest] = sc >= thr_all[rest]
         edges = np.where(accept, edges, -1)
     # public starts are BWA-pos style: clamped >= 0 on mapped lanes
