@@ -19,7 +19,15 @@ before printing a result:
      DP-verified map, plus 66,560 reads with one mid-read indel; launch
      counts are reset just before and read just after; then one more
      pass under torch.profiler for the device's busy share
-  6. the `kernels` JSON line, the nvidia-smi line, and last the result
+  6. levels parity: a 200 kbp two-haplotype library from FASTQ files
+     through assembly_basic (level 0, 1, 2 graph files) on the card and
+     on the CPU, nine files byte-identical; once more with count budgets
+     that force runs to disk, level 0 held against the in-memory run
+  7. levels at full width: a 2 Mbp two-haplotype library (533k reads of
+     150 bp, 0.5% substitutions, k=45, min count 2) through the CLI
+     function, `basic --device cuda`: stage seconds, the bubble check's
+     NW launches, and checks of the three graphs against the haplotypes
+  8. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -28,9 +36,13 @@ result.  Kernels build at first use into build/kernels/.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -179,10 +191,10 @@ def phase_kernel_vs_plain():
         for Lt in edges:
             hold(f"strip {S}", *put(*random_pairs(rng, 512, 40, Lt)),
                  strip=S)
-    # the bubble check: global mode, bubble scoring, many narrow pairs
-    # and few wide ones
+    # the bubble check: global mode, bubble scoring, many narrow pairs,
+    # few wide ones, and the batch the full-width levels run gives it
     bubble = both[1:]
-    for (B, L) in ((4_096, 256), (32, 1_024)):
+    for (B, L) in ((4_096, 256), (32, 1_024), (3_584, 150)):
         hold("bubble shape", *put(*bubble_pairs(rng, B, L)), scorings=bubble,
              modes=("global",))
 
@@ -218,14 +230,18 @@ def phase_kernel_vs_plain():
         f"{cells} cells; bound {max(t_ops, t_bytes):.5f} ms "
         f"(ops {t_ops:.5f}, bytes {t_bytes:.6f})")
 
-    # timing at the bubble check's shape, bubble scoring, global mode
-    bq, bql, bt, btl = put(*bubble_pairs(rng, 4_096, 256))
-    bms = cuda_ms(lambda: nw_align.banded_affine_score(
-        bq, bql, bt, btl, *dp.SCORING_BUBBLE, mode="global"), 20)
-    bcells, bg = rate(bql, btl, bms)
-    log(f"NW kernel at bubble shape B=4096 Lq=256 Lt=256 (global, bubble): "
-        f"{bms:.4f} ms ({bg:.1f} G cells/s); {bcells} cells; bound "
-        f"{nw_align.OPS_PER_CELL * bcells / PEAK_OPS_S * 1e3:.5f} ms (ops)")
+    # timing at the bubble check's shapes, bubble scoring, global mode:
+    # phase 3's own ragged shape, and the batch the full-width levels run
+    # gives the kernel (about 3,500 branch pairs of 90-150 bases)
+    for (B, L) in ((4_096, 256), (3_584, 150)):
+        bq, bql, bt, btl = put(*bubble_pairs(rng, B, L))
+        bms = cuda_ms(lambda: nw_align.banded_affine_score(
+            bq, bql, bt, btl, *dp.SCORING_BUBBLE, mode="global"), 20)
+        bcells, bg = rate(bql, btl, bms)
+        log(f"NW kernel at bubble shape B={B} Lq={L} Lt={L} (global, "
+            f"bubble): {bms:.4f} ms ({bg:.1f} G cells/s); {bcells} cells; "
+            f"bound {nw_align.OPS_PER_CELL * bcells / PEAK_OPS_S * 1e3:.5f}"
+            " ms (ops)")
     return dict(max_abs_err=max_err, ms=min(ms, ms_again), plain_ms=plain_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -298,8 +314,6 @@ def run_main_path(reads, lengths, ir, il, k, around=None):
     Each stage ends in a device sync; `around(name)`, when given, is a
     context manager entered around each stage.  Returns stage seconds
     and the outputs."""
-    import contextlib
-
     from turingassembler_tpu_torch.graph.device_build import \
         build_graph_on_device
     from turingassembler_tpu_torch.kmer.megasort import count_reads_device
@@ -328,47 +342,49 @@ def run_main_path(reads, lengths, ir, il, k, around=None):
     return st, out
 
 
-def profile_main_path(reads, lengths, ir, il, k):
-    """One more pass with torch.profiler around each stage on its own:
-    the device's busy time (sum of kernel and copy times) per stage, and
-    the kernels that take it."""
-    import contextlib
+class StageProfiler:
+    """torch.profiler around one stage at a time: per stage the device's
+    busy time (sum of kernel and copy times) and the host's top ops, and
+    over all stages the kernels that take the time."""
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    busy, kernels, host = {}, {}, {}
+    def __init__(self):
+        self.busy, self.kernels, self.host = {}, {}, {}
 
     @contextlib.contextmanager
-    def around(name):
+    def around(self, name):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             yield
-        busy[name] = 0.0
+        self.busy[name] = 0.0
         cpu_ops = []
         for ev in prof.key_averages():
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
-                busy[name] += ev.self_device_time_total / 1e6
-                c = kernels.setdefault(ev.key, [0.0, 0])
+                self.busy[name] += ev.self_device_time_total / 1e6
+                c = self.kernels.setdefault(ev.key, [0.0, 0])
                 c[0] += ev.self_device_time_total / 1e3
                 c[1] += ev.count
             elif ev.self_cpu_time_total:
                 cpu_ops.append((ev.self_cpu_time_total / 1e3, ev.key))
-        host[name] = sorted(cpu_ops, reverse=True)[:3]
+        self.host[name] = sorted(cpu_ops, reverse=True)[:3]
 
-    st, _ = run_main_path(reads, lengths, ir, il, k, around)
-    wall, dev = sum(st.values()), sum(busy.values())
-    if dev == 0:
-        log("profile: the profiler saw no device time (not measured)")
-        return
-    log(f"profile (one more full-width pass, profiler on): stages wall "
-        f"{wall:.3f} s, device busy {dev:.3f} s ({dev / wall * 100:.1f}%)")
-    for name, sec in st.items():
-        log(f"profile:   stage {name:9s} wall {sec:.3f} s, device busy "
-            f"{busy[name]:.3f} s ({busy[name] / sec * 100:.1f}%); top host "
-            "ops (self ms): " + ", ".join(f"{k_} {ms:.1f}"
-                                          for ms, k_ in host[name]))
-    for key, (ms, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"profile:   {ms:10.3f} ms  x{cnt:<6d} {key[:100]}")
+    def report(self, what, st):
+        """st: stage -> wall seconds, measured inside `around`."""
+        wall, dev = sum(st.values()), sum(self.busy.values())
+        if dev == 0:
+            log(f"{what}: the profiler saw no device time (not measured)")
+            return
+        log(f"{what} (profiler on): stages wall {wall:.3f} s, device busy "
+            f"{dev:.3f} s ({dev / wall * 100:.1f}%)")
+        for name, sec in st.items():
+            log(f"{what}:   stage {name:9s} wall {sec:.3f} s, device busy "
+                f"{self.busy[name]:.3f} s ({self.busy[name] / sec * 100:.1f}"
+                "%); top host ops (self ms): " + ", ".join(
+                    f"{k_} {ms:.1f}" for ms, k_ in self.host[name]))
+        for key, (ms, cnt) in sorted(self.kernels.items(),
+                                     key=lambda kv: -kv[1][0])[:10]:
+            log(f"{what}:   {ms:10.3f} ms  x{cnt:<6d} {key[:100]}")
 
 
 def phase_full_width():
@@ -426,7 +442,269 @@ def phase_full_width():
     m = e >= 0
     if not ((s[m] >= 0).all() and (s[m] < lens[e[m]]).all()):
         raise AssertionError("mapped starts outside their edges")
-    profile_main_path(reads, lengths, ir, il, k)
+    # one more pass with the profiler around each stage on its own
+    prof = StageProfiler()
+    st, _ = run_main_path(reads, lengths, ir, il, k, prof.around)
+    prof.report("profile, one more full-width pass", st)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# levels: FASTQ files -> level 0, 1, 2 graph files (pipeline.assembly_basic)
+# ---------------------------------------------------------------------------
+
+K_LEVELS, MIN_COUNT_LEVELS = 45, 2
+LEVEL_FILES = [f"graph_k_{K_LEVELS}_level_{lv}.{ext}" for lv in (0, 1, 2)
+               for ext in ("bin", "gfa", "fasta")]
+
+
+def write_library(d, genome_len, seed):
+    """The levels workload (testing.diploid_reads) as two FASTQ files,
+    half the reads each, haplotypes interleaved.  Returns (hap_a, hap_b,
+    n_clusters, n_reads, [R1, R2], seconds the writing took)."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.io.fastq import write_fastq
+    hap_a, hap_b, n_clusters, reads, _ = tt.diploid_reads(genome_len, seed)
+    reads = reads[np.random.default_rng(seed).permutation(len(reads))]
+    half = len(reads) // 2
+    paths = [os.path.join(d, "R1.fq"), os.path.join(d, "R2.fq")]
+    t0 = time.perf_counter()
+    for path, part in zip(paths, (reads[:half], reads[half:])):
+        write_fastq(path, [b"r%d" % i for i in range(len(part))], list(part))
+    return (hap_a, hap_b, n_clusters, len(reads), paths,
+            time.perf_counter() - t0)
+
+
+def levels_config(paths, out_dir, **device_kw):
+    from turingassembler_tpu_torch.config import Config
+    cfg = Config(k0=K_LEVELS, out_dir=out_dir, files_1=(paths[0],),
+                 files_2=(paths[1],))
+    return cfg.replace(device=dataclasses.replace(
+        cfg.device, min_kmer_count=MIN_COUNT_LEVELS, **device_kw))
+
+
+def file_bytes(path):
+    with open(path, "rb") as fp:
+        return fp.read()
+
+
+def alive_key(g):
+    """Sorted (sequence, count) of a graph's live edges."""
+    return sorted((g.get_seq(int(e)).tobytes(), int(g.edge_count[e]))
+                  for e in np.flatnonzero(g.alive_mask()))
+
+
+def phase_levels_parity():
+    from turingassembler_tpu_torch import pipeline
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.io import asmg
+    from turingassembler_tpu_torch.ops import nw_align
+    with tempfile.TemporaryDirectory() as d:
+        _, _, n_clusters, n_reads, paths, _ = write_library(d, 200_000, 21)
+        out = {w: os.path.join(d, w) for w in ("card", "cpu", "spill")}
+        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        g2 = pipeline.assembly_basic(levels_config(paths, out["card"]),
+                                     device="cuda")
+        torch.cuda.synchronize()
+        launched = nw_align.COUNT.launches - before[0]
+        pairs = nw_align.COUNT.pairs - before[1]
+        pipeline.assembly_basic(levels_config(paths, out["cpu"]),
+                                device="cpu")
+        for name in LEVEL_FILES:
+            if file_bytes(os.path.join(out["card"], name)) != \
+                    file_bytes(os.path.join(out["cpu"], name)):
+                raise AssertionError(f"levels parity: {name} differs")
+        if launched < 1:
+            raise AssertionError("levels parity: the NW kernel never "
+                                 "launched on the card run")
+        g0 = asmg.load_graph(os.path.join(out["card"], LEVEL_FILES[0]))
+        log(f"levels parity (200 kbp x 2 haplotypes, {n_clusters} variant "
+            f"clusters, {n_reads} reads, k={K_LEVELS}, min count "
+            f"{MIN_COUNT_LEVELS}): card == CPU for all {len(LEVEL_FILES)} "
+            f"files; n_e {g0.n_e} -> {g2.n_e}; bubble check: {pairs} pairs "
+            f"in {launched} NW launches")
+
+        # the same library under count budgets that force disk runs: the
+        # table comes back as host arrays and level 0 is built on the host
+        pipeline.build_0(levels_config(paths, out["spill"],
+                                       sort_device_lanes=500_000,
+                                       sort_host_mb=10.0), device="cuda")
+        runs = [f for f in os.listdir(os.path.join(out["spill"], "spill"))
+                if f.startswith("count_run") and f.endswith("_keys.npy")]
+        if len(runs) < 2:
+            raise AssertionError(f"levels parity: {len(runs)} disk runs, "
+                                 "expected at least 2")
+        gs = asmg.load_graph(os.path.join(out["spill"], LEVEL_FILES[0]))
+        tt.graphs_isomorphic(g0, gs)
+        if alive_key(g0) != alive_key(gs):
+            raise AssertionError("levels parity: spilled level 0 holds "
+                                 "other (sequence, count) edges")
+        same = all(file_bytes(os.path.join(out["spill"], n))
+                   == file_bytes(os.path.join(out["card"], n))
+                   for n in LEVEL_FILES[:3])
+        log(f"levels parity, spilled count ({len(runs)} runs on disk, host "
+            f"build): level 0 isomorphic to the in-memory run's, same "
+            f"(sequence, count) set; files byte-identical: {same}")
+
+
+def n50(lens):
+    lens = np.sort(np.asarray(lens))[::-1]
+    return int(lens[np.searchsorted(np.cumsum(lens), lens.sum() / 2)])
+
+
+def profile_count_and_build(cfg):
+    """Device busy share of the count and of the level-0 build, each
+    under the profiler on batches parsed beforehand (so the count's wall
+    holds no parsing)."""
+    from turingassembler_tpu_torch import pipeline
+    from turingassembler_tpu_torch.graph.device_build import \
+        build_graph_on_device
+    from turingassembler_tpu_torch.kmer.megasort import \
+        count_kedges_megasort_device
+    batches = list(pipeline._genomic_batches(cfg))
+    prof, st = StageProfiler(), {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        with prof.around(name):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            st[name] = time.perf_counter() - t0
+        return res
+
+    u, c, n = stage("count", lambda: count_kedges_megasort_device(
+        iter(batches), cfg.k0, min_count=cfg.device.min_kmer_count))
+    stage("build", lambda: build_graph_on_device(u, c, n, cfg.k0))
+    prof.report(f"levels profile ({len(batches)} parsed batches of "
+                f"{len(batches[0][0])} reads)", st)
+
+
+def phase_levels_full_width(genome_len=2_000_000):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from turingassembler_tpu_torch import cli
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.graph.invariants import check_graph
+    from turingassembler_tpu_torch.io import asmg
+    from turingassembler_tpu_torch.logging_utils import (reset_stage_walls,
+                                                         stage_walls)
+    from turingassembler_tpu_torch.ops import nw_align
+    from turingassembler_tpu_torch.resolve import basic
+    with tempfile.TemporaryDirectory() as d:
+        hap_a, hap_b, n_clusters, n_reads, paths, t_write = \
+            write_library(d, genome_len, 31)
+        out = os.path.join(d, "out")
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_walls()
+        nw_align.COUNT.reset()
+        # device activity only: the host passes run unobserved, and the
+        # NW kernel's own time comes out by name
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc = cli.main(["basic", "-1", paths[0], "-2", paths[1], "-k0",
+                           str(K_LEVELS), "-mc", str(MIN_COUNT_LEVELS),
+                           "-o", out, "--device", "cuda"])
+            torch.cuda.synchronize()
+        launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        shapes = list(nw_align.COUNT.shapes)
+        walls = stage_walls()
+        if rc != 0:
+            raise AssertionError(f"levels: the CLI returned {rc}")
+        nw = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and "nw_wavefront_kernel" in ev.key]
+        nw_ms = sum(ev.self_device_time_total for ev in nw) / 1e3
+        nw_n = sum(ev.count for ev in nw)
+
+        graphs = [asmg.load_graph(os.path.join(out, LEVEL_FILES[i]))
+                  for i in (0, 3, 6)]
+        for g in graphs:
+            check_graph(g)
+        n_e = [int(g.alive_mask().sum()) for g in graphs]
+        n50s = [n50(g.edge_len()[g.alive_mask()]) for g in graphs]
+        log(f"levels full width ({genome_len} bp x 2 haplotypes, "
+            f"{n_clusters} variant clusters, {n_reads} reads of 150 bp, "
+            f"k={K_LEVELS}, min count {MIN_COUNT_LEVELS}): live edges "
+            f"{n_e[0]} -> {n_e[1]} -> {n_e[2]}, N50 {n50s[0]} -> "
+            f"{n50s[1]} -> {n50s[2]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log("levels stage seconds: FASTQ write %.3f, " % t_write
+            + ", ".join(f"{k_} {walls.get(k_, 0.0):.3f}" for k_ in (
+                "build_0.parse", "build_0.count", "build_0.build",
+                "build_0.check_save", "build_0", "build_0_1", "build_1_2"))
+            + " (build_0.count is the count's wall less its wait on the "
+            "parser, and holds the host-to-device copies)")
+        by_shape = {}
+        for sh in shapes:
+            by_shape[sh] = by_shape.get(sh, 0) + 1
+        log(f"levels bubble DP: {pairs} pairs in {launches} NW launches; "
+            "padded shapes (B, Lq, Lt) x launches: " + ", ".join(
+                f"{sh} x{n}" for sh, n in by_shape.items()) + "; "
+            + (f"{nw_ms / nw_n:.4f} ms a launch over {nw_n} launches "
+               f"(profiler, device time)" if nw_n
+               else "ms a launch: not measured (the profiler saw no kernel)"))
+        if not (n_e[0] > n_e[1] >= n_e[2] and n50s[0] < n50s[1] <= n50s[2]):
+            raise AssertionError("levels: edges did not fall or N50 did "
+                                 "not rise from level 0 to level 2")
+        if pairs < 500 or launches < 1:
+            raise AssertionError(f"levels: {pairs} pairs in {launches} NW "
+                                 "launches, expected at least 500 pairs")
+
+        # the planted bubbles are gone: no two live level-2 edges under
+        # 1000 bp share both endpoints with a score the check accepts
+        g2 = graphs[2]
+        lens = g2.edge_len()
+        groups = {}
+        for e in np.flatnonzero(g2.alive_mask() & (lens < 1000)).tolist():
+            u, v = int(g2.edge_source[e]), int(g2.edge_target[e])
+            if u != int(g2.node_rc[v]):
+                groups.setdefault((u, v), []).append(e)
+        left = [(a, b) for es in groups.values() for i, a in enumerate(es)
+                for b in es[i + 1:]]
+        scores = basic.nw_align_scores_batch(
+            [(g2.get_seq(a), g2.get_seq(b)) for a, b in left], device="cuda")
+        if any(basic._bubble_accept(int(s), int(lens[a]), int(lens[b]))
+               for (a, b), s in zip(left, scores)):
+            raise AssertionError("levels: an acceptable bubble survived to "
+                                 "level 2")
+        # no pass invents sequence: every 46-mer of a sample of level-2
+        # contigs is a 46-mer of a level-0 edge, i.e. one the count kept.
+        # Against the truth: nearly every 45-mer occurs in haplotype A or
+        # B on either strand.  Not every one: a substitution error that
+        # three reads share passes the coverage filters as a bubble of
+        # two branches of equal length, and the bubble pass keeps the
+        # first of them, as upstream does.
+        live = np.flatnonzero(g2.alive_mask())
+        sample = np.random.default_rng(0).choice(
+            live, size=min(400, len(live)), replace=False)
+        g0 = graphs[0]
+        counted = np.unique(np.concatenate(
+            [tt.kmer_hashes(g0.get_seq(int(e)), K_LEVELS + 1)
+             for e in np.flatnonzero(g0.alive_mask())]))
+        edges46 = np.concatenate(
+            [tt.kmer_hashes(g2.get_seq(int(e)), K_LEVELS + 1)
+             for e in sample])
+        invented = int((~np.isin(edges46, counted)).sum())
+        known = np.unique(np.concatenate(
+            [tt.kmer_hashes(s, K_LEVELS) for h in (hap_a, hap_b)
+             for s in (h, tt.revcomp(h).copy())]))
+        kmers = np.concatenate([tt.kmer_hashes(g2.get_seq(int(e)), K_LEVELS)
+                                for e in sample])
+        foreign = int((~np.isin(kmers, known)).sum())
+        log(f"levels level 2: {len(left)} parallel edge pairs under 1000 bp "
+            f"left, none acceptable as a bubble; of {len(sample)} sampled "
+            f"contigs, {invented} of {len(edges46)} 46-mers are in no "
+            f"level-0 edge and {foreign} of {len(kmers)} 45-mers "
+            f"({foreign / len(kmers) * 100:.3f}%) in neither haplotype")
+        if invented:
+            raise AssertionError(f"levels: {invented} 46-mers of level-2 "
+                                 "contigs were never counted")
+        if foreign > 0.01 * len(kmers):
+            raise AssertionError(f"levels: {foreign} of {len(kmers)} 45-mers "
+                                 "of level-2 contigs occur in neither "
+                                 "haplotype, more than 1%")
+        profile_count_and_build(levels_config(paths, out))
     return launches
 
 
@@ -446,6 +724,8 @@ def main():
     nw = phase_kernel_vs_plain()
     phase_slice_parity()
     launches = phase_full_width()
+    phase_levels_parity()
+    launches += phase_levels_full_width()
 
     print(json.dumps({"kernels": [{
         "name": "nw_align", "route": "cuda",

@@ -8,9 +8,12 @@ previous stage produced.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .config import Config
 from .device import resolve_device
 from .graph.structs import AsmGraph
 from .mapper.minimizers import EdgeMinimizerIndex
@@ -29,9 +32,26 @@ def kmer_table(uniq, counts, n: int, device: str | torch.device = "cuda"):
     return torch.as_tensor(u).to(dev), torch.as_tensor(c).to(dev), int(n)
 
 
+def config(cfg) -> Config:
+    """A Config of the JAX package -> the port's Config, field by field
+    down the nested dataclasses; a field only one side has (the device
+    parameters differ) keeps the port's default."""
+    def take(cls, src):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if not hasattr(src, f.name):
+                continue
+            v = getattr(src, f.name)
+            kw[f.name] = take(f.default_factory, v) \
+                if dataclasses.is_dataclass(v) else v
+        return cls(**kw)
+    return take(Config, cfg)
+
+
 def graph(g) -> AsmGraph:
     """An AsmGraph of the JAX package -> the port's AsmGraph, field by
-    field (arrays copied)."""
+    field (arrays copied), at any level: tombstoned edges (source -1)
+    and N-gap holes carry over as they are."""
     out = AsmGraph(ksize=int(g.ksize))
     for f in _GRAPH_ARRAYS:
         setattr(out, f, np.array(getattr(g, f), copy=True))

@@ -6,9 +6,12 @@ tensors: the CUDA kernel ops/nw_align.py on the card, its plain PyTorch
 version ops/align.py on the CPU.  Both are full width: the score is
 exact for any divergence between query and target, there is no band.
 
-Call sites on this slice: the mapper's remainder DP
+Call sites: the mapper's remainder DP
 (mapper/minimizers.py:_dp_verify_rest), with BWA scoring in "fit" mode,
-through `affine_scores_tensors` on windows it cut on the device.
+through `affine_scores_tensors` on windows it cut on the device; and the
+align-bubble check (resolve/basic.py:nw_align_scores_batch), with bubble
+scoring in "global" mode, through `affine_scores` on host arrays padded
+to the batch's longest branch.
 """
 
 from __future__ import annotations

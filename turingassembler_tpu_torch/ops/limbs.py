@@ -15,6 +15,7 @@ plain positive int64 value, never -1.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -158,3 +159,97 @@ def fmix32(h):
     h = h ^ (h >> 13)
     h = mul32(h, 0xC2B2AE35)
     return h ^ (h >> 16)
+
+
+# ---------------------------------------------------------------------------
+# numpy twins on uint32 limbs, as the host graph code holds them (copies of
+# the JAX package's np_* functions)
+# ---------------------------------------------------------------------------
+
+def np_pack_bases(bases: np.ndarray, k: int) -> np.ndarray:
+    nl = n_limbs(k)
+    b = np.where(bases < 4, bases, 0).astype(np.uint32)
+    out = np.zeros(bases.shape[:-1] + (nl,), np.uint32)
+    for j in range(k):
+        l, sh = base_shift(j)
+        out[..., l] |= b[..., j] << np.uint32(sh)
+    return out
+
+
+def np_unpack_limbs(limbs: np.ndarray, k: int) -> np.ndarray:
+    out = np.zeros(limbs.shape[:-1] + (k,), np.uint8)
+    for j in range(k):
+        l, sh = base_shift(j)
+        out[..., j] = (limbs[..., l] >> np.uint32(sh)) & 3
+    return out
+
+
+def np_revcomp_limbs(limbs: np.ndarray, k: int) -> np.ndarray:
+    bases = np_unpack_limbs(limbs, k)
+    return np_pack_bases(3 - bases[..., ::-1], k)
+
+
+def np_lex_lt(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lt = np.zeros(a.shape[:-1], bool)
+    eq = np.ones(a.shape[:-1], bool)
+    for l in range(a.shape[-1]):
+        lt |= eq & (a[..., l] < b[..., l])
+        eq &= a[..., l] == b[..., l]
+    return lt
+
+
+def np_lexsort_rows(limbs: np.ndarray):
+    """Row order sorting limb rows lexicographically (limb 0 primary)."""
+    return np.lexsort(tuple(limbs[:, l] for l in range(limbs.shape[1] - 1, -1, -1)))
+
+
+def np_revcomp_limbs_fast(limbs: np.ndarray, k: int) -> np.ndarray:
+    """Bitwise reverse-complement (numpy port of revcomp_limbs: no
+    per-base loops — in-limb 2-bit reversal + limb reversal + realign)."""
+    nl = n_limbs(k)
+    x = (~limbs).astype(np.uint32)
+    x = ((x & np.uint32(0x33333333)) << 2) | ((x >> 2) & np.uint32(0x33333333))
+    x = ((x & np.uint32(0x0F0F0F0F)) << 4) | ((x >> 4) & np.uint32(0x0F0F0F0F))
+    x = ((x & np.uint32(0x00FF00FF)) << 8) | ((x >> 8) & np.uint32(0x00FF00FF))
+    x = ((x << np.uint32(16)) | (x >> np.uint32(16))).astype(np.uint32)
+    rev = x[..., ::-1]
+    pad_bits = 32 * nl - 2 * k
+    if pad_bits:
+        sh = np.uint32(pad_bits)
+        ish = np.uint32(32 - pad_bits)
+        out = np.empty_like(rev)
+        for l in range(nl):
+            hi = rev[..., l] << sh
+            lo = (rev[..., l + 1] >> ish) if l + 1 < nl else np.uint32(0)
+            out[..., l] = hi | lo
+    else:
+        out = rev.copy()
+    used = 2 * k - 32 * (nl - 1)
+    if used < 32:
+        out[..., nl - 1] &= np.uint32(((1 << used) - 1) << (32 - used))
+    return out
+
+
+def np_split_kedge(kedges: np.ndarray, k: int):
+    """(prefix, suffix) k-mers of packed (k+1)-mers — numpy bitwise port
+    of kmers.split_kedge."""
+    nl_in = kedges.shape[-1]
+    nl_out = n_limbs(k)
+    used = 2 * k - 32 * (nl_out - 1)
+    last_mask = np.uint32(((1 << used) - 1) << (32 - used)) if used < 32 \
+        else np.uint32(0xFFFFFFFF)
+    prefix = kedges[..., :nl_out].copy()
+    prefix[..., nl_out - 1] &= last_mask
+    suffix = np.empty_like(prefix)
+    for l in range(nl_out):
+        hi = kedges[..., l] << np.uint32(2)
+        lo = (kedges[..., l + 1] >> np.uint32(30)) if l + 1 < nl_in else np.uint32(0)
+        suffix[..., l] = hi | lo
+    suffix[..., nl_out - 1] &= last_mask
+    return prefix, suffix
+
+
+def np_base_at(limbs: np.ndarray, j: int) -> np.ndarray:
+    """Base j of each packed row."""
+    l, sh = base_shift(j)
+    return ((limbs[..., l] >> np.uint32(sh)) & np.uint32(3)).astype(np.uint8)

@@ -4,7 +4,11 @@ wrapper.
 Replaces the Pallas TPU kernel turingassembler_tpu/ops/pallas_align.py
 (`banded_affine_score`, body `_nw_kernel`), the repository's only TPU
 kernel.  Same function: a full-width Gotoh score per (query, target)
-pair, "global" or "fit" (see ops/align.py, its plain version).
+pair, "global" or "fit" (see ops/align.py, its plain version).  Callers,
+both through ops/dp.py: the mapper's remainder DP ("fit", BWA scoring,
+uniform windows) and the align-bubble check of resolve/basic.py
+("global", bubble scoring, ragged lengths under 1000, one launch for
+all candidate pairs of a pass).
 
 What bounds it on an H100: 32-bit integer instruction slots.  A pair
 costs qlen * (tlen + 1) DP cells, counted at OPS_PER_CELL = 11 plain
@@ -27,7 +31,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -43,13 +47,16 @@ MAX_SHARED = 232_448              # bytes of shared memory a block can use
 
 @dataclass
 class LaunchCount:
-    """Launches of the kernel and pairs they scored (CUDA path only)."""
+    """Launches of the kernel, pairs they scored and each launch's
+    (B, Lq, Lt) (CUDA path only)."""
     launches: int = 0
     pairs: int = 0
+    shapes: list = field(default_factory=list)
 
     def reset(self) -> None:
         self.launches = 0
         self.pairs = 0
+        self.shapes = []
 
 
 COUNT = LaunchCount()
@@ -145,4 +152,5 @@ def banded_affine_score(q: torch.Tensor, qlen: torch.Tensor,
         raise RuntimeError(f"nw_align kernel launch failed: CUDA error {rc}")
     COUNT.launches += 1
     COUNT.pairs += B
+    COUNT.shapes.append((B, Lq, Lt))
     return out

@@ -1,0 +1,187 @@
+"""Staged pipeline orchestration (port of turingassembler_tpu/pipeline.py,
+stages 0-2, single process).
+
+Every stage ends by writing `graph_k_<k>_<suffix>.{bin,gfa,fasta}` into
+the output directory (upstream save_graph_info, process.c:516-532), so
+any stage can be re-run standalone from its input file.
+
+Stage map (upstream assembly3_process, process.c:585-701):
+  build_0        FASTQ -> counted (k+1)-mers -> level_0 graph
+  build_0_1      level_0 -> basic resolve fixpoint -> level_1
+  build_1_2      level_1 -> simple+complex bulges -> level_2
+
+Count and level-0 build run on `device`; the graph passes are host code
+whose one device call is the align-bubble DP (resolve/basic.py).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+
+from .config import LIB_TYPE_10X, Config
+from .graph.build import build_graph_from_kedges
+from .graph.condense import asm_condense
+from .graph.device_build import build_graph_on_device
+from .graph.invariants import check_graph
+from .graph.structs import AsmGraph
+from .io import asmg
+from .io.fasta import write_fasta, write_gfa
+from .io.fastq import read_fastq_batches
+from .kmer.megasort import count_kedges_megasort_device
+from .logging_utils import (add_stage_wall, get_logger, set_log_stage,
+                            stage_walls)
+
+
+def graph_path(out_dir: str, k: int, suffix: str, ext: str = "bin") -> str:
+    return os.path.join(out_dir, f"graph_k_{k}_{suffix}.{ext}")
+
+
+def save_graph_info(g: AsmGraph, out_dir: str, suffix: str) -> None:
+    """upstream save_graph_info (process.c:516-532): bin + gfa + fasta."""
+    os.makedirs(out_dir, exist_ok=True)
+    asmg.save_graph(g, graph_path(out_dir, g.ksize, suffix, "bin"))
+    write_gfa(g, graph_path(out_dir, g.ksize, suffix, "gfa"))
+    write_fasta(g, graph_path(out_dir, g.ksize, suffix, "fasta"))
+    get_logger().info("saved graph level '%s': n_v=%d n_e=%d", suffix,
+                      g.n_v, g.n_e)
+
+
+def batch_width(lengths: np.ndarray, lo: int = 64) -> int:
+    """A batch's max read length rounded up to a multiple of 8: a
+    uniform library yields one width (150 bp -> 152)."""
+    m = int(lengths.max()) if len(lengths) else lo
+    return max(lo, -(-m // 8) * 8)
+
+
+def _genomic_batches(cfg: Config, batch_size: int = 4096, pad_to: int = 256):
+    """Yield (bases, lengths) batches over all genomic reads (R1 + R2).
+
+    10X libraries carry barcode+UMI in the first 23 bp of R1
+    (upstream get_barcode_10x, src/sort_read.c:62-79) — trimmed here
+    before counting."""
+    for i, path in enumerate(list(cfg.files_1) + list(cfg.files_2)):
+        is_r1 = i < len(cfg.files_1)
+        for batch in read_fastq_batches(path, batch_size=batch_size,
+                                        pad_to=pad_to):
+            bases, lengths = batch.bases, batch.lengths
+            if cfg.lib_type == LIB_TYPE_10X and is_r1:
+                # trim, then re-pad so R1/R2 batch widths stay equal
+                bases = np.concatenate(
+                    [bases[:, 23:],
+                     np.full((len(bases), 23), 255, np.uint8)], axis=1)
+                lengths = np.maximum(lengths - 23, 0)
+            if len(bases) < batch_size:
+                pad = batch_size - len(bases)
+                bases = np.concatenate(
+                    [bases, np.full((pad, bases.shape[1]), 255, np.uint8)])
+                lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
+            yield np.ascontiguousarray(
+                bases[:, : batch_width(lengths)]), lengths
+
+
+def _timed_batches(batches, name: str):
+    """Pass batches through, adding the time spent producing them to the
+    stage wall `name`; the consumer's own time is not in it."""
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        finally:
+            add_stage_wall(name, time.perf_counter() - t0)
+        yield item
+
+
+def build_0(cfg: Config, out_dir: Optional[str] = None,
+            device="cuda") -> AsmGraph:
+    """FASTQ -> level-0 graph (upstream build_0_KMC process.c:47 ->
+    build_initial_graph kmer_build.c:839): count on `device`, then the
+    unitig build there too, or on the host when the count spilled."""
+    out_dir = out_dir or cfg.out_dir
+    k = cfg.k0
+    if not (cfg.files_1 or cfg.files_2):
+        raise SystemExit("build_0: no input reads (use -1/-2)")
+    log = get_logger()
+    parse0 = stage_walls().get("build_0.parse", 0.0)
+    t0 = time.perf_counter()
+    # -sm drives the counting memory budget (upstream hands it to KMC,
+    # src/main.c:234-236): beyond it host-resident count runs go to disk
+    host_mb = cfg.device.sort_host_mb
+    res = count_kedges_megasort_device(
+        _timed_batches(_genomic_batches(cfg), "build_0.parse"), k,
+        min_count=cfg.device.min_kmer_count,
+        device_lanes=cfg.device.sort_device_lanes,
+        host_mb=cfg.mmem_gb * 1024 if host_mb is None else host_mb,
+        spill_dir=os.path.join(out_dir, "spill"), device=device)
+    t1 = time.perf_counter()
+    if len(res) == 3:
+        uniq_d, counts_d, n_u = res
+        log.info("counted %d unique (k+1)-mers in %.1fs (device table)",
+                 n_u, t1 - t0)
+        g = build_graph_on_device(uniq_d, counts_d, n_u, k, device=device)
+    else:                         # the budget forced the table to host
+        kedges, counts = res
+        log.info("counted %d unique (k+1)-mers in %.1fs (spilled)",
+                 len(kedges), t1 - t0)
+        g = build_graph_from_kedges(kedges, counts, k)
+    t2 = time.perf_counter()
+    log.info("level-0 build in %.1fs: n_v=%d n_e=%d", t2 - t1, g.n_v, g.n_e)
+    check_graph(g, check_seq=False)
+    save_graph_info(g, out_dir, "level_0")
+    t3 = time.perf_counter()
+    log.info("check+save in %.1fs", t3 - t2)
+    # the count's own time: its wall less the time it waited on the parser
+    parse = stage_walls().get("build_0.parse", 0.0) - parse0
+    add_stage_wall("build_0.count", t1 - t0 - parse)
+    add_stage_wall("build_0.build", t2 - t1)
+    add_stage_wall("build_0.check_save", t3 - t2)
+    return g
+
+
+def build_0_1(cfg: Config, g: Optional[AsmGraph] = None,
+              out_dir: Optional[str] = None, device="cuda") -> AsmGraph:
+    """level_0 -> level_1 via the basic-resolve fixpoint (upstream
+    build_0_1 process.c:121 -> resolve_graph_operation)."""
+    from .resolve import resolve_graph_operation
+    out_dir = out_dir or cfg.out_dir
+    if g is None:
+        g = asmg.load_graph(graph_path(out_dir, cfg.k0, "level_0"))
+    g = resolve_graph_operation(g, log=get_logger().info, device=device)
+    check_graph(g, check_seq=False)
+    save_graph_info(g, out_dir, "level_1")
+    return g
+
+
+def build_1_2(cfg: Config, g: Optional[AsmGraph] = None,
+              out_dir: Optional[str] = None) -> AsmGraph:
+    """level_1 -> level_2: simple bulges + complex bulges + condense
+    (upstream resolve_local_process process.c:493).  Host code only."""
+    from .resolve.bulges import (resolve_complex_bulges_ite,
+                                 resolve_simple_bulges_ite)
+    out_dir = out_dir or cfg.out_dir
+    if g is None:
+        g = asmg.load_graph(graph_path(out_dir, cfg.k0, "level_1"))
+    g = resolve_simple_bulges_ite(g)
+    g = resolve_complex_bulges_ite(g)
+    g = asm_condense(g)
+    check_graph(g, check_seq=False)
+    save_graph_info(g, out_dir, "level_2")
+    return g
+
+
+def assembly_basic(cfg: Config, device="cuda") -> AsmGraph:
+    """Stages 0-2 (the graph-only part of assembly3)."""
+    set_log_stage("build_0")
+    g = build_0(cfg, device=device)
+    set_log_stage("build_0_1")
+    g = build_0_1(cfg, g, device=device)
+    set_log_stage("build_1_2")
+    g = build_1_2(cfg, g)
+    set_log_stage("done")
+    return g
