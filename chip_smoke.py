@@ -11,7 +11,8 @@ before printing a result:
      shapes, every compiled strip width at and around its tile edge
      (both scorings and modes), and the bubble check's shapes; kernel
      and plain times, G cells/s and the bound at the map shape, kernel
-     time at a bubble shape
+     time at a bubble shape; the map shape also at the small batches
+     the scaffolds path gives it
   4. slice parity: a reduced error-laden workload through the port on
      the card and on the CPU; every output identical
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
@@ -23,11 +24,27 @@ before printing a result:
      through assembly_basic (level 0, 1, 2 graph files) on the card and
      on the CPU, nine files byte-identical; once more with count budgets
      that force runs to disk, level 0 held against the in-memory run
-  7. levels at full width: a 2 Mbp two-haplotype library (533k reads of
-     150 bp, 0.5% substitutions, k=45, min count 2) through the CLI
+  7. levels at full width: a 1 Mbp two-haplotype library (about 267k
+     reads of 150 bp, 0.5% substitutions, k=45, min count 2; the depth
+     is cut from 2 Mbp to keep the script short) through the CLI
      function, `basic --device cuda`: stage seconds, the bubble check's
      NW launches, and checks of the three graphs against the haplotypes
-  8. the `kernels` JSON line, the nvidia-smi line, and last the result
+  8. scaffold parity: a 200 kbp linked-read library (12 segments between
+     identical repeat copies, barcoded molecules, an index read) through
+     assembly_to_scaffolds on the card and on the CPU; the sorted
+     archive, the extended contigs, the barcode graph and the scaffold
+     files byte-identical
+  9. scaffolds at full width: the same recipe at 2 Mbp (about 267k pairs
+     of 150 bp at 40x) stage by stage through the CLI function: `basic`,
+     `sort_read`, `debug_current` (read-pair counts and extension),
+     `build_coverage` (k=31 recount), `build_barcode`, `scaffold`, each
+     with `--device cuda`; stage seconds, the device's busy share of the
+     two map stages and of the recount, NW pairs and launches per stage,
+     and checks of the archive, the barcode sets and the scaffold paths
+     against the genome
+ 10. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7
+     and 9 launched the kernel at, with their scoring and mode
+ 11. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -147,33 +164,42 @@ def bubble_pairs(rng, B, L):
     return q, qlen, t, tlen
 
 
+def put(*arrs):
+    return [torch.as_tensor(a).to("cuda") for a in arrs]
+
+
+def hold_kernel(what, q, ql, t, tl, scorings, modes, strip=None) -> int:
+    """The NW kernel against its plain version on the same tensors, for
+    each (name, scoring) and mode: raises unless equal, returns the
+    largest |difference| (0)."""
+    from turingassembler_tpu_torch.ops import nw_align
+    from turingassembler_tpu_torch.ops.align import affine_global_score_batch
+    for name, sc in scorings:
+        for mode in modes:
+            got = nw_align.banded_affine_score(q, ql, t, tl, *sc, mode=mode,
+                                               _strip=strip)
+            want = affine_global_score_batch(q, ql, t, tl, *sc, mode=mode)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            log(f"kernel vs plain {what} B={q.shape[0]} Lq={q.shape[1]} "
+                f"Lt={t.shape[1]} {name} {mode}: max |diff| {err}")
+            if err:
+                raise AssertionError("NW kernel disagrees with plain")
+    return 0
+
+
 def phase_kernel_vs_plain():
     from turingassembler_tpu_torch.ops import dp, nw_align
     from turingassembler_tpu_torch.ops.align import affine_global_score_batch
     rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
     both = (("bwa", dp.SCORING_BWA), ("bubble", dp.SCORING_BUBBLE))
     max_err = 0
-
-    def put(*arrs):
-        return [torch.as_tensor(a).to(dev) for a in arrs]
 
     def hold(what, q, ql, t, tl, scorings=both, modes=("global", "fit"),
              strip=None):
         nonlocal max_err
-        for name, sc in scorings:
-            for mode in modes:
-                got = nw_align.banded_affine_score(q, ql, t, tl, *sc,
-                                                   mode=mode, _strip=strip)
-                want = affine_global_score_batch(q, ql, t, tl, *sc,
-                                                 mode=mode)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                max_err = max(max_err, err)
-                log(f"kernel vs plain {what} B={q.shape[0]} Lq={q.shape[1]} "
-                    f"Lt={t.shape[1]} {name} {mode}: max |diff| {err}")
-                if err:
-                    raise AssertionError("NW kernel disagrees with plain")
+        max_err = max(max_err, hold_kernel(what, q, ql, t, tl, scorings,
+                                           modes, strip))
 
     # the map shape; a ragged shape that crosses column tiles; a long
     # query; 8 pairs a block whose tile carries need the shared-memory
@@ -191,8 +217,15 @@ def phase_kernel_vs_plain():
         for Lt in edges:
             hold(f"strip {S}", *put(*random_pairs(rng, 512, 40, Lt)),
                  strip=S)
+    # the map shape at the batches the scaffolds path's mappers give it:
+    # a few thousand pairs, and a tail of some twenty (one pair a block)
+    for B in (2_640, 20):
+        plan = nw_align.launch_plan(B, 152, 184)
+        hold(f"scaffolds map shape (strip {plan[0]}, {plan[1]} pairs a "
+             "block)", *put(*map_shape_pairs(rng, B)), scorings=both[:1],
+             modes=("fit",))
     # the bubble check: global mode, bubble scoring, many narrow pairs,
-    # few wide ones, and the batch the full-width levels run gives it
+    # few wide ones, and the batch a 2 Mbp levels run gives it
     bubble = both[1:]
     for (B, L) in ((4_096, 256), (32, 1_024), (3_584, 150)):
         hold("bubble shape", *put(*bubble_pairs(rng, B, L)), scorings=bubble,
@@ -231,8 +264,8 @@ def phase_kernel_vs_plain():
         f"(ops {t_ops:.5f}, bytes {t_bytes:.6f})")
 
     # timing at the bubble check's shapes, bubble scoring, global mode:
-    # phase 3's own ragged shape, and the batch the full-width levels run
-    # gives the kernel (about 3,500 branch pairs of 90-150 bases)
+    # phase 3's own ragged shape, and the batch a 2 Mbp levels run gives
+    # the kernel (about 3,500 branch pairs of 90-150 bases)
     for (B, L) in ((4_096, 256), (3_584, 150)):
         bq, bql, bt, btl = put(*bubble_pairs(rng, B, L))
         bms = cuda_ms(lambda: nw_align.banded_affine_score(
@@ -245,6 +278,31 @@ def phase_kernel_vs_plain():
     return dict(max_abs_err=max_err, ms=min(ms, ms_again), plain_ms=plain_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_hold_path_shapes(recorded):
+    """Every (B, Lq, Lt) the main paths launched the kernel at, held
+    against the plain version at that very shape, scoring and mode.
+    recorded: (caller, (B, Lq, Lt)) per launch; caller "map" is the
+    remainder DP (fit, BWA scoring), "bubble" the bubble check (global,
+    bubble scoring).  Returns the largest |difference|."""
+    from turingassembler_tpu_torch.ops import dp
+    rng = np.random.default_rng(7)
+    err = 0
+    for caller, (B, Lq, Lt) in sorted(set(recorded)):
+        if caller == "map":
+            pad = (Lt - Lq) // 2
+            pairs = map_shape_pairs(rng, B, Lq - 2, Lq, pad) \
+                if Lt == Lq + 2 * pad and pad > 0 \
+                else random_pairs(rng, B, Lq, Lt)
+            args = ((("bwa", dp.SCORING_BWA),), ("fit",))
+        else:
+            pairs = bubble_pairs(rng, B, Lq) if Lq == Lt \
+                else random_pairs(rng, B, Lq, Lt)
+            args = ((("bubble", dp.SCORING_BUBBLE),), ("global",))
+        err = max(err, hold_kernel(f"{caller} shape of the main paths",
+                                   *put(*pairs), *args))
+    return err
 
 
 def run_slice(reads, lengths, k, min_count, device):
@@ -347,15 +405,18 @@ class StageProfiler:
     busy time (sum of kernel and copy times) and the host's top ops, and
     over all stages the kernels that take the time."""
 
-    def __init__(self):
+    def __init__(self, host_ops=True):
+        """host_ops=False traces device activity only, which costs a
+        stage of host work less."""
         self.busy, self.kernels, self.host = {}, {}, {}
+        self.host_ops = host_ops
 
     @contextlib.contextmanager
     def around(self, name):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * self.host_ops
+                     + [ProfilerActivity.CUDA]) as prof:
             yield
         self.busy[name] = 0.0
         cpu_ops = []
@@ -404,6 +465,7 @@ def phase_full_width():
     nw_align.COUNT.reset()
     st, out = run_main_path(reads, lengths, ir, il, k)
     launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
+    shapes = [("map", sh) for sh in nw_align.COUNT.shapes]
     g, idx, e, s, ei = out["g"], out["idx"], out["e"], out["s"], out["ei"]
 
     passes = [st] + [run_main_path(reads, lengths, ir, il, k)[0]
@@ -446,7 +508,7 @@ def phase_full_width():
     prof = StageProfiler()
     st, _ = run_main_path(reads, lengths, ir, il, k, prof.around)
     prof.report("profile, one more full-width pass", st)
-    return launches
+    return launches, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -580,10 +642,7 @@ def profile_count_and_build(cfg):
                 f"{len(batches[0][0])} reads)", st)
 
 
-def phase_levels_full_width(genome_len=2_000_000):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_levels_full_width(genome_len=1_000_000):
     from turingassembler_tpu_torch import cli
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph.invariants import check_graph
@@ -601,7 +660,8 @@ def phase_levels_full_width(genome_len=2_000_000):
         nw_align.COUNT.reset()
         # device activity only: the host passes run unobserved, and the
         # NW kernel's own time comes out by name
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof = StageProfiler(host_ops=False)
+        with prof.around("basic"):
             rc = cli.main(["basic", "-1", paths[0], "-2", paths[1], "-k0",
                            str(K_LEVELS), "-mc", str(MIN_COUNT_LEVELS),
                            "-o", out, "--device", "cuda"])
@@ -611,11 +671,9 @@ def phase_levels_full_width(genome_len=2_000_000):
         walls = stage_walls()
         if rc != 0:
             raise AssertionError(f"levels: the CLI returned {rc}")
-        nw = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA
-              and "nw_wavefront_kernel" in ev.key]
-        nw_ms = sum(ev.self_device_time_total for ev in nw) / 1e3
-        nw_n = sum(ev.count for ev in nw)
+        nw = [v for key, v in prof.kernels.items()
+              if "nw_wavefront_kernel" in key]
+        nw_ms, nw_n = sum(v[0] for v in nw), sum(v[1] for v in nw)
 
         graphs = [asmg.load_graph(os.path.join(out, LEVEL_FILES[i]))
                   for i in (0, 3, 6)]
@@ -705,7 +763,295 @@ def phase_levels_full_width(genome_len=2_000_000):
                                  "of level-2 contigs occur in neither "
                                  "haplotype, more than 1%")
         profile_count_and_build(levels_config(paths, out))
-    return launches
+    return launches, [("bubble", sh) for sh in shapes]
+
+
+# ---------------------------------------------------------------------------
+# scaffolds: level 2 -> sorted archive -> extended contigs -> barcode aux
+# info -> scaffold paths (pipeline.assembly_to_scaffolds)
+# ---------------------------------------------------------------------------
+
+SCAFFOLD_FILES = ["R1.sorted.fq", "R2.sorted.fq", "barcode.idx",
+                  f"graph_k_{K_LEVELS}_extend.fasta",
+                  f"graph_k_{K_LEVELS}_added_barcode.bin", "scaffolds.fasta",
+                  "local_assembly_scaffold_path.txt"]
+
+
+def linked_config(files, out_dir):
+    from turingassembler_tpu_torch.config import LIB_TYPE_UST, Config
+    cfg = Config(k0=K_LEVELS, out_dir=out_dir, files_1=(files["R1"],),
+                 files_2=(files["R2"],), files_I=(files["I1"],),
+                 lib_type=LIB_TYPE_UST)
+    return cfg.replace(device=dataclasses.replace(
+        cfg.device, min_kmer_count=MIN_COUNT_LEVELS))
+
+
+def phase_scaffold_parity():
+    from turingassembler_tpu_torch import pipeline
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.ops import nw_align
+    with tempfile.TemporaryDirectory() as d:
+        genome, files = tt.linked_read_library(200_000, 41, d)
+        out = {w: os.path.join(d, w) for w in ("card", "cpu")}
+        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        g, _, scaf = pipeline.assembly_to_scaffolds(
+            linked_config(files, out["card"]), device="cuda")
+        torch.cuda.synchronize()
+        launched = nw_align.COUNT.launches - before[0]
+        pairs = nw_align.COUNT.pairs - before[1]
+        pipeline.assembly_to_scaffolds(linked_config(files, out["cpu"]),
+                                       device="cpu")
+        for name in SCAFFOLD_FILES + LEVEL_FILES:
+            if file_bytes(os.path.join(out["card"], name)) != \
+                    file_bytes(os.path.join(out["cpu"], name)):
+                raise AssertionError(f"scaffold parity: {name} differs")
+        if launched < 1:
+            raise AssertionError("scaffold parity: the NW kernel never "
+                                 "launched on the card run")
+        n_paths = int(file_bytes(scaf).split(b"\n")[0])
+        n_pairs = file_bytes(os.path.join(out["card"], SCAFFOLD_FILES[0])
+                             ).count(b"\n") // 4
+        log(f"scaffold parity ({len(genome)} bp, 12 segments, {n_pairs} "
+            f"barcoded pairs, k={K_LEVELS}, min count {MIN_COUNT_LEVELS}): "
+            f"card == CPU for all {len(SCAFFOLD_FILES)} files and the "
+            f"{len(LEVEL_FILES)} level files; {int(g.alive_mask().sum())} "
+            f"contig edges, {len(g.candidates)} candidate pairs, {n_paths} "
+            f"multi-contig paths; {pairs} pairs in {launched} NW launches")
+
+
+def place_contigs(g, genome, k=K_LEVELS, n_probe=24):
+    """Genome interval and strand of each live contig by exact k-mer
+    lookup: probes spread over the contig vote for the diagonal; k-mers
+    that occur twice in the genome (the repeat copies) do not vote.
+    Returns {edge: (start, end, strand)}; a contig with no unique probe
+    is left out."""
+    from turingassembler_tpu_torch import testing as tt
+    tables = []
+    for strand in (genome, tt.revcomp(genome).copy()):
+        h = tt.kmer_hashes(strand, k)
+        order = np.argsort(h, kind="stable")
+        hs = h[order]
+        uniq = np.ones(len(hs), bool)
+        uniq[1:] &= hs[1:] != hs[:-1]
+        uniq[:-1] &= hs[:-1] != hs[1:]
+        tables.append((hs[uniq], order[uniq]))
+    G = len(genome)
+    placed = {}
+    for e in np.flatnonzero(g.alive_mask()).tolist():
+        seq = g.get_seq(e)
+        if len(seq) < k:
+            continue
+        at = np.unique(np.linspace(0, len(seq) - k, n_probe).astype(np.int64))
+        h = tt.kmer_hashes(seq, k)[at]
+        best = None
+        for strand, (hs, pos) in enumerate(tables):
+            i = np.minimum(np.searchsorted(hs, h), len(hs) - 1)
+            ok = hs[i] == h
+            if ok.any():
+                diag, n = np.unique(pos[i[ok]] - at[ok], return_counts=True)
+                if best is None or n.max() > best[0]:
+                    best = (int(n.max()), int(diag[np.argmax(n)]), strand)
+        if best is not None:
+            _, diag, strand = best
+            if strand == 0:
+                placed[e] = (diag, diag + len(seq), 0)
+            else:       # position on the reverse strand -> forward coords
+                placed[e] = (G - diag - len(seq), G - diag, 1)
+    return placed
+
+
+def phase_scaffold_full_width(genome_len=2_000_000):
+    from turingassembler_tpu_torch import cli
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.barcode.sort_read import (
+        ReadPath, load_barcode_index, verify_read_archive)
+    from turingassembler_tpu_torch.graph.from_contigs import \
+        graph_from_contigs
+    from turingassembler_tpu_torch.graph.invariants import check_graph
+    from turingassembler_tpu_torch.io import asmg
+    from turingassembler_tpu_torch.io.fasta import read_fasta
+    from turingassembler_tpu_torch.logging_utils import (reset_stage_walls,
+                                                         stage_walls)
+    from turingassembler_tpu_torch.mapper.minimizers import _device_pool
+    from turingassembler_tpu_torch.ops import nw_align
+    from turingassembler_tpu_torch.scaffold.scaffolding import (
+        MIN_SHARE_BARCODE, THRES_LENGTH)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        genome, files = tt.linked_read_library(genome_len, 51, d)
+        t_write = time.perf_counter() - t0
+        out = os.path.join(d, "out")
+        path = lambda name: os.path.join(out, name)     # noqa: E731
+        common = ["-k0", str(K_LEVELS), "-mc", str(MIN_COUNT_LEVELS), "-o",
+                  out, "--device", "cuda"]
+        library = ["-1", files["R1"], "-2", files["R2"], "-I", files["I1"],
+                   "-l", "ust"]
+        archive = ["-l", "sorted", "-1", path(SCAFFOLD_FILES[0]), "-2",
+                   path(SCAFFOLD_FILES[1]), "-I", path(SCAFFOLD_FILES[2])]
+        sec, nw = {}, {}
+        prof = StageProfiler(host_ops=False)
+
+        def stage(name, args, profiled=False):
+            """One CLI command: wall seconds to the device's sync, the NW
+            kernel's pairs and launches, and under the profiler (device
+            activity only) the device's busy seconds."""
+            before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+            n_shapes = len(nw_align.COUNT.shapes)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with prof.around(name) if profiled \
+                    else contextlib.nullcontext():
+                rc = cli.main(args + common)
+                torch.cuda.synchronize()
+                sec[name] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"scaffolds: `{name}` returned {rc}")
+            nw[name] = (nw_align.COUNT.pairs - before[1],
+                        nw_align.COUNT.launches - before[0],
+                        nw_align.COUNT.shapes[n_shapes:])
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_walls()
+        nw_align.COUNT.reset()
+        stage("basic", ["basic"] + library)
+        stage("sort_read", ["sort_read"] + library)
+        rpath = ReadPath(*archive[3::2])
+        t0 = time.perf_counter()
+        index = load_barcode_index(rpath.idx_path)
+        n_checked = verify_read_archive(rpath, index)
+        sec["verify_archive"] = time.perf_counter() - t0
+        if n_checked != len(index):
+            raise AssertionError("scaffolds: not every barcode was verified")
+        stage("debug_current", ["debug_current", "-i", path(LEVEL_FILES[6])]
+              + archive, profiled=True)
+        # the contig graph of the extended sequences (no command of its
+        # own), then its k=31 recount over the library
+        t0 = time.perf_counter()
+        contigs = path("contigs.bin")
+        asmg.save_graph(graph_from_contigs(
+            [s for _, s in read_fasta(path(SCAFFOLD_FILES[3]))], K_LEVELS),
+            contigs)
+        sec["contig_graph"] = time.perf_counter() - t0
+        stage("build_coverage", ["build_coverage", "-i", contigs] + library,
+              profiled=True)
+        recount = path(f"graph_k_{K_LEVELS}_recount.bin")
+        g_ext = asmg.load_graph(recount)
+        check_graph(g_ext, check_seq=False)
+        stage("build_barcode", ["build_barcode", "-i", recount] + archive,
+              profiled=True)
+        stage("scaffold", ["scaffold", "-i", path(SCAFFOLD_FILES[4])])
+        launches = nw_align.COUNT.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        walls, busy = stage_walls(), prof.busy
+
+        g = asmg.load_graph(path(SCAFFOLD_FILES[4]))
+        # what the head of every verified map_reads call costs: packing
+        # the contig pool on the host and copying it over
+        pool_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
+            torch.cuda.synchronize()
+            pool_ms.append((time.perf_counter() - t0) * 1e3)
+        n_pairs = file_bytes(rpath.R1_path).count(b"\n") // 4
+        with open(path("assembly.log")) as fp:
+            aux = [ln for ln in fp if "aux info:" in ln][-1]
+        words = aux.split("aux info:")[1].replace(",", " ").split()
+        aux_pairs, aux_mapped, n_cand = (int(words[i]) for i in (0, 2, 5))
+        mapped = aux_mapped / (2 * aux_pairs)
+        lens = g.edge_len()
+        alive = g.alive_mask()
+        long_e = np.flatnonzero(alive & (lens >= THRES_LENGTH))
+        n_scaf = [len(g.barcodes_scaf[e]) for e in long_e]
+        lines = file_bytes(path(SCAFFOLD_FILES[6])).decode().split("\n")
+        paths = [list(map(int, lines[i].split()))
+                 for i in range(2, 2 + 2 * int(lines[0]), 2)]
+        scaf_lens = [len(s) for _, s in read_fasta(path(SCAFFOLD_FILES[5]))]
+        contig_n50 = n50(lens[alive][::2])
+        scaf_n50 = n50(scaf_lens)
+        placed = place_contigs(g, genome)
+        n_adj = n_good = 0
+        for p in paths:
+            for a, b in zip(p, p[1:]):
+                n_adj += 1
+                if a not in placed or b not in placed:
+                    continue
+                (sa, ea, ra), (sb, eb, rb) = placed[a], placed[b]
+                gap = sb - ea if ra == 0 else sa - eb
+                # neighbours on the genome: one repeat copy apart
+                n_good += ra == rb and -K_LEVELS <= gap <= 3_000 + 2_000
+
+        log(f"scaffolds full width ({len(genome)} bp in 12 segments between "
+            f"11 identical 3,000 bp repeat copies, {n_pairs} pairs of 150 bp "
+            f"in {len(index)} barcodes, k={K_LEVELS}, min count "
+            f"{MIN_COUNT_LEVELS}): level 2 -> {int(alive.sum()) // 2} contigs "
+            f"({len(long_e) // 2} of {THRES_LENGTH} bp and more), contig N50 "
+            f"{contig_n50}, {len(paths)} multi-contig paths, scaffold N50 "
+            f"{scaf_n50}; peak device memory {peak:.2f} GiB")
+        log("scaffolds stage seconds: FASTQ write %.3f, " % t_write
+            + ", ".join(f"{k_} {sec[k_]:.3f}" for k_ in (
+                "basic", "sort_read", "verify_archive", "debug_current",
+                "contig_graph", "build_coverage", "build_barcode",
+                "scaffold"))
+            + " (debug_current = read-pair counts + extension + graph load; "
+            "the three profiled stages' walls hold the profiler's overhead)")
+        log("scaffolds stage parts, seconds: " + ", ".join(
+            f"{k_} {walls.get(k_, 0.0):.3f}" for k_ in (
+                "rp_count.index", "rp_count.parse", "rp_count.map",
+                "rp_count.tally", "extend", "recount.table", "recount.parse",
+                "recount.count", "recount.join", "aux.index", "aux.parse",
+                "aux.map", "aux.attach"))
+            + "; contig pool pack + copy, paid at the head of every verified "
+            "map_reads call (two a batch in each map stage): "
+            + ", ".join(f"{m:.1f}" for m in pool_ms) + " ms")
+        for name, what in (("debug_current", "rp-count map (+ extension)"),
+                           ("build_coverage", "k=31 recount"),
+                           ("build_barcode", "aux map")):
+            if busy[name] == 0:
+                log(f"scaffolds {what}: device busy not measured (the "
+                    "profiler saw no device time)")
+            else:
+                log(f"scaffolds {what}: wall {sec[name]:.3f} s, device busy "
+                    f"{busy[name]:.3f} s ({busy[name] / sec[name] * 100:.1f}"
+                    "%)")
+        log("scaffolds NW kernel, pairs in launches per stage: " + ", ".join(
+            f"{k_} {nw[k_][0]} in {nw[k_][1]}"
+            + (" (B, Lq, Lt) " + " ".join(map(str, nw[k_][2]))
+               if nw[k_][2] else "") for k_ in nw)
+            + f"; aux stage mapped {aux_mapped} of {2 * aux_pairs} reads "
+            f"({mapped * 100:.2f}%)")
+        log(f"scaffolds paths: {n_good} of {n_adj} adjacent contig pairs are "
+            f"neighbours and co-oriented on the genome; barcodes in "
+            f"barcodes_scaf of the long contigs: min {min(n_scaf)}, median "
+            f"{int(np.median(n_scaf))}; {n_cand} candidate pairs")
+        if aux_pairs != n_pairs:
+            raise AssertionError("scaffolds: the aux stage saw "
+                                 f"{aux_pairs} pairs of {n_pairs}")
+        if mapped < 0.95:
+            raise AssertionError(f"scaffolds: only {mapped:.4f} of the "
+                                 "reads mapped in the aux stage")
+        for name in ("debug_current", "build_barcode"):
+            if nw[name][1] < 1:
+                raise AssertionError(f"scaffolds: `{name}` launched the NW "
+                                     "kernel no time")
+        if len(long_e) < 24:
+            raise AssertionError(f"scaffolds: {len(long_e) // 2} contigs of "
+                                 f"{THRES_LENGTH} bp, expected at least 12")
+        if min(n_scaf) < MIN_SHARE_BARCODE:
+            raise AssertionError(f"scaffolds: a long contig has {min(n_scaf)}"
+                                 f" barcodes, under {MIN_SHARE_BARCODE}")
+        if not paths:
+            raise AssertionError("scaffolds: no multi-contig path")
+        if n_good < 0.9 * n_adj:
+            raise AssertionError(f"scaffolds: {n_good} of {n_adj} adjacent "
+                                 "pairs lie so on the genome, under 90%")
+        if scaf_n50 <= contig_n50:
+            raise AssertionError(f"scaffolds: scaffold N50 {scaf_n50} is not "
+                                 f"above contig N50 {contig_n50}")
+    # `basic` launches the bubble check, every later command the mappers
+    return launches, [("bubble" if name == "basic" else "map", sh)
+                      for name in nw for sh in nw[name][2]]
 
 
 def build_kernels():
@@ -721,11 +1067,28 @@ def main():
     smi = device_info()
     build_kernels()
 
-    nw = phase_kernel_vs_plain()
-    phase_slice_parity()
-    launches = phase_full_width()
-    phase_levels_parity()
-    launches += phase_levels_full_width()
+    walls = {}
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        walls[fn.__name__] = time.perf_counter() - t0
+        return res
+
+    nw = phase(phase_kernel_vs_plain)
+    phase(phase_slice_parity)
+    launches, shapes = phase(phase_full_width)
+    phase(phase_levels_parity)
+    n, sh = phase(phase_levels_full_width)
+    launches, shapes = launches + n, shapes + sh
+    phase(phase_scaffold_parity)
+    n, sh = phase(phase_scaffold_full_width)
+    launches, shapes = launches + n, shapes + sh
+    # launches made to compare: read after the paths' counts were taken
+    nw["max_abs_err"] = max(nw["max_abs_err"],
+                            phase(phase_hold_path_shapes, shapes))
+    log("phase seconds (set-up included): " + ", ".join(
+        f"{k_[6:]} {v:.1f}" for k_, v in walls.items()))
 
     print(json.dumps({"kernels": [{
         "name": "nw_align", "route": "cuda",

@@ -1,14 +1,22 @@
-"""Command-line interface of the port: the graph-level subcommands of
-turingassembler_tpu/cli.py (upstream src/main.c:426-503) with their
-options, plus `--device`.
+"""Command-line interface of the port: the graph-level and linked-read
+subcommands of turingassembler_tpu/cli.py (upstream src/main.c:426-503)
+with their options, plus `--device`.
 
     python -m turingassembler_tpu_torch basic -1 R1.fq -2 R2.fq -k0 45 \\
         -mc 2 -o out --device cuda
+    python -m turingassembler_tpu_torch sort_read -1 R1.fq -2 R2.fq \\
+        -I I1.fq -l ust -o out
+    python -m turingassembler_tpu_torch debug_current -l sorted \\
+        -1 out/R1.sorted.fq -2 out/R2.sorted.fq -I out/barcode.idx \\
+        -i out/graph_k_45_level_2.bin -o out
 
-Options: `-1/-2/-I` file lists, `-l` library type, `-k0` global k, `-o`
-output dir, `-sm` sort memory GB, `-mc` minimum (k+1)-mer count, `-i`
-graph .bin (accepted as the JAX package accepts it), `-v` verbosity.
-`--device cuda` (the default) raises when no GPU is visible.
+Options: `-1/-2/-I` file lists, `-l` library type, `-k0` global k, `-lk`
+local k, `-o` output dir, `-i` graph .bin, `-f` fasta, `-lc` scaffold
+contig fasta, `-t` threads, `-sm` sort memory GB, `-mc` minimum
+(k+1)-mer count, `-v` verbosity, `-metagenomics`.  `--device cuda` (the
+default) raises when no GPU is visible.  The stage commands that read a
+sorted archive take it as `-l sorted -1 R1.sorted.fq -2 R2.sorted.fq
+-I barcode.idx`.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 
 from .config import LIB_TYPE_NAMES, Config
@@ -29,22 +38,30 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-I", dest="files_I", nargs="+", default=[], help="index (barcode) reads")
     p.add_argument("-l", dest="lib_type", choices=list(LIB_TYPE_NAMES), default="ust")
     p.add_argument("-k0", dest="k0", type=int, default=45)
+    p.add_argument("-lk", dest="lk", type=int, default=31)
     p.add_argument("-o", dest="out_dir", default=".")
     p.add_argument("-i", dest="in_file", default=None, help="input graph .bin")
+    p.add_argument("-f", dest="in_fasta", default=None, help="input fasta")
+    p.add_argument("-lc", dest="in_contig_file", default=None,
+                   help="scaffold contig fasta")
+    p.add_argument("-t", dest="n_threads", type=int, default=4)
     p.add_argument("-sm", dest="mmem_gb", type=int, default=32)
     p.add_argument("-mc", dest="min_kmer_count", type=int, default=1,
                    help="drop (k+1)-mers below this count")
     p.add_argument("-v", dest="verbose", action="count", default=0)
+    p.add_argument("-metagenomics", dest="metagenomics", action="store_true")
     p.add_argument("--device", dest="device", default="cuda",
                    help="cuda (default) or cpu")
 
 
 def _cfg_from_args(a) -> Config:
     cfg = Config(
-        k0=a.k0, out_dir=a.out_dir, mmem_gb=a.mmem_gb,
-        lib_type=LIB_TYPE_NAMES[a.lib_type],
+        n_threads=a.n_threads, k0=a.k0, lk=a.lk, out_dir=a.out_dir,
+        mmem_gb=a.mmem_gb, lib_type=LIB_TYPE_NAMES[a.lib_type],
+        metagenomics=a.metagenomics,
         files_1=tuple(a.files_1), files_2=tuple(a.files_2),
-        files_I=tuple(a.files_I), in_file=a.in_file)
+        files_I=tuple(a.files_I), in_file=a.in_file, in_fasta=a.in_fasta,
+        in_contig_file=a.in_contig_file)
     return cfg.replace(device=dataclasses.replace(
         cfg.device, min_kmer_count=a.min_kmer_count))
 
@@ -74,8 +91,168 @@ def cmd_build_1_2(cfg: Config, device):
     build_1_2(cfg)
 
 
+def cmd_sort_read(cfg: Config, device):
+    from .barcode.sort_read import sort_reads
+    set_log_stage("sort_read")
+    sort_reads(cfg)
+
+
+def cmd_get_rp_count(cfg: Config, device):
+    """Dump read-pair edge-pair counts (upstream get_rp_count cmd)."""
+    from .barcode.builder import get_read_pair_counts
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    set_log_stage("get_rp_count")
+    g = asmg.load_graph(cfg.in_file)
+    counts = get_read_pair_counts(cfg, g, ReadPath.from_sorted(cfg),
+                                  device=device)
+    out = os.path.join(cfg.out_dir, "readpair_counts.txt")
+    with open(out, "w") as fp:
+        for (e1, e2), c in sorted(counts.items()):
+            fp.write(f"{e1} {e2} {c}\n")
+    print(out)
+
+
+def cmd_debug_current(cfg: Config, device):
+    """Read-pair greedy extension dump (upstream debug_current ->
+    get_long_contigs_by_readpairs, src/read_pairs_resolve.c:298-393):
+    counts read pairs over the graph, extends long well-covered edges,
+    writes graph_k_<k>_extend.fasta."""
+    from .barcode.builder import get_read_pair_counts
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    from .pipeline import graph_path
+    from .resolve.readpairs import get_long_contigs_by_readpairs
+    set_log_stage("debug_current")
+    g = asmg.load_graph(cfg.in_file)
+    rp_counts = get_read_pair_counts(cfg, g, ReadPath.from_sorted(cfg),
+                                     device=device)
+    out = graph_path(cfg.out_dir, g.ksize, "extend", "fasta")
+    print(get_long_contigs_by_readpairs(g, rp_counts, out))
+
+
+def cmd_build_coverage(cfg: Config, device):
+    """k=31 coverage recount (upstream build_coverage_process)."""
+    from .io import asmg
+    from .kmer.coverage import recount_coverage_from_batches
+    from .pipeline import _genomic_batches, graph_path
+    set_log_stage("build_coverage")
+    g = asmg.load_graph(cfg.in_file)
+    g = recount_coverage_from_batches(g, _genomic_batches(cfg),
+                                      device=device)
+    asmg.save_graph(g, graph_path(cfg.out_dir, g.ksize, "recount"))
+
+
+def cmd_build_barcode(cfg: Config, device):
+    from .barcode.builder import construct_aux_info
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    from .pipeline import graph_path
+    set_log_stage("build_barcode")
+    g = asmg.load_graph(cfg.in_file)
+    g = construct_aux_info(cfg, g, ReadPath.from_sorted(cfg), device=device)
+    asmg.save_graph(g, graph_path(cfg.out_dir, g.ksize, "added_barcode"))
+
+
+def cmd_build_barcode_coverage(cfg: Config, device):
+    """k=31 coverage recount, then barcode aux info (upstream
+    build_barcode_coverage -> build_barcode_read, src/process.c:256-264)."""
+    from .barcode.builder import construct_aux_info
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    from .kmer.coverage import recount_coverage_from_batches
+    from .pipeline import _genomic_batches, graph_path
+    set_log_stage("build_barcode_coverage")
+    g = asmg.load_graph(cfg.in_file)
+    g = recount_coverage_from_batches(g, _genomic_batches(cfg),
+                                      device=device)
+    g = construct_aux_info(cfg, g, ReadPath.from_sorted(cfg), device=device)
+    asmg.save_graph(g, graph_path(cfg.out_dir, g.ksize, "added_barcode"))
+
+
+def cmd_scaffold(cfg: Config, device):
+    from .io import asmg
+    from .scaffold.scaffolding import scaffolding
+    set_log_stage("scaffold")
+    scaffolding(cfg, asmg.load_graph(cfg.in_file), cfg.out_dir)
+
+
+def cmd_count_bx(cfg: Config, device):
+    from .barcode.frequency import count_bx_freq
+    set_log_stage("count_bx")
+    print(count_bx_freq(cfg))
+
+
+def cmd_reduce_reads(cfg: Config, device):
+    from .barcode.frequency import reduce_reads
+    from .graph.from_contigs import graph_from_contigs
+    from .io.fasta import read_fasta
+    set_log_stage("reduce_reads")
+    contigs = graph_from_contigs([s for _, s in read_fasta(cfg.in_fasta)],
+                                 cfg.k0)
+    for o1, o2 in reduce_reads(cfg, contigs, device=device):
+        print(o1, o2)
+
+
+def cmd_minimizers_hit(cfg: Config, device):
+    """All-barcode minimizer sweep -> barcode_hits.csv (upstream
+    minimizers_hit -> mm_hit_all_barcodes, src/main.c:492-493)."""
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    from .scaffold.molecules import hit_all_barcodes
+    set_log_stage("minimizers_hit")
+    g = asmg.load_graph(cfg.in_file)
+    bx_table, _ = hit_all_barcodes(cfg, g, ReadPath.from_sorted(cfg),
+                                   device=device)
+    out = os.path.join(cfg.out_dir, "barcode_hits.csv")
+    with open(out, "w") as fp:
+        for bc in sorted(bx_table):
+            for e, c in sorted(bx_table[bc].items()):
+                fp.write(f"{bc},{e},{c}\n")
+    print(out)
+
+
+def cmd_barcode_graph(cfg: Config, device):
+    """Molecule analysis: barcode digraph -> molecules.fasta."""
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    from .scaffold.molecules import molecule_contigs
+    set_log_stage("barcode_graph")
+    g = asmg.load_graph(cfg.in_file)
+    print(molecule_contigs(cfg, g, ReadPath.from_sorted(cfg), device=device))
+
+
+def cmd_split_molecules(cfg: Config, device):
+    """Per-barcode molecule report: order each barcode's edge hits into
+    molecules (upstream split_molecules_process, process.c:271-365)."""
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    from .scaffold.molecules import hit_all_barcodes, order_molecule_edges
+    set_log_stage("split_molecules")
+    g = asmg.load_graph(cfg.in_file)
+    bx_table, _ = hit_all_barcodes(cfg, g, ReadPath.from_sorted(cfg),
+                                   device=device)
+    out = os.path.join(cfg.out_dir, "molecules_by_barcode.txt")
+    with open(out, "w") as fp:
+        for bc in sorted(bx_table):
+            for chain in order_molecule_edges(g, sorted(bx_table[bc])):
+                fp.write(f"{bc}\n{' '.join(map(str, chain))}\n")
+    print(out)
+
+
 COMMANDS = {"basic": cmd_basic, "build_0": cmd_build_0,
-            "build_0_1": cmd_build_0_1, "build_1_2": cmd_build_1_2}
+            "build_0_1": cmd_build_0_1, "build_1_2": cmd_build_1_2,
+            "sort_read": cmd_sort_read, "get_rp_count": cmd_get_rp_count,
+            "debug_current": cmd_debug_current,
+            "build_coverage": cmd_build_coverage,
+            "build_barcode": cmd_build_barcode,
+            "build_barcode_coverage": cmd_build_barcode_coverage,
+            "scaffold": cmd_scaffold,
+            "build_scaffolding_1_2": cmd_scaffold,
+            "count_bx": cmd_count_bx, "reduce_reads": cmd_reduce_reads,
+            "minimizers_hit": cmd_minimizers_hit,
+            "barcode_graph": cmd_barcode_graph,
+            "split_molecules": cmd_split_molecules}
 
 
 def main(argv=None) -> int:

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .barcode.sort_read import ReadPath
 from .config import Config
 from .device import resolve_device
 from .graph.structs import AsmGraph
@@ -51,13 +52,29 @@ def config(cfg) -> Config:
 def graph(g) -> AsmGraph:
     """An AsmGraph of the JAX package -> the port's AsmGraph, field by
     field (arrays copied), at any level: tombstoned edges (source -1)
-    and N-gap holes carry over as they are."""
+    and N-gap holes carry over as they are, and so does barcode aux info
+    (barcodes, barcodes_scaf, barcodes_cov, candidates, aux_flag)."""
     out = AsmGraph(ksize=int(g.ksize))
     for f in _GRAPH_ARRAYS:
         setattr(out, f, np.array(getattr(g, f), copy=True))
     out.holes = {int(e): (np.array(p), np.array(l))
                  for e, (p, l) in g.holes.items()}
+    # barcode aux info: dicts copied with their insertion orders, which
+    # the .bin writer and the candidate lists follow
+    if g.barcodes is not None:
+        out.barcodes = [[dict(d) for d in lv] for lv in g.barcodes]
+    if g.barcodes_scaf is not None:
+        out.barcodes_scaf = [dict(d) for d in g.barcodes_scaf]
+    if g.barcodes_cov is not None:
+        out.barcodes_cov = [dict(d) for d in g.barcodes_cov]
+    out.candidates = dict(g.candidates)
+    out.aux_flag = int(g.aux_flag)
     return out
+
+
+def read_path(rp) -> ReadPath:
+    """A ReadPath of the JAX package -> the port's."""
+    return ReadPath(str(rp.R1_path), str(rp.R2_path), str(rp.idx_path))
 
 
 def minimizer_index(idx) -> EdgeMinimizerIndex:

@@ -1,6 +1,7 @@
 """Host-side FASTQ ingest — the port's data loader (a copy of
 turingassembler_tpu/io/fastq.py; the JAX package's C++ loader yields the
-same batches and has no twin here yet).
+same batches and has no twin here yet: read_fastq_batches_headers gives
+what that loader gives, from the Python reader).
 
 Replaces the reference's producer-thread pipeline (src/fastq_producer.c,
 src/get_buffer.c): gzip-chunked FASTQ is parsed with vectorized numpy
@@ -87,6 +88,38 @@ def read_fastq_batches(path: str, batch_size: int = 65536, pad_to: int = 0,
         yield _parse_chunk(lines, pad_to, keep_text)
 
 
+def read_fastq_pair_batches(path1: str, path2: str, batch_size: int = 65536,
+                            pad_to: int = 0, keep_text: bool = False,
+                            path_index: Optional[str] = None):
+    """Paired (optionally + index read) FASTQ streaming."""
+    g1 = read_fastq_batches(path1, batch_size, pad_to, keep_text)
+    g2 = read_fastq_batches(path2, batch_size, pad_to, keep_text)
+    gI = read_fastq_batches(path_index, batch_size, 0, True) if path_index else None
+    while True:
+        b1 = next(g1, None)
+        b2 = next(g2, None)
+        bI = next(gI, None) if gI else None
+        if b1 is None and b2 is None:
+            return
+        if b1 is None or b2 is None or len(b1.bases) != len(b2.bases):
+            raise ValueError("paired FASTQ files have different read counts")
+        yield (b1, b2, bI)
+
+
+def read_fastq_batches_headers(path: str, batch_size: int = 8192,
+                               pad_to: int = 256, with_headers: bool = False):
+    """Yield (bases, lengths, headers|None) batches, a header being the
+    record's name plus " " plus its comment where it has one (the
+    batches of the JAX package's read_fastq_batches_native)."""
+    for b in read_fastq_batches(path, batch_size, pad_to,
+                                keep_text=with_headers):
+        hdrs = None
+        if with_headers:
+            hdrs = [n + (b" " + c if c else b"")
+                    for n, c in zip(b.names, b.comments)]
+        yield b.bases, b.lengths, hdrs
+
+
 def write_fastq(path: str, names, seqs_bases, quals=None, comments=None):
     """seqs_bases: list of uint8 code arrays or bytes."""
     with open(path, "wb") as fp:
@@ -97,3 +130,21 @@ def write_fastq(path: str, names, seqs_bases, quals=None, comments=None):
             q = quals[i] if quals else b"I" * len(s)
             cm = (b" " + comments[i]) if comments and comments[i] else b""
             fp.write(b"@" + nm + cm + b"\n" + s + b"\n+\n" + q + b"\n")
+
+
+def decode_barcode_seq(seq: bytes) -> int:
+    """Base-5 barcode encoding (reference get_barcode_ust_raw,
+    src/sort_read.c:25-32): bc = bc*5 + nt4(c)."""
+    ret = 0
+    for c in seq:
+        ret = ret * 5 + int(NT4[c])
+    return ret & 0xFFFFFFFFFFFFFFFF
+
+
+def encode_barcode(bc: int, length: int) -> bytes:
+    """Inverse of decode_barcode_seq for fixed-length barcodes."""
+    out = bytearray()
+    for _ in range(length):
+        out.append(b"ACGTN"[bc % 5])
+        bc //= 5
+    return bytes(reversed(out))

@@ -44,6 +44,21 @@ def add_stage_wall(name: str, seconds: float) -> None:
     _STAGE_WALLS[name] = _STAGE_WALLS.get(name, 0.0) + seconds
 
 
+def timed_iter(items, name: str):
+    """Pass items through, adding the time spent producing them to the
+    stage wall `name`; the consumer's own time is not in it."""
+    it = iter(items)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        finally:
+            add_stage_wall(name, time.perf_counter() - t0)
+        yield item
+
+
 def stage_walls() -> dict:
     """Accumulated seconds per pipeline stage since the last reset."""
     return dict(_STAGE_WALLS)

@@ -540,7 +540,7 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
     if verified:
         sd, sod = _device_pool(graph.seq_data, graph.seq_off, dev)
         mt, mm = int(dp.SCORING_BWA[0]), int(dp.SCORING_BWA[1])
-        thr_d = torch.as_tensor(np.ascontiguousarray(thr_all)).to(dev)
+        thr_d = torch.as_tensor(np.array(thr_all)).to(dev)
     outs = []
     for i in range(0, N, batch_size):
         rb, lb_ = bases_d[i:i + batch_size], lens_d[i:i + batch_size]

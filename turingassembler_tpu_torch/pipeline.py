@@ -1,5 +1,6 @@
 """Staged pipeline orchestration (port of turingassembler_tpu/pipeline.py,
-stages 0-2, single process).
+graph levels 0-2 and the linked-read stages up to the scaffold paths,
+single process).
 
 Every stage ends by writing `graph_k_<k>_<suffix>.{bin,gfa,fasta}` into
 the output directory (upstream save_graph_info, process.c:516-532), so
@@ -9,19 +10,30 @@ Stage map (upstream assembly3_process, process.c:585-701):
   build_0        FASTQ -> counted (k+1)-mers -> level_0 graph
   build_0_1      level_0 -> basic resolve fixpoint -> level_1
   build_1_2      level_1 -> simple+complex bulges -> level_2
+  sort_read      barcode-sorted read archive + barcode.idx
+  readpair_extend  read-pair counts -> greedy extension ->
+                 graph_k_<k>_extend.fasta -> contig graph, k=31 recount
+  build_barcode  map reads, attach per-edge barcode sets
+  scaffolding    shared-barcode greedy paths -> scaffolds.fasta
 
 Count and level-0 build run on `device`; the graph passes are host code
-whose one device call is the align-bubble DP (resolve/basic.py).
+whose one device call is the align-bubble DP (resolve/basic.py).  The
+read-pair and barcode stages map the whole sorted library on `device`
+with DP verification, and the recount counts 31-mers there; sorting,
+extension and scaffolding are host code.  The stages leave the seconds
+of their parts in logging_utils.stage_walls(): "rp_count.*", "extend",
+"recount.*", "aux.*".
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
+from .barcode.sort_read import ReadPath
 from .config import LIB_TYPE_10X, Config
 from .graph.build import build_graph_from_kedges
 from .graph.condense import asm_condense
@@ -33,7 +45,7 @@ from .io.fasta import write_fasta, write_gfa
 from .io.fastq import read_fastq_batches
 from .kmer.megasort import count_kedges_megasort_device
 from .logging_utils import (add_stage_wall, get_logger, set_log_stage,
-                            stage_walls)
+                            stage_walls, timed_iter)
 
 
 def graph_path(out_dir: str, k: int, suffix: str, ext: str = "bin") -> str:
@@ -83,21 +95,6 @@ def _genomic_batches(cfg: Config, batch_size: int = 4096, pad_to: int = 256):
                 bases[:, : batch_width(lengths)]), lengths
 
 
-def _timed_batches(batches, name: str):
-    """Pass batches through, adding the time spent producing them to the
-    stage wall `name`; the consumer's own time is not in it."""
-    it = iter(batches)
-    while True:
-        t0 = time.perf_counter()
-        try:
-            item = next(it)
-        except StopIteration:
-            return
-        finally:
-            add_stage_wall(name, time.perf_counter() - t0)
-        yield item
-
-
 def build_0(cfg: Config, out_dir: Optional[str] = None,
             device="cuda") -> AsmGraph:
     """FASTQ -> level-0 graph (upstream build_0_KMC process.c:47 ->
@@ -114,7 +111,7 @@ def build_0(cfg: Config, out_dir: Optional[str] = None,
     # src/main.c:234-236): beyond it host-resident count runs go to disk
     host_mb = cfg.device.sort_host_mb
     res = count_kedges_megasort_device(
-        _timed_batches(_genomic_batches(cfg), "build_0.parse"), k,
+        timed_iter(_genomic_batches(cfg), "build_0.parse"), k,
         min_count=cfg.device.min_kmer_count,
         device_lanes=cfg.device.sort_device_lanes,
         host_mb=cfg.mmem_gb * 1024 if host_mb is None else host_mb,
@@ -185,3 +182,59 @@ def assembly_basic(cfg: Config, device="cuda") -> AsmGraph:
     g = build_1_2(cfg, g)
     set_log_stage("done")
     return g
+
+
+def assembly_to_scaffolds(cfg: Config, extend: bool = True,
+                          device="cuda") -> Tuple[AsmGraph, ReadPath, str]:
+    """Graph levels 0-2, then the linked-read stages of upstream
+    assembly3_process (process.c:585-701) up to the scaffold paths: read
+    sort, read-pair counting + greedy extension into
+    graph_k_<k>_extend.fasta, reload as a contig graph, k=31 coverage
+    recount, barcode aux info (graph_k_<k>_added_barcode.bin),
+    scaffolding (scaffolds.fasta, local_assembly_scaffold_path.txt).
+
+    Returns (graph with aux info, sorted read archive, path of the
+    scaffold path file): what the per-gap local assembly takes."""
+    from .barcode.builder import construct_aux_info, get_read_pair_counts
+    from .barcode.sort_read import sort_reads, verify_read_archive
+    from .scaffold.scaffolding import scaffolding as scaffold_stage
+
+    log = get_logger()
+    out_dir = cfg.out_dir
+    g = assembly_basic(cfg, device=device)
+
+    set_log_stage("sort_read")
+    rpath = sort_reads(cfg)
+    log.info("sorted read archive: %s", rpath.idx_path)
+    # archive integrity invariant (upstream test_same_barcode,
+    # src/barcode_resolve2.c:1554-1588): sampled post-sort check that
+    # every indexed span is aligned FASTQ of exactly its barcode
+    n_checked = verify_read_archive(rpath, max_barcodes=256)
+    log.info("read archive integrity: %d barcodes verified", n_checked)
+
+    if extend and int(g.alive_mask().sum()) > 2:
+        from .graph.from_contigs import graph_from_contigs
+        from .io.fasta import read_fasta
+        from .kmer.coverage import recount_coverage_from_batches
+        from .resolve.readpairs import get_long_contigs_by_readpairs
+
+        set_log_stage("readpair_extend")
+        rp_counts = get_read_pair_counts(cfg, g, rpath, device=device)
+        ext_path = graph_path(out_dir, cfg.k0, "extend", "fasta")
+        get_long_contigs_by_readpairs(g, rp_counts, ext_path)
+        seqs = [s for _, s in read_fasta(ext_path)]
+        if seqs:
+            g = graph_from_contigs(seqs, cfg.k0)
+            g = recount_coverage_from_batches(g, _genomic_batches(cfg),
+                                              device=device)
+            check_graph(g, check_seq=False)
+
+    set_log_stage("build_barcode")
+    g = construct_aux_info(cfg, g, rpath, device=device)
+    asmg.save_graph(g, graph_path(out_dir, cfg.k0, "added_barcode"))
+
+    set_log_stage("scaffolding")
+    scaf_path = scaffold_stage(cfg, g, out_dir)
+    log.info("scaffold paths: %s", scaf_path)
+    set_log_stage("done")
+    return g, rpath, scaf_path

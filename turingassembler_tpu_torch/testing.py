@@ -7,11 +7,19 @@ data.  mutate_identity and genome_with_repeat_family are copies too.
 sim_indel_reads makes reads that need the alignment DP;
 second_haplotype plants the variant clusters whose bubbles reach the
 align-bubble check, diploid_reads samples both haplotypes;
-kmer_hashes and graphs_isomorphic serve the checks of a run."""
+kmer_hashes and graphs_isomorphic serve the checks of a run.
+sim_barcoded_pairs, sim_barcoded_pairs_fast and apply_indel_errors are
+copies as well; plant_single_indels is their vectorised single-indel
+form, genome_with_exact_repeats the genome whose contigs only barcodes
+can order, sim_molecule_pairs samples barcoded molecules evenly up to
+a linear genome's ends, and linked_read_library writes a linked-read
+library of such a genome as FASTQ files."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import os
 
 import numpy as np
 
@@ -203,3 +211,301 @@ def graphs_isomorphic(ga, gb) -> None:
     known = phi[rc_a] >= 0
     assert np.array_equal(phi[rc_a][known],
                           gb.node_rc[pairs[:, 1]][known]), "rc structure"
+
+
+def sim_barcoded_pairs(
+    genome: np.ndarray,
+    molecule_len: int = 20000,
+    n_molecules: int = 300,
+    reads_per_molecule: int = 60,
+    read_len: int = 100,
+    insert: int = 300,
+    seed: int = 0,
+    error_rate: float = 0.0,
+):
+    """Linked-read simulation: long molecules carry a barcode; paired-end
+    reads sample each molecule (mimics TELL-Seq read clouds).
+
+    Returns (r1, r2, lengths1, lengths2, barcodes (N,) int64) where read
+    pairs are FR-oriented like real libraries.
+    """
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    r1s, r2s, bcs = [], [], []
+    for mol in range(n_molecules):
+        mstart = int(rng.integers(0, max(G - molecule_len, 1) + 1))
+        mlen = min(molecule_len, G - mstart)
+        if mlen < insert + 1:
+            continue
+        starts = rng.integers(mstart, mstart + mlen - insert + 1, size=reads_per_molecule)
+        for s in starts:
+            frag = genome[s : s + insert]
+            fwd = frag[:read_len]
+            rev = revcomp(frag)[:read_len]
+            if rng.random() < 0.5:
+                r1s.append(fwd); r2s.append(rev)
+            else:
+                r1s.append(rev); r2s.append(fwd)
+            bcs.append(mol)
+    r1 = np.stack(r1s).astype(np.uint8)
+    r2 = np.stack(r2s).astype(np.uint8)
+    if error_rate > 0:
+        for arr in (r1, r2):
+            errs = rng.random(arr.shape) < error_rate
+            arr[errs] = (arr[errs] + rng.integers(1, 4, errs.sum())) % 4
+    lengths = np.full(len(r1), read_len, np.int32)
+    return r1, r2, lengths, lengths.copy(), np.asarray(bcs, np.int64)
+
+
+def sim_barcoded_pairs_fast(
+    genome: np.ndarray,
+    molecule_len: int = 20000,
+    n_molecules: int = 300,
+    reads_per_molecule: int = 60,
+    read_len: int = 100,
+    insert: int = 300,
+    seed: int = 0,
+    error_rate: float = 0.0,
+    collision_rate: float = 0.0,
+    chimera_rate: float = 0.0,
+):
+    """Vectorized linked-read simulator (same distributional semantics
+    as sim_barcoded_pairs, no per-read python loop) with two harsher
+    real-read-cloud features:
+
+      collision_rate  fraction of molecules whose barcode is REUSED
+                      from another random molecule (real TELL-Seq/10X
+                      libraries put several molecules on one barcode);
+      chimera_rate    fraction of molecules whose second half of reads
+                      comes from a DIFFERENT random locus under the
+                      same barcode (chimeric molecule / GEM artifact).
+
+    Returns (r1, r2, lengths1, lengths2, barcodes)."""
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    mstart = rng.integers(0, max(G - molecule_len, 1) + 1, n_molecules)
+    mlen = np.minimum(molecule_len, G - mstart)
+    ok = mlen >= insert + 1
+    mstart, mlen = mstart[ok], mlen[ok]
+    mol_ids = np.flatnonzero(ok)
+    M = len(mstart)
+    R = reads_per_molecule
+
+    bc_of_mol = mol_ids.copy()
+    if collision_rate > 0 and M > 1:
+        hit = rng.random(M) < collision_rate
+        bc_of_mol[hit] = bc_of_mol[rng.integers(0, M, int(hit.sum()))]
+
+    span = (mlen - insert + 1).astype(np.int64)
+    starts = mstart[:, None] + (rng.random((M, R)) * span[:, None]).astype(np.int64)
+    if chimera_rate > 0 and M > 1:
+        chim = rng.random(M) < chimera_rate
+        n_c = int(chim.sum())
+        if n_c:
+            alt = rng.integers(0, max(G - molecule_len, 1) + 1, n_c)
+            alt_len = np.minimum(molecule_len, G - alt)
+            keep = alt_len >= insert + 1
+            alt_span = (alt_len - insert + 1).astype(np.int64)
+            half = R // 2
+            alt_starts = alt[:, None] + (
+                rng.random((n_c, R - half)) * alt_span[:, None]).astype(np.int64)
+            rows = np.flatnonzero(chim)[keep]
+            starts[rows, half:] = alt_starts[keep]
+    starts = starts.ravel()
+    bcs = np.repeat(bc_of_mol, R)
+    N = len(starts)
+
+    frag = genome[starts[:, None] + np.arange(insert)[None, :]]
+    fwd = np.ascontiguousarray(frag[:, :read_len])
+    rev = np.ascontiguousarray((3 - frag)[:, ::-1][:, :read_len])
+    swap = rng.random(N) < 0.5
+    r1 = np.where(swap[:, None], rev, fwd).astype(np.uint8)
+    r2 = np.where(swap[:, None], fwd, rev).astype(np.uint8)
+    if error_rate > 0:
+        for arr in (r1, r2):
+            errs = rng.random(arr.shape) < error_rate
+            arr[errs] = (arr[errs] + rng.integers(1, 4, int(errs.sum()))) % 4
+    lengths = np.full(N, read_len, np.int32)
+    return r1, r2, lengths, lengths.copy(), bcs.astype(np.int64)
+
+
+def apply_indel_errors(
+    reads: np.ndarray, lengths: np.ndarray,
+    sub_rate: float = 0.008, indel_rate: float = 0.002, seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Realistic error model: substitutions + insertions/deletions.
+    Returns new (reads, lengths) with per-read variable lengths (padded
+    with 255 to the original width)."""
+    rng = np.random.default_rng(seed)
+    N, L = reads.shape
+    out = np.full((N, L), 255, np.uint8)
+    out_len = np.zeros(N, np.int32)
+    for i in range(N):
+        seq = list(reads[i, : lengths[i]])
+        # substitutions
+        j = 0
+        res = []
+        while j < len(seq):
+            r = rng.random()
+            if r < indel_rate / 2:        # deletion
+                j += 1
+                continue
+            if r < indel_rate:            # insertion
+                res.append(int(rng.integers(0, 4)))
+                # current base still emitted below
+            b = seq[j]
+            if rng.random() < sub_rate:
+                b = (b + int(rng.integers(1, 4))) % 4
+            res.append(b)
+            j += 1
+        res = res[:L]
+        out[i, : len(res)] = res
+        out_len[i] = len(res)
+    return out, out_len
+
+
+def plant_single_indels(reads: np.ndarray, frac: float, seed: int = 0,
+                        lo: int = 40, hi: int = 110
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """One single-base indel in a fraction `frac` of full-width reads, at
+    a read position in [lo, hi): an inserted random base pushes the last
+    base out (length stays), a deleted base leaves the read one shorter
+    (255 in its last column).  Vectorised.  Returns (reads, lengths)."""
+    rng = np.random.default_rng(seed)
+    N, L = reads.shape
+    hit = rng.random(N) < frac
+    p = rng.integers(lo, min(hi, L - 1), size=N)[:, None]
+    ins = (rng.random(N) < 0.5)[:, None]
+    j = np.arange(L)[None, :]
+    src = np.minimum(np.where(ins, j - (j > p), j + (j >= p)), L - 1)
+    alt = np.take_along_axis(reads, src, axis=1)
+    alt = np.where(ins & (j == p), rng.integers(0, 4, size=(N, 1)), alt)
+    alt = np.where(~ins & (j == L - 1), 255, alt).astype(np.uint8)
+    out = np.where(hit[:, None], alt, reads).astype(np.uint8)
+    lengths = np.where(hit & ~ins[:, 0], L - 1, L).astype(np.int32)
+    return out, lengths
+
+
+def genome_with_exact_repeats(genome_len: int, n_segments: int = 12,
+                              repeat_len: int = 3000, seed: int = 0):
+    """`n_segments` unique segments separated by identical copies of one
+    repeat of `repeat_len` bases.  No graph pass can join two segments
+    across a copy (every copy is the same sequence, longer than a read
+    pair's insert), so the assembled graph keeps one contig a segment
+    and only shared barcodes order them.  Returns (genome, segment
+    starts (n_segments,), segment length)."""
+    seg = (genome_len - (n_segments - 1) * repeat_len) // n_segments
+    rep = random_genome(repeat_len, seed=seed + 1000)
+    parts, starts, pos = [], [], 0
+    for i in range(n_segments):
+        starts.append(pos)
+        parts.append(random_genome(seg, seed=seed + i))
+        pos += seg
+        if i < n_segments - 1:
+            parts.append(rep)
+            pos += repeat_len
+    return np.concatenate(parts), np.asarray(starts, np.int64), seg
+
+
+def sim_molecule_pairs(genome: np.ndarray, molecule_len: int,
+                       n_molecules: int, pairs_per_molecule: int,
+                       read_len: int, insert: int, seed: int,
+                       error_rate: float = 0.0):
+    """FR read pairs of barcoded molecules that cover a linear genome
+    evenly up to its ends: a molecule is a window of `molecule_len`
+    bases that may hang over either end and is cut there, as a fragment
+    of a chromosome is, and gives pairs in proportion to what is left of
+    it (sim_barcoded_pairs_fast keeps every molecule inside the genome,
+    which leaves the outer `molecule_len` bases with fewer and fewer
+    molecules).  Vectorised.  Returns (r1, r2 (N, read_len) uint8,
+    barcodes (N,) int64, ascending, one number a molecule)."""
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    mstart = rng.integers(insert - molecule_len, G - insert + 1, n_molecules)
+    lo = np.maximum(mstart, 0)
+    hi = np.minimum(mstart + molecule_len, G)
+    n = np.maximum(np.rint(pairs_per_molecule * (hi - lo)
+                           / molecule_len).astype(np.int64), 1)
+    mol = np.repeat(np.arange(n_molecules), n)
+    span = (hi - lo - insert + 1)[mol]
+    starts = lo[mol] + (rng.random(len(mol)) * span).astype(np.int64)
+    frag = genome[starts[:, None] + np.arange(insert)[None, :]]
+    fwd = frag[:, :read_len]
+    rev = (3 - frag)[:, ::-1][:, :read_len]
+    swap = rng.random(len(mol)) < 0.5
+    r1 = np.where(swap[:, None], rev, fwd).astype(np.uint8)
+    r2 = np.where(swap[:, None], fwd, rev).astype(np.uint8)
+    if error_rate > 0:
+        for arr in (r1, r2):
+            errs = rng.random(arr.shape) < error_rate
+            arr[errs] = (arr[errs] + rng.integers(1, 4, int(errs.sum()))) % 4
+    return r1, r2, mol.astype(np.int64)
+
+
+def _encode_barcodes(bcs: np.ndarray, length: int) -> np.ndarray:
+    """(N,) barcode numbers -> (N, length) ASCII of their base-5 digits,
+    most significant first (the inverse of io.fastq.decode_barcode_seq)."""
+    digits = np.zeros((len(bcs), length), np.int64)
+    v = bcs.astype(np.int64).copy()
+    for j in range(length - 1, -1, -1):
+        digits[:, j] = v % 5
+        v //= 5
+    return np.frombuffer(b"ACGTN", np.uint8)[digits]
+
+
+def linked_read_library(genome_len: int, seed: int, out_dir: str, *,
+                        n_segments: int = 12, repeat_len: int = 3000,
+                        coverage: float = 40.0, read_len: int = 150,
+                        insert: int = 300, molecule_len: int = 30000,
+                        pairs_per_molecule: int = 20,
+                        error_rate: float = 0.005, indel_frac: float = 0.02,
+                        lib: str = "ust", barcode_len: int = 18
+                        ) -> Tuple[np.ndarray, Dict[str, str]]:
+    """Write a linked-read library of a genome_with_exact_repeats genome
+    into `out_dir` and return (genome, files).
+
+    Molecules of `molecule_len` bases carry one barcode each and give
+    `pairs_per_molecule` FR read pairs of `read_len` bases at `insert`
+    (sim_molecule_pairs: fewer where the genome's end cuts them); their
+    number follows from `coverage`.  Reads carry substitutions at
+    `error_rate` and a fraction `indel_frac` one single-base indel.
+    `lib` picks the layout: "ust" writes R1.fq, R2.fq and the index read
+    I1.fq (`barcode_len` bases); "bioturing" puts `BX:Z:<barcode>` into
+    the R1 and R2 comments; "10x" puts a 16-base barcode and 7 UMI bases
+    in front of R1.  files maps "R1", "R2" (and "I1") to paths."""
+    rng = np.random.default_rng(seed + 7)
+    genome, _, _ = genome_with_exact_repeats(genome_len, n_segments,
+                                             repeat_len, seed)
+    n_pairs = coverage * len(genome) / (2 * read_len)
+    r1, r2, bcs = sim_molecule_pairs(
+        genome, min(molecule_len, len(genome)),
+        max(int(round(n_pairs / pairs_per_molecule)), 1),
+        pairs_per_molecule, read_len, insert, seed + 1, error_rate)
+    r1, l1 = plant_single_indels(r1, indel_frac, seed=seed + 2)
+    r2, l2 = plant_single_indels(r2, indel_frac, seed=seed + 3)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if lib == "10x":
+        barcode_len = 16
+    bseq = _encode_barcodes(bcs + 1, barcode_len)
+    os.makedirs(out_dir, exist_ok=True)
+    files = {n: os.path.join(out_dir, n + ".fq") for n in
+             (("R1", "R2", "I1") if lib == "ust" else ("R1", "R2"))}
+    s1, s2 = acgt[np.minimum(r1, 3)], acgt[np.minimum(r2, 3)]
+    umi = acgt[rng.integers(0, 4, (len(r1), 7))] if lib == "10x" else None
+    qual = b"I" * (read_len + 23)
+    with open(files["R1"], "wb") as o1, open(files["R2"], "wb") as o2:
+        for i in range(len(r1)):
+            a, b = s1[i, :l1[i]].tobytes(), s2[i, :l2[i]].tobytes()
+            tag = b""
+            if lib == "bioturing":
+                tag = b" BX:Z:" + bseq[i].tobytes()
+            elif lib == "10x":
+                a = bseq[i].tobytes() + umi[i].tobytes() + a
+            o1.write(b"@r%d%s\n%s\n+\n%s\n" % (i, tag, a, qual[:len(a)]))
+            o2.write(b"@r%d%s\n%s\n+\n%s\n" % (i, tag, b, qual[:len(b)]))
+    if lib == "ust":
+        with open(files["I1"], "wb") as oi:
+            for i in range(len(r1)):
+                oi.write(b"@r%d\n%s\n+\n%s\n"
+                         % (i, bseq[i].tobytes(), qual[:barcode_len]))
+    return genome, files
