@@ -24,27 +24,36 @@ before printing a result:
      through assembly_basic (level 0, 1, 2 graph files) on the card and
      on the CPU, nine files byte-identical; once more with count budgets
      that force runs to disk, level 0 held against the in-memory run
-  7. levels at full width: a 1 Mbp two-haplotype library (about 267k
+  7. levels at full width: a 500 kbp two-haplotype library (about 133k
      reads of 150 bp, 0.5% substitutions, k=45, min count 2; the depth
      is cut from 2 Mbp to keep the script short) through the CLI
      function, `basic --device cuda`: stage seconds, the bubble check's
      NW launches, and checks of the three graphs against the haplotypes
-  8. scaffold parity: a 200 kbp linked-read library (12 segments between
-     identical repeat copies, barcoded molecules, an index read) through
-     assembly_to_scaffolds on the card and on the CPU; the sorted
-     archive, the extended contigs, the barcode graph and the scaffold
-     files byte-identical
-  9. scaffolds at full width: the same recipe at 2 Mbp (about 267k pairs
-     of 150 bp at 40x) stage by stage through the CLI function: `basic`,
-     `sort_read`, `debug_current` (read-pair counts and extension),
-     `build_coverage` (k=31 recount), `build_barcode`, `scaffold`, each
-     with `--device cuda`; stage seconds, the device's busy share of the
-     two map stages and of the recount, NW pairs and launches per stage,
-     and checks of the archive, the barcode sets and the scaffold paths
-     against the genome
- 10. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7
-     and 9 launched the kernel at, with their scoring and mode
- 11. the `kernels` JSON line, the nvidia-smi line, and last the result
+  8. assembly3 parity: the linked-read recipe of phase 9 (segments
+     between identical repeat copies, barcoded molecules, an index read),
+     cut to 4 segments (3 gaps), through pipeline.assembly3 on the card
+     and on the CPU; the sorted archive, the extended contigs, the
+     barcode graph, the scaffold files, every local graph cache and
+     scaffold.full.fasta byte-identical
+  9. assembly3 at full width: the same recipe at 2 Mbp (about 263k pairs
+     of 150 bp at 40x, 12 segments, 11 gaps) stage by stage through the
+     CLI function: `basic`, `sort_read`, `debug_current` (read-pair
+     counts and extension), `build_coverage` (k=31 recount),
+     `build_barcode`, `scaffold`, `local_assembly`, each with `--device
+     cuda`; stage seconds, the bridge stage's parts and outcomes, the
+     device's busy share of the map stages, the recount and the bridge
+     stage, NW pairs and launches per stage, checks of the archive, the
+     barcode sets and the scaffold paths against the genome, and of the
+     final assembly by evaluate_assembly (no misassembly, genome
+     fraction, NGA50, every gap bridged)
+ 10. path scoring: a local graph with two candidate paths (two alleles,
+     a 40 bp indel and a substitution every 20 bases apart) and read
+     pairs of one allele with the recipe's errors through the bridge's
+     score_paths on the card: the allele's path, >= 1 NW launch, and the
+     same per-read hits, accepts and scores as on the CPU
+ 11. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
+     9 and 10 launched the kernel at, with their scoring and mode
+ 12. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -55,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -284,8 +294,9 @@ def phase_hold_path_shapes(recorded):
     """Every (B, Lq, Lt) the main paths launched the kernel at, held
     against the plain version at that very shape, scoring and mode.
     recorded: (caller, (B, Lq, Lt)) per launch; caller "map" is the
-    remainder DP (fit, BWA scoring), "bubble" the bubble check (global,
-    bubble scoring).  Returns the largest |difference|."""
+    remainder DP of the mappers and of the path scoring (fit, BWA
+    scoring), "bubble" the bubble check of the levels and of the local
+    graphs (global, bubble scoring).  Returns the largest |difference|."""
     from turingassembler_tpu_torch.ops import dp
     rng = np.random.default_rng(7)
     err = 0
@@ -642,7 +653,7 @@ def profile_count_and_build(cfg):
                 f"{len(batches[0][0])} reads)", st)
 
 
-def phase_levels_full_width(genome_len=1_000_000):
+def phase_levels_full_width(genome_len=500_000):
     from turingassembler_tpu_torch import cli
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph.invariants import check_graph
@@ -786,37 +797,53 @@ def linked_config(files, out_dir):
         cfg.device, min_kmer_count=MIN_COUNT_LEVELS))
 
 
+FINAL = "scaffold.full.fasta"
+# phase 8's depth: 4 segments of the recipe (3 gaps) instead of 12 (11);
+# every width of the recipe is kept (PERF.md section 4)
+PARITY_GENOME, PARITY_SEGMENTS = 65_000, 4
+
+
+def local_graph_caches(out):
+    """Relative paths of the local graph caches the bridge stage left."""
+    return sorted(os.path.relpath(p, out) for p in glob.glob(
+        os.path.join(out, "local_assembly_*", "graph_k_*_local_lvl_1.bin")))
+
+
 def phase_scaffold_parity():
     from turingassembler_tpu_torch import pipeline
     from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.localasm import bridge
     from turingassembler_tpu_torch.ops import nw_align
     with tempfile.TemporaryDirectory() as d:
-        genome, files = tt.linked_read_library(200_000, 41, d)
+        genome, files = tt.linked_read_library(PARITY_GENOME, 41, d,
+                                               n_segments=PARITY_SEGMENTS)
         out = {w: os.path.join(d, w) for w in ("card", "cpu")}
         before = nw_align.COUNT.launches, nw_align.COUNT.pairs
-        g, _, scaf = pipeline.assembly_to_scaffolds(
-            linked_config(files, out["card"]), device="cuda")
+        pipeline.assembly3(linked_config(files, out["card"]), device="cuda")
         torch.cuda.synchronize()
         launched = nw_align.COUNT.launches - before[0]
         pairs = nw_align.COUNT.pairs - before[1]
-        pipeline.assembly_to_scaffolds(linked_config(files, out["cpu"]),
-                                       device="cpu")
-        for name in SCAFFOLD_FILES + LEVEL_FILES:
+        counts = dict(bridge.BRIDGE_COUNTS)
+        pipeline.assembly3(linked_config(files, out["cpu"]), device="cpu")
+        caches = local_graph_caches(out["card"])
+        if caches != local_graph_caches(out["cpu"]) or not caches:
+            raise AssertionError("assembly3 parity: the local graph caches "
+                                 "differ in name or are missing")
+        for name in SCAFFOLD_FILES + LEVEL_FILES + caches + [FINAL]:
             if file_bytes(os.path.join(out["card"], name)) != \
                     file_bytes(os.path.join(out["cpu"], name)):
-                raise AssertionError(f"scaffold parity: {name} differs")
+                raise AssertionError(f"assembly3 parity: {name} differs")
         if launched < 1:
-            raise AssertionError("scaffold parity: the NW kernel never "
+            raise AssertionError("assembly3 parity: the NW kernel never "
                                  "launched on the card run")
-        n_paths = int(file_bytes(scaf).split(b"\n")[0])
         n_pairs = file_bytes(os.path.join(out["card"], SCAFFOLD_FILES[0])
                              ).count(b"\n") // 4
-        log(f"scaffold parity ({len(genome)} bp, 12 segments, {n_pairs} "
-            f"barcoded pairs, k={K_LEVELS}, min count {MIN_COUNT_LEVELS}): "
-            f"card == CPU for all {len(SCAFFOLD_FILES)} files and the "
-            f"{len(LEVEL_FILES)} level files; {int(g.alive_mask().sum())} "
-            f"contig edges, {len(g.candidates)} candidate pairs, {n_paths} "
-            f"multi-contig paths; {pairs} pairs in {launched} NW launches")
+        log(f"assembly3 parity ({len(genome)} bp, {PARITY_SEGMENTS} "
+            f"segments, {n_pairs} barcoded pairs, k={K_LEVELS}, min count "
+            f"{MIN_COUNT_LEVELS}): card == CPU for all "
+            f"{len(SCAFFOLD_FILES)} scaffold files, the {len(LEVEL_FILES)} "
+            f"level files, {len(caches)} local graph caches and {FINAL}; "
+            f"bridges {counts}; {pairs} pairs in {launched} NW launches")
 
 
 def place_contigs(g, genome, k=K_LEVELS, n_probe=24):
@@ -860,11 +887,17 @@ def place_contigs(g, genome, k=K_LEVELS, n_probe=24):
     return placed
 
 
+# threads of the bridge stage in phase 9 (`local_assembly -t`)
+BRIDGE_THREADS = 4
+
+
 def phase_scaffold_full_width(genome_len=2_000_000):
     from turingassembler_tpu_torch import cli
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.barcode.sort_read import (
         ReadPath, load_barcode_index, verify_read_archive)
+    from turingassembler_tpu_torch.evaluate import evaluate_assembly
+    from turingassembler_tpu_torch.localasm import bridge
     from turingassembler_tpu_torch.graph.from_contigs import \
         graph_from_contigs
     from turingassembler_tpu_torch.graph.invariants import check_graph
@@ -940,9 +973,14 @@ def phase_scaffold_full_width(genome_len=2_000_000):
         stage("build_barcode", ["build_barcode", "-i", recount] + archive,
               profiled=True)
         stage("scaffold", ["scaffold", "-i", path(SCAFFOLD_FILES[4])])
+        stage("local_assembly", ["local_assembly", "-i",
+                                 path(SCAFFOLD_FILES[4]), "-t",
+                                 str(BRIDGE_THREADS)] + archive,
+              profiled=True)
         launches = nw_align.COUNT.launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         walls, busy = stage_walls(), prof.busy
+        parts, outcomes = dict(bridge.BRIDGE_PROF), dict(bridge.BRIDGE_COUNTS)
 
         g = asmg.load_graph(path(SCAFFOLD_FILES[4]))
         # what the head of every verified map_reads call costs: packing
@@ -993,9 +1031,9 @@ def phase_scaffold_full_width(genome_len=2_000_000):
             + ", ".join(f"{k_} {sec[k_]:.3f}" for k_ in (
                 "basic", "sort_read", "verify_archive", "debug_current",
                 "contig_graph", "build_coverage", "build_barcode",
-                "scaffold"))
+                "scaffold", "local_assembly"))
             + " (debug_current = read-pair counts + extension + graph load; "
-            "the three profiled stages' walls hold the profiler's overhead)")
+            "the four profiled stages' walls hold the profiler's overhead)")
         log("scaffolds stage parts, seconds: " + ", ".join(
             f"{k_} {walls.get(k_, 0.0):.3f}" for k_ in (
                 "rp_count.index", "rp_count.parse", "rp_count.map",
@@ -1007,13 +1045,14 @@ def phase_scaffold_full_width(genome_len=2_000_000):
             + ", ".join(f"{m:.1f}" for m in pool_ms) + " ms")
         for name, what in (("debug_current", "rp-count map (+ extension)"),
                            ("build_coverage", "k=31 recount"),
-                           ("build_barcode", "aux map")):
+                           ("build_barcode", "aux map"),
+                           ("local_assembly", "bridge stage")):
             if busy[name] == 0:
                 log(f"scaffolds {what}: device busy not measured (the "
                     "profiler saw no device time)")
             else:
                 log(f"scaffolds {what}: wall {sec[name]:.3f} s, device busy "
-                    f"{busy[name]:.3f} s ({busy[name] / sec[name] * 100:.1f}"
+                    f"{busy[name]:.4f} s ({busy[name] / sec[name] * 100:.2f}"
                     "%)")
         log("scaffolds NW kernel, pairs in launches per stage: " + ", ".join(
             f"{k_} {nw[k_][0]} in {nw[k_][1]}"
@@ -1049,9 +1088,91 @@ def phase_scaffold_full_width(genome_len=2_000_000):
         if scaf_n50 <= contig_n50:
             raise AssertionError(f"scaffolds: scaffold N50 {scaf_n50} is not "
                                  f"above contig N50 {contig_n50}")
-    # `basic` launches the bubble check, every later command the mappers
-    return launches, [("bubble" if name == "basic" else "map", sh)
+
+        # the bridge stage and the final assembly against the genome
+        t0 = time.perf_counter()
+        contigs = [sq for _, sq in read_fasta(path(FINAL))]
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        res = evaluate_assembly(contigs, acgt[genome].tobytes().decode())
+        t_eval = time.perf_counter() - t0
+        log(f"bridge stage (-t {BRIDGE_THREADS}): wall "
+            f"{sec['local_assembly']:.3f} s; parts, thread-seconds: "
+            + ", ".join(f"{k_} {parts.get(k_, 0.0):.3f}" for k_ in (
+                "prebuild", "flank_map", "filters", "kmer_set",
+                "path_search", "score_paths"))
+            + f"; bridges dump {outcomes['dump']}, trivial "
+            f"{outcomes['trivial']}, path {outcomes['path']}, no-path "
+            f"{outcomes['no_path']}; score_paths calls "
+            f"{outcomes.get('score_paths.calls', 0)} over "
+            f"{outcomes.get('score_paths.paths', 0)} candidate paths; NW "
+            f"{nw['local_assembly'][0]} pairs in {nw['local_assembly'][1]} "
+            "launches")
+        log(f"final assembly: {len(contigs)} records "
+            f"({', '.join(str(len(c)) for c in contigs[:6])}"
+            f"{' ...' if len(contigs) > 6 else ''} bp); {res}; "
+            f"evaluate {t_eval:.3f} s")
+        if res.n_misassemblies != 0:
+            raise AssertionError(f"final assembly: {res.n_misassemblies} "
+                                 "misassemblies")
+        if res.genome_fraction <= 0.97:
+            raise AssertionError(f"final assembly: genome fraction "
+                                 f"{res.genome_fraction:.4f} <= 0.97")
+        if res.nga50 < 0.9 * len(genome):
+            raise AssertionError(f"final assembly: NGA50 {res.nga50} < 0.9 "
+                                 "x genome")
+        if outcomes["dump"] or outcomes["no_path"]:
+            raise AssertionError(f"final assembly: {outcomes['dump']} gaps "
+                                 f"dumped, {outcomes['no_path']} without a "
+                                 "path")
+    # `basic` launches the bubble check, the mapper stages the remainder
+    # DP; the bridge stage both: its local graphs' bubble check pads both
+    # branches to one width (Lq == Lt), its path scoring is the mapper's
+    # DP (Lt = Lq + 32)
+    return launches, [("bubble" if name == "basic" or sh[1] == sh[2]
+                       else "map", sh)
                       for name in nw for sh in nw[name][2]]
+
+
+def phase_path_scoring(n_pairs=5_000):
+    """The bridge's path scoring (localasm/bridge.py:score_paths) on a
+    local graph with two candidate paths and the read pairs of one of
+    them: 5,000 pairs, about the read count of one gap of phase 9."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.localasm import bridge
+    from turingassembler_tpu_torch.ops import nw_align
+    lg, paths, _, (seq_x, seq_y) = tt.two_path_local_graph(13)
+    reads, lengths, n1 = tt.read_pairs_of(seq_x, n_pairs, seed=14)
+    nw_align.COUNT.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = bridge.score_paths(lg, paths, reads, lengths, n1, device="cuda")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
+    shapes = list(nw_align.COUNT.shapes)
+    # card against CPU, lane by lane (after the path's counts were read)
+    card = bridge.path_read_hits(lg, paths, reads, lengths, device="cuda")
+    cpu = bridge.path_read_hits(lg, paths, reads, lengths, device="cpu")
+    for name, a, b in zip(("records", "starts", "accept", "scores",
+                           "record lengths"), card, cpu):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"path scoring: {name} differ card vs CPU")
+    best_cpu = bridge.score_paths(lg, paths, reads, lengths, n1, device="cpu")
+    want = [len(bridge.path_center_seq(lg, p)) for p in paths].index(
+        len(seq_x))
+    edges, _, accept, _, _ = card
+    log(f"path scoring ({len(paths)} paths of "
+        f"{[len(bridge.path_center_seq(lg, p)) for p in paths]} bp, "
+        f"{2 * n_pairs} reads of one allele, 0.5% substitutions, a "
+        f"single-base indel in 2%): best path {best} (CPU {best_cpu}, the "
+        f"reads' allele {want}); {int((edges >= 0).sum())} reads voted, "
+        f"{int(accept.sum())} accepted; {pairs} DP pairs in {launches} NW "
+        f"launches {shapes}; {sec:.3f} s; card == CPU for every lane")
+    if not best == best_cpu == want:
+        raise AssertionError("path scoring: wrong or differing best path")
+    if launches < 1:
+        raise AssertionError("path scoring: the NW kernel never launched")
+    return launches, [("map", sh) for sh in shapes]
 
 
 def build_kernels():
@@ -1083,6 +1204,8 @@ def main():
     launches, shapes = launches + n, shapes + sh
     phase(phase_scaffold_parity)
     n, sh = phase(phase_scaffold_full_width)
+    launches, shapes = launches + n, shapes + sh
+    n, sh = phase(phase_path_scoring)
     launches, shapes = launches + n, shapes + sh
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],

@@ -441,8 +441,9 @@ def test_linked_entry_points_raise_without_gpu(linked):
         tpipe.assembly_to_scaffolds(linked["cfg"].replace(out_dir=out))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tcli.main(["sort_read"] + linked["lib_args"] + ["-o", out])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tpipe.assembly3(linked["cfg"].replace(out_dir=out))
     assert not os.path.exists(out)
-    assert not hasattr(tpipe, "assembly3") and "assembly3" not in tcli.COMMANDS
 
 
 def test_linked_stages_run_without_jax(linked):

@@ -5,12 +5,17 @@ read->edge map, with the affine-gap alignment DP as a hand-written CUDA
 kernel for Hopper (`ops/nw_align.py`, `csrc/nw_align.cu`); around it the
 staged pipeline from FASTQ files to the level 0-2 graphs and on to the
 barcode-sorted archive, the extended contigs, the per-contig barcode
-sets and the scaffolds (`pipeline.py`, `cli.py`).  The layout and
+sets, the scaffolds and the per-gap local assemblies that bridge them
+into scaffold.full.fasta (`pipeline.py`, `cli.py`, `localasm/`), and
+the assembly's evaluation against a truth genome (`evaluate.py`).  The layout and
 function names follow `turingassembler_tpu`, which stays the reference
 every output is held against.
 
 Entry points (each takes `device=`, default "cuda"):
-  cli.main, pipeline.assembly_basic / assembly_to_scaffolds
+  cli.main, pipeline.assembly_basic / assembly_to_scaffolds / assembly3
+  localasm.bridge.build_bridge / score_paths
+  localasm.local.build_local_graph
+  kmer.count.count_kedges_from_reads / count_kedges_from_batches
   barcode.builder.get_read_pair_counts / construct_aux_info
   kmer.coverage.recount_coverage_from_batches
   kmer.megasort.count_reads_device

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -24,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()   # one build at a time, whichever thread asks
 
 
 def _nvcc() -> str:
@@ -76,8 +78,9 @@ def build(names: Iterable[str] | None = None) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu's library, built if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
-    return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
+        return lib

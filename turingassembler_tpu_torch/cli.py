@@ -9,14 +9,20 @@ with their options, plus `--device`.
     python -m turingassembler_tpu_torch debug_current -l sorted \\
         -1 out/R1.sorted.fq -2 out/R2.sorted.fq -I out/barcode.idx \\
         -i out/graph_k_45_level_2.bin -o out
+    python -m turingassembler_tpu_torch assembly3 -1 R1.fq -2 R2.fq \\
+        -I I1.fq -l ust -k0 45 -mc 2 -o out
+    python -m turingassembler_tpu_torch evaluate \\
+        -f out/scaffold.full.fasta -ref truth.fasta
 
 Options: `-1/-2/-I` file lists, `-l` library type, `-k0` global k, `-lk`
 local k, `-o` output dir, `-i` graph .bin, `-f` fasta, `-lc` scaffold
-contig fasta, `-t` threads, `-sm` sort memory GB, `-mc` minimum
-(k+1)-mer count, `-v` verbosity, `-metagenomics`.  `--device cuda` (the
-default) raises when no GPU is visible.  The stage commands that read a
-sorted archive take it as `-l sorted -1 R1.sorted.fq -2 R2.sorted.fq
--I barcode.idx`.
+contig fasta, `-ref` truth fasta (`evaluate`), `-t` threads, `-sm`
+sort memory GB, `-mc` minimum (k+1)-mer count, `-v` verbosity,
+`-metagenomics`.  `--device cuda` (the default) raises when no GPU is
+visible.  The stage commands that read a sorted archive take it as `-l
+sorted -1 R1.sorted.fq -2 R2.sorted.fq -I barcode.idx`; `local_assembly`
+(alias `build_bridge`) reads local_assembly_scaffold_path.txt from `-o`.
+A command's return value, when it gives one, is the exit code.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-f", dest="in_fasta", default=None, help="input fasta")
     p.add_argument("-lc", dest="in_contig_file", default=None,
                    help="scaffold contig fasta")
+    p.add_argument("-ref", dest="ref_fasta", default=None,
+                   help="truth genome fasta (evaluate)")
     p.add_argument("-t", dest="n_threads", type=int, default=4)
     p.add_argument("-sm", dest="mmem_gb", type=int, default=32)
     p.add_argument("-mc", dest="min_kmer_count", type=int, default=1,
@@ -61,9 +69,58 @@ def _cfg_from_args(a) -> Config:
         metagenomics=a.metagenomics,
         files_1=tuple(a.files_1), files_2=tuple(a.files_2),
         files_I=tuple(a.files_I), in_file=a.in_file, in_fasta=a.in_fasta,
-        in_contig_file=a.in_contig_file)
+        in_contig_file=a.in_contig_file, ref_fasta=a.ref_fasta)
     return cfg.replace(device=dataclasses.replace(
         cfg.device, min_kmer_count=a.min_kmer_count))
+
+
+def cmd_assembly3(cfg: Config, device):
+    """FASTQ files -> scaffold.full.fasta (pipeline.assembly3)."""
+    from .pipeline import assembly3
+    set_log_stage("assembly3")
+    assembly3(cfg, device=device)
+
+
+def cmd_local_assembly(cfg: Config, device):
+    """Per-gap local assembly of the scaffold paths in -o
+    (local_assembly_scaffold_path.txt) over the aux-info graph -i and
+    the sorted archive -> scaffold.full.fasta."""
+    from .barcode.sort_read import ReadPath
+    from .io import asmg
+    from .localasm.bridge import build_bridge
+    set_log_stage("local_assembly")
+    g = asmg.load_graph(cfg.in_file)
+    scaf = os.path.join(cfg.out_dir, "local_assembly_scaffold_path.txt")
+    print(build_bridge(cfg, g, ReadPath.from_sorted(cfg), scaf,
+                       device=device))
+
+
+def cmd_evaluate(cfg: Config, device):
+    """QUAST-style quality report for an assembly against a known truth
+    genome: NGA50, aligned blocks, misassemblies, genome fraction per
+    truth record, mismatches and indels per 100 kbp (the metrics of
+    upstream's published result).  Exit code 1 when there is a
+    misassembly, 2 without -f and -ref."""
+    from .evaluate import evaluate_assembly
+    from .io.fasta import read_fasta
+    if not cfg.in_fasta or not cfg.ref_fasta:
+        print("evaluate needs -f assembly.fasta and -ref truth.fasta",
+              file=sys.stderr)
+        return 2
+    contigs = [s for _, s in read_fasta(cfg.in_fasta)]
+    total = sum(len(c) for c in contigs)
+    print(f"assembly: {len(contigs)} contigs, {total:,} bp "
+          f"(largest {max(map(len, contigs), default=0):,})")
+    # one combined anchor index over ALL truth records: a contig joining
+    # two records is a translocation and must count as a misassembly
+    records = list(read_fasta(cfg.ref_fasta))
+    res = evaluate_assembly(contigs, records)
+    print(f"truth: {len(records)} records, "
+          f"{sum(len(g) for _, g in records):,} bp")
+    print(res)
+    for name, frac in res.record_fraction:
+        print(f"  {name}: fraction {frac:.3f}")
+    return 0 if res.n_misassemblies == 0 else 1
 
 
 def cmd_basic(cfg: Config, device):
@@ -240,7 +297,8 @@ def cmd_split_molecules(cfg: Config, device):
     print(out)
 
 
-COMMANDS = {"basic": cmd_basic, "build_0": cmd_build_0,
+COMMANDS = {"assembly3": cmd_assembly3, "basic": cmd_basic,
+            "build_0": cmd_build_0,
             "build_0_1": cmd_build_0_1, "build_1_2": cmd_build_1_2,
             "sort_read": cmd_sort_read, "get_rp_count": cmd_get_rp_count,
             "debug_current": cmd_debug_current,
@@ -252,7 +310,12 @@ COMMANDS = {"basic": cmd_basic, "build_0": cmd_build_0,
             "count_bx": cmd_count_bx, "reduce_reads": cmd_reduce_reads,
             "minimizers_hit": cmd_minimizers_hit,
             "barcode_graph": cmd_barcode_graph,
-            "split_molecules": cmd_split_molecules}
+            "split_molecules": cmd_split_molecules,
+            "local_assembly": cmd_local_assembly,
+            # upstream dispatches both names to build_bridge_process
+            # (src/main.c:458-461)
+            "build_bridge": cmd_local_assembly,
+            "evaluate": cmd_evaluate}
 
 
 def main(argv=None) -> int:
@@ -268,11 +331,11 @@ def main(argv=None) -> int:
     device = resolve_device(a.device)
     init_logger(cfg.out_dir, logging.DEBUG if a.verbose else logging.INFO)
     try:
-        COMMANDS[a.cmd](cfg, device)
+        rc = COMMANDS[a.cmd](cfg, device)
     except FileNotFoundError as e:
         print(f"{a.cmd}: file not found: {e}", file=sys.stderr)
         return 1
-    return 0
+    return int(rc) if rc is not None else 0
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 """De Bruijn graph construction from counted canonical (k+1)-mers, on
 the host (a copy of turingassembler_tpu/graph/build.py without its
-C++ fast paths: nodes are numbered by np.unique, chains ranked by numpy
-pointer doubling).  kmer/megasort.py's spill branch feeds it; the
-in-memory count feeds graph/device_build.py.
+C++ fast paths: chains are ranked by numpy pointer doubling, and nodes
+are numbered by np.unique, or in order of first appearance as the JAX
+package's C++ `ta_unique_ids` numbers them).  kmer/megasort.py's spill
+branch feeds it (sorted numbering, as graph/device_build.py gives the
+in-memory count); the per-gap local graphs of localasm/local.py take the
+first-appearance numbering, which is the JAX package's as it ships.
 
 Replaces the reference's kmhash-based build (src/kmer_build.c:78-649):
 
@@ -141,9 +144,25 @@ def rc_consistent_cycle_heads(prev_ptr: np.ndarray, cyc: np.ndarray,
     return d[key == val]
 
 
-def build_graph_from_kedges(kedges: np.ndarray, counts: np.ndarray, k: int) -> AsmGraph:
+def _first_seen_ids(fp: np.ndarray):
+    """(ids (n,) int64, m): dense ids of uint64 keys numbered in order of
+    first appearance — the numbering of the JAX package's C++
+    ta_unique_ids (native/graph_kernels.cpp), whose all-ones empty-slot
+    key stands for the all-ones key minus one."""
+    top = np.uint64(0xFFFFFFFFFFFFFFFF)
+    key = np.where(fp == top, top - np.uint64(1), fp)
+    uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    rank = np.empty(len(uniq), np.int64)
+    rank[np.argsort(first)] = np.arange(len(uniq))
+    return rank[inv.ravel()], len(uniq)
+
+
+def build_graph_from_kedges(kedges: np.ndarray, counts: np.ndarray, k: int,
+                            first_seen: bool = False) -> AsmGraph:
     """kedges: (n, n_limbs(k+1)) uint32 sorted unique canonical (k+1)-mers;
-    counts: (n,) int64.  Returns the level-0 assembly graph."""
+    counts: (n,) int64.  Returns the level-0 assembly graph.  Nodes are
+    numbered in sorted fingerprint order, or with first_seen in order of
+    first appearance (see the module docstring)."""
     n = len(kedges)
     if n == 0:
         return AsmGraph(ksize=k)
@@ -170,9 +189,12 @@ def build_graph_from_kedges(kedges: np.ndarray, counts: np.ndarray, k: int) -> A
     # the same guarantee class as the counting tables.
     allk = np.concatenate([cpre, csuf], axis=0)
     fp = _np_fingerprint64(allk)
-    uniq, inv = np.unique(fp, return_inverse=True)
-    m = len(uniq)
-    inv = inv.astype(np.int64)
+    if first_seen:
+        inv, m = _first_seen_ids(fp)
+    else:
+        uniq, inv = np.unique(fp, return_inverse=True)
+        m = len(uniq)
+        inv = inv.astype(np.int64)
     node_pre = inv[:n]
     node_suf = inv[n:]
 

@@ -31,6 +31,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass, field
 
 import torch
@@ -48,15 +49,25 @@ MAX_SHARED = 232_448              # bytes of shared memory a block can use
 @dataclass
 class LaunchCount:
     """Launches of the kernel, pairs they scored and each launch's
-    (B, Lq, Lt) (CUDA path only)."""
+    (B, Lq, Lt) (CUDA path only).  Safe to add to from several threads
+    (the bridge stage launches from its worker threads)."""
     launches: int = 0
     pairs: int = 0
     shapes: list = field(default_factory=list)
+    lock: threading.Lock = field(default_factory=threading.Lock,
+                                 repr=False, compare=False)
 
     def reset(self) -> None:
-        self.launches = 0
-        self.pairs = 0
-        self.shapes = []
+        with self.lock:
+            self.launches = 0
+            self.pairs = 0
+            self.shapes = []
+
+    def add(self, B: int, Lq: int, Lt: int) -> None:
+        with self.lock:
+            self.launches += 1
+            self.pairs += B
+            self.shapes.append((B, Lq, Lt))
 
 
 COUNT = LaunchCount()
@@ -150,7 +161,5 @@ def banded_affine_score(q: torch.Tensor, qlen: torch.Tensor,
                     stream)
     if rc != 0:
         raise RuntimeError(f"nw_align kernel launch failed: CUDA error {rc}")
-    COUNT.launches += 1
-    COUNT.pairs += B
-    COUNT.shapes.append((B, Lq, Lt))
+    COUNT.add(B, Lq, Lt)
     return out

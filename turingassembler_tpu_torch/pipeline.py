@@ -1,6 +1,6 @@
 """Staged pipeline orchestration (port of turingassembler_tpu/pipeline.py,
-graph levels 0-2 and the linked-read stages up to the scaffold paths,
-single process).
+single process: graph levels 0-2, the linked-read stages up to the
+scaffold paths, and the per-gap local assembly that closes the gaps).
 
 Every stage ends by writing `graph_k_<k>_<suffix>.{bin,gfa,fasta}` into
 the output directory (upstream save_graph_info, process.c:516-532), so
@@ -15,12 +15,16 @@ Stage map (upstream assembly3_process, process.c:585-701):
                  graph_k_<k>_extend.fasta -> contig graph, k=31 recount
   build_barcode  map reads, attach per-edge barcode sets
   scaffolding    shared-barcode greedy paths -> scaffolds.fasta
+  build_bridge   per-gap local assembly -> scaffold.full.fasta
 
 Count and level-0 build run on `device`; the graph passes are host code
 whose one device call is the align-bubble DP (resolve/basic.py).  The
 read-pair and barcode stages map the whole sorted library on `device`
 with DP verification, and the recount counts 31-mers there; sorting,
-extension and scaffolding are host code.  The stages leave the seconds
+extension and scaffolding are host code.  The bridge stage is host code
+whose device calls are the local graphs' bubble DP and the path scoring
+(localasm/bridge.py); its parts' seconds are in
+localasm.bridge.BRIDGE_PROF.  The other stages leave the seconds
 of their parts in logging_utils.stage_walls(): "rp_count.*", "extend",
 "recount.*", "aux.*".
 """
@@ -238,3 +242,17 @@ def assembly_to_scaffolds(cfg: Config, extend: bool = True,
     log.info("scaffold paths: %s", scaf_path)
     set_log_stage("done")
     return g, rpath, scaf_path
+
+
+def assembly3(cfg: Config, extend: bool = True, device="cuda") -> str:
+    """The whole pipeline (upstream assembly3_process, process.c:585-701):
+    assembly_to_scaffolds, then the per-gap local assemblies that bridge
+    the scaffold paths' gaps into scaffold.full.fasta.  Returns its
+    path."""
+    from .localasm.bridge import build_bridge
+    g, rpath, scaf_path = assembly_to_scaffolds(cfg, extend, device=device)
+    set_log_stage("build_bridge")
+    final = build_bridge(cfg, g, rpath, scaf_path, device=device)
+    get_logger().info("final assembly: %s", final)
+    set_log_stage("done")
+    return final

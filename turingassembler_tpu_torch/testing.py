@@ -13,7 +13,10 @@ copies as well; plant_single_indels is their vectorised single-indel
 form, genome_with_exact_repeats the genome whose contigs only barcodes
 can order, sim_molecule_pairs samples barcoded molecules evenly up to
 a linear genome's ends, and linked_read_library writes a linked-read
-library of such a genome as FASTQ files."""
+library of such a genome as FASTQ files.  two_path_local_graph and
+read_pairs_of make a local graph with two candidate paths between its
+flanks and the read pairs of one of them, for the bridge's path
+scoring."""
 
 from __future__ import annotations
 
@@ -509,3 +512,65 @@ def linked_read_library(genome_len: int, seed: int, out_dir: str, *,
                 oi.write(b"@r%d\n%s\n+\n%s\n"
                          % (i, bseq[i].tobytes(), qual[:barcode_len]))
     return genome, files
+
+
+def two_path_local_graph(seed: int, flank: int = 600, branch: int = 1200,
+                         indel: int = 40, snp_every: int = 20, k: int = 31):
+    """A local graph at k over the (k+1)-mers of two sequences, L + X + R
+    and L + Y + R, two alleles of one locus: Y is X with a substitution
+    every `snp_every` bases and less `indel` bases at its middle (random
+    flanks L, R of `flank` bases and X of `branch`), and the paths
+    between its flank edges.  Returns (graph, paths, (lc_e1, lc_e2),
+    (seq_x, seq_y)); each path is a list of edge ids from lc_e1 (the edge
+    that starts with L) to lc_e2 (the edge that ends with R)."""
+    from .graph.build import build_graph_from_kedges
+    from .localasm import local as L
+    rng = np.random.default_rng(seed)
+    left, x, right = (rng.integers(0, 4, n).astype(np.uint8)
+                      for n in (flank, branch, flank))
+    cut = (branch - indel) // 2
+    y = x.copy()
+    y[snp_every // 2::snp_every] = (y[snp_every // 2::snp_every] + 1) % 4
+    y = np.concatenate([y[:cut], y[cut + indel:]])
+    seq_x = np.concatenate([left, x, right])
+    seq_y = np.concatenate([left, y, right])
+    kedges = np.unique(np.vstack([L._seq_canon_kedges(s, k + 1)
+                                  for s in (seq_x, seq_y)]), axis=0)
+    g = build_graph_from_kedges(kedges, np.full(len(kedges), 20, np.int64),
+                                k)
+    head, tail = seq_x[:k + 1].tobytes(), seq_x[-(k + 1):].tobytes()
+    lc_e1 = next(e for e in range(g.n_e) if g.get_seq(e)[:k + 1].tobytes()
+                 == head)
+    lc_e2 = next(e for e in range(g.n_e) if g.get_seq(e)[-(k + 1):].tobytes()
+                 == tail)
+    both = np.zeros((2, len(seq_x)), np.uint8)
+    both[0], both[1, :len(seq_y)] = seq_x, seq_y
+    kset = L.read_kmer_set(both, np.array([len(seq_x), len(seq_y)],
+                                          np.int32), k + 6)
+    paths = L.get_all_paths_kmer_check(g, L.EdgeMap(-1, lc_e1),
+                                       L.EdgeMap(-1, lc_e2), k + 6, kset)
+    return g, paths, (lc_e1, lc_e2), (seq_x, seq_y)
+
+
+def read_pairs_of(seq: np.ndarray, n_pairs: int, seed: int,
+                  read_len: int = 150, insert: int = 300,
+                  error_rate: float = 0.005, indel_frac: float = 0.02):
+    """FR read pairs of one sequence, with substitutions at error_rate
+    and one single-base indel in a fraction indel_frac of the reads
+    (plant_single_indels).  Returns (bases (2 * n_pairs, read_len) uint8,
+    lengths (2 * n_pairs,) int32, n1 = n_pairs): rows [0, n1) are the R1
+    mates and row n1 + i is row i's mate, as local_reads_for_pair
+    lays them out."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, len(seq) - insert + 1, n_pairs)
+    frag = seq[starts[:, None] + np.arange(insert)[None, :]]
+    fwd = frag[:, :read_len]
+    rev = (3 - frag)[:, ::-1][:, :read_len]
+    swap = rng.random(n_pairs) < 0.5
+    reads = np.concatenate([np.where(swap[:, None], rev, fwd),
+                            np.where(swap[:, None], fwd, rev)]
+                           ).astype(np.uint8)
+    errs = rng.random(reads.shape) < error_rate
+    reads[errs] = (reads[errs] + rng.integers(1, 4, int(errs.sum()))) % 4
+    reads, lengths = plant_single_indels(reads, indel_frac, seed=seed + 1)
+    return reads, lengths, n_pairs
