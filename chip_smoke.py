@@ -20,10 +20,11 @@ before printing a result:
      DP-verified map, plus 66,560 reads with one mid-read indel; launch
      counts are reset just before and read just after; then one more
      pass under torch.profiler for the device's busy share
-  6. levels parity: a 200 kbp two-haplotype library from FASTQ files
+  6. levels parity: a 100 kbp two-haplotype library from FASTQ files
      through assembly_basic (level 0, 1, 2 graph files) on the card and
      on the CPU, nine files byte-identical; once more with count budgets
-     that force runs to disk, level 0 held against the in-memory run
+     that force runs to disk, on the card and on the CPU: level 0's files
+     byte-identical, and its graph isomorphic to the in-memory run's
   7. levels at full width: a 500 kbp two-haplotype library (about 133k
      reads of 150 bp, 0.5% substitutions, k=45, min count 2; the depth
      is cut from 2 Mbp to keep the script short) through the CLI
@@ -51,9 +52,23 @@ before printing a result:
      pairs of one allele with the recipe's errors through the bridge's
      score_paths on the card: the allele's path, >= 1 NW launch, and the
      same per-read hits, accepts and scores as on the CPU
- 11. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
-     9 and 10 launched the kernel at, with their scoring and mode
- 12. the `kernels` JSON line, the nvidia-smi line, and last the result
+ 11. barcode levels: on phase 8's 65 kbp outputs, on the card,
+     build_2_3, build_barcode on level 3, build_3_4, build_4_5,
+     resolve_n_m, resolve_212_cov, build_barcode_fasta,
+     build_barcode_fastg, mm_index and barcode_hit, the last four also on
+     the CPU (every file byte-identical, the same printed lines; the host
+     passes are held against JAX by the tests); then on phase 9's 2 Mbp
+     level 2 and sorted archive the level chain build_2_3 ->
+     build_barcode -> build_3_4 -> build_4_5 with `--device cuda`: stage
+     seconds, the aux map's parts, device busy, NW launches, reads
+     mapped, live edges and N50 a level, and the level-4 and level-5
+     contigs against the genome;
+     it raises unless the aux map launched the kernel, >= 95% of reads
+     mapped, every level passes check_graph and level 4 has no more live
+     edges than level 3
+ 12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
+     9, 10 and 11 launched the kernel at, with their scoring and mode
+ 13. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -65,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import glob
+import io
 import json
 import os
 import subprocess
@@ -567,14 +583,22 @@ def alive_key(g):
                   for e in np.flatnonzero(g.alive_mask()))
 
 
+# phase 6's depth: cut from 200 kbp to keep the script near its time aim
+# (PERF.md section 4); the spill budgets are halved with it, for several
+# disk runs
+PARITY_LEVELS_GENOME = 100_000
+
+
 def phase_levels_parity():
     from turingassembler_tpu_torch import pipeline
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.io import asmg
     from turingassembler_tpu_torch.ops import nw_align
     with tempfile.TemporaryDirectory() as d:
-        _, _, n_clusters, n_reads, paths, _ = write_library(d, 200_000, 21)
-        out = {w: os.path.join(d, w) for w in ("card", "cpu", "spill")}
+        _, _, n_clusters, n_reads, paths, _ = write_library(
+            d, PARITY_LEVELS_GENOME, 21)
+        out = {w: os.path.join(d, w)
+               for w in ("card", "cpu", "spill", "spill_cpu")}
         before = nw_align.COUNT.launches, nw_align.COUNT.pairs
         g2 = pipeline.assembly_basic(levels_config(paths, out["card"]),
                                      device="cuda")
@@ -591,33 +615,39 @@ def phase_levels_parity():
             raise AssertionError("levels parity: the NW kernel never "
                                  "launched on the card run")
         g0 = asmg.load_graph(os.path.join(out["card"], LEVEL_FILES[0]))
-        log(f"levels parity (200 kbp x 2 haplotypes, {n_clusters} variant "
+        log(f"levels parity ({PARITY_LEVELS_GENOME} bp x 2 haplotypes, "
+            f"{n_clusters} variant "
             f"clusters, {n_reads} reads, k={K_LEVELS}, min count "
             f"{MIN_COUNT_LEVELS}): card == CPU for all {len(LEVEL_FILES)} "
             f"files; n_e {g0.n_e} -> {g2.n_e}; bubble check: {pairs} pairs "
             f"in {launched} NW launches")
 
         # the same library under count budgets that force disk runs: the
-        # table comes back as host arrays and level 0 is built on the host
-        pipeline.build_0(levels_config(paths, out["spill"],
-                                       sort_device_lanes=500_000,
-                                       sort_host_mb=10.0), device="cuda")
+        # table comes back as host arrays and level 0 is built on the
+        # host, nodes numbered by first appearance; card and CPU alike
+        for w in ("spill", "spill_cpu"):
+            pipeline.build_0(levels_config(paths, out[w],
+                                           sort_device_lanes=250_000,
+                                           sort_host_mb=5.0),
+                             device="cuda" if w == "spill" else "cpu")
         runs = [f for f in os.listdir(os.path.join(out["spill"], "spill"))
                 if f.startswith("count_run") and f.endswith("_keys.npy")]
         if len(runs) < 2:
             raise AssertionError(f"levels parity: {len(runs)} disk runs, "
                                  "expected at least 2")
+        for name in LEVEL_FILES[:3]:
+            if file_bytes(os.path.join(out["spill"], name)) != \
+                    file_bytes(os.path.join(out["spill_cpu"], name)):
+                raise AssertionError(f"levels parity: spilled {name} "
+                                     "differs card vs CPU")
         gs = asmg.load_graph(os.path.join(out["spill"], LEVEL_FILES[0]))
         tt.graphs_isomorphic(g0, gs)
         if alive_key(g0) != alive_key(gs):
             raise AssertionError("levels parity: spilled level 0 holds "
                                  "other (sequence, count) edges")
-        same = all(file_bytes(os.path.join(out["spill"], n))
-                   == file_bytes(os.path.join(out["card"], n))
-                   for n in LEVEL_FILES[:3])
         log(f"levels parity, spilled count ({len(runs)} runs on disk, host "
-            f"build): level 0 isomorphic to the in-memory run's, same "
-            f"(sequence, count) set; files byte-identical: {same}")
+            f"build): level 0 card == CPU for all 3 files, isomorphic to the "
+            f"in-memory run's, same (sequence, count) set")
 
 
 def n50(lens):
@@ -809,41 +839,41 @@ def local_graph_caches(out):
         os.path.join(out, "local_assembly_*", "graph_k_*_local_lvl_1.bin")))
 
 
-def phase_scaffold_parity():
+def phase_scaffold_parity(d):
     from turingassembler_tpu_torch import pipeline
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.localasm import bridge
     from turingassembler_tpu_torch.ops import nw_align
-    with tempfile.TemporaryDirectory() as d:
-        genome, files = tt.linked_read_library(PARITY_GENOME, 41, d,
-                                               n_segments=PARITY_SEGMENTS)
-        out = {w: os.path.join(d, w) for w in ("card", "cpu")}
-        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
-        pipeline.assembly3(linked_config(files, out["card"]), device="cuda")
-        torch.cuda.synchronize()
-        launched = nw_align.COUNT.launches - before[0]
-        pairs = nw_align.COUNT.pairs - before[1]
-        counts = dict(bridge.BRIDGE_COUNTS)
-        pipeline.assembly3(linked_config(files, out["cpu"]), device="cpu")
-        caches = local_graph_caches(out["card"])
-        if caches != local_graph_caches(out["cpu"]) or not caches:
-            raise AssertionError("assembly3 parity: the local graph caches "
-                                 "differ in name or are missing")
-        for name in SCAFFOLD_FILES + LEVEL_FILES + caches + [FINAL]:
-            if file_bytes(os.path.join(out["card"], name)) != \
-                    file_bytes(os.path.join(out["cpu"], name)):
-                raise AssertionError(f"assembly3 parity: {name} differs")
-        if launched < 1:
-            raise AssertionError("assembly3 parity: the NW kernel never "
-                                 "launched on the card run")
-        n_pairs = file_bytes(os.path.join(out["card"], SCAFFOLD_FILES[0])
-                             ).count(b"\n") // 4
-        log(f"assembly3 parity ({len(genome)} bp, {PARITY_SEGMENTS} "
-            f"segments, {n_pairs} barcoded pairs, k={K_LEVELS}, min count "
-            f"{MIN_COUNT_LEVELS}): card == CPU for all "
-            f"{len(SCAFFOLD_FILES)} scaffold files, the {len(LEVEL_FILES)} "
-            f"level files, {len(caches)} local graph caches and {FINAL}; "
-            f"bridges {counts}; {pairs} pairs in {launched} NW launches")
+    genome, files = tt.linked_read_library(PARITY_GENOME, 41, d,
+                                           n_segments=PARITY_SEGMENTS)
+    out = {w: os.path.join(d, w) for w in ("card", "cpu")}
+    before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+    pipeline.assembly3(linked_config(files, out["card"]), device="cuda")
+    torch.cuda.synchronize()
+    launched = nw_align.COUNT.launches - before[0]
+    pairs = nw_align.COUNT.pairs - before[1]
+    counts = dict(bridge.BRIDGE_COUNTS)
+    pipeline.assembly3(linked_config(files, out["cpu"]), device="cpu")
+    caches = local_graph_caches(out["card"])
+    if caches != local_graph_caches(out["cpu"]) or not caches:
+        raise AssertionError("assembly3 parity: the local graph caches "
+                             "differ in name or are missing")
+    for name in SCAFFOLD_FILES + LEVEL_FILES + caches + [FINAL]:
+        if file_bytes(os.path.join(out["card"], name)) != \
+                file_bytes(os.path.join(out["cpu"], name)):
+            raise AssertionError(f"assembly3 parity: {name} differs")
+    if launched < 1:
+        raise AssertionError("assembly3 parity: the NW kernel never "
+                             "launched on the card run")
+    n_pairs = file_bytes(os.path.join(out["card"], SCAFFOLD_FILES[0])
+                         ).count(b"\n") // 4
+    log(f"assembly3 parity ({len(genome)} bp, {PARITY_SEGMENTS} "
+        f"segments, {n_pairs} barcoded pairs, k={K_LEVELS}, min count "
+        f"{MIN_COUNT_LEVELS}): card == CPU for all "
+        f"{len(SCAFFOLD_FILES)} scaffold files, the {len(LEVEL_FILES)} "
+        f"level files, {len(caches)} local graph caches and {FINAL}; "
+        f"bridges {counts}; {pairs} pairs in {launched} NW launches")
+    return out["card"]
 
 
 def place_contigs(g, genome, k=K_LEVELS, n_probe=24):
@@ -891,7 +921,7 @@ def place_contigs(g, genome, k=K_LEVELS, n_probe=24):
 BRIDGE_THREADS = 4
 
 
-def phase_scaffold_full_width(genome_len=2_000_000):
+def phase_scaffold_full_width(d, genome_len=2_000_000):
     from turingassembler_tpu_torch import cli
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.barcode.sort_read import (
@@ -909,228 +939,227 @@ def phase_scaffold_full_width(genome_len=2_000_000):
     from turingassembler_tpu_torch.ops import nw_align
     from turingassembler_tpu_torch.scaffold.scaffolding import (
         MIN_SHARE_BARCODE, THRES_LENGTH)
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        genome, files = tt.linked_read_library(genome_len, 51, d)
-        t_write = time.perf_counter() - t0
-        out = os.path.join(d, "out")
-        path = lambda name: os.path.join(out, name)     # noqa: E731
-        common = ["-k0", str(K_LEVELS), "-mc", str(MIN_COUNT_LEVELS), "-o",
-                  out, "--device", "cuda"]
-        library = ["-1", files["R1"], "-2", files["R2"], "-I", files["I1"],
-                   "-l", "ust"]
-        archive = ["-l", "sorted", "-1", path(SCAFFOLD_FILES[0]), "-2",
-                   path(SCAFFOLD_FILES[1]), "-I", path(SCAFFOLD_FILES[2])]
-        sec, nw = {}, {}
-        prof = StageProfiler(host_ops=False)
+    t0 = time.perf_counter()
+    genome, files = tt.linked_read_library(genome_len, 51, d)
+    t_write = time.perf_counter() - t0
+    out = os.path.join(d, "out")
+    path = lambda name: os.path.join(out, name)     # noqa: E731
+    common = ["-k0", str(K_LEVELS), "-mc", str(MIN_COUNT_LEVELS), "-o",
+              out, "--device", "cuda"]
+    library = ["-1", files["R1"], "-2", files["R2"], "-I", files["I1"],
+               "-l", "ust"]
+    archive = ["-l", "sorted", "-1", path(SCAFFOLD_FILES[0]), "-2",
+               path(SCAFFOLD_FILES[1]), "-I", path(SCAFFOLD_FILES[2])]
+    sec, nw = {}, {}
+    prof = StageProfiler(host_ops=False)
 
-        def stage(name, args, profiled=False):
-            """One CLI command: wall seconds to the device's sync, the NW
-            kernel's pairs and launches, and under the profiler (device
-            activity only) the device's busy seconds."""
-            before = nw_align.COUNT.launches, nw_align.COUNT.pairs
-            n_shapes = len(nw_align.COUNT.shapes)
+    def stage(name, args, profiled=False):
+        """One CLI command: wall seconds to the device's sync, the NW
+        kernel's pairs and launches, and under the profiler (device
+        activity only) the device's busy seconds."""
+        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        n_shapes = len(nw_align.COUNT.shapes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof.around(name) if profiled \
+                else contextlib.nullcontext():
+            rc = cli.main(args + common)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with prof.around(name) if profiled \
-                    else contextlib.nullcontext():
-                rc = cli.main(args + common)
-                torch.cuda.synchronize()
-                sec[name] = time.perf_counter() - t0
-            if rc != 0:
-                raise AssertionError(f"scaffolds: `{name}` returned {rc}")
-            nw[name] = (nw_align.COUNT.pairs - before[1],
-                        nw_align.COUNT.launches - before[0],
-                        nw_align.COUNT.shapes[n_shapes:])
+            sec[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"scaffolds: `{name}` returned {rc}")
+        nw[name] = (nw_align.COUNT.pairs - before[1],
+                    nw_align.COUNT.launches - before[0],
+                    nw_align.COUNT.shapes[n_shapes:])
 
-        torch.cuda.reset_peak_memory_stats()
-        reset_stage_walls()
-        nw_align.COUNT.reset()
-        stage("basic", ["basic"] + library)
-        stage("sort_read", ["sort_read"] + library)
-        rpath = ReadPath(*archive[3::2])
+    torch.cuda.reset_peak_memory_stats()
+    reset_stage_walls()
+    nw_align.COUNT.reset()
+    stage("basic", ["basic"] + library)
+    stage("sort_read", ["sort_read"] + library)
+    rpath = ReadPath(*archive[3::2])
+    t0 = time.perf_counter()
+    index = load_barcode_index(rpath.idx_path)
+    n_checked = verify_read_archive(rpath, index)
+    sec["verify_archive"] = time.perf_counter() - t0
+    if n_checked != len(index):
+        raise AssertionError("scaffolds: not every barcode was verified")
+    stage("debug_current", ["debug_current", "-i", path(LEVEL_FILES[6])]
+          + archive, profiled=True)
+    # the contig graph of the extended sequences (no command of its
+    # own), then its k=31 recount over the library
+    t0 = time.perf_counter()
+    contigs = path("contigs.bin")
+    asmg.save_graph(graph_from_contigs(
+        [s for _, s in read_fasta(path(SCAFFOLD_FILES[3]))], K_LEVELS),
+        contigs)
+    sec["contig_graph"] = time.perf_counter() - t0
+    stage("build_coverage", ["build_coverage", "-i", contigs] + library,
+          profiled=True)
+    recount = path(f"graph_k_{K_LEVELS}_recount.bin")
+    g_ext = asmg.load_graph(recount)
+    check_graph(g_ext, check_seq=False)
+    stage("build_barcode", ["build_barcode", "-i", recount] + archive,
+          profiled=True)
+    stage("scaffold", ["scaffold", "-i", path(SCAFFOLD_FILES[4])])
+    stage("local_assembly", ["local_assembly", "-i",
+                             path(SCAFFOLD_FILES[4]), "-t",
+                             str(BRIDGE_THREADS)] + archive,
+          profiled=True)
+    launches = nw_align.COUNT.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls, busy = stage_walls(), prof.busy
+    parts, outcomes = dict(bridge.BRIDGE_PROF), dict(bridge.BRIDGE_COUNTS)
+
+    g = asmg.load_graph(path(SCAFFOLD_FILES[4]))
+    # what the head of every verified map_reads call costs: packing
+    # the contig pool on the host and copying it over
+    pool_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        index = load_barcode_index(rpath.idx_path)
-        n_checked = verify_read_archive(rpath, index)
-        sec["verify_archive"] = time.perf_counter() - t0
-        if n_checked != len(index):
-            raise AssertionError("scaffolds: not every barcode was verified")
-        stage("debug_current", ["debug_current", "-i", path(LEVEL_FILES[6])]
-              + archive, profiled=True)
-        # the contig graph of the extended sequences (no command of its
-        # own), then its k=31 recount over the library
-        t0 = time.perf_counter()
-        contigs = path("contigs.bin")
-        asmg.save_graph(graph_from_contigs(
-            [s for _, s in read_fasta(path(SCAFFOLD_FILES[3]))], K_LEVELS),
-            contigs)
-        sec["contig_graph"] = time.perf_counter() - t0
-        stage("build_coverage", ["build_coverage", "-i", contigs] + library,
-              profiled=True)
-        recount = path(f"graph_k_{K_LEVELS}_recount.bin")
-        g_ext = asmg.load_graph(recount)
-        check_graph(g_ext, check_seq=False)
-        stage("build_barcode", ["build_barcode", "-i", recount] + archive,
-              profiled=True)
-        stage("scaffold", ["scaffold", "-i", path(SCAFFOLD_FILES[4])])
-        stage("local_assembly", ["local_assembly", "-i",
-                                 path(SCAFFOLD_FILES[4]), "-t",
-                                 str(BRIDGE_THREADS)] + archive,
-              profiled=True)
-        launches = nw_align.COUNT.launches
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        walls, busy = stage_walls(), prof.busy
-        parts, outcomes = dict(bridge.BRIDGE_PROF), dict(bridge.BRIDGE_COUNTS)
+        _device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
+        torch.cuda.synchronize()
+        pool_ms.append((time.perf_counter() - t0) * 1e3)
+    n_pairs = file_bytes(rpath.R1_path).count(b"\n") // 4
+    with open(path("assembly.log")) as fp:
+        aux = [ln for ln in fp if "aux info:" in ln][-1]
+    words = aux.split("aux info:")[1].replace(",", " ").split()
+    aux_pairs, aux_mapped, n_cand = (int(words[i]) for i in (0, 2, 5))
+    mapped = aux_mapped / (2 * aux_pairs)
+    lens = g.edge_len()
+    alive = g.alive_mask()
+    long_e = np.flatnonzero(alive & (lens >= THRES_LENGTH))
+    n_scaf = [len(g.barcodes_scaf[e]) for e in long_e]
+    lines = file_bytes(path(SCAFFOLD_FILES[6])).decode().split("\n")
+    paths = [list(map(int, lines[i].split()))
+             for i in range(2, 2 + 2 * int(lines[0]), 2)]
+    scaf_lens = [len(s) for _, s in read_fasta(path(SCAFFOLD_FILES[5]))]
+    contig_n50 = n50(lens[alive][::2])
+    scaf_n50 = n50(scaf_lens)
+    placed = place_contigs(g, genome)
+    n_adj = n_good = 0
+    for p in paths:
+        for a, b in zip(p, p[1:]):
+            n_adj += 1
+            if a not in placed or b not in placed:
+                continue
+            (sa, ea, ra), (sb, eb, rb) = placed[a], placed[b]
+            gap = sb - ea if ra == 0 else sa - eb
+            # neighbours on the genome: one repeat copy apart
+            n_good += ra == rb and -K_LEVELS <= gap <= 3_000 + 2_000
 
-        g = asmg.load_graph(path(SCAFFOLD_FILES[4]))
-        # what the head of every verified map_reads call costs: packing
-        # the contig pool on the host and copying it over
-        pool_ms = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
-            torch.cuda.synchronize()
-            pool_ms.append((time.perf_counter() - t0) * 1e3)
-        n_pairs = file_bytes(rpath.R1_path).count(b"\n") // 4
-        with open(path("assembly.log")) as fp:
-            aux = [ln for ln in fp if "aux info:" in ln][-1]
-        words = aux.split("aux info:")[1].replace(",", " ").split()
-        aux_pairs, aux_mapped, n_cand = (int(words[i]) for i in (0, 2, 5))
-        mapped = aux_mapped / (2 * aux_pairs)
-        lens = g.edge_len()
-        alive = g.alive_mask()
-        long_e = np.flatnonzero(alive & (lens >= THRES_LENGTH))
-        n_scaf = [len(g.barcodes_scaf[e]) for e in long_e]
-        lines = file_bytes(path(SCAFFOLD_FILES[6])).decode().split("\n")
-        paths = [list(map(int, lines[i].split()))
-                 for i in range(2, 2 + 2 * int(lines[0]), 2)]
-        scaf_lens = [len(s) for _, s in read_fasta(path(SCAFFOLD_FILES[5]))]
-        contig_n50 = n50(lens[alive][::2])
-        scaf_n50 = n50(scaf_lens)
-        placed = place_contigs(g, genome)
-        n_adj = n_good = 0
-        for p in paths:
-            for a, b in zip(p, p[1:]):
-                n_adj += 1
-                if a not in placed or b not in placed:
-                    continue
-                (sa, ea, ra), (sb, eb, rb) = placed[a], placed[b]
-                gap = sb - ea if ra == 0 else sa - eb
-                # neighbours on the genome: one repeat copy apart
-                n_good += ra == rb and -K_LEVELS <= gap <= 3_000 + 2_000
+    log(f"scaffolds full width ({len(genome)} bp in 12 segments between "
+        f"11 identical 3,000 bp repeat copies, {n_pairs} pairs of 150 bp "
+        f"in {len(index)} barcodes, k={K_LEVELS}, min count "
+        f"{MIN_COUNT_LEVELS}): level 2 -> {int(alive.sum()) // 2} contigs "
+        f"({len(long_e) // 2} of {THRES_LENGTH} bp and more), contig N50 "
+        f"{contig_n50}, {len(paths)} multi-contig paths, scaffold N50 "
+        f"{scaf_n50}; peak device memory {peak:.2f} GiB")
+    log("scaffolds stage seconds: FASTQ write %.3f, " % t_write
+        + ", ".join(f"{k_} {sec[k_]:.3f}" for k_ in (
+            "basic", "sort_read", "verify_archive", "debug_current",
+            "contig_graph", "build_coverage", "build_barcode",
+            "scaffold", "local_assembly"))
+        + " (debug_current = read-pair counts + extension + graph load; "
+        "the four profiled stages' walls hold the profiler's overhead)")
+    log("scaffolds stage parts, seconds: " + ", ".join(
+        f"{k_} {walls.get(k_, 0.0):.3f}" for k_ in (
+            "rp_count.index", "rp_count.parse", "rp_count.map",
+            "rp_count.tally", "extend", "recount.table", "recount.parse",
+            "recount.count", "recount.join", "aux.index", "aux.parse",
+            "aux.map", "aux.attach"))
+        + "; contig pool pack + copy, paid at the head of every verified "
+        "map_reads call (two a batch in each map stage): "
+        + ", ".join(f"{m:.1f}" for m in pool_ms) + " ms")
+    for name, what in (("debug_current", "rp-count map (+ extension)"),
+                       ("build_coverage", "k=31 recount"),
+                       ("build_barcode", "aux map"),
+                       ("local_assembly", "bridge stage")):
+        if busy[name] == 0:
+            log(f"scaffolds {what}: device busy not measured (the "
+                "profiler saw no device time)")
+        else:
+            log(f"scaffolds {what}: wall {sec[name]:.3f} s, device busy "
+                f"{busy[name]:.4f} s ({busy[name] / sec[name] * 100:.2f}"
+                "%)")
+    log("scaffolds NW kernel, pairs in launches per stage: " + ", ".join(
+        f"{k_} {nw[k_][0]} in {nw[k_][1]}"
+        + (" (B, Lq, Lt) " + " ".join(map(str, nw[k_][2]))
+           if nw[k_][2] else "") for k_ in nw)
+        + f"; aux stage mapped {aux_mapped} of {2 * aux_pairs} reads "
+        f"({mapped * 100:.2f}%)")
+    log(f"scaffolds paths: {n_good} of {n_adj} adjacent contig pairs are "
+        f"neighbours and co-oriented on the genome; barcodes in "
+        f"barcodes_scaf of the long contigs: min {min(n_scaf)}, median "
+        f"{int(np.median(n_scaf))}; {n_cand} candidate pairs")
+    if aux_pairs != n_pairs:
+        raise AssertionError("scaffolds: the aux stage saw "
+                             f"{aux_pairs} pairs of {n_pairs}")
+    if mapped < 0.95:
+        raise AssertionError(f"scaffolds: only {mapped:.4f} of the "
+                             "reads mapped in the aux stage")
+    for name in ("debug_current", "build_barcode"):
+        if nw[name][1] < 1:
+            raise AssertionError(f"scaffolds: `{name}` launched the NW "
+                                 "kernel no time")
+    if len(long_e) < 24:
+        raise AssertionError(f"scaffolds: {len(long_e) // 2} contigs of "
+                             f"{THRES_LENGTH} bp, expected at least 12")
+    if min(n_scaf) < MIN_SHARE_BARCODE:
+        raise AssertionError(f"scaffolds: a long contig has {min(n_scaf)}"
+                             f" barcodes, under {MIN_SHARE_BARCODE}")
+    if not paths:
+        raise AssertionError("scaffolds: no multi-contig path")
+    if n_good < 0.9 * n_adj:
+        raise AssertionError(f"scaffolds: {n_good} of {n_adj} adjacent "
+                             "pairs lie so on the genome, under 90%")
+    if scaf_n50 <= contig_n50:
+        raise AssertionError(f"scaffolds: scaffold N50 {scaf_n50} is not "
+                             f"above contig N50 {contig_n50}")
 
-        log(f"scaffolds full width ({len(genome)} bp in 12 segments between "
-            f"11 identical 3,000 bp repeat copies, {n_pairs} pairs of 150 bp "
-            f"in {len(index)} barcodes, k={K_LEVELS}, min count "
-            f"{MIN_COUNT_LEVELS}): level 2 -> {int(alive.sum()) // 2} contigs "
-            f"({len(long_e) // 2} of {THRES_LENGTH} bp and more), contig N50 "
-            f"{contig_n50}, {len(paths)} multi-contig paths, scaffold N50 "
-            f"{scaf_n50}; peak device memory {peak:.2f} GiB")
-        log("scaffolds stage seconds: FASTQ write %.3f, " % t_write
-            + ", ".join(f"{k_} {sec[k_]:.3f}" for k_ in (
-                "basic", "sort_read", "verify_archive", "debug_current",
-                "contig_graph", "build_coverage", "build_barcode",
-                "scaffold", "local_assembly"))
-            + " (debug_current = read-pair counts + extension + graph load; "
-            "the four profiled stages' walls hold the profiler's overhead)")
-        log("scaffolds stage parts, seconds: " + ", ".join(
-            f"{k_} {walls.get(k_, 0.0):.3f}" for k_ in (
-                "rp_count.index", "rp_count.parse", "rp_count.map",
-                "rp_count.tally", "extend", "recount.table", "recount.parse",
-                "recount.count", "recount.join", "aux.index", "aux.parse",
-                "aux.map", "aux.attach"))
-            + "; contig pool pack + copy, paid at the head of every verified "
-            "map_reads call (two a batch in each map stage): "
-            + ", ".join(f"{m:.1f}" for m in pool_ms) + " ms")
-        for name, what in (("debug_current", "rp-count map (+ extension)"),
-                           ("build_coverage", "k=31 recount"),
-                           ("build_barcode", "aux map"),
-                           ("local_assembly", "bridge stage")):
-            if busy[name] == 0:
-                log(f"scaffolds {what}: device busy not measured (the "
-                    "profiler saw no device time)")
-            else:
-                log(f"scaffolds {what}: wall {sec[name]:.3f} s, device busy "
-                    f"{busy[name]:.4f} s ({busy[name] / sec[name] * 100:.2f}"
-                    "%)")
-        log("scaffolds NW kernel, pairs in launches per stage: " + ", ".join(
-            f"{k_} {nw[k_][0]} in {nw[k_][1]}"
-            + (" (B, Lq, Lt) " + " ".join(map(str, nw[k_][2]))
-               if nw[k_][2] else "") for k_ in nw)
-            + f"; aux stage mapped {aux_mapped} of {2 * aux_pairs} reads "
-            f"({mapped * 100:.2f}%)")
-        log(f"scaffolds paths: {n_good} of {n_adj} adjacent contig pairs are "
-            f"neighbours and co-oriented on the genome; barcodes in "
-            f"barcodes_scaf of the long contigs: min {min(n_scaf)}, median "
-            f"{int(np.median(n_scaf))}; {n_cand} candidate pairs")
-        if aux_pairs != n_pairs:
-            raise AssertionError("scaffolds: the aux stage saw "
-                                 f"{aux_pairs} pairs of {n_pairs}")
-        if mapped < 0.95:
-            raise AssertionError(f"scaffolds: only {mapped:.4f} of the "
-                                 "reads mapped in the aux stage")
-        for name in ("debug_current", "build_barcode"):
-            if nw[name][1] < 1:
-                raise AssertionError(f"scaffolds: `{name}` launched the NW "
-                                     "kernel no time")
-        if len(long_e) < 24:
-            raise AssertionError(f"scaffolds: {len(long_e) // 2} contigs of "
-                                 f"{THRES_LENGTH} bp, expected at least 12")
-        if min(n_scaf) < MIN_SHARE_BARCODE:
-            raise AssertionError(f"scaffolds: a long contig has {min(n_scaf)}"
-                                 f" barcodes, under {MIN_SHARE_BARCODE}")
-        if not paths:
-            raise AssertionError("scaffolds: no multi-contig path")
-        if n_good < 0.9 * n_adj:
-            raise AssertionError(f"scaffolds: {n_good} of {n_adj} adjacent "
-                                 "pairs lie so on the genome, under 90%")
-        if scaf_n50 <= contig_n50:
-            raise AssertionError(f"scaffolds: scaffold N50 {scaf_n50} is not "
-                                 f"above contig N50 {contig_n50}")
-
-        # the bridge stage and the final assembly against the genome
-        t0 = time.perf_counter()
-        contigs = [sq for _, sq in read_fasta(path(FINAL))]
-        acgt = np.frombuffer(b"ACGT", np.uint8)
-        res = evaluate_assembly(contigs, acgt[genome].tobytes().decode())
-        t_eval = time.perf_counter() - t0
-        log(f"bridge stage (-t {BRIDGE_THREADS}): wall "
-            f"{sec['local_assembly']:.3f} s; parts, thread-seconds: "
-            + ", ".join(f"{k_} {parts.get(k_, 0.0):.3f}" for k_ in (
-                "prebuild", "flank_map", "filters", "kmer_set",
-                "path_search", "score_paths"))
-            + f"; bridges dump {outcomes['dump']}, trivial "
-            f"{outcomes['trivial']}, path {outcomes['path']}, no-path "
-            f"{outcomes['no_path']}; score_paths calls "
-            f"{outcomes.get('score_paths.calls', 0)} over "
-            f"{outcomes.get('score_paths.paths', 0)} candidate paths; NW "
-            f"{nw['local_assembly'][0]} pairs in {nw['local_assembly'][1]} "
-            "launches")
-        log(f"final assembly: {len(contigs)} records "
-            f"({', '.join(str(len(c)) for c in contigs[:6])}"
-            f"{' ...' if len(contigs) > 6 else ''} bp); {res}; "
-            f"evaluate {t_eval:.3f} s")
-        if res.n_misassemblies != 0:
-            raise AssertionError(f"final assembly: {res.n_misassemblies} "
-                                 "misassemblies")
-        if res.genome_fraction <= 0.97:
-            raise AssertionError(f"final assembly: genome fraction "
-                                 f"{res.genome_fraction:.4f} <= 0.97")
-        if res.nga50 < 0.9 * len(genome):
-            raise AssertionError(f"final assembly: NGA50 {res.nga50} < 0.9 "
-                                 "x genome")
-        if outcomes["dump"] or outcomes["no_path"]:
-            raise AssertionError(f"final assembly: {outcomes['dump']} gaps "
-                                 f"dumped, {outcomes['no_path']} without a "
-                                 "path")
+    # the bridge stage and the final assembly against the genome
+    t0 = time.perf_counter()
+    contigs = [sq for _, sq in read_fasta(path(FINAL))]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    res = evaluate_assembly(contigs, acgt[genome].tobytes().decode())
+    t_eval = time.perf_counter() - t0
+    log(f"bridge stage (-t {BRIDGE_THREADS}): wall "
+        f"{sec['local_assembly']:.3f} s; parts, thread-seconds: "
+        + ", ".join(f"{k_} {parts.get(k_, 0.0):.3f}" for k_ in (
+            "prebuild", "flank_map", "filters", "kmer_set",
+            "path_search", "score_paths"))
+        + f"; bridges dump {outcomes['dump']}, trivial "
+        f"{outcomes['trivial']}, path {outcomes['path']}, no-path "
+        f"{outcomes['no_path']}; score_paths calls "
+        f"{outcomes.get('score_paths.calls', 0)} over "
+        f"{outcomes.get('score_paths.paths', 0)} candidate paths; NW "
+        f"{nw['local_assembly'][0]} pairs in {nw['local_assembly'][1]} "
+        "launches")
+    log(f"final assembly: {len(contigs)} records "
+        f"({', '.join(str(len(c)) for c in contigs[:6])}"
+        f"{' ...' if len(contigs) > 6 else ''} bp); {res}; "
+        f"evaluate {t_eval:.3f} s")
+    if res.n_misassemblies != 0:
+        raise AssertionError(f"final assembly: {res.n_misassemblies} "
+                             "misassemblies")
+    if res.genome_fraction <= 0.97:
+        raise AssertionError(f"final assembly: genome fraction "
+                             f"{res.genome_fraction:.4f} <= 0.97")
+    if res.nga50 < 0.9 * len(genome):
+        raise AssertionError(f"final assembly: NGA50 {res.nga50} < 0.9 "
+                             "x genome")
+    if outcomes["dump"] or outcomes["no_path"]:
+        raise AssertionError(f"final assembly: {outcomes['dump']} gaps "
+                             f"dumped, {outcomes['no_path']} without a "
+                             "path")
     # `basic` launches the bubble check, the mapper stages the remainder
     # DP; the bridge stage both: its local graphs' bubble check pads both
     # branches to one width (Lq == Lt), its path scoring is the mapper's
     # DP (Lt = Lq + 32)
     return launches, [("bubble" if name == "basic" or sh[1] == sh[2]
                        else "map", sh)
-                      for name in nw for sh in nw[name][2]]
+                      for name in nw for sh in nw[name][2]], out, genome
 
 
 def phase_path_scoring(n_pairs=5_000):
@@ -1175,6 +1204,245 @@ def phase_path_scoring(n_pairs=5_000):
     return launches, [("map", sh) for sh in shapes]
 
 
+# ---------------------------------------------------------------------------
+# barcode levels: level 2 -> 3 -> aux info -> 4 -> 5, and the commands
+# beside them (resolve_n_m, resolve_212_cov, build_barcode_fasta and
+# _fastg, mm_index, barcode_hit)
+# ---------------------------------------------------------------------------
+
+def cli_printed(args):
+    """cli.main(args) with its standard output captured: (rc, text)."""
+    from turingassembler_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    return rc, buf.getvalue()
+
+
+def dir_files(d):
+    """{relative path: bytes} of the files under d, the logs left out
+    (they carry times)."""
+    got = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            if f != "assembly.log":
+                got[os.path.relpath(os.path.join(root, f), d)] = \
+                    file_bytes(os.path.join(root, f))
+    return got
+
+
+def write_fastg(fasta, path):
+    """An adjacency-free FASTG of a FASTA's contigs, each with its rc
+    record, as tests/test_cli_variants.py writes one."""
+    from turingassembler_tpu_torch.io.fasta import read_fasta
+    comp = str.maketrans("ACGT", "TGCA")
+    with open(path, "w") as fp:
+        for i, (_, sq) in enumerate(read_fasta(fasta), 1):
+            fp.write(f">EDGE_{i}_length_{len(sq)}_cov_10;\n{sq}\n")
+            fp.write(f">EDGE_{i}_length_{len(sq)}_cov_10';\n"
+                     f"{sq[::-1].translate(comp)}\n")
+
+
+def level_bin(out, suffix, sub=""):
+    return os.path.join(out, sub, f"graph_k_{K_LEVELS}_{suffix}.bin")
+
+
+def sorted_archive(d):
+    return ["-l", "sorted", "-1", os.path.join(d, SCAFFOLD_FILES[0]), "-2",
+            os.path.join(d, SCAFFOLD_FILES[1]), "-I",
+            os.path.join(d, SCAFFOLD_FILES[2])]
+
+
+def phase_barcode_levels(parity_out, full_out, genome):
+    """(a) On phase 8's 65 kbp outputs, on the card: build_2_3,
+    build_barcode on level 3, build_3_4, build_4_5, resolve_n_m and
+    resolve_212_cov on the aux-info graph, build_barcode_fasta,
+    build_barcode_fastg, mm_index and barcode_hit; the last four, which
+    touch the device, again on the CPU, every file and printed line
+    equal.  (b) On phase 9's 2 Mbp outputs with --device cuda, the
+    level chain build_2_3 -> build_barcode -> build_3_4 -> build_4_5
+    (upstream src/process.c:218-246): stage seconds, device busy, NW
+    launches, reads mapped, live edges and N50 a level, and the level-4
+    and level-5 contigs against the genome."""
+    from turingassembler_tpu_torch import cli
+    from turingassembler_tpu_torch.barcode.sort_read import load_barcode_index
+    from turingassembler_tpu_torch.evaluate import evaluate_assembly
+    from turingassembler_tpu_torch.graph.invariants import check_graph
+    from turingassembler_tpu_torch.io import asmg
+    from turingassembler_tpu_torch.io.fasta import read_fasta
+    from turingassembler_tpu_torch.io.fastq import encode_barcode
+    from turingassembler_tpu_torch.logging_utils import (reset_stage_walls,
+                                                         stage_walls)
+    from turingassembler_tpu_torch.ops import nw_align
+
+    # (a) card == CPU at 65 kbp
+    t_a = time.perf_counter()
+    work = os.path.dirname(parity_out)
+    lvl2 = os.path.join(parity_out, LEVEL_FILES[6])
+    lvl2_fasta = os.path.join(parity_out, LEVEL_FILES[8])
+    fastg = os.path.join(work, "level_2.fastg")
+    write_fastg(lvl2_fasta, fastg)
+    archive = sorted_archive(parity_out)
+    index = load_barcode_index(os.path.join(parity_out, SCAFFOLD_FILES[2]))
+    # the barcode with the most reads, as its 18-base index read spells it
+    bc_seq = encode_barcode(max(index, key=lambda b: index[b][2]),
+                            18).decode()
+    runs, shapes = {}, []
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"levels_{dev}")
+        steps = [
+            ("build_2_3", ["-i", lvl2], ""),
+            ("build_barcode", ["-i", level_bin(out, "level_3")] + archive, ""),
+            ("build_3_4", ["-i", level_bin(out, "added_barcode")], ""),
+            ("build_4_5", ["-i", level_bin(out, "level_4")], ""),
+            ("resolve_n_m", ["-i", level_bin(out, "added_barcode")], "n_m"),
+            ("resolve_212_cov", ["-i", level_bin(out, "added_barcode")],
+             "212"),
+            ("build_barcode_fasta", ["-f", lvl2_fasta] + archive, "fasta"),
+            ("build_barcode_fastg", ["-f", fastg] + archive, "fastg"),
+            ("mm_index", ["-i", lvl2], "mm"),
+            ("barcode_hit", ["-i", lvl2, "-f", bc_seq] + archive, "hit")]
+        if dev == "cpu":        # the host passes are held against JAX by
+            steps = steps[6:]   # the tests; the CPU reruns the device four
+        n_shapes = len(nw_align.COUNT.shapes)
+        before = nw_align.COUNT.launches
+        t0 = time.perf_counter()
+        printed = {}
+        for name, args, sub in steps:
+            rc, printed[name] = cli_printed(
+                [name] + args + ["-k0", str(K_LEVELS), "-o",
+                                 os.path.join(out, sub), "--device", dev])
+            if rc != 0:
+                raise AssertionError(f"barcode levels: `{name}` on {dev} "
+                                     f"returned {rc}")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            shapes += nw_align.COUNT.shapes[n_shapes:]
+            launched_a = nw_align.COUNT.launches - before
+        runs[dev] = (dir_files(out), printed, time.perf_counter() - t0)
+    files = runs["cpu"][0]
+    card = {k_: v for k_, v in runs["cuda"][0].items()
+            if k_.split(os.sep)[0] in ("fasta", "fastg", "mm", "hit")}
+    if sorted(files) != sorted(card) or not files:
+        raise AssertionError("barcode levels: card and CPU wrote other files")
+    for name in files:
+        if files[name] != card[name]:
+            raise AssertionError(f"barcode levels: {name} differs card vs "
+                                 "CPU")
+    for name in ("mm_index", "barcode_hit"):
+        if runs["cuda"][1][name] != runs["cpu"][1][name] \
+                or not runs["cuda"][1][name].strip():
+            raise AssertionError(f"barcode levels: `{name}` printed other "
+                                 "lines card vs CPU, or none")
+    if launched_a < 1:
+        raise AssertionError("barcode levels: the NW kernel never launched "
+                             "on the card at 65 kbp")
+    alive = {lv: int(asmg.load_graph(level_bin(
+        os.path.join(work, "levels_cuda"), lv)).alive_mask().sum())
+        for lv in ("level_3", "level_4", "level_5")}
+    log(f"barcode levels parity ({PARITY_GENOME} bp, {PARITY_SEGMENTS} "
+        f"segments): ten commands on the card; card == CPU for all "
+        f"{len(files)} files of the four that touch the device, and "
+        f"mm_index's and barcode_hit's lines "
+        f"({runs['cuda'][1]['mm_index'].strip()}; barcode_hit "
+        f"{len(runs['cuda'][1]['barcode_hit'].splitlines())} edges); live "
+        f"edges level 3 / 4 / 5 {alive['level_3']} / {alive['level_4']} / "
+        f"{alive['level_5']}; {launched_a} NW launches on the card; card "
+        f"{runs['cuda'][2]:.3f} s, CPU {runs['cpu'][2]:.3f} s, phase part "
+        f"{time.perf_counter() - t_a:.3f} s")
+
+    # (b) the level chain at 2 Mbp, --device cuda
+    out = os.path.join(os.path.dirname(full_out), "levels")
+    steps = [("build_2_3", ["-i", os.path.join(full_out, LEVEL_FILES[6])]),
+             ("build_barcode", ["-i", level_bin(out, "level_3")]
+              + sorted_archive(full_out)),
+             ("build_3_4", ["-i", level_bin(out, "added_barcode")]),
+             ("build_4_5", ["-i", level_bin(out, "level_4")])]
+    prof = StageProfiler(host_ops=False)
+    sec, nw = {}, {}
+    reset_stage_walls()
+    nw_align.COUNT.reset()
+    for name, args in steps:
+        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof.around(name):
+            rc = cli.main([name] + args + ["-k0", str(K_LEVELS), "-o", out,
+                                           "--device", "cuda"])
+            torch.cuda.synchronize()
+            sec[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"barcode levels: `{name}` returned {rc}")
+        nw[name] = (nw_align.COUNT.pairs - before[1],
+                    nw_align.COUNT.launches - before[0])
+    launches = nw_align.COUNT.launches
+    shapes += list(nw_align.COUNT.shapes)
+    walls, busy = stage_walls(), prof.busy
+
+    with open(os.path.join(out, "assembly.log")) as fp:
+        aux = [ln for ln in fp if "aux info:" in ln][-1]
+    words = aux.split("aux info:")[1].replace(",", " ").split()
+    aux_pairs, aux_mapped = int(words[0]), int(words[2])
+    mapped = aux_mapped / (2 * aux_pairs)
+    levels = {}
+    for lv, path in (("2", os.path.join(full_out, LEVEL_FILES[6])),
+                     ("3", level_bin(out, "level_3")),
+                     ("3+aux", level_bin(out, "added_barcode")),
+                     ("4", level_bin(out, "level_4")),
+                     ("5", level_bin(out, "level_5"))):
+        g = asmg.load_graph(path)
+        check_graph(g, check_seq=False)
+        live = np.flatnonzero(g.alive_mask())
+        one = live[live <= g.edge_rc[live]]          # one edge an rc pair
+        levels[lv] = (len(live), n50(g.edge_len()[one]))
+    t0 = time.perf_counter()
+    genome_str = np.frombuffer(b"ACGT", np.uint8)[genome].tobytes().decode()
+    evals, contigs_of = {}, {}
+    for lv in ("4", "5"):
+        contigs_of[lv] = [sq for _, sq in read_fasta(os.path.join(
+            out, f"graph_k_{K_LEVELS}_level_{lv}.fasta"))]
+        # the same contigs in the same order give the same report
+        evals[lv] = evals["4"] if lv == "5" and \
+            contigs_of["5"] == contigs_of["4"] \
+            else evaluate_assembly(contigs_of[lv], genome_str)
+    t_eval = time.perf_counter() - t0
+
+    log("barcode levels full width (phase 9's 2 Mbp level 2 and sorted "
+        f"archive, {aux_pairs} pairs): stage seconds "
+        + ", ".join(f"{k_} {v:.3f}" for k_, v in sec.items())
+        + "; aux parts " + ", ".join(
+            f"{k_} {walls.get(k_, 0.0):.3f}" for k_ in (
+                "aux.index", "aux.parse", "aux.map", "aux.attach"))
+        + f"; evaluate {t_eval:.3f}")
+    for name in sec:
+        if busy.get(name, 0.0) == 0:
+            log(f"barcode levels `{name}`: device busy not measured (the "
+                "profiler saw no device time)")
+        else:
+            log(f"barcode levels `{name}`: wall {sec[name]:.3f} s, device "
+                f"busy {busy[name]:.4f} s "
+                f"({busy[name] / sec[name] * 100:.2f}%)")
+    log("barcode levels NW kernel, pairs in launches per stage: "
+        + ", ".join(f"{k_} {p} in {n}" for k_, (p, n) in nw.items())
+        + f"; aux map mapped {aux_mapped} of {2 * aux_pairs} reads "
+        f"({mapped * 100:.2f}%)")
+    log("barcode levels, live edges and N50 a level: " + ", ".join(
+        f"level {lv} {n} edges N50 {m}" for lv, (n, m) in levels.items()))
+    for lv in ("4", "5"):
+        log(f"barcode levels, level {lv} FASTA ({len(contigs_of[lv])} "
+            f"records) against the genome: {evals[lv]}")
+    if nw["build_barcode"][1] < 1:
+        raise AssertionError("barcode levels: the aux map launched the NW "
+                             "kernel no time")
+    if mapped < 0.95:
+        raise AssertionError(f"barcode levels: only {mapped:.4f} of the "
+                             "reads mapped")
+    if levels["4"][0] > levels["3"][0]:
+        raise AssertionError("barcode levels: level 4 has more live edges "
+                             "than level 3")
+    return launches, [("map", sh) for sh in shapes]
+
+
 def build_kernels():
     from turingassembler_tpu_torch import _build
     t0 = time.perf_counter()
@@ -1202,11 +1470,19 @@ def main():
     phase(phase_levels_parity)
     n, sh = phase(phase_levels_full_width)
     launches, shapes = launches + n, shapes + sh
-    phase(phase_scaffold_parity)
-    n, sh = phase(phase_scaffold_full_width)
-    launches, shapes = launches + n, shapes + sh
-    n, sh = phase(phase_path_scoring)
-    launches, shapes = launches + n, shapes + sh
+    # phase 11 reads what phases 8 and 9 wrote
+    with tempfile.TemporaryDirectory() as work:
+        os.makedirs(os.path.join(work, "parity"))
+        os.makedirs(os.path.join(work, "full"))
+        parity_out = phase(phase_scaffold_parity,
+                           os.path.join(work, "parity"))
+        n, sh, full_out, genome = phase(phase_scaffold_full_width,
+                                        os.path.join(work, "full"))
+        launches, shapes = launches + n, shapes + sh
+        n, sh = phase(phase_path_scoring)
+        launches, shapes = launches + n, shapes + sh
+        n, sh = phase(phase_barcode_levels, parity_out, full_out, genome)
+        launches, shapes = launches + n, shapes + sh
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
                             phase(phase_hold_path_shapes, shapes))

@@ -281,6 +281,19 @@ def test_host_build_vs_port_device_build(seed):
     assert_graphs_equal(host, dev)
 
 
+def test_first_seen_build_equals_native_build():
+    """With first_seen=True the port's host build numbers nodes as the
+    JAX package's committed C++ library does (ta_unique_ids): the graph
+    arrays are equal, not only isomorphic.  The spilled count's level 0
+    takes this numbering (pipeline.build_0)."""
+    assert jbuild._NATIVE_GRAPH is not None
+    ke, c = kedge_table(20)
+    gj = jbuild.build_graph_from_kedges(ke, c, 31)
+    gt = tbuild.build_graph_from_kedges(ke, c, 31, first_seen=True)
+    assert gt.n_e >= 20
+    assert_graphs_equal(gj, gt)
+
+
 def test_graphs_isomorphic_refuses():
     ke, c = kedge_table(20)
     g = tbuild.build_graph_from_kedges(ke, c, 31)

@@ -31,6 +31,7 @@ import torch
 
 from turingassembler_tpu import config as jcfg
 from turingassembler_tpu import pipeline as jpipe
+from turingassembler_tpu.graph import build as jbuild
 from turingassembler_tpu.graph.device_build import \
     build_graph_on_device as j_build_on_device
 from turingassembler_tpu.graph.invariants import check_graph as jcheck
@@ -183,19 +184,39 @@ def test_resume_from_jax_bin(case):
     assert_same_files(case["jcfg"].out_dir, back, FILES[6:])
 
 
-def test_spilled_count_same_level0(case):
+def test_spilled_count_same_level0(case, monkeypatch):
     """Budgets low enough for several disk runs: build_0 builds level 0
-    on the host, and its files equal the in-memory run's (the port's
-    host and device builds number nodes alike)."""
+    on the host, and the level 0, 1, 2 files equal those of the JAX
+    accelerator branch under the same budgets, whose count then returns
+    host arrays and whose host build numbers nodes by first appearance
+    with its committed C++ library."""
+    lanes, host_mb = 50_000, 0.5
     out = os.path.join(case["dir"], "port_spill")
     cfg = convert.config(case["jcfg"]).replace(out_dir=out)
     cfg = cfg.replace(device=dataclasses.replace(
-        cfg.device, sort_device_lanes=50_000, sort_host_mb=0.5))
+        cfg.device, sort_device_lanes=lanes, sort_host_mb=host_mb))
     tpipe.build_0(cfg, device="cpu")
+    tpipe.build_0_1(cfg, device="cpu")
+    tpipe.build_1_2(cfg)
     runs = [f for f in os.listdir(os.path.join(out, "spill"))
             if f.startswith("count_run") and f.endswith("_keys.npy")]
     assert len(runs) >= 2
-    assert_same_files(case["jcfg"].out_dir, out, FILES[:3])
+
+    assert jbuild._NATIVE_GRAPH is not None
+    jout = os.path.join(case["dir"], "jax_spill")
+    monkeypatch.setenv("TA_SORT_DEVICE_LANES", str(lanes))
+    monkeypatch.setenv("TA_SORT_HOST_MB", str(host_mb))
+    monkeypatch.setenv("TA_SPILL_DIR", os.path.join(jout, "spill"))
+    jc = case["jcfg"].replace(out_dir=jout)
+    res = j_count_device(jpipe._genomic_batches(jc), K, min_count=MC,
+                         out_cap_log2=17)
+    assert len(res) == 2
+    g = jbuild.build_graph_from_kedges(*res, K)
+    jcheck(g, check_seq=False)
+    jpipe.save_graph_info(g, jout, "level_0")
+    jpipe.build_1_2(jc, jpipe.build_0_1(jc, g))
+    assert len(os.listdir(os.path.join(jout, "spill"))) >= 2
+    assert_same_files(jout, out)
 
 
 def test_build_0_without_reads_exits():

@@ -6,8 +6,10 @@ kernel for Hopper (`ops/nw_align.py`, `csrc/nw_align.cu`); around it the
 staged pipeline from FASTQ files to the level 0-2 graphs and on to the
 barcode-sorted archive, the extended contigs, the per-contig barcode
 sets, the scaffolds and the per-gap local assemblies that bridge them
-into scaffold.full.fasta (`pipeline.py`, `cli.py`, `localasm/`), and
-the assembly's evaluation against a truth genome (`evaluate.py`).  The layout and
+into scaffold.full.fasta (`pipeline.py`, `cli.py`, `localasm/`), the
+barcode levels 3 -> 4 -> 5 and the rest of the JAX CLI's commands
+(`resolve/barcodes.py`, `resolve/big.py`, `io/fastg.py`), and the
+assembly's evaluation against a truth genome (`evaluate.py`).  The layout and
 function names follow `turingassembler_tpu`, which stays the reference
 every output is held against.
 
@@ -22,4 +24,7 @@ Entry points (each takes `device=`, default "cuda"):
   graph.device_build.build_graph_on_device
   mapper.minimizers.EdgeMinimizerIndex.build / map_reads
   ops.dp.affine_scores
+Host-only (no device): resolve.barcodes.resolve_n_m_simple /
+  resolve_n_m_bridges / resolve_complex, resolve.big.resolve_212_by_cov,
+  io.fastg.load_fastg
 """

@@ -2,10 +2,10 @@
 the host (a copy of turingassembler_tpu/graph/build.py without its
 C++ fast paths: chains are ranked by numpy pointer doubling, and nodes
 are numbered by np.unique, or in order of first appearance as the JAX
-package's C++ `ta_unique_ids` numbers them).  kmer/megasort.py's spill
-branch feeds it (sorted numbering, as graph/device_build.py gives the
-in-memory count); the per-gap local graphs of localasm/local.py take the
-first-appearance numbering, which is the JAX package's as it ships.
+package's C++ `ta_unique_ids` numbers them).  pipeline.build_0 feeds it
+the table of a spilled count, and localasm/local.py the per-gap tables;
+both take the first-appearance numbering, which is the JAX package's
+host build as it ships.
 
 Replaces the reference's kmhash-based build (src/kmer_build.c:78-649):
 

@@ -4,7 +4,8 @@ write_fasta: one record per rc edge pair, header
   >SEQ_<e>_<e_rc>_length_<len>_cov_<cov:.3f>
 80 columns, skipping edges in small connected components
 (reference src/assembly_graph.c:791-832; CC size filter MIN_CONNECT_SIZE,
-length filter MIN_NOTICE_LEN).
+length filter MIN_NOTICE_LEN).  write_fasta_all: every live edge, both
+strands, no filter (`bin2text`).
 
 write_gfa: S-lines named <e>_<e_rc>_cov_<cov:.3f> with Bandage KC tag,
 L-lines via target-node adjacency with <k>M overlaps (reference :860-932;
@@ -75,6 +76,20 @@ def write_fasta(g: AsmGraph, path: str) -> None:
                 continue
             if cc_size[cc_id[e]] < MIN_CONNECT_SIZE or g.edge_len(e) < MIN_NOTICE_LEN:
                 continue
+            fp.write(f">SEQ_{e}_{e_rc}_length_{int(lens_h[e])}_cov_{cov[e]:.3f}\n")
+            _emit_seq(fp, g.get_seq_str(e))
+
+
+def write_fasta_all(g: AsmGraph, path: str, min_len: int = 0) -> None:
+    """Unfiltered variant (reference write_stupid_fasta :832): every live
+    edge, both strands, no component filter."""
+    cov = g.edge_cov()
+    lens_h = g.edge_lens_with_holes()
+    with open(path, "w") as fp:
+        for e in range(g.n_e):
+            if g.edge_source[e] == -1 or g.edge_len(e) < min_len:
+                continue
+            e_rc = int(g.edge_rc[e])
             fp.write(f">SEQ_{e}_{e_rc}_length_{int(lens_h[e])}_cov_{cov[e]:.3f}\n")
             _emit_seq(fp, g.get_seq_str(e))
 

@@ -130,7 +130,9 @@ def build_0(cfg: Config, out_dir: Optional[str] = None,
         kedges, counts = res
         log.info("counted %d unique (k+1)-mers in %.1fs (spilled)",
                  len(kedges), t1 - t0)
-        g = build_graph_from_kedges(kedges, counts, k)
+        # nodes numbered by first appearance, as the JAX package's host
+        # build numbers them with its committed C++ library
+        g = build_graph_from_kedges(kedges, counts, k, first_seen=True)
     t2 = time.perf_counter()
     log.info("level-0 build in %.1fs: n_v=%d n_e=%d", t2 - t1, g.n_v, g.n_e)
     check_graph(g, check_seq=False)
