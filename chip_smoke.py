@@ -25,7 +25,7 @@ before printing a result:
      on the CPU, nine files byte-identical; once more with count budgets
      that force runs to disk, on the card and on the CPU: level 0's files
      byte-identical, and its graph isomorphic to the in-memory run's
-  7. levels at full width: a 500 kbp two-haplotype library (about 133k
+  7. levels at full width: a 250 kbp two-haplotype library (about 67k
      reads of 150 bp, 0.5% substitutions, k=45, min count 2; the depth
      is cut from 2 Mbp to keep the script short) through the CLI
      function, `basic --device cuda`: stage seconds, the bubble check's
@@ -66,9 +66,27 @@ before printing a result:
      it raises unless the aux map launched the kernel, >= 95% of reads
      mapped, every level passes check_graph and level 4 has no more live
      edges than level 3
+ 13. multi-process (run after phase 11, before the replay of phase 12,
+     which holds its shapes too): (a) `assembly3 --device cuda` through
+     the CLI as two ranks on cuda:0 under the Gloo control group, on
+     phase 8's library, beside the same two ranks on the CPU: both ranks
+     exit 0 and write their dist/ tables, every file card == CPU, level
+     0's contigs equal to phase 8's single-process run (other node
+     numbers) and both final assemblies correct on the genome; (b) two
+     ranks' stripes of phase 9's read-pair-count and aux-info maps on
+     the card (its 2 Mbp level 2, recount graph and 263,049-pair
+     archive: 3 batches, 2 on rank 0, 1 on rank 1), merged on rank 0:
+     phase 9's extend.fasta byte for byte, its barcode sets, and the
+     read-pair candidates (not in the .bin) of a single-process
+     construct_aux_info run beside the ranks, as dicts; a cross-process
+     mesh on the shared card must refuse; (c) 4 shards on cuda:0 at the
+     bench widths (262,144 reads of 150 bp, k=45): the sharded count ==
+     the single count with none dropped, the sharded verified map ==
+     map_reads.  Each rank prints its seconds and its NW launches; the
+     ranks' launches and (c)'s join the kernels line's count.  The ranks are this script again: `chip_smoke.py --rank <spec>`
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
-     9, 10 and 11 launched the kernel at, with their scoring and mode
- 13. the `kernels` JSON line, the nvidia-smi line, and last the result
+     9, 10, 11 and 13 launched the kernel at, with their scoring and mode
+ 14. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -683,7 +701,7 @@ def profile_count_and_build(cfg):
                 f"{len(batches[0][0])} reads)", st)
 
 
-def phase_levels_full_width(genome_len=500_000):
+def phase_levels_full_width(genome_len=250_000):
     from turingassembler_tpu_torch import cli
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph.invariants import check_graph
@@ -843,13 +861,21 @@ def phase_scaffold_parity(d):
     from turingassembler_tpu_torch import pipeline
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.localasm import bridge
+    from turingassembler_tpu_torch.logging_utils import (reset_stage_walls,
+                                                         set_log_stage,
+                                                         stage_walls)
     from turingassembler_tpu_torch.ops import nw_align
     genome, files = tt.linked_read_library(PARITY_GENOME, 41, d,
                                            n_segments=PARITY_SEGMENTS)
     out = {w: os.path.join(d, w) for w in ("card", "cpu")}
     before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+    # the stage clock starts here, not at the last stage of a phase before
+    set_log_stage("init")
+    reset_stage_walls()
+    t0 = time.perf_counter()
     pipeline.assembly3(linked_config(files, out["card"]), device="cuda")
     torch.cuda.synchronize()
+    t_card, walls = time.perf_counter() - t0, stage_walls()
     launched = nw_align.COUNT.launches - before[0]
     pairs = nw_align.COUNT.pairs - before[1]
     counts = dict(bridge.BRIDGE_COUNTS)
@@ -872,8 +898,10 @@ def phase_scaffold_parity(d):
         f"{MIN_COUNT_LEVELS}): card == CPU for all "
         f"{len(SCAFFOLD_FILES)} scaffold files, the {len(LEVEL_FILES)} "
         f"level files, {len(caches)} local graph caches and {FINAL}; "
-        f"bridges {counts}; {pairs} pairs in {launched} NW launches")
-    return out["card"]
+        f"bridges {counts}; {pairs} pairs in {launched} NW launches; the "
+        f"card run {t_card:.3f} s, stages " + ", ".join(
+            f"{k_} {v:.3f}" for k_, v in walls.items() if "." not in k_))
+    return out["card"], files, genome
 
 
 def place_contigs(g, genome, k=K_LEVELS, n_probe=24):
@@ -1443,6 +1471,414 @@ def phase_barcode_levels(parity_out, full_out, genome):
     return launches, [("map", sh) for sh in shapes]
 
 
+# ---------------------------------------------------------------------------
+# multi-process: assembly3 as two ranks on the one card, the rank stripes
+# of the two maps at 2 Mbp, and four shards of the sharded count and map
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+# phase 13 (c): the bench workload's widths on 4 shards of cuda:0
+SHARDS, SHARD_READS, SHARD_INDEL = 4, 262_144, 16_384
+
+
+def free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_ranks(specs, timeout=600):
+    """`python3 chip_smoke.py --rank <spec>` once a spec, all started
+    together; every process is waited for, and killed on a timeout.
+    Returns each rank's JSON report (its last line of output)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [here] + [os.environ[v] for v in ("PYTHONPATH",) if v in os.environ])}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank",
+         json.dumps(sp)], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for sp in specs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{e[-4000:]}")
+        reports.append(json.loads(o.strip().splitlines()[-1]))
+    return reports
+
+
+def rank_cli(spec):
+    """One rank of the port's CLI (the command's own --dist-* flags)."""
+    from turingassembler_tpu_torch import cli
+    from turingassembler_tpu_torch.logging_utils import stage_walls
+    rc = cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    return {"rc": rc, "walls": stage_walls()}
+
+
+def rank_stripes(spec):
+    """One rank of phase 9's two maps: its stripe of the read-pair counts
+    on level 2 and of the aux info on the recount graph, on the card;
+    rank 0 merges the ranks' tables (pipeline.py's merge) and writes the
+    extension and the aux-info graph.  Then a cross-process mesh on the
+    shared card, which must refuse."""
+    from turingassembler_tpu_torch import pipeline
+    from turingassembler_tpu_torch.barcode import builder
+    from turingassembler_tpu_torch.barcode.sort_read import ReadPath
+    from turingassembler_tpu_torch.config import Config
+    from turingassembler_tpu_torch.io import asmg
+    from turingassembler_tpu_torch.parallel import distributed as pd
+    from turingassembler_tpu_torch.parallel.mesh import make_mesh
+    from turingassembler_tpu_torch.parallel.sharded_aux import \
+        apply_aux_tables
+    from turingassembler_tpu_torch.resolve.readpairs import \
+        get_long_contigs_by_readpairs
+    r, n, src, out = spec["rank"], spec["n"], spec["src"], spec["out"]
+    pd.init_distributed(spec["coordinator"], n, r)
+    dev = pd.rank_device("cuda")
+    torch.cuda.set_device(dev)
+    cfg = Config(k0=K_LEVELS, out_dir=out)
+    rpath = ReadPath(*(os.path.join(src, f) for f in SCAFFOLD_FILES[:3]))
+    sec = {}
+    t0 = time.perf_counter()
+    g2 = asmg.load_graph(os.path.join(src, LEVEL_FILES[6]))
+    rp = builder.get_read_pair_counts(cfg, g2, rpath, stripe=(r, n),
+                                      device=dev)
+    keys, vals = pipeline._pair_arrays(rp)
+    np.savez(os.path.join(out, f"rp_rank{r}.npz"), k=keys, v=vals)
+    torch.cuda.synchronize()
+    sec["rp_stripe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recount = os.path.join(src, f"graph_k_{K_LEVELS}_recount.bin")
+    table, cands = builder.aux_tables_striped(
+        cfg, asmg.load_graph(recount), rpath, (r, n), device=dev)
+    ck, cv = pipeline._pair_arrays(cands)
+    np.savez(os.path.join(out, f"aux_rank{r}.npz"), s=table[0], e=table[1],
+             b=table[2], c=table[3], ck=ck, cv=cv)
+    torch.cuda.synchronize()
+    sec["aux_stripe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pd.barrier("stripes")
+    sec["wait"] = time.perf_counter() - t0
+    res = {"rp_keys": len(rp), "attach_rows": len(table[0]), "sec": sec}
+    if r == 0:
+        t0 = time.perf_counter()
+        merged = {}
+        for q in range(n):
+            z = np.load(os.path.join(out, f"rp_rank{q}.npz"))
+            pipeline._sum_pairs(merged, z["k"], z["v"])
+        ext = os.path.join(out, f"graph_k_{K_LEVELS}_extend.fasta")
+        get_long_contigs_by_readpairs(g2, merged, ext)
+        tables, cands_all = [], {}
+        for q in range(n):
+            z = np.load(os.path.join(out, f"aux_rank{q}.npz"))
+            tables.append((z["s"], z["e"], z["b"], z["c"]))
+            pipeline._sum_pairs(cands_all, z["ck"], z["cv"])
+        g = asmg.load_graph(recount)
+        apply_aux_tables(g, builder.merge_attach_tables(tables), cands_all)
+        added = os.path.join(out, SCAFFOLD_FILES[4])
+        asmg.save_graph(g, added)
+        keys, vals = candidate_arrays(g)
+        np.savez(os.path.join(out, "cands_merged.npz"), k=keys, v=vals)
+        sec["merge"] = time.perf_counter() - t0
+        res.update(rp_merged=len(merged), candidates=len(cands_all))
+    try:
+        make_mesh(n, "cuda")
+        res["nccl_refused"] = ""
+    except RuntimeError as e:
+        res["nccl_refused"] = str(e)
+    pd.barrier("done")
+    return res
+
+
+def candidate_arrays(g):
+    """A graph's read-pair candidates as (keys (n, 2), values (n, 2))."""
+    c = g.candidates
+    return (np.array(list(c.keys()), np.int64).reshape(-1, 2),
+            np.array(list(c.values()), np.int64).reshape(-1, 2))
+
+
+def aux_single(spec):
+    """The single-process aux info of phase 9's recount graph on the
+    card, for (b)'s merged candidates: they are not in the .bin."""
+    from turingassembler_tpu_torch.barcode import builder
+    from turingassembler_tpu_torch.barcode.sort_read import ReadPath
+    from turingassembler_tpu_torch.config import Config
+    from turingassembler_tpu_torch.io import asmg
+    src = spec["src"]
+    rpath = ReadPath(*(os.path.join(src, f) for f in SCAFFOLD_FILES[:3]))
+    g = asmg.load_graph(os.path.join(src,
+                                     f"graph_k_{K_LEVELS}_recount.bin"))
+    g = builder.construct_aux_info(Config(k0=K_LEVELS, out_dir=spec["out"]),
+                                   g, rpath, device="cuda:0")
+    keys, vals = candidate_arrays(g)
+    np.savez(os.path.join(spec["out"], "cands_single.npz"), k=keys, v=vals)
+    torch.cuda.synchronize()
+    return {"candidates": len(keys)}
+
+
+def rank_worker(spec):
+    from turingassembler_tpu_torch.ops import nw_align
+    nw_align.COUNT.reset()
+    t0 = time.perf_counter()
+    res = {"cli": rank_cli, "stripes": rank_stripes,
+           "aux_single": aux_single}[spec["kind"]](spec)
+    res.update(seconds=time.perf_counter() - t0,
+               launches=nw_align.COUNT.launches, pairs=nw_align.COUNT.pairs,
+               shapes=nw_align.COUNT.shapes)
+    print(json.dumps(res), flush=True)
+
+
+def sorted_contigs(path):
+    from turingassembler_tpu_torch.io.fasta import read_fasta
+    return sorted(sq for _, sq in read_fasta(path))
+
+
+def label(shs):
+    # the bubble checks pad both branches to one width, the mappers' DP
+    # windows are 32 columns wider than the query
+    return [("bubble" if sh[1] == sh[2] else "map", tuple(sh))
+            for sh in shs]
+
+
+def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
+    """(a) assembly3 through the CLI as two ranks on cuda:0 on phase 8's
+    library, and as two ranks on the CPU; (b) two ranks' stripes of the
+    two maps on phase 9's 2 Mbp level 2 and archive, merged on rank 0;
+    (c) the sharded count and the sharded verified map on 4 shards of
+    cuda:0."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.evaluate import evaluate_assembly
+    from turingassembler_tpu_torch.io import asmg
+    from turingassembler_tpu_torch.io.fasta import read_fasta
+    from turingassembler_tpu_torch.kmer.count import count_kedges_from_reads
+    from turingassembler_tpu_torch.graph.device_build import \
+        build_graph_on_device
+    from turingassembler_tpu_torch.kmer.megasort import count_reads_device
+    from turingassembler_tpu_torch.mapper.minimizers import (
+        EdgeMinimizerIndex, map_reads)
+    from turingassembler_tpu_torch.ops import nw_align
+    from turingassembler_tpu_torch.parallel.mesh import make_mesh
+    from turingassembler_tpu_torch.parallel.sharded_count import \
+        sharded_count_to_host
+    work = os.path.dirname(full_out)
+    shapes, launches = [], 0
+
+    # (a) the CLI as two ranks on the card, and as two ranks on the CPU
+    t0 = time.perf_counter()
+    f = parity_files
+    specs, outs = [], {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(work, f"dist_assembly3_{dev}")
+        argv = ["assembly3", "-1", f["R1"], "-2", f["R2"], "-I", f["I1"],
+                "-l", "ust", "-k0", str(K_LEVELS), "-mc",
+                str(MIN_COUNT_LEVELS), "-o", outs[dev], "--device", dev,
+                "--dist-coordinator", f"127.0.0.1:{free_port()}",
+                "--dist-nproc", str(DIST_RANKS)]
+        specs += [{"kind": "cli", "argv": argv + ["--dist-pid", str(r)]}
+                  for r in range(DIST_RANKS)]
+    reps = run_ranks(specs)
+    t_a = time.perf_counter() - t0
+    for i, rep in enumerate(reps):
+        dev, r = ("cuda", "cpu")[i // DIST_RANKS], i % DIST_RANKS
+        if rep["rc"] != 0:
+            raise AssertionError(f"dist assembly3: {dev} rank {r} returned "
+                                 f"{rep['rc']}")
+        for w in ("count", "rp", "aux"):
+            if not os.path.exists(os.path.join(outs[dev], "dist",
+                                               f"{w}_rank{r}.npz")):
+                raise AssertionError(f"dist assembly3: {dev} rank {r} wrote"
+                                     f" no dist/{w}_rank{r}.npz")
+    reps = reps[:DIST_RANKS]             # the card's ranks
+    for rep in reps:
+        launches += rep["launches"]
+        shapes += label(rep["shapes"])
+    card, cpu = (dir_files(outs[d]) for d in ("cuda", "cpu"))
+    if sorted(card) != sorted(cpu):
+        raise AssertionError("dist assembly3: card and CPU ranks wrote "
+                             "other files")
+    for name in sorted(card):
+        if name.startswith("dist" + os.sep):
+            want = np.load(os.path.join(outs["cpu"], name))
+            got = np.load(os.path.join(outs["cuda"], name))
+            if any(not np.array_equal(got[k_], want[k_])
+                   for k_ in want.files):
+                raise AssertionError(f"dist assembly3: {name} differs card "
+                                     "vs CPU")
+        elif card[name] != cpu[name]:
+            raise AssertionError(f"dist assembly3: {name} differs card vs "
+                                 "CPU")
+    if reps[0]["launches"] < 1:
+        raise AssertionError("dist assembly3: rank 0 launched the NW "
+                             "kernel no time")
+    # against phase 8's single-process card run: the same level 0 (other
+    # node numbers), and assemblies that pass the same checks
+    lv0 = LEVEL_FILES[2]
+    if sorted_contigs(os.path.join(outs["cuda"], lv0)) != \
+            sorted_contigs(os.path.join(parity_out, lv0)):
+        raise AssertionError("dist assembly3: level 0's contigs differ from "
+                             "the single-process run's")
+    same = sorted(name for name in SCAFFOLD_FILES + LEVEL_FILES + [FINAL]
+                  if card[name] == file_bytes(os.path.join(parity_out,
+                                                           name)))
+    genome_str = np.frombuffer(b"ACGT", np.uint8)[parity_genome] \
+        .tobytes().decode()
+    evals = {}
+    for what, d in (("2 ranks", outs["cuda"]), ("1 process", parity_out)):
+        res = evals[what] = evaluate_assembly(
+            [sq for _, sq in read_fasta(os.path.join(d, FINAL))], genome_str)
+        if res.n_misassemblies or res.genome_fraction <= 0.97 or \
+                res.nga50 < 0.9 * len(parity_genome):
+            raise AssertionError(f"dist assembly3: the {what} assembly "
+                                 f"fails the checks: {res}")
+    log(f"multi-process (a) assembly3 as {DIST_RANKS} ranks on cuda:0 and "
+        f"as {DIST_RANKS} ranks on the CPU (phase 8's library, all four "
+        f"processes at once): {t_a:.3f} s; card == CPU for all {len(card)} "
+        f"files (dist/ tables array for array); against phase 8's "
+        f"single-process card run: level-0 contigs equal, byte-identical "
+        f"files: {', '.join(same) or 'none'}; against the genome: "
+        + "; ".join(f"{w}: {res}" for w, res in evals.items()) + "; "
+        + "; ".join(
+            f"card rank {r}: {rep['seconds']:.3f} s, NW {rep['pairs']} "
+            f"pairs in {rep['launches']} launches, stages " + ", ".join(
+                f"{k_} {v:.3f}" for k_, v in rep["walls"].items()
+                if "." not in k_)
+            for r, rep in enumerate(reps)))
+
+    # (b) the stripes of the two maps at 2 Mbp
+    t0 = time.perf_counter()
+    out = os.path.join(work, "dist_stripes")
+    os.makedirs(out)
+    port = free_port()
+    # beside the ranks, one process computes the single-process aux info
+    # of the same graph: the reference of the merged candidates
+    reps = run_ranks([{"kind": "stripes", "rank": r, "n": DIST_RANKS,
+                       "coordinator": f"127.0.0.1:{port}", "src": full_out,
+                       "out": out} for r in range(DIST_RANKS)]
+                     + [{"kind": "aux_single", "src": full_out,
+                         "out": out}])
+    reps, ref = reps[:DIST_RANKS], reps[DIST_RANKS]
+    shapes += label(ref["shapes"])      # held by phase 12, not counted
+    t_b = time.perf_counter() - t0
+    n_pairs = file_bytes(os.path.join(full_out, SCAFFOLD_FILES[0])
+                         ).count(b"\n") // 4
+    n_batches = -(-n_pairs // 131_072)
+    ext = SCAFFOLD_FILES[3]
+    ext_same = file_bytes(os.path.join(out, ext)) == \
+        file_bytes(os.path.join(full_out, ext))
+    got = asmg.load_graph(os.path.join(out, SCAFFOLD_FILES[4]))
+    want = asmg.load_graph(os.path.join(full_out, SCAFFOLD_FILES[4]))
+    aux_same = (got.barcodes == want.barcodes
+                and got.barcodes_scaf == want.barcodes_scaf
+                and got.barcodes_cov == want.barcodes_cov)
+    aux_bytes = file_bytes(os.path.join(out, SCAFFOLD_FILES[4])) == \
+        file_bytes(os.path.join(full_out, SCAFFOLD_FILES[4]))
+    cands = {}
+    for what in ("merged", "single"):
+        z = np.load(os.path.join(out, f"cands_{what}.npz"))
+        cands[what] = {tuple(k_): tuple(v) for k_, v in
+                       zip(z["k"].tolist(), z["v"].tolist())}
+    cands_same = cands["merged"] == cands["single"]
+    for rep in reps:
+        launches += rep["launches"]
+        shapes += label(rep["shapes"])
+    log(f"multi-process (b) stripes at 2 Mbp ({n_pairs} pairs in "
+        f"{n_batches} archive batches, {DIST_RANKS} ranks on cuda:0): "
+        f"{t_b:.3f} s; " + "; ".join(
+            f"rank {r}: {len(range(r, n_batches, DIST_RANKS))} batches, "
+            f"{rep['rp_keys']} read-pair keys, {rep['attach_rows']} attach "
+            f"rows, NW {rep['pairs']} pairs in {rep['launches']} launches, "
+            "seconds " + ", ".join(f"{k_} {v:.3f}"
+                                   for k_, v in rep["sec"].items())
+            + f", process {rep['seconds']:.3f}"
+            for r, rep in enumerate(reps))
+        + f"; merged {reps[0]['rp_merged']} read-pair keys, "
+        f"{reps[0]['candidates']} candidate pairs; {ext} byte-identical to "
+        f"phase 9's: {ext_same}; {SCAFFOLD_FILES[4]}: barcode sets equal to "
+        f"phase 9's {aux_same}, byte-identical {aux_bytes}; candidate "
+        f"pairs equal to the single-process construct_aux_info's "
+        f"({ref['candidates']} pairs, NW {ref['pairs']} pairs in "
+        f"{ref['launches']} launches, {ref['seconds']:.3f} s, a reference: "
+        f"not counted): {cands_same}")
+    if not ext_same:
+        raise AssertionError(f"dist stripes: {ext} differs from phase 9's")
+    if not aux_same:
+        raise AssertionError("dist stripes: the merged barcode sets differ "
+                             "from phase 9's")
+    if not cands_same or not cands["single"]:
+        raise AssertionError("dist stripes: the merged read-pair candidates "
+                             "differ from the single-process aux info's")
+    for r, rep in enumerate(reps):
+        if rep["launches"] < 1:
+            raise AssertionError(f"dist stripes: rank {r} launched the NW "
+                                 "kernel no time")
+        if "one GPU a rank" not in rep["nccl_refused"]:
+            raise AssertionError(f"dist stripes: rank {r}'s cross-process "
+                                 "mesh on a shared GPU did not refuse")
+    log("multi-process (b): a cross-process mesh with both ranks on cuda:0 "
+        f"refused: {reps[0]['nccl_refused'][:90]}...")
+
+    # (c) four shards on cuda:0 at the bench workload's widths
+    t0 = time.perf_counter()
+    genome = tt.random_genome(2_000_000, seed=61)
+    n_clean = SHARD_READS - SHARD_INDEL
+    reads, lengths = tt.sim_reads(genome, coverage=n_clean * 150 / 2e6 + 0.1,
+                                  read_len=150, seed=62, pad_to=152)
+    ir, il = tt.sim_indel_reads(genome, SHARD_INDEL, 150, seed=63,
+                                pad_to=152)
+    # the indel reads spread over every shard's rows
+    perm = np.random.default_rng(64).permutation(SHARD_READS)
+    reads = np.concatenate([reads[:n_clean], ir])[perm]
+    lengths = np.concatenate([lengths[:n_clean], il]).astype(np.int32)[perm]
+    mesh = make_mesh(SHARDS, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ke_s, c_s = sharded_count_to_host(reads, lengths, mesh, 45)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t1
+    ke_1, c_1 = count_kedges_from_reads(reads, lengths, 45, device="cuda")
+    if not (np.array_equal(ke_s, ke_1) and np.array_equal(c_s, c_1)):
+        raise AssertionError("sharded count != the single count")
+    clean = perm < n_clean
+    u, c, n = count_reads_device(reads[clean], lengths[clean], 45,
+                                 device="cuda")
+    g = build_graph_on_device(u, c, n, 45, device="cuda")
+    idx = EdgeMinimizerIndex.build(g, device="cuda")
+    nw_align.COUNT.reset()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sharded = map_reads(idx, reads, lengths, graph=g, mesh=mesh)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t1
+    launches += nw_align.COUNT.launches
+    n_c, p_c = nw_align.COUNT.launches, nw_align.COUNT.pairs
+    shapes += label(nw_align.COUNT.shapes)
+    single = map_reads(idx, reads, lengths, graph=g, device="cuda")
+    for name, a, b in zip(("edges", "hits", "starts"), sharded, single):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"sharded map: {name} differ from map_reads")
+    mapped = float((sharded[0] >= 0).mean())
+    log(f"multi-process (c) {SHARDS} shards on cuda:0, {SHARD_READS} reads "
+        f"of 150 bp ({SHARD_INDEL} with an indel), k=45: sharded count "
+        f"{t_count:.3f} s, {len(ke_s)} k-edges, none dropped, == the single "
+        f"count; sharded verified map {t_map:.3f} s, {mapped * 100:.2f}% "
+        f"mapped, == map_reads (edges, hits, starts); NW {p_c} pairs in "
+        f"{n_c} launches (one a shard); part {time.perf_counter() - t0:.3f} s")
+    if n_c < SHARDS:
+        raise AssertionError("sharded map: fewer NW launches than shards")
+    return launches, shapes
+
+
 def build_kernels():
     from turingassembler_tpu_torch import _build
     t0 = time.perf_counter()
@@ -1474,14 +1910,16 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         os.makedirs(os.path.join(work, "parity"))
         os.makedirs(os.path.join(work, "full"))
-        parity_out = phase(phase_scaffold_parity,
-                           os.path.join(work, "parity"))
+        parity = phase(phase_scaffold_parity, os.path.join(work, "parity"))
         n, sh, full_out, genome = phase(phase_scaffold_full_width,
                                         os.path.join(work, "full"))
         launches, shapes = launches + n, shapes + sh
         n, sh = phase(phase_path_scoring)
         launches, shapes = launches + n, shapes + sh
+        parity_out = parity[0]
         n, sh = phase(phase_barcode_levels, parity_out, full_out, genome)
+        launches, shapes = launches + n, shapes + sh
+        n, sh = phase(phase_multi_process, *parity, full_out)
         launches, shapes = launches + n, shapes + sh
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
@@ -1504,4 +1942,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank":
+        rank_worker(json.loads(sys.argv[2]))
+    else:
+        main()

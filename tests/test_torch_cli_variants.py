@@ -127,6 +127,32 @@ def test_command_tables_equal():
          "local_assembly", "build_bridge", "evaluate"])
 
 
+def _options(parser):
+    """Each option of a parser: its strings, dest, default, nargs, type,
+    choices and action kind."""
+    return sorted((tuple(a.option_strings), a.dest, a.default, a.nargs,
+                   a.type, tuple(a.choices or ()), type(a).__name__)
+                  for a in parser._actions if a.option_strings
+                  and a.dest != "help")
+
+
+def test_command_options_equal():
+    """Every JAX subcommand takes the same options in the port, plus
+    --device (the JAX main gives every subparser _add_common)."""
+    import argparse
+    sub = next(a for a in tcli.build_parser()._actions
+               if isinstance(a, argparse._SubParsersAction))
+    assert sorted(sub.choices) == sorted(jcli.COMMANDS)
+    for name in jcli.COMMANDS:
+        jp = argparse.ArgumentParser()
+        jcli._add_common(jp)
+        got = [o for o in _options(sub.choices[name])
+               if o[0] != ("--device",)]
+        assert got == _options(jp), name
+        assert ("--device",) in [o[0] for o in _options(sub.choices[name])]
+    assert ("--dist-nproc",) in [o[0] for o in got]
+
+
 @pytest.mark.parametrize("name", NEW)
 def test_command_same_files(lib, name, capsys):
     """The command in both CLIs: the same files, byte for byte, and for

@@ -1,7 +1,9 @@
 """Per-edge barcode aux info — rebuild of src/barcode_builder.c
-(port of turingassembler_tpu/barcode/builder.py, single process: the host
-tallies are copies, the two mappers call the port's map_reads on
-`device`; the JAX package's mesh and per-process stripes are not here).
+(port of turingassembler_tpu/barcode/builder.py: the host tallies are
+copies, the two mappers call the port's map_reads on `device`, or over
+the shards of this process's GPUs (_library_mesh); with `stripe=(r, n)`
+only every n-th archive batch from the r-th is mapped, the share of rank
+r of a multi-process run).
 
 The reference BWA-maps every read pair against a FASTA of all edges and
 attaches the pair's barcode to the hit edge's barcode sets by mapped
@@ -43,17 +45,21 @@ RP_FULL_LEN_SLACK = 30    # DP-score stand-in for rp_count_mapper's
 
 
 def _iter_sorted_pairs(rpath: ReadPath, batch_size: int = 131072,
-                       pad_to: int = 256):
+                       pad_to: int = 256, *, stripe=None):
     """Stream (bases1, len1, bases2, len2, barcodes) batches from the
     sorted archive; batch widths bucket to the library's read length
     (pipeline.batch_width).  The batch size decides the order in which
-    the callers' dicts are filled, so it is part of the result."""
+    the callers' dicts are filled, so it is part of the result.  With
+    `stripe=(r, n)` only batches r, r + n, r + 2n, ... are yielded (the
+    others are parsed and skipped)."""
     from ..pipeline import batch_width
     g1 = read_fastq_batches_headers(rpath.R1_path, batch_size, pad_to,
                                     with_headers=True)
     g2 = read_fastq_batches_headers(rpath.R2_path, batch_size, pad_to)
-    for ba1, l1, hdrs in g1:
+    for bi, (ba1, l1, hdrs) in enumerate(g1):
         ba2, l2, _ = next(g2)
+        if stripe is not None and bi % stripe[1] != stripe[0]:
+            continue   # another rank's batch (multi-process assembly3)
         comments = [h[h.find(b" ") + 1 :] if b" " in h else b""
                     for h in hdrs]
         yield (np.ascontiguousarray(ba1[:, : batch_width(l1)]), l1,
@@ -264,11 +270,66 @@ def _candidate_pair_keys(g: AsmGraph, hits1, hits2):
     return zip(uk.tolist(), uc.tolist())
 
 
+def _library_mesh(device="cuda"):
+    """Mesh for the full-library map stages: one shard a visible GPU,
+    read-data-parallel (upstream's mapper thread fan-out,
+    barcode_builder.c:408-436), when `device` is a GPU that names no
+    index and this single process sees more than one.  None otherwise:
+    a named GPU (`cuda:1`) maps on that GPU alone, and a multi-process
+    run stripes batches per rank instead (a mesh over its ranks would
+    need lockstep batch streams)."""
+    import torch
+    from ..parallel.distributed import dist_info
+    dev = torch.device(device)
+    if dist_info()[1] > 1 or dev.type != "cuda" or dev.index is not None:
+        return None
+    n_gpu = torch.cuda.device_count()
+    if n_gpu < 2:
+        return None
+    from ..parallel.mesh import make_mesh
+    return make_mesh(n_gpu, [f"cuda:{i}" for i in range(n_gpu)])
+
+
+def aux_tables_striped(cfg: Config, g: AsmGraph, rpath: ReadPath, stripe,
+                       index: Optional[EdgeMinimizerIndex] = None, *,
+                       device="cuda"):
+    """One rank's aux-info contribution over its batch stripe:
+    (attach_table, candidate dict), the distributable reduction of
+    construct_aux_info (multi-process assembly3; merge with
+    merge_attach_tables and a dict key-sum, apply with
+    parallel.sharded_aux.apply_aux_tables)."""
+    from ..parallel.sharded_aux import aux_tables_local
+    if index is None:
+        t0 = time.perf_counter()
+        index = EdgeMinimizerIndex.build(g, device=device)
+        add_stage_wall("aux.index", time.perf_counter() - t0)
+    tables = []
+    cands: Dict = {}
+    t_map = 0.0
+    for b1, l1, b2, l2, bcs in timed_iter(
+            _iter_sorted_pairs(rpath, stripe=stripe), "aux.parse"):
+        t0 = time.perf_counter()
+        # rank-local mapping: the ranks' batch stripes differ, so no
+        # cross-rank collective may be entered here
+        t, c = aux_tables_local(g, index, b1, l1, b2, l2, bcs, mesh=None,
+                                device=device)
+        tables.append(t)
+        for k_, v in c.items():
+            cands[k_] = cands.get(k_, 0) + v
+        t_map += time.perf_counter() - t0
+    add_stage_wall("aux.map", t_map)
+    if not tables:
+        tables.append((np.zeros(0, np.int8), np.zeros(0, np.int64),
+                       np.zeros(0, np.uint64), np.zeros(0, np.int64)))
+    return merge_attach_tables(tables), cands
+
+
 def construct_aux_info(cfg: Config, g: AsmGraph, rpath: ReadPath,
                        index: Optional[EdgeMinimizerIndex] = None,
-                       build_readpairs: bool = True, *,
+                       build_readpairs: bool = True, stripe=None, *,
                        device="cuda") -> AsmGraph:
-    """Map all sorted read pairs; attach barcode sets + read-pair counts."""
+    """Map all sorted read pairs (or the batches of `stripe`); attach
+    barcode sets + read-pair counts."""
     if index is None:
         t0 = time.perf_counter()
         index = EdgeMinimizerIndex.build(g, device=device)
@@ -277,15 +338,16 @@ def construct_aux_info(cfg: Config, g: AsmGraph, rpath: ReadPath,
     lens = g.edge_len()
     n_pairs = n_mapped = 0
     t_map = t_attach = 0.0
-    for b1, l1, b2, l2, bcs in timed_iter(_iter_sorted_pairs(rpath),
-                                          "aux.parse"):
+    mesh = _library_mesh(device)
+    for b1, l1, b2, l2, bcs in timed_iter(
+            _iter_sorted_pairs(rpath, stripe=stripe), "aux.parse"):
         t0 = time.perf_counter()
         # graph=g turns on DP verification of every voted hit
         # (reference asm_reg2aln rescore, barcode_builder.c:448-563)
         e1, _, p1 = map_reads(index, b1, l1, graph=g, with_hits=False,
-                              device=device)
+                              mesh=mesh, device=device)
         e2, _, p2 = map_reads(index, b2, l2, graph=g, with_hits=False,
-                              device=device)
+                              mesh=mesh, device=device)
         t1 = time.perf_counter()
         n_pairs += len(b1)
         n_mapped += int((e1 >= 0).sum() + (e2 >= 0).sum())
@@ -314,18 +376,22 @@ def construct_aux_info(cfg: Config, g: AsmGraph, rpath: ReadPath,
 
 
 def get_read_pair_counts(cfg: Config, g: AsmGraph, rpath: ReadPath,
-                         index: Optional[EdgeMinimizerIndex] = None, *,
+                         index: Optional[EdgeMinimizerIndex] = None,
+                         stripe=None, *,
                          device="cuda") -> Dict[Tuple[int, int], int]:
     """Edge-pair read-pair counts (reference get_all_read_pairs_count,
-    src/barcode_builder.c:287; feeds read_pairs_resolve)."""
+    src/barcode_builder.c:287; feeds read_pairs_resolve).  With
+    `stripe=(r, n)` only that rank's batch stripe is tallied; the dicts
+    key-sum merge across ranks."""
     if index is None:
         t0 = time.perf_counter()
         index = EdgeMinimizerIndex.build(g, device=device)
         add_stage_wall("rp_count.index", time.perf_counter() - t0)
     counts: Dict[Tuple[int, int], int] = {}
     t_map = t_tally = 0.0
-    for b1, l1, b2, l2, bcs in timed_iter(_iter_sorted_pairs(rpath),
-                                          "rp_count.parse"):
+    mesh = _library_mesh(device)
+    for b1, l1, b2, l2, bcs in timed_iter(
+            _iter_sorted_pairs(rpath, stripe=stripe), "rp_count.parse"):
         t0 = time.perf_counter()
         # rp_count_mapper keeps only FULL-LENGTH >=50-score alignments
         # (a.aligned < len -> skip, score floor: reference
@@ -335,9 +401,9 @@ def get_read_pair_counts(cfg: Config, g: AsmGraph, rpath: ReadPath,
         ms1 = np.maximum(l1.astype(np.int64) - RP_FULL_LEN_SLACK, 50)
         ms2 = np.maximum(l2.astype(np.int64) - RP_FULL_LEN_SLACK, 50)
         e1, _, _ = map_reads(index, b1, l1, graph=g, min_score=ms1,
-                             with_hits=False, device=device)
+                             with_hits=False, mesh=mesh, device=device)
         e2, _, _ = map_reads(index, b2, l2, graph=g, min_score=ms2,
-                             with_hits=False, device=device)
+                             with_hits=False, mesh=mesh, device=device)
         t1 = time.perf_counter()
         ok = (e1 >= 0) & (e2 >= 0)
         # BOTH directed orders: the reference's 2x2 strand-record combos

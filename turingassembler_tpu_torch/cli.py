@@ -27,8 +27,11 @@ Options: `-1/-2/-I` file lists, `-l` library type, `-k0` global k, `-lk`
 local k, `-o` output dir, `-i` graph .bin, `-f` fasta, `-lc` scaffold
 contig fasta, `-ref` truth fasta (`evaluate`), `-t` threads, `-sm`
 sort memory GB, `-mc` minimum (k+1)-mer count, `-v` verbosity,
-`-metagenomics`.  `--device cuda` (the default) raises when no GPU is
-visible.  The stage commands that read a sorted archive take it as `-l
+`-metagenomics`, `--dist-coordinator host:port --dist-nproc N
+--dist-pid r` (one process of an N-process run; torchrun's environment
+does the same without them).  `--device cuda` (the default) raises when
+no GPU is visible; in an N-process run rank r takes cuda:{r % GPUs}.
+The stage commands that read a sorted archive take it as `-l
 sorted -1 R1.sorted.fq -2 R2.sorted.fq -I barcode.idx`; `local_assembly`
 (alias `build_bridge`) reads local_assembly_scaffold_path.txt from `-o`.
 The graph-file commands (`build_2_3`, `build_3_4`, `build_4_5`, the
@@ -46,9 +49,12 @@ import logging
 import os
 import sys
 
+import torch
+
 from .config import LIB_TYPE_NAMES, Config
 from .device import resolve_device
 from .logging_utils import init_logger, set_log_stage
+from .parallel.distributed import init_distributed, rank_device
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -71,6 +77,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="drop (k+1)-mers below this count")
     p.add_argument("-v", dest="verbose", action="count", default=0)
     p.add_argument("-metagenomics", dest="metagenomics", action="store_true")
+    # multi-process launch: every rank runs the same command with its own
+    # --dist-pid; the heavy stages stripe over the ranks and merge on
+    # rank 0 (pipeline.py), which writes the final output
+    p.add_argument("--dist-coordinator", dest="dist_coordinator",
+                   default=None, help="host:port of rank 0")
+    p.add_argument("--dist-nproc", dest="dist_nproc", type=int, default=None)
+    p.add_argument("--dist-pid", dest="dist_pid", type=int, default=None)
     p.add_argument("--device", dest="device", default="cuda",
                    help="cuda (default) or cpu")
 
@@ -580,23 +593,35 @@ COMMANDS = {"assembly3": cmd_assembly3, "basic": cmd_basic,
             "debug_split_molecules": cmd_debug_split_molecules}
 
 
-def main(argv=None) -> int:
-    argv = argv if argv is not None else sys.argv[1:]
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="turingassembler_tpu_torch",
         description="read-cloud genome assembler, PyTorch/CUDA port")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in COMMANDS:
         _add_common(sub.add_parser(name))
-    a = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    argv = argv if argv is not None else sys.argv[1:]
+    a = build_parser().parse_args(argv)
     cfg = _cfg_from_args(a)
     device = resolve_device(a.device)
     init_logger(cfg.out_dir, logging.DEBUG if a.verbose else logging.INFO)
+    init_distributed(coordinator=a.dist_coordinator,
+                     num_processes=a.dist_nproc, process_id=a.dist_pid)
+    device = rank_device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
     try:
         rc = COMMANDS[a.cmd](cfg, device)
     except FileNotFoundError as e:
         print(f"{a.cmd}: file not found: {e}", file=sys.stderr)
         return 1
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return int(rc) if rc is not None else 0
 
 

@@ -411,8 +411,29 @@ def _save_graph_atomic(lg: AsmGraph, path: str) -> None:
     os.replace(tmp, path)
 
 
+def prebuild_local_graphs_striped(cfg, g: AsmGraph, rpath: ReadPath,
+                                  scaffold_path_file: str, out_dir: str,
+                                  stripe, device="cuda") -> int:
+    """One rank's share of the per-gap local assemblies (multi-process
+    assembly3): gaps are independent and cached in the shared out_dir,
+    so rank r building gaps r mod n of the sorted cache paths leaves rank
+    0's bridging loop with cache hits only, and the same output as if it
+    had built every gap itself (upstream's thread pool,
+    src/build_bridge.c:898-903, scaled out to processes).  Returns the
+    number of gaps this rank built."""
+    resolve_device(device)
+    paths = parse_scaffold_paths(scaffold_path_file)
+    bc_index = load_barcode_index(rpath.idx_path)
+    cov = g.edge_cov()
+    L.clear_global_window_cache()
+    L.graph_token(g)        # drawn here, before any worker thread asks
+    lg_mem, _ = _prebuild_local_graphs(cfg, g, rpath, bc_index, paths, cov,
+                                       out_dir, device, stripe=stripe)
+    return len(lg_mem)
+
+
 def _prebuild_local_graphs(cfg, g, rpath, bc_index, paths, cov, out_dir,
-                           device="cuda"):
+                           device="cuda", stripe=None):
     """Task-parallel per-gap local assemblies (upstream thread-pool
     loop build_bridge_iterator xT, src/build_bridge.c:898-903,952).
     Each gap is independent; cfg.n_threads (-t) bounds the pool.  The
@@ -433,6 +454,10 @@ def _prebuild_local_graphs(cfg, g, rpath, bc_index, paths, cov, out_dir,
             cache = _local_cache_path(cfg, g, e1, e2, out_dir)
             if cache not in jobs and not os.path.exists(cache):
                 jobs[cache] = (e1, e2)
+    if stripe is not None:
+        pid, n = stripe
+        jobs = {c: j for i, (c, j) in enumerate(sorted(jobs.items()))
+                if i % n == pid}
     if not jobs:
         return lg_mem, reads_mem
 

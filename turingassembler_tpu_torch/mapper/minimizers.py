@@ -1,5 +1,6 @@
 """Minimizer edge index and DP-verified read->edge map (port of
-turingassembler_tpu/mapper/minimizers.py, single device).
+turingassembler_tpu/mapper/minimizers.py; over the shards of a mesh
+through parallel/sharded_map.py).
 
 Scheme (reference src/minimizers/minimizers.c): k=17, w=17, forward
 strand only; the leftmost minimum-hash k-mer of each window is a
@@ -510,7 +511,7 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
               lengths: np.ndarray, batch_size: int = 65536,
               graph: AsmGraph | None = None, min_score=None,
               shipped: Tuple[torch.Tensor, torch.Tensor] | None = None,
-              with_hits: bool = True, *,
+              with_hits: bool = True, *, mesh=None,
               device: str | torch.device = "cuda"):
     """Map a read matrix; returns (edge (N,) int32 [-1 unmapped],
     n_hits (N,) int32, est_start (N,) int32).
@@ -520,7 +521,15 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
     shipped: the (bases, lengths) tensors of these reads already on the
     device (count_reads_device(return_chunks=True)); the host `bases`
     and `lengths` then only give the number of reads.
-    with_hits=False returns zeros for n_hits."""
+    with_hits=False returns zeros for n_hits.
+    mesh: a mesh of more than one shard (parallel/mesh.py) maps the
+    reads split over this process's shards on their devices instead of
+    on `device` (parallel/sharded_map.py, equal bit for bit)."""
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.sharded_map import map_reads_sharded
+        return map_reads_sharded(index, bases, lengths, mesh,
+                                 batch_size=batch_size, graph=graph,
+                                 min_score=min_score, with_hits=with_hits)
     dev = resolve_device(device)
     N = len(bases)
     edges = np.full(N, -1, np.int32)
