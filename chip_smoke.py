@@ -5,7 +5,8 @@
 Phases, in order; any failure raises and the script exits non-zero
 before printing a result:
   1. device: name, power limit (nvidia-smi), torch and CUDA versions
-  2. build: compile every CUDA kernel of the port (nvcc, sm_90a)
+  2. build: compile every CUDA kernel of the port (nvcc, sm_90a, one
+     nvcc a source, all started together)
   3. kernel vs plain: the NW alignment kernel against its plain PyTorch
      version on the card, exact equality: map, ragged and long-query
      shapes, every compiled strip width at and around its tile edge
@@ -84,9 +85,32 @@ before printing a result:
      the single count with none dropped, the sharded verified map ==
      map_reads.  Each rank prints its seconds and its NW launches; the
      ranks' launches and (c)'s join the kernels line's count.  The ranks are this script again: `chip_smoke.py --rank <spec>`
+ 14. secondary engines (after phase 13): (a) the devhash kernel
+     (csrc/devhash.cu) against its plain version on the card: the bench
+     batch (8,192 reads, k=45, 860,160 valid lanes) into 2^25 slots
+     fresh and as the 7th batch, when most lanes hit; 860,160 lanes on 64
+     keys; then equal finalized tables with 0 overflow in both.  At 0.7
+     load (734,003 keys into 2^20 slots) both overflow (8 probes), so
+     each is held against the exact count of the keys it holds; 1,000
+     keys into 64 slots raise in both.  At the bench batch the insert's
+     ms (hashes + launch, the kernels line's `ms`), the launch alone
+     (`kernel_ms`), the plain insert's, torch.unique's (yardstick) and the
+     insert's bytes bound; (b) the hash
+     engine on phase 5's 1,048,576 reads == phase 5's count, beside
+     megasort's seconds; (c) the device and np engines on phase 13 (c)'s
+     262,144 reads == megasort; (d)
+     ShardedHashCounter on 4 shards of cuda:0 over those reads == the
+     single count, one launch a shard and batch, and then its first
+     batch again into fresh kernel and plain shard tables, held equal
+     shard by shard; (e) the span k-mer table
+     and resolve_212_pair_kmer_all on the 2-1-2 library card == CPU (the
+     table, the .bin, the FASTA), and a card table of the 262,144 reads
+     whose total count is their number of valid 111-windows; (f) phase
+     5's k-edges through a KMC database and back.  The devhash launches
+     of (b) and (d) are the kernels line's count
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
      9, 10, 11 and 13 launched the kernel at, with their scoring and mode
- 14. the `kernels` JSON line, the nvidia-smi line, and last the result
+ 15. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -435,6 +459,7 @@ def run_main_path(reads, lengths, ir, il, k, around=None):
 
     u, c, out["n"], shipped = stage("count", lambda: count_reads_device(
         reads, lengths, k, return_chunks=True))
+    out["u"], out["c"] = u, c
     g = out["g"] = stage("build", lambda: build_graph_on_device(
         u, c, out["n"], k))
     idx = out["idx"] = stage("index", lambda: EdgeMinimizerIndex.build(g))
@@ -553,7 +578,11 @@ def phase_full_width():
     prof = StageProfiler()
     st, _ = run_main_path(reads, lengths, ir, il, k, prof.around)
     prof.report("profile, one more full-width pass", st)
-    return launches, shapes
+    n = out["n"]
+    bench = dict(reads=reads, lengths=lengths, k=k,
+                 kedges=out["u"][:n].cpu().numpy().astype(np.uint32),
+                 counts=out["c"][:n].cpu().numpy().astype(np.int64))
+    return launches, shapes, bench
 
 
 # ---------------------------------------------------------------------------
@@ -1481,6 +1510,23 @@ DIST_RANKS = 2
 SHARDS, SHARD_READS, SHARD_INDEL = 4, 262_144, 16_384
 
 
+def shard_library():
+    """Phase 13 (c)'s reads: 262,144 of 150 bp from a 2 Mbp genome, 16,384
+    of them with one indel, spread over every shard's rows.  Returns
+    (reads, lengths, perm, n_clean): perm[i] < n_clean for a clean read."""
+    from turingassembler_tpu_torch import testing as tt
+    genome = tt.random_genome(2_000_000, seed=61)
+    n_clean = SHARD_READS - SHARD_INDEL
+    reads, lengths = tt.sim_reads(genome, coverage=n_clean * 150 / 2e6 + 0.1,
+                                  read_len=150, seed=62, pad_to=152)
+    ir, il = tt.sim_indel_reads(genome, SHARD_INDEL, 150, seed=63,
+                                pad_to=152)
+    perm = np.random.default_rng(64).permutation(SHARD_READS)
+    reads = np.concatenate([reads[:n_clean], ir])[perm]
+    lengths = np.concatenate([lengths[:n_clean], il]).astype(np.int32)[perm]
+    return reads, lengths, perm, n_clean
+
+
 def free_port():
     import socket
     with socket.socket() as sk:
@@ -1657,7 +1703,6 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
     two maps on phase 9's 2 Mbp level 2 and archive, merged on rank 0;
     (c) the sharded count and the sharded verified map on 4 shards of
     cuda:0."""
-    from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.evaluate import evaluate_assembly
     from turingassembler_tpu_torch.io import asmg
     from turingassembler_tpu_torch.io.fasta import read_fasta
@@ -1830,16 +1875,7 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
 
     # (c) four shards on cuda:0 at the bench workload's widths
     t0 = time.perf_counter()
-    genome = tt.random_genome(2_000_000, seed=61)
-    n_clean = SHARD_READS - SHARD_INDEL
-    reads, lengths = tt.sim_reads(genome, coverage=n_clean * 150 / 2e6 + 0.1,
-                                  read_len=150, seed=62, pad_to=152)
-    ir, il = tt.sim_indel_reads(genome, SHARD_INDEL, 150, seed=63,
-                                pad_to=152)
-    # the indel reads spread over every shard's rows
-    perm = np.random.default_rng(64).permutation(SHARD_READS)
-    reads = np.concatenate([reads[:n_clean], ir])[perm]
-    lengths = np.concatenate([lengths[:n_clean], il]).astype(np.int32)[perm]
+    reads, lengths, perm, n_clean = shard_library()
     mesh = make_mesh(SHARDS, "cuda")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1879,6 +1915,412 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the secondary count engines and the devhash kernel
+# ---------------------------------------------------------------------------
+
+HASH_BATCH = 8192          # count_kedges_from_reads' batch: 860,160 lanes
+BENCH_CAP_LOG2 = 25        # the hash engine's default table, 2^25 slots
+SHARD_CAP_LOG2 = 23        # a shard's table in (d): load about 0.08
+CARD = "cuda"              # the device phase 14 runs on
+
+
+def table_of(counter):
+    """A counter's live set, sorted, host arrays, whatever overflowed."""
+    from turingassembler_tpu_torch.ops import limbs as lb
+    keys, counts = counter.live(counter.C)
+    order = lb.lex_order(keys)
+    return (keys[order].cpu().numpy().astype(np.uint32),
+            counts[order].cpu().numpy().astype(np.int64))
+
+
+def hold_tables(what, kc, pc) -> int:
+    """Kernel counter vs plain counter: both without overflow and their
+    finalized tables equal; returns the largest |count difference| (0)."""
+    ko, po = kc.overflow(), pc.overflow()
+    if ko or po:
+        raise AssertionError(f"devhash {what}: overflow kernel {ko}, plain "
+                             f"{po}")
+    (kk, kn), (pk, pn) = table_of(kc), table_of(pc)
+    if not np.array_equal(kk, pk):
+        raise AssertionError(f"devhash {what}: kernel and plain tables hold "
+                             "other keys")
+    err = int(np.abs(kn - pn).max()) if len(kn) else 0
+    log(f"devhash kernel vs plain, {what}: {len(kk)} keys, {int(kn.sum())} "
+        f"lanes counted, overflow 0 in both; max |count diff| {err}")
+    if err:
+        raise AssertionError(f"devhash {what}: counts differ")
+    return err
+
+
+def exact_on_what_it_holds(what, counter, rows, n_lanes):
+    """Near full load: every key the table holds has its exact count, and
+    counted + overflowed lanes = the batch's lanes."""
+    from turingassembler_tpu_torch.ops.sortops import searchsorted_limbs
+    keys, counts = table_of(counter)
+    truth, tc = torch.unique(rows, dim=0, return_counts=True)
+    idx, found = searchsorted_limbs(
+        truth, torch.from_numpy(keys.astype(np.int64)).to(CARD))
+    if not (bool(found.all()) and np.array_equal(
+            counts, tc[idx].cpu().numpy())):
+        raise AssertionError(f"devhash {what}: a held key's count is wrong")
+    ovf = counter.overflow()
+    if int(counts.sum()) + ovf != n_lanes:
+        raise AssertionError(f"devhash {what}: lanes not conserved")
+    return len(keys), ovf
+
+
+def cuda_ms_fresh(counter, fn, reps):
+    """Mean device ms of fn() into a freshly emptied table (the reset is
+    outside the timed events)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        counter.fp.fill_(-1)
+        counter.payload.fill_(-1)
+        counter.counts.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    counter.ovf.zero_()
+    return float(np.mean(times))
+
+
+def devhash_kernel_vs_plain(bench):
+    """(a): the kernel against its plain version on the card, and its
+    times, bound and library yardstick at the bench batch."""
+    from turingassembler_tpu_torch.ops import devhash
+    from turingassembler_tpu_torch.ops import kmers as km
+    from turingassembler_tpu_torch.ops import limbs as lb
+    from turingassembler_tpu_torch.ops.devhash import DeviceHashCounter
+    reads, lengths, k1 = bench["reads"], bench["lengths"], bench["k"] + 1
+    nl = lb.n_limbs(k1)
+
+    def batch(i):
+        b, ln = put(reads[i * HASH_BATCH:(i + 1) * HASH_BATCH],
+                    lengths[i * HASH_BATCH:(i + 1) * HASH_BATCH])
+        canon, _, valid = km.extract_canonical_kmers(b, ln, k1)
+        return canon.reshape(-1, nl), valid.reshape(-1)
+
+    res, err = {}, 0
+    # the bench batch into 2^BENCH_CAP_LOG2 slots, fresh; then after 6
+    # batches
+    kc = DeviceHashCounter(BENCH_CAP_LOG2, nl, device=CARD)
+    pc = DeviceHashCounter(BENCH_CAP_LOG2, nl, device=CARD, plain=True)
+    rows0, valid0 = batch(0)
+    prep0 = kc.prepare(rows0, valid0)
+    n_lanes, n_valid = rows0.shape[0], int(valid0.sum())
+    for c in (kc, pc):
+        c.insert_prepared(prep0)
+    torch.cuda.synchronize()
+    err = max(err, hold_tables(f"bench batch fresh ({n_valid} of {n_lanes} "
+                               f"lanes valid, C 2^{BENCH_CAP_LOG2})", kc,
+                               pc))
+    n_unique = int((kc.counts > 0).sum())
+    for i in range(1, 7):
+        rows6, valid6 = batch(i)
+        prep6 = kc.prepare(rows6, valid6)
+        held, lanes = int((kc.counts > 0).sum()), int(kc.counts.sum())
+        for c in (kc, pc):
+            c.insert_prepared(prep6)
+    # the share of the 7th batch's valid lanes whose key was already held
+    hits = 1 - (int((kc.counts > 0).sum()) - held) / max(
+        int(kc.counts.sum()) - lanes, 1)
+    err = max(err, hold_tables(f"7th batch after 6 ({hits * 100:.1f}% of "
+                               "its lanes hit)", kc, pc))
+    # steady state: the 7th batch again, every lane a hit.  The insert as
+    # a whole (the wrapper's hashes and word conversion, then the launch
+    # or the probe rounds) is the function the bound and torch.unique
+    # measure; the launch alone is kernel_ms
+    res["hit_ms"] = cuda_ms(
+        lambda: kc.insert_prepared(kc.prepare(rows6, valid6)), 20)
+    res["hit_kernel_ms"] = cuda_ms(lambda: kc.insert_prepared(prep6), 20)
+    res["hit_plain_ms"] = cuda_ms(
+        lambda: pc.insert_prepared(pc.prepare(rows6, valid6)), 3)
+    # fresh times at the bench batch
+    res["ms"] = cuda_ms_fresh(
+        kc, lambda: kc.insert_prepared(kc.prepare(rows0, valid0)), 20)
+    res["kernel_ms"] = cuda_ms_fresh(kc, lambda: kc.insert_prepared(prep0),
+                                     20)
+    res["plain_ms"] = cuda_ms_fresh(
+        pc, lambda: pc.insert_prepared(pc.prepare(rows0, valid0)), 3)
+    res["prep_ms"] = cuda_ms(lambda: kc.prepare(rows0, valid0), 10)
+    rows_v = rows0[valid0]
+    res["library_ms"] = cuda_ms(
+        lambda: torch.unique(rows_v, dim=0, return_counts=True), 5)
+    # bytes of the insert as a function (its hashes are computed from the
+    # key inside it, as in the JAX function): each valid lane's nl key
+    # words and each lane's valid byte read once; a claimed slot's fp0
+    # read, its fp0, fp1 and nl payload words written, its count read and
+    # written; a hit slot's fp0, fp1 and payload read, its count read and
+    # written.  A key's repeats in the batch touch its slot again, which
+    # a minimal insert does not pay for
+    claim_b = 4 + (2 + nl) * 4 + 8
+    hit_b = (2 + nl) * 4 + 8
+    nbytes = n_valid * nl * 4 + n_lanes + n_unique * claim_b
+    res["bound_ms"] = nbytes / PEAK_BYTES_S * 1e3
+    n_valid6 = int(valid6.sum())
+    n_unique6 = int(torch.unique(rows6[valid6], dim=0).shape[0])
+    hit_bytes = n_valid6 * nl * 4 + rows6.shape[0] + n_unique6 * hit_b
+    res["hit_bound_ms"] = hit_bytes / PEAK_BYTES_S * 1e3
+    log(f"devhash at the bench batch ({n_lanes} lanes, {n_valid} valid, "
+        f"{n_unique} distinct keys, nl={nl}, C=2^{BENCH_CAP_LOG2}), fresh "
+        f"table: insert (hashes + launch) {res['ms']:.4f} ms, of which the "
+        f"wrapper's hashes and word conversion {res['prep_ms']:.4f} ms and "
+        f"the launch alone {res['kernel_ms']:.4f} ms; plain insert (hashes "
+        f"+ probe rounds) {res['plain_ms']:.4f} ms; bound "
+        f"{res['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.2f} MB at 3.35 "
+        f"TB/s): insert {res['ms'] / res['bound_ms']:.1f}x, launch alone "
+        f"{res['kernel_ms'] / res['bound_ms']:.1f}x its bound; "
+        f"torch.unique(rows, dim=0, return_counts=True) on the {n_valid} "
+        f"valid rows (yardstick) {res['library_ms']:.4f} ms, insert / "
+        f"torch.unique {res['ms'] / res['library_ms']:.2f}x.  7th batch "
+        f"again, every lane a hit ({n_valid6} valid lanes, {n_unique6} "
+        f"distinct keys): insert {res['hit_ms']:.4f} ms, launch alone "
+        f"{res['hit_kernel_ms']:.4f} ms, plain insert "
+        f"{res['hit_plain_ms']:.4f} ms, bound {res['hit_bound_ms']:.4f} ms "
+        f"({hit_bytes / 1e6:.2f} MB)")
+    del kc, pc
+
+    rng = np.random.default_rng(14)
+    # contention: every lane carries one of 64 keys
+    pool = torch.as_tensor(rng.integers(0, 2**32, (64, nl))).to(CARD)
+    rows = pool[torch.as_tensor(rng.integers(0, 64, n_lanes)).to(CARD)]
+    ones = torch.ones(n_lanes, dtype=torch.bool, device=CARD)
+    kc = DeviceHashCounter(20, nl, device=CARD)
+    pc = DeviceHashCounter(20, nl, device=CARD, plain=True)
+    prep = kc.prepare(rows, ones)
+    for c in (kc, pc):
+        c.insert_prepared(prep)
+    err = max(err, hold_tables(f"contention ({n_lanes} lanes on 64 keys)",
+                               kc, pc))
+    # 0.7 load: 0.7 C distinct keys in one batch, C = 2^20.  With 8 probes
+    # about C * 0.7^9 / 9 keys find no slot in either version, so each is
+    # held against the exact count of what it holds
+    C = 1 << 20
+    n = int(0.7 * C)
+    rows = torch.unique(torch.as_tensor(
+        rng.integers(0, 2**32, (n + 4096, nl))).to(CARD), dim=0)[:n]
+    rows = rows[torch.randperm(n, device=CARD)]
+    ones = torch.ones(n, dtype=torch.bool, device=CARD)
+    kc = DeviceHashCounter(20, nl, device=CARD)
+    pc = DeviceHashCounter(20, nl, device=CARD, plain=True)
+    prep = kc.prepare(rows, ones)
+    for c in (kc, pc):
+        c.insert_prepared(prep)
+    held_k, ovf_k = exact_on_what_it_holds("0.7 load, kernel", kc, rows, n)
+    held_p, ovf_p = exact_on_what_it_holds("0.7 load, plain", pc, rows, n)
+    log(f"devhash at 0.7 load ({n} distinct keys into 2^20 slots): kernel "
+        f"holds {held_k} with their exact counts, {ovf_k} lanes overflowed; "
+        f"plain holds {held_p}, {ovf_p} overflowed (sequential inserts "
+        f"with uniform probing would leave about {C * 0.7 ** 9 / 9:.0f})")
+    # overflow: 1,000 keys into 64 slots, both must raise
+    rows = torch.as_tensor(rng.integers(0, 2**32, (1000, nl))).to(CARD)
+    ones = torch.ones(1000, dtype=torch.bool, device=CARD)
+    for plain in (False, True):
+        c = DeviceHashCounter(6, nl, device=CARD, plain=plain)
+        c.insert(rows, ones)
+        try:
+            c.finalize()
+        except RuntimeError as e:
+            if "overflow" not in str(e):
+                raise
+            log(f"devhash overflow case, {'plain' if plain else 'kernel'}: "
+                f"raised ({str(e)[:60]})")
+        else:
+            raise AssertionError("devhash: 1,000 keys in 64 slots did not "
+                                 "raise")
+    res["max_abs_err"] = err
+    return res
+
+
+def phase_secondary_engines(bench):
+    """(a) the devhash kernel vs its plain version; (b) the hash engine at
+    full width == phase 5's count; (c) the device and np engines; (d)
+    ShardedHashCounter on 4 shards of cuda:0; (e) the span k-mer table
+    and its resolver card vs CPU; (f) a KMC database round trip.
+    Returns (devhash launches of the paths (b) and (d), kernel report)."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.graph.build import build_graph_from_kedges
+    from turingassembler_tpu_torch.graph.mutable import MutableGraph
+    from turingassembler_tpu_torch.io import asmg, kmc
+    from turingassembler_tpu_torch.io.fasta import write_fasta
+    from turingassembler_tpu_torch.kmer.count import count_kedges_from_reads
+    from turingassembler_tpu_torch.ops import devhash
+    from turingassembler_tpu_torch.ops import limbs as lb
+    from turingassembler_tpu_torch.parallel.mesh import make_mesh
+    from turingassembler_tpu_torch.ops.devhash import DeviceHashCounter
+    from turingassembler_tpu_torch.parallel.sharded_count import (
+        ShardedHashCounter, _route_and_insert, device_put_sharded_batch)
+    from turingassembler_tpu_torch.resolve import big
+    k = bench["k"]
+    reads, lengths = bench["reads"], bench["lengths"]
+
+    t0 = time.perf_counter()
+    rep = devhash_kernel_vs_plain(bench)
+    log(f"secondary engines (a): part {time.perf_counter() - t0:.3f} s")
+
+    def same(what, got, want):
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"{what} differs from the reference count")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # (b) the hash engine at full width, a main path of the kernel
+    devhash.COUNT.reset()
+    got, t_hash = timed(lambda: count_kedges_from_reads(
+        reads, lengths, k, batch_size=HASH_BATCH, engine="hash",
+        device=CARD))
+    launches = devhash.COUNT.launches
+    lanes = devhash.COUNT.lanes
+    same("hash engine", got, (bench["kedges"], bench["counts"]))
+    ms_out, t_mega = timed(lambda: count_kedges_from_reads(
+        reads, lengths, k, batch_size=HASH_BATCH, engine="megasort",
+        device=CARD))
+    same("megasort engine", ms_out, (bench["kedges"], bench["counts"]))
+    log(f"secondary engines (b) hash engine, {len(reads)} reads of 150 bp, "
+        f"k={k}: {t_hash:.3f} s ({len(reads) / t_hash:.1f} reads/s), "
+        f"{len(got[0])} k-edges == phase 5's count row for row; devhash "
+        f"{launches} launches, {lanes} lanes; megasort on the same reads "
+        f"{t_mega:.3f} s")
+    if launches < 1:
+        raise AssertionError("hash engine: the devhash kernel never launched")
+
+    # (c) the device and np engines on phase 13 (c)'s reads
+    sreads, slengths, perm, n_clean = shard_library()
+    ref, t_ref = timed(lambda: count_kedges_from_reads(
+        sreads, slengths, k, batch_size=HASH_BATCH, device=CARD))
+    dev_out, t_dev = timed(lambda: count_kedges_from_reads(
+        sreads, slengths, k, batch_size=HASH_BATCH, engine="device",
+        device=CARD))
+    same("device engine", dev_out, ref)
+    np_out, t_np = timed(lambda: count_kedges_from_reads(
+        sreads, slengths, k, batch_size=HASH_BATCH, engine="np",
+        device=CARD))
+    same("np engine", np_out, ref)
+    log(f"secondary engines (c) on {len(sreads)} reads, {len(ref[0])} "
+        f"k-edges, each == megasort ({t_ref:.3f} s): device engine "
+        f"{t_dev:.3f} s, np engine {t_np:.3f} s")
+
+    # (d) ShardedHashCounter, 4 shards on cuda:0, a main path of the kernel
+    D = SHARDS
+    per_dev = (HASH_BATCH // D) * (sreads.shape[1] - k)
+    cap = int(2.2 * per_dev / D) + 64
+    devhash.COUNT.reset()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sh = ShardedHashCounter(make_mesh(D, CARD), k, SHARD_CAP_LOG2, cap)
+    for i in range(0, len(sreads), HASH_BATCH):
+        sh.insert_batch(sreads[i:i + HASH_BATCH], slengths[i:i + HASH_BATCH])
+    sh_ovf = [c.overflow() for c in sh.counters]
+    if sh.overflow():
+        log(f"secondary engines (d): {sh.overflow() - sum(sh_ovf)} k-mers "
+            f"dropped by the routing, table overflow a shard {sh_ovf}")
+    sh_out = sh.finalize()
+    torch.cuda.synchronize()
+    t_sh = time.perf_counter() - t1
+    sh_launches = devhash.COUNT.launches
+    same("ShardedHashCounter", sh_out, ref)
+    n_batches = -(-len(sreads) // HASH_BATCH)
+    log(f"secondary engines (d) ShardedHashCounter, {D} shards on {CARD}, "
+        f"2^{SHARD_CAP_LOG2} slots a shard, {n_batches} batches: {t_sh:.3f} "
+        "s, none dropped or overflowed, == the single count; devhash "
+        f"{sh_launches} launches")
+    if sh_launches != D * n_batches:
+        raise AssertionError("ShardedHashCounter: not one launch a shard and "
+                             "batch")
+    launches += sh_launches
+    # (d)'s first batch again, now that its counts are read: the same
+    # routing and exchange into fresh kernel tables and fresh plain tables
+    # of the shards' capacity, so the kernel is held at (d)'s own shape
+    del sh
+    mesh = make_mesh(D, CARD)
+    db, dl = device_put_sharded_batch(sreads[:HASH_BATCH],
+                                      slengths[:HASH_BATCH], mesh)
+    tables = {}
+    for plain in (False, True):
+        tables[plain] = [DeviceHashCounter(SHARD_CAP_LOG2, lb.n_limbs(k + 1),
+                                           device=d, plain=plain)
+                         for d in mesh.devices]
+        _route_and_insert(tables[plain], db, dl, mesh=mesh, k1=k + 1,
+                          cap_per_dest=cap)
+    for i, (kc, pc) in enumerate(zip(tables[False], tables[True])):
+        rep["max_abs_err"] = max(rep["max_abs_err"], hold_tables(
+            f"ShardedHashCounter shard {i}, batch 0 ({kc.counts.shape[0]} "
+            f"slots, {D * cap} routed lanes)", kc, pc))
+    del tables
+
+    # (e) the span k-mer table and its resolver, card vs CPU
+    h0, h1 = tt.make_212_genome(rep_len=60, k=21)
+    r0, l0 = tt.sim_reads(h0, coverage=35, read_len=150, seed=3)
+    r1, l1 = tt.sim_reads(h1, coverage=35, read_len=150, seed=4)
+    r212, l212 = np.concatenate([r0, r1]), np.concatenate([l0, l1])
+    ke, c = count_kedges_from_reads(r212, l212, 21, device=CARD)
+    g = build_graph_from_kedges(ke, c, 21)
+    outs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for dev in (CARD, "cpu"):
+            table = big.SpanKmerTable.build(r212, l212, device=dev)
+            mg = MutableGraph.from_asm(g.clone())
+            n = big.resolve_212_pair_kmer_all(mg, table)
+            g2 = mg.to_asm()
+            asmg.save_graph(g2, os.path.join(d, dev + ".bin"))
+            write_fasta(g2, os.path.join(d, dev + ".fasta"))
+            outs[dev] = (table.keys, table.counts, n,
+                         file_bytes(os.path.join(d, dev + ".bin")),
+                         file_bytes(os.path.join(d, dev + ".fasta")))
+    for i, name in enumerate(("table keys", "table counts", "joins",
+                              ".bin", "FASTA")):
+        if not np.array_equal(outs[CARD][i], outs["cpu"][i]):
+            raise AssertionError(f"span k-mer resolver: {name} differ card "
+                                 "vs CPU")
+    if outs[CARD][2] < 1:
+        raise AssertionError("span k-mer resolver joined nothing")
+    table, t_span = timed(lambda: big.SpanKmerTable.build(
+        sreads, slengths, device=CARD))
+    bk = big.BIG_KSIZE
+    inside = np.arange(sreads.shape[1])[None, :] < slengths[:, None]
+    if (sreads[inside] >= 4).any():
+        raise AssertionError("span table: a read holds an invalid base")
+    n_windows = int(np.maximum(slengths.astype(np.int64) - bk + 1, 0).sum())
+    if int(table.counts.sum()) != n_windows:
+        raise AssertionError("span table: total count != valid windows")
+    log(f"secondary engines (e) span k-mer resolver on the 2-1-2 library "
+        f"({len(r212)} reads): card == CPU for the table "
+        f"({len(outs[CARD][0])} keys), {outs[CARD][2]} join(s), the "
+        f".bin and the FASTA; card table of {len(sreads)} reads {t_span:.3f} "
+        f"s, {len(table.keys)} keys, total count {n_windows} == valid "
+        f"{bk}-windows")
+
+    # (f) KMC round trip of phase 5's k-edges (host)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"KMC_{k + 1}_count")
+        kmc.write_kmc_database(lb.np_unpack_limbs(bench["kedges"], k + 1),
+                               bench["counts"], path)
+        ke_back, c_back, k_back = kmc.load_kedges_from_kmc(path)
+        size = os.path.getsize(path + ".kmc_suf")
+    if k_back != k:
+        raise AssertionError("KMC round trip: k differs")
+    same("KMC round trip", (ke_back, c_back), (bench["kedges"],
+                                               bench["counts"]))
+    log(f"secondary engines (f) KMC database of phase 5's {len(ke_back)} "
+        f"k-edges ({size / 1e6:.1f} MB of records) written and loaded back "
+        f"equal: {time.perf_counter() - t1:.3f} s")
+    return launches, rep
+
+
+
 def build_kernels():
     from turingassembler_tpu_torch import _build
     t0 = time.perf_counter()
@@ -1902,7 +2344,7 @@ def main():
 
     nw = phase(phase_kernel_vs_plain)
     phase(phase_slice_parity)
-    launches, shapes = phase(phase_full_width)
+    launches, shapes, bench = phase(phase_full_width)
     phase(phase_levels_parity)
     n, sh = phase(phase_levels_full_width)
     launches, shapes = launches + n, shapes + sh
@@ -1921,6 +2363,8 @@ def main():
         launches, shapes = launches + n, shapes + sh
         n, sh = phase(phase_multi_process, *parity, full_out)
         launches, shapes = launches + n, shapes + sh
+    dh_launches, dh = phase(phase_secondary_engines, bench)
+    del bench
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
                             phase(phase_hold_path_shapes, shapes))
@@ -1934,7 +2378,14 @@ def main():
         "launches": launches, "max_abs_err": nw["max_abs_err"],
         "ms": nw["ms"], "plain_ms": nw["plain_ms"],
         "bound_ms": nw["bound_ms"], "bound_by": nw["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "devhash", "route": "cuda",
+        "source": "turingassembler_tpu_torch/csrc/devhash.cu",
+        "replaces": "turingassembler_tpu/ops/devhash.py:103",
+        "launches": dh_launches, "max_abs_err": dh["max_abs_err"],
+        "ms": dh["ms"], "kernel_ms": dh["kernel_ms"],
+        "plain_ms": dh["plain_ms"], "bound_ms": dh["bound_ms"],
+        "bound_by": "bytes", "library_ms": dh["library_ms"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,16 @@
-"""The port's 2-1-2 repeat resolution by coverage (resolve/big.py)
-against the JAX package's.
+"""The port's 2-1-2 repeat resolution (resolve/big.py), by coverage and
+by span k-mers, against the JAX package's.
 
 The graph is make_212_genome of tests/test_resolve_big.py: two sequences
 through one 60 bp repeat, reads from a numpy seed at two depths (the
 coverage pass joins only legs whose coverages separate 1.7x), built by
 the JAX package and carried across with convert.graph.  Tolerance:
 exact — the 2-1-2 case per edge, the join counts, the graph arrays.
+The span k-mer resolver: the 111-bp window table (keys and counts, the
+tail batch short), count_span on every leg pairing's span and on
+sequences too short or absent, and the asmg bytes of the graph after
+resolve_212_pair_kmer_all, on the library of tests/test_resolve_big.py's
+span test (35x each).
 """
 
 import numpy as np
@@ -17,7 +22,10 @@ from turingassembler_tpu.graph.build import build_graph_from_kedges
 from turingassembler_tpu.graph.mutable import MutableGraph as JMutable
 from turingassembler_tpu.kmer.count import count_kedges_from_reads
 from turingassembler_tpu.resolve import big as JBIG
+from turingassembler_tpu.io import asmg as jasmg
 from turingassembler_tpu_torch import convert
+from turingassembler_tpu_torch import testing as tt
+from turingassembler_tpu_torch.io import asmg as tasmg
 from turingassembler_tpu_torch.graph.condense import asm_condense
 from turingassembler_tpu_torch.graph.invariants import check_graph
 from turingassembler_tpu_torch.graph.mutable import MutableGraph as TMutable
@@ -109,3 +117,63 @@ def test_try_212_cov_and_similar_cov(case):
     assert_same(jm, tm)
     for a, b in ((10.0, 8.1), (10.0, 8.0), (8.0, 10.0), (3.0, 30.0)):
         assert TBIG._similar_cov(a, b) == JBIG._similar_cov(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the span k-mer resolver
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def span():
+    k = 21
+    h0, h1 = make_212_genome(rep_len=60, k=k)
+    assert all(np.array_equal(a, b) for a, b in
+               zip((h0, h1), tt.make_212_genome(rep_len=60, k=k)))
+    r0, l0 = jt.sim_reads(h0, coverage=35, read_len=150, seed=3)
+    r1, l1 = jt.sim_reads(h1, coverage=35, read_len=150, seed=4)
+    reads, lengths = np.concatenate([r0, r1]), np.concatenate([l0, l1])
+    ke, c = count_kedges_from_reads(reads, lengths, k)
+    jtab = JBIG.SpanKmerTable.build(reads, lengths)
+    ttab = TBIG.SpanKmerTable.build(reads, lengths, batch_size=1000,
+                                    device="cpu")
+    return build_graph_from_kedges(ke, c, k), jtab, ttab, h0
+
+
+def test_span_table_matches_jax(span):
+    _, jtab, ttab, h0 = span
+    assert ttab.keys.dtype == jtab.keys.dtype == np.uint32
+    assert ttab.counts.dtype == jtab.counts.dtype
+    np.testing.assert_array_equal(ttab.keys, jtab.keys)
+    np.testing.assert_array_equal(ttab.counts, jtab.counts)
+    assert len(ttab.keys) > 1000 and ttab.k == jtab.k == TBIG.BIG_KSIZE
+    rng = np.random.default_rng(5)
+    for seq in (h0[:400], h0[2950:3200], rng.integers(0, 4, 300)
+                .astype(np.uint8), h0[:110], np.concatenate(
+                    [h0[:100], np.full(20, 4, np.uint8), h0[100:300]])):
+        assert ttab.count_span(seq) == jtab.count_span(seq)
+    assert ttab.count_span(h0[:400]) > 0 and ttab.count_span(h0[:110]) == -1
+
+
+def test_resolve_212_pair_kmer_all(span, tmp_path):
+    g, jtab, ttab, _ = span
+    jm, tm = mutables(g)
+    mid = [e for e in range(tm.n_e) if TBIG.is_case_2_1_2(tm, e)]
+    for e in mid:
+        a0, a1, o0, o1 = TBIG._legs(tm, e)
+        for a in (a0, a1):
+            for o in (o0, o1):
+                ts = TBIG._span_seq(tm, a, o, e)
+                js = JBIG._span_seq(jm, a, o, e)
+                assert (ts is None) == (js is None)
+                if ts is not None:
+                    np.testing.assert_array_equal(ts, js)
+                    assert ttab.count_span(ts) == jtab.count_span(js)
+    n = TBIG.resolve_212_pair_kmer_all(tm, ttab)
+    assert n == JBIG.resolve_212_pair_kmer_all(jm, jtab) >= 1
+    assert_same(jm, tm)
+    jp, tp = tmp_path / "jax.bin", tmp_path / "port.bin"
+    jasmg.save_graph(jm.to_asm(), str(jp))
+    tasmg.save_graph(tm.to_asm(), str(tp))
+    assert jp.read_bytes() == tp.read_bytes()
+    assert TBIG.resolve_using_pair_kmer(tm, mid[0], ttab) == \
+        JBIG.resolve_using_pair_kmer(jm, mid[0], jtab)

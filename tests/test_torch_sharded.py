@@ -6,7 +6,9 @@ The port's mesh holds its shards on the CPU (several shards a device);
 the JAX one holds one shard a virtual device.  Tolerance: exact
 equality: the merged (kedges, counts) tables and every shard's own table
 (the same hash routes a k-mer to the same shard), the dropped count at a
-small capacity, (edges, hits, starts) of the map, verified and vote-only,
+small capacity, the hash-table variant (ShardedHashCounter: merged
+table, each shard's sorted live set, overflow), (edges, hits, starts) of
+the map, verified and vote-only,
 the aux-info attach tables and candidate dicts in their order.  The
 two-process run (2 processes x 2 shards, tests/test_distributed.py's
 layout) must give the single-process count.
@@ -108,6 +110,61 @@ def test_sharded_count_overflow_detected():
     *_, jd, jtot = jsc.sharded_count_step(jb, jl, mesh=j_mesh(2), k=K,
                                           cap_per_dest=8)
     assert dropped == int(jd) > 0 and total == int(jtot)
+
+
+def jax_shard_sets(jh):
+    """Each shard's live (keys, counts) of a JAX ShardedHashCounter,
+    sorted."""
+    keys = np.asarray(jh.keys)
+    counts = np.asarray(jh.counts).reshape(keys.shape[0], -1)
+    out = []
+    for d in range(keys.shape[0]):
+        live = counts[d] > 0
+        k = keys[d, 2:, :].T[live]
+        order = np.lexsort(tuple(k[:, l] for l in range(k.shape[1] - 1, -1,
+                                                          -1)))
+        out.append((k[order], counts[d][live][order].astype(np.int64)))
+    return out
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_hash_counter_matches_jax(n_shards):
+    reads, lengths = count_reads(n_shards)
+    cap = int(2.2 * (len(reads) // n_shards) * (100 - K) / n_shards) + 64
+    th = tsc.ShardedHashCounter(tmesh.make_mesh(n_shards, "cpu"), K, 14, cap)
+    jh = jsc.ShardedHashCounter(j_mesh(n_shards), K, 14, cap)
+    half = len(reads) // 2 // n_shards * n_shards
+    for lo, hi in ((0, half), (half, len(reads))):
+        th.insert_batch(reads[lo:hi], lengths[lo:hi])
+        jh.insert_batch(reads[lo:hi], lengths[lo:hi])
+    assert th.overflow() == int(jh._ovf) == 0
+    for (tk, tc), (jk, jc) in zip(th.shard_tables(), jax_shard_sets(jh)):
+        assert len(tk) > 0
+        np.testing.assert_array_equal(tk, jk)
+        np.testing.assert_array_equal(tc, jc)
+    got, want = th.finalize(), jh.finalize()
+    single = t_count(reads, lengths, K, batch_size=100_000, device="cpu")
+    for a, b, c in zip(got, want, single):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_sharded_hash_counter_overflow_detected():
+    """Routing drops (a small cap_per_dest) and table overflow (8 slots a
+    shard) both raise at finalize, in both packages."""
+    reads, lengths = count_reads(2, seed=1)
+    reads, lengths = reads[:40], lengths[:40]
+    for log2, cap in ((14, 8), (3, 4096)):
+        th = tsc.ShardedHashCounter(tmesh.make_mesh(2, "cpu"), K, log2, cap)
+        jh = jsc.ShardedHashCounter(j_mesh(2), K, log2, cap)
+        th.insert_batch(reads, lengths)
+        jh.insert_batch(reads, lengths)
+        for h in (th, jh):
+            with pytest.raises(RuntimeError, match="ShardedHashCounter overflow"):
+                h.finalize()
+        if log2 == 14:
+            assert th.overflow() == int(jh._ovf) > 0
 
 
 def test_mesh_places_shards_round_robin():

@@ -13,8 +13,10 @@ capacity per destination; k-mers past it are dropped and counted over
 all shards, and the host wrapper raises when any was (the caller grows
 the capacity).
 
-The JAX package's hash-table variant (ShardedHashCounter and its
-_route_and_insert) needs ops/devhash.py, which is not ported yet.
+ShardedHashCounter is the hash-table variant: the same routing (with
+its own hash seed, as in the JAX package), then each shard inserts what
+it received into its own DeviceHashCounter (ops/devhash.py), one kernel
+launch a shard and batch on a card.
 """
 
 from __future__ import annotations
@@ -27,23 +29,24 @@ import torch
 from ..kmer.megasort import _sort_count
 from ..ops import kmers as km
 from ..ops import limbs as lb
+from ..ops.devhash import DeviceHashCounter
 from ..ops.sortops import np_merge_count_runs
 from .distributed import global_read_batch
 from .mesh import Mesh
 
 
 def _route(bases: torch.Tensor, lengths: torch.Tensor, *, k1: int,
-           n_shards: int, cap_per_dest: int):
+           n_shards: int, cap_per_dest: int, seed: int = 0x9E3779B9):
     """One shard's routing: its k-mers into the (n_shards, cap, nl) send
-    buffer by destination.  Returns (send, send_valid (n_shards, cap),
-    dropped, valid k-mers)."""
+    buffer by destination, hash_limbs(k-mer, seed) mod n_shards.  Returns
+    (send, send_valid (n_shards, cap), dropped, valid k-mers)."""
     dev = bases.device
     canon, _, valid = km.extract_canonical_kmers(bases, lengths, k1)
     nl = canon.shape[-1]
     flat = canon.reshape(-1, nl)
     vflat = valid.reshape(-1)
     n = flat.shape[0]
-    shard = lb.hash_limbs(flat) % n_shards
+    shard = lb.hash_limbs(flat, seed) % n_shards
     shard = torch.where(vflat, shard, n_shards)      # invalids route nowhere
     order = torch.argsort(shard, stable=True)
     shard_s = shard[order]
@@ -137,3 +140,81 @@ def sharded_count_to_host(bases: np.ndarray, lengths: np.ndarray, mesh: Mesh,
              c.cpu().numpy().astype(np.int64)) for u, c in zip(uniq, counts)]
     runs = [r for part in mesh.gather(runs) for r in part]
     return np_merge_count_runs(runs)
+
+
+# ---------------------------------------------------------------------------
+# hash-engine variant: one open-addressing table a shard
+# ---------------------------------------------------------------------------
+
+ROUTE_SEED = 0x51ED270B     # the JAX _route_and_insert's routing hash seed
+
+
+def _route_and_insert(counters: List[DeviceHashCounter],
+                      bases: List[torch.Tensor], lengths: List[torch.Tensor],
+                      *, mesh: Mesh, k1: int, cap_per_dest: int) -> int:
+    """Every local shard's routing, the exchange, and each shard's insert
+    of what it received (padding rows invalid) into its own table.
+    Returns the k-mers dropped by the routing over all shards."""
+    sends, valids = [], []
+    dropped = 0
+    for b, ln in zip(bases, lengths):
+        s, v, d, _ = _route(b, ln, k1=k1, n_shards=mesh.size,
+                            cap_per_dest=cap_per_dest, seed=ROUTE_SEED)
+        sends.append(s)
+        valids.append(v)
+        dropped += d
+    for counter, r, v in zip(counters, mesh.all_to_all(sends),
+                             mesh.all_to_all(valids)):
+        counter.insert(r.reshape(-1, r.shape[-1]), v.reshape(-1))
+    return mesh.psum(dropped)
+
+
+class ShardedHashCounter:
+    """Mesh-wide k-mer counter: the k-mer space hash-partitioned over the
+    shards of `mesh`, each shard holding its own DeviceHashCounter of
+    2^capacity_log2 slots on its device.  A k-mer's count exists on one
+    shard only, so the shards' tables merge by concatenation."""
+
+    def __init__(self, mesh: Mesh, k: int, capacity_log2: int,
+                 cap_per_dest: int):
+        self.mesh = mesh
+        self.k = k
+        self.cap_per_dest = cap_per_dest
+        self.capacity_log2 = capacity_log2
+        nl = lb.n_limbs(k + 1)
+        self.counters = [DeviceHashCounter(capacity_log2, nl, device=d)
+                         for d in mesh.devices]
+        self._dropped = 0
+
+    def insert_batch(self, bases: np.ndarray, lengths: np.ndarray) -> None:
+        """Route and count one global host batch (its reads divide evenly
+        over the shards)."""
+        db, dl = device_put_sharded_batch(bases, lengths, self.mesh)
+        self._dropped += _route_and_insert(
+            self.counters, db, dl, mesh=self.mesh, k1=self.k + 1,
+            cap_per_dest=self.cap_per_dest)
+
+    def overflow(self) -> int:
+        """Lanes that found no slot plus k-mers dropped by the routing,
+        over all shards."""
+        return self.mesh.psum(sum(c.overflow() for c in self.counters)) \
+            + self._dropped
+
+    def shard_tables(self):
+        """Each local shard's sorted live set, host (keys uint32, counts
+        int64)."""
+        return [c.finalize(out_cap_log2=self.capacity_log2)
+                for c in self.counters]
+
+    def finalize(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every shard's table merged on the host (disjoint key spaces):
+        (kedges (n, nl) uint32 sorted unique, counts (n,) int64), on every
+        process.  Raises when any lane overflowed or any k-mer was
+        dropped."""
+        ovf = self.overflow()
+        if ovf > 0:
+            raise RuntimeError(f"ShardedHashCounter overflow ({ovf}); grow "
+                               "capacity or cap_per_dest")
+        runs = [r for part in self.mesh.gather(self.shard_tables())
+                for r in part]
+        return np_merge_count_runs(runs)

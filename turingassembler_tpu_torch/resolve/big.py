@@ -1,19 +1,110 @@
-"""2-1-2 repeat resolution by coverage — rebuild of src/resolve_big.c
-(resolve_212_by_cov_1step :496-545).
+"""2-1-2 repeat resolution — rebuild of src/resolve_big.c +
+build_hash_table.c (port of turingassembler_tpu/resolve/big.py).
 
 A "2-1-2" is a short middle edge e with exactly two in-legs (a0, a1) and
-two out-legs (o0, o1).  Legs pair up when their coverages separate
->= 1.7x on both sides and match across (similar_cov = within 0.8x).
+two out-legs (o0, o1).  Two resolvers:
 
-The host half of turingassembler_tpu/resolve/big.py, copied line for
-line.  Its span k-mer resolver (SpanKmerTable, resolve_using_pair_kmer,
-resolve_212_pair_kmer_all), whose table is built by jitted device code,
-has no command that calls it and is not ported.
+  by span k-mers (resolve_using_pair_kmer :401-446): count 111-bp read
+    windows (BIG_KSIZE, assembly_graph.h:22) in a table built from all
+    reads (ust_add_big_kmer build_hash_table.c:78-101); for each leg
+    combination build the joined span a.e.o (get_pair_seq_count :56-93)
+    and sum its window counts; join the majority pairing with
+    asm_join_edge3 when both its spans have support.
+
+  by coverage (resolve_212_by_cov_1step :496-545): legs pair up when
+    their coverages separate >= 1.7x on both sides and match across
+    (similar_cov = within 0.8x).
+
+The span table is built on `device`: windows are hashed to two 32-bit
+lanes (ops/limbs.hash_limbs, two seeds) and counted by the sort and
+merge engine the k-mer counter uses (ops/sortops.py, ops/merge.py);
+identity collisions at 64 bits are as unlikely as the reference's
+MurmurHash3_x64_64 keys.  The host half is copied line for line.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
 from ..graph.mutable import MutableGraph
+from ..ops import kmers as km
+from ..ops import limbs as lb
+from ..ops.merge import DeviceCountAccumulator
+from ..ops.sortops import padded_run, searchsorted_limbs
+
+BIG_KSIZE = 111       # reference assembly_graph.h:22
+DISTANCE_KMER = 60    # :20
+KMER_PAIR_SIZE = 51   # :21
+NOT_LONG_ENOUGH = 2   # :24
+NOT_HAVE_SPAN_KMER = 3  # :25
+
+
+def _window_hashes(bases: torch.Tensor, lengths: torch.Tensor, k: int):
+    """(B, P, 2) hash lanes (int64 values in [0, 2^32)) and (B, P)
+    validity for all k-windows."""
+    packed = km._pack_windows(bases, k)         # (B, P, nl)
+    valid = km.window_validity(bases, lengths, k)
+    B, P, nl = packed.shape
+    flat = packed.reshape(B * P, nl)
+    h1 = lb.hash_limbs(flat, seed=0x9E3779B9).reshape(B, P)
+    h2 = lb.hash_limbs(flat, seed=0x85EBCA6B).reshape(B, P)
+    return torch.stack([h1, h2], dim=-1), valid
+
+
+def _hash_count_tile(hashes: torch.Tensor, valid: torch.Tensor):
+    """One batch's hash pairs -> sorted unique run, SENTINEL-padded."""
+    return padded_run(hashes.reshape(-1, 2), valid.reshape(-1))[:2]
+
+
+class SpanKmerTable:
+    """Sorted (hash-pair -> count) table of BIG_KSIZE read windows; keys
+    (n, 2) uint32 and counts (n,) int64 on the host, as in the JAX
+    package; count_span runs on `device`."""
+
+    def __init__(self, keys: np.ndarray, counts: np.ndarray,
+                 k: int = BIG_KSIZE, *, device: str | torch.device = "cuda"):
+        self.keys = keys
+        self.counts = counts
+        self.k = k
+        self.device = resolve_device(device)
+        self._keys_dev = None
+
+    @classmethod
+    def build(cls, reads: np.ndarray, lengths: np.ndarray,
+              k: int = BIG_KSIZE, batch_size: int = 4096, *,
+              device: str | torch.device = "cuda") -> "SpanKmerTable":
+        dev = resolve_device(device)
+        acc = DeviceCountAccumulator()
+        if reads.shape[1] >= k:
+            for i in range(0, len(reads), batch_size):
+                rb = torch.as_tensor(np.ascontiguousarray(
+                    reads[i:i + batch_size], np.uint8)).to(dev)
+                lns = torch.as_tensor(np.ascontiguousarray(
+                    lengths[i:i + batch_size], np.int32)).to(dev)
+                acc.add_run(*_hash_count_tile(*_window_hashes(rb, lns, k)))
+        keys, counts = acc.finalize()
+        return cls(keys, counts, k, device=dev)
+
+    def count_span(self, seq: np.ndarray) -> int:
+        """Sum of window counts of `seq` (uint8 codes); -1 when it is
+        shorter than k or the table is empty."""
+        if len(seq) < self.k or len(self.keys) == 0:
+            return -1
+        if self._keys_dev is None:
+            self._keys_dev = torch.from_numpy(
+                self.keys.astype(np.int64)).to(self.device)
+        bases = torch.as_tensor(np.ascontiguousarray(seq, np.uint8))[None, :]
+        lengths = torch.tensor([len(seq)], dtype=torch.int32)
+        hashes, valid = _window_hashes(bases.to(self.device),
+                                       lengths.to(self.device), self.k)
+        idx, found = searchsorted_limbs(self._keys_dev, hashes.reshape(-1, 2))
+        idx = idx.cpu().numpy()
+        found = (found & valid.reshape(-1)).cpu().numpy()
+        return int(self.counts[idx[found]].sum())
 
 
 def _legs(g: MutableGraph, i_e: int):
@@ -47,6 +138,60 @@ def is_case_2_1_2(g: MutableGraph, i_e: int) -> bool:
         return False
     return True
 
+
+def _span_seq(g: MutableGraph, left: int, right: int, mid: int) -> Optional[np.ndarray]:
+    """Joined a.e.o span trimmed like get_pair_seq_count (resolve_big.c:56-93)."""
+    k = g.ksize
+    le, re, me = g.edges[left], g.edges[right], g.edges[mid]
+    span = BIG_KSIZE
+    mid_len = me.seq_len
+    left_len = min(le.seq_len - k, span - mid_len - 1)
+    right_len = min(re.seq_len - k, span - mid_len - 1)
+    if left_len + mid_len + right_len < span:
+        return None
+    return np.concatenate([
+        le.seq[le.seq_len - k - left_len : le.seq_len - k],
+        me.seq,
+        re.seq[k : k + right_len],
+    ])
+
+
+def resolve_using_pair_kmer(g: MutableGraph, i_e: int, table: SpanKmerTable) -> int:
+    if not is_case_2_1_2(g, i_e):
+        return 1
+    e = g.edges[i_e]
+    if e.seq_len > DISTANCE_KMER + KMER_PAIR_SIZE - 2:
+        return NOT_LONG_ENOUGH
+    i_a0, i_a1, i_o0, i_o1 = _legs(g, i_e)
+
+    def cnt(a, o):
+        s = _span_seq(g, a, o, i_e)
+        return -1 if s is None else table.count_span(s)
+
+    c00, c01 = cnt(i_a0, i_o0), cnt(i_a0, i_o1)
+    c10, c11 = cnt(i_a1, i_o0), cnt(i_a1, i_o1)
+    half = g.edges[i_e].count // 2
+    if c00 > 0 and c11 > 0 and c00 + c11 > c10 + c01:
+        g.join_edge3(i_a0, i_e, i_o0, half)
+        g.join_edge3(i_a1, i_e, i_o1, half)
+        g.remove_edge_pair(i_e)
+        return 0
+    if c10 > 0 and c01 > 0 and c10 + c01 > c00 + c11:
+        g.join_edge3(i_a0, i_e, i_o1, half)
+        g.join_edge3(i_a1, i_e, i_o0, half)
+        g.remove_edge_pair(i_e)
+        return 0
+    return NOT_HAVE_SPAN_KMER
+
+
+def resolve_212_pair_kmer_all(g: MutableGraph, table: SpanKmerTable) -> int:
+    n = 0
+    for i_e in range(g.n_e):
+        if g.edges[i_e].source == -1:
+            continue
+        if resolve_using_pair_kmer(g, i_e, table) == 0:
+            n += 1
+    return n
 
 
 def _similar_cov(c1: float, c2: float) -> bool:

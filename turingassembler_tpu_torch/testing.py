@@ -16,7 +16,8 @@ a linear genome's ends, and linked_read_library writes a linked-read
 library of such a genome as FASTQ files.  two_path_local_graph and
 read_pairs_of make a local graph with two candidate paths between its
 flanks and the read pairs of one of them, for the bridge's path
-scoring."""
+scoring.  make_212_genome (a copy of tests/test_resolve_big.py's) makes
+the two sequences through one short repeat of the 2-1-2 resolvers."""
 
 from __future__ import annotations
 
@@ -172,6 +173,21 @@ def kmer_hashes(seq: np.ndarray, k: int) -> np.ndarray:
         else:
             h = (h << np.uint64(2)) | s[j:j + n]
     return h ^ (hi * np.uint64(0x9E3779B97F4A7C15))
+
+
+def make_212_genome(seed=2, rep_len=60, k=21):
+    """Two sequences sharing a short middle repeat: A0-R-B0 and A1-R-B1
+    creates a 2-in/1-mid/2-out junction at R (rep shorter than
+    DISTANCE_KMER + 51 - 2 - 2k so the span check applies)."""
+    rng = np.random.default_rng(seed)
+    A0 = rng.integers(0, 4, 3000).astype(np.uint8)
+    A1 = rng.integers(0, 4, 3000).astype(np.uint8)
+    B0 = rng.integers(0, 4, 3000).astype(np.uint8)
+    B1 = rng.integers(0, 4, 3000).astype(np.uint8)
+    R = rng.integers(0, 4, rep_len).astype(np.uint8)
+    h0 = np.concatenate([A0, R, B0])
+    h1 = np.concatenate([A1, R, B1])
+    return h0, h1
 
 
 def diploid_reads(genome_len: int, seed: int, coverage: float = 20.0,
