@@ -86,28 +86,34 @@ before printing a result:
      map_reads.  Each rank prints its seconds and its NW launches; the
      ranks' launches and (c)'s join the kernels line's count.  The ranks are this script again: `chip_smoke.py --rank <spec>`
  14. secondary engines (after phase 13): (a) the devhash kernel
-     (csrc/devhash.cu) against its plain version on the card: the bench
-     batch (8,192 reads, k=45, 860,160 valid lanes) into 2^25 slots
-     fresh and as the 7th batch, when most lanes hit; 860,160 lanes on 64
-     keys; then equal finalized tables with 0 overflow in both.  At 0.7
-     load (734,003 keys into 2^20 slots) both overflow (8 probes), so
-     each is held against the exact count of the keys it holds; 1,000
-     keys into 64 slots raise in both.  At the bench batch the insert's
-     ms (hashes + launch, the kernels line's `ms`), the launch alone
-     (`kernel_ms`), the plain insert's, torch.unique's (yardstick) and the
-     insert's bytes bound; (b) the hash
-     engine on phase 5's 1,048,576 reads == phase 5's count, beside
+     (csrc/devhash.cu): its own hashes (the check entry) == hashes() bit
+     for bit on the bench batch's 876,544 lanes and on random keys at
+     every nl 1-8; then its rows entry (keys) and its reads entry (codes:
+     extraction and insert in one launch) against the plain version on
+     the card: the bench batch (8,192 reads, k=45, 860,160 valid lanes)
+     into 2^25 slots fresh and as the 7th batch, when most lanes hit;
+     860,160 lanes on 64 keys; then equal finalized tables with 0
+     overflow in both.  At 0.7 load (734,003 keys into 2^20 slots) both
+     overflow (8 probes), so each is held against the exact count of the
+     keys it holds; 1,000 keys into 64 slots raise in both.  At the bench
+     batch the rows insert's ms (wrapper + launch, the kernels line's
+     `ms`), the launch alone (`kernel_ms`), the plain insert's,
+     torch.unique's (yardstick) and the insert's bytes bound; the reads
+     entry's ms and bound, and extraction in tensor code + the rows
+     insert (`unfused_ms`); (b) the hash engine (one reads-entry launch a
+     batch) on phase 5's 1,048,576 reads == phase 5's count, beside
      megasort's seconds; (c) the device and np engines on phase 13 (c)'s
      262,144 reads == megasort; (d)
      ShardedHashCounter on 4 shards of cuda:0 over those reads == the
-     single count, one launch a shard and batch, and then its first
-     batch again into fresh kernel and plain shard tables, held equal
-     shard by shard; (e) the span k-mer table
+     single count, one rows-entry launch a shard and batch, and then its
+     first batch again into fresh kernel and plain shard tables, held
+     equal shard by shard; (e) the span k-mer table
      and resolve_212_pair_kmer_all on the 2-1-2 library card == CPU (the
      table, the .bin, the FASTA), and a card table of the 262,144 reads
      whose total count is their number of valid 111-windows; (f) phase
      5's k-edges through a KMC database and back.  The devhash launches
-     of (b) and (d) are the kernels line's count
+     of (d) (rows entry) and (b) (reads entry) are the kernels line's
+     counts of `devhash` and `devhash_count_reads`
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
      9, 10, 11 and 13 launched the kernel at, with their scoring and mode
  15. the `kernels` JSON line, the nvidia-smi line, and last the result
@@ -1976,8 +1982,7 @@ def cuda_ms_fresh(counter, fn, reps):
     fn()
     times = []
     for _ in range(reps):
-        counter.fp.fill_(-1)
-        counter.payload.fill_(-1)
+        counter.table.fill_(-1)
         counter.counts.zero_()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -1990,65 +1995,103 @@ def cuda_ms_fresh(counter, fn, reps):
     return float(np.mean(times))
 
 
+def hold_kernel_hashes(what, rows, capacity):
+    """The kernel's own (slot, stride, fpA, fpB) == hashes() on every row,
+    bit for bit; returns the rows held."""
+    from turingassembler_tpu_torch.ops import devhash
+    got = devhash.to_u32(devhash.kernel_hashes(rows, capacity))
+    want = torch.stack(devhash.hashes(rows, capacity - 1))
+    bad = int((got != want).any(dim=0).sum())
+    if bad:
+        raise AssertionError(f"devhash hashes, {what}: {bad} of "
+                             f"{rows.shape[0]} rows differ from hashes()")
+    return rows.shape[0]
+
+
 def devhash_kernel_vs_plain(bench):
-    """(a): the kernel against its plain version on the card, and its
-    times, bound and library yardstick at the bench batch."""
+    """(a): the kernel's hashes against hashes(), both insert entries
+    against the plain version on the card, and their times, bounds and
+    library yardstick at the bench batch."""
     from turingassembler_tpu_torch.ops import devhash
     from turingassembler_tpu_torch.ops import kmers as km
     from turingassembler_tpu_torch.ops import limbs as lb
     from turingassembler_tpu_torch.ops.devhash import DeviceHashCounter
     reads, lengths, k1 = bench["reads"], bench["lengths"], bench["k"] + 1
     nl = lb.n_limbs(k1)
+    C = 1 << BENCH_CAP_LOG2
 
-    def batch(i):
-        b, ln = put(reads[i * HASH_BATCH:(i + 1) * HASH_BATCH],
-                    lengths[i * HASH_BATCH:(i + 1) * HASH_BATCH])
+    def codes(i):
+        sl = slice(i * HASH_BATCH, (i + 1) * HASH_BATCH)
+        return put(reads[sl], lengths[sl].astype(np.int32))
+
+    def extract(b, ln):
         canon, _, valid = km.extract_canonical_kmers(b, ln, k1)
         return canon.reshape(-1, nl), valid.reshape(-1)
 
     res, err = {}, 0
+    # the kernel's hashes, bit for bit: the bench batch's rows (every
+    # lane), then random keys at every key width the kernel compiles
+    b0, ln0 = codes(0)
+    rows0, valid0 = extract(b0, ln0)
+    n_held = hold_kernel_hashes("bench batch", rows0, C)
+    rng = np.random.default_rng(14)
+    for w in range(1, devhash.MAX_NL + 1):
+        n_held += hold_kernel_hashes(f"nl={w}", torch.as_tensor(
+            rng.integers(0, 2**32, (65_536, w))).to(CARD), 1 << 20)
+    log(f"devhash kernel hashes == hashes() bit for bit on the bench batch's "
+        f"{rows0.shape[0]} lanes (C=2^{BENCH_CAP_LOG2}) and 65,536 random "
+        f"keys at each nl 1-{devhash.MAX_NL} (C=2^20): {n_held} rows")
     # the bench batch into 2^BENCH_CAP_LOG2 slots, fresh; then after 6
-    # batches
+    # batches.  kc: the rows entry, fc: the reads entry, pc: plain
     kc = DeviceHashCounter(BENCH_CAP_LOG2, nl, device=CARD)
+    fc = DeviceHashCounter(BENCH_CAP_LOG2, nl, device=CARD)
     pc = DeviceHashCounter(BENCH_CAP_LOG2, nl, device=CARD, plain=True)
-    rows0, valid0 = batch(0)
-    prep0 = kc.prepare(rows0, valid0)
     n_lanes, n_valid = rows0.shape[0], int(valid0.sum())
     for c in (kc, pc):
-        c.insert_prepared(prep0)
+        c.insert(rows0, valid0)
+    fc.insert_reads(b0, ln0, k1)
     torch.cuda.synchronize()
-    err = max(err, hold_tables(f"bench batch fresh ({n_valid} of {n_lanes} "
-                               f"lanes valid, C 2^{BENCH_CAP_LOG2})", kc,
-                               pc))
+    what = f"bench batch fresh ({n_valid} of {n_lanes} lanes valid, C 2^" \
+        f"{BENCH_CAP_LOG2})"
+    err = max(err, hold_tables(what + ", rows entry", kc, pc),
+              hold_tables(what + ", reads entry", fc, pc))
     n_unique = int((kc.counts > 0).sum())
     for i in range(1, 7):
-        rows6, valid6 = batch(i)
-        prep6 = kc.prepare(rows6, valid6)
+        b6, ln6 = codes(i)
+        rows6, valid6 = extract(b6, ln6)
         held, lanes = int((kc.counts > 0).sum()), int(kc.counts.sum())
         for c in (kc, pc):
-            c.insert_prepared(prep6)
+            c.insert(rows6, valid6)
+        fc.insert_reads(b6, ln6, k1)
     # the share of the 7th batch's valid lanes whose key was already held
     hits = 1 - (int((kc.counts > 0).sum()) - held) / max(
         int(kc.counts.sum()) - lanes, 1)
-    err = max(err, hold_tables(f"7th batch after 6 ({hits * 100:.1f}% of "
-                               "its lanes hit)", kc, pc))
+    what = f"7th batch after 6 ({hits * 100:.1f}% of its lanes hit)"
+    err = max(err, hold_tables(what + ", rows entry", kc, pc),
+              hold_tables(what + ", reads entry", fc, pc))
     # steady state: the 7th batch again, every lane a hit.  The insert as
-    # a whole (the wrapper's hashes and word conversion, then the launch
-    # or the probe rounds) is the function the bound and torch.unique
+    # a whole (the wrapper, then the launch or the plain version's hashes
+    # and probe rounds) is the function the bound and torch.unique
     # measure; the launch alone is kernel_ms
-    res["hit_ms"] = cuda_ms(
-        lambda: kc.insert_prepared(kc.prepare(rows6, valid6)), 20)
+    prep6 = kc.prepare(rows6, valid6)
+    res["hit_ms"] = cuda_ms(lambda: kc.insert(rows6, valid6), 20)
     res["hit_kernel_ms"] = cuda_ms(lambda: kc.insert_prepared(prep6), 20)
-    res["hit_plain_ms"] = cuda_ms(
-        lambda: pc.insert_prepared(pc.prepare(rows6, valid6)), 3)
+    res["hit_plain_ms"] = cuda_ms(lambda: pc.insert(rows6, valid6), 3)
+    res["hit_fused_ms"] = cuda_ms(lambda: fc.insert_reads(b6, ln6, k1), 20)
     # fresh times at the bench batch
-    res["ms"] = cuda_ms_fresh(
-        kc, lambda: kc.insert_prepared(kc.prepare(rows0, valid0)), 20)
+    prep0 = kc.prepare(rows0, valid0)
+    res["ms"] = cuda_ms_fresh(kc, lambda: kc.insert(rows0, valid0), 20)
     res["kernel_ms"] = cuda_ms_fresh(kc, lambda: kc.insert_prepared(prep0),
                                      20)
-    res["plain_ms"] = cuda_ms_fresh(
-        pc, lambda: pc.insert_prepared(pc.prepare(rows0, valid0)), 3)
-    res["prep_ms"] = cuda_ms(lambda: kc.prepare(rows0, valid0), 10)
+    res["plain_ms"] = cuda_ms_fresh(pc, lambda: pc.insert(rows0, valid0), 3)
+    res["fused_ms"] = cuda_ms_fresh(
+        fc, lambda: fc.insert_reads(b0, ln0, k1), 20)
+    # the unfused path to the same table: extraction in tensor code, then the
+    # rows insert
+    res["unfused_ms"] = cuda_ms_fresh(
+        kc, lambda: kc.insert(*extract(b0, ln0)), 20)
+    res["fused_plain_ms"] = cuda_ms_fresh(
+        pc, lambda: pc.insert_reads(b0, ln0, k1), 3)
     rows_v = rows0[valid0]
     res["library_ms"] = cuda_ms(
         lambda: torch.unique(rows_v, dim=0, return_counts=True), 5)
@@ -2067,35 +2110,41 @@ def devhash_kernel_vs_plain(bench):
     n_unique6 = int(torch.unique(rows6[valid6], dim=0).shape[0])
     hit_bytes = n_valid6 * nl * 4 + rows6.shape[0] + n_unique6 * hit_b
     res["hit_bound_ms"] = hit_bytes / PEAK_BYTES_S * 1e3
+    # the reads entry as a function: the batch's codes and lengths read
+    # once, a 32-byte record a claimed slot
+    fused_bytes = b0.numel() + 4 * ln0.numel() + 32 * n_unique
+    res["fused_bound_ms"] = fused_bytes / PEAK_BYTES_S * 1e3
     log(f"devhash at the bench batch ({n_lanes} lanes, {n_valid} valid, "
         f"{n_unique} distinct keys, nl={nl}, C=2^{BENCH_CAP_LOG2}), fresh "
-        f"table: insert (hashes + launch) {res['ms']:.4f} ms, of which the "
-        f"wrapper's hashes and word conversion {res['prep_ms']:.4f} ms and "
-        f"the launch alone {res['kernel_ms']:.4f} ms; plain insert (hashes "
-        f"+ probe rounds) {res['plain_ms']:.4f} ms; bound "
+        f"table: rows insert (wrapper + launch) {res['ms']:.4f} ms, the "
+        f"launch alone {res['kernel_ms']:.4f} ms; plain insert (hashes + "
+        f"probe rounds) {res['plain_ms']:.4f} ms; bound "
         f"{res['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.2f} MB at 3.35 "
-        f"TB/s): insert {res['ms'] / res['bound_ms']:.1f}x, launch alone "
-        f"{res['kernel_ms'] / res['bound_ms']:.1f}x its bound; "
+        f"TB/s): insert {res['ms'] / res['bound_ms']:.1f}x its bound; "
         f"torch.unique(rows, dim=0, return_counts=True) on the {n_valid} "
         f"valid rows (yardstick) {res['library_ms']:.4f} ms, insert / "
-        f"torch.unique {res['ms'] / res['library_ms']:.2f}x.  7th batch "
-        f"again, every lane a hit ({n_valid6} valid lanes, {n_unique6} "
-        f"distinct keys): insert {res['hit_ms']:.4f} ms, launch alone "
-        f"{res['hit_kernel_ms']:.4f} ms, plain insert "
+        f"torch.unique {res['ms'] / res['library_ms']:.2f}x.  Reads entry "
+        f"from the {b0.shape[0]} x {b0.shape[1]} codes {res['fused_ms']:.4f}"
+        f" ms, bound {res['fused_bound_ms']:.4f} ms ({fused_bytes / 1e6:.2f}"
+        f" MB), {res['fused_ms'] / res['fused_bound_ms']:.1f}x; extraction "
+        f"in tensor code + rows insert {res['unfused_ms']:.4f} ms; plain "
+        f"(extraction + plain insert) {res['fused_plain_ms']:.4f} ms.  7th "
+        f"batch again, every lane a hit ({n_valid6} valid lanes, "
+        f"{n_unique6} distinct keys): rows insert {res['hit_ms']:.4f} ms, "
+        f"launch alone {res['hit_kernel_ms']:.4f} ms, reads entry "
+        f"{res['hit_fused_ms']:.4f} ms, plain insert "
         f"{res['hit_plain_ms']:.4f} ms, bound {res['hit_bound_ms']:.4f} ms "
         f"({hit_bytes / 1e6:.2f} MB)")
-    del kc, pc
+    del kc, fc, pc
 
-    rng = np.random.default_rng(14)
     # contention: every lane carries one of 64 keys
     pool = torch.as_tensor(rng.integers(0, 2**32, (64, nl))).to(CARD)
     rows = pool[torch.as_tensor(rng.integers(0, 64, n_lanes)).to(CARD)]
     ones = torch.ones(n_lanes, dtype=torch.bool, device=CARD)
     kc = DeviceHashCounter(20, nl, device=CARD)
     pc = DeviceHashCounter(20, nl, device=CARD, plain=True)
-    prep = kc.prepare(rows, ones)
     for c in (kc, pc):
-        c.insert_prepared(prep)
+        c.insert(rows, ones)
     err = max(err, hold_tables(f"contention ({n_lanes} lanes on 64 keys)",
                                kc, pc))
     # 0.7 load: 0.7 C distinct keys in one batch, C = 2^20.  With 8 probes
@@ -2109,9 +2158,8 @@ def devhash_kernel_vs_plain(bench):
     ones = torch.ones(n, dtype=torch.bool, device=CARD)
     kc = DeviceHashCounter(20, nl, device=CARD)
     pc = DeviceHashCounter(20, nl, device=CARD, plain=True)
-    prep = kc.prepare(rows, ones)
     for c in (kc, pc):
-        c.insert_prepared(prep)
+        c.insert(rows, ones)
     held_k, ovf_k = exact_on_what_it_holds("0.7 load, kernel", kc, rows, n)
     held_p, ovf_p = exact_on_what_it_holds("0.7 load, plain", pc, rows, n)
     log(f"devhash at 0.7 load ({n} distinct keys into 2^20 slots): kernel "
@@ -2143,7 +2191,8 @@ def phase_secondary_engines(bench):
     full width == phase 5's count; (c) the device and np engines; (d)
     ShardedHashCounter on 4 shards of cuda:0; (e) the span k-mer table
     and its resolver card vs CPU; (f) a KMC database round trip.
-    Returns (devhash launches of the paths (b) and (d), kernel report)."""
+    Returns (devhash launches of the paths (b) and (d): the reads entry's,
+    the rows entry's; kernel report)."""
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph.build import build_graph_from_kedges
     from turingassembler_tpu_torch.graph.mutable import MutableGraph
@@ -2181,20 +2230,22 @@ def phase_secondary_engines(bench):
     got, t_hash = timed(lambda: count_kedges_from_reads(
         reads, lengths, k, batch_size=HASH_BATCH, engine="hash",
         device=CARD))
-    launches = devhash.COUNT.launches
-    lanes = devhash.COUNT.lanes
+    read_launches, lanes = devhash.COUNT.reads, devhash.COUNT.lanes
+    rows_in_b = devhash.COUNT.rows
     same("hash engine", got, (bench["kedges"], bench["counts"]))
     ms_out, t_mega = timed(lambda: count_kedges_from_reads(
         reads, lengths, k, batch_size=HASH_BATCH, engine="megasort",
         device=CARD))
     same("megasort engine", ms_out, (bench["kedges"], bench["counts"]))
+    n_batches = -(-len(reads) // HASH_BATCH)
     log(f"secondary engines (b) hash engine, {len(reads)} reads of 150 bp, "
         f"k={k}: {t_hash:.3f} s ({len(reads) / t_hash:.1f} reads/s), "
         f"{len(got[0])} k-edges == phase 5's count row for row; devhash "
-        f"{launches} launches, {lanes} lanes; megasort on the same reads "
-        f"{t_mega:.3f} s")
-    if launches < 1:
-        raise AssertionError("hash engine: the devhash kernel never launched")
+        f"reads entry {read_launches} launches, {lanes} windows, rows entry "
+        f"{rows_in_b}; megasort on the same reads {t_mega:.3f} s")
+    if read_launches != n_batches or rows_in_b:
+        raise AssertionError("hash engine: not one reads-entry launch a "
+                             "batch")
 
     # (c) the device and np engines on phase 13 (c)'s reads
     sreads, slengths, perm, n_clean = shard_library()
@@ -2229,17 +2280,16 @@ def phase_secondary_engines(bench):
     sh_out = sh.finalize()
     torch.cuda.synchronize()
     t_sh = time.perf_counter() - t1
-    sh_launches = devhash.COUNT.launches
+    sh_launches = devhash.COUNT.rows
     same("ShardedHashCounter", sh_out, ref)
     n_batches = -(-len(sreads) // HASH_BATCH)
     log(f"secondary engines (d) ShardedHashCounter, {D} shards on {CARD}, "
         f"2^{SHARD_CAP_LOG2} slots a shard, {n_batches} batches: {t_sh:.3f} "
-        "s, none dropped or overflowed, == the single count; devhash "
-        f"{sh_launches} launches")
-    if sh_launches != D * n_batches:
-        raise AssertionError("ShardedHashCounter: not one launch a shard and "
-                             "batch")
-    launches += sh_launches
+        "s, none dropped or overflowed, == the single count; devhash rows "
+        f"entry {sh_launches} launches")
+    if sh_launches != D * n_batches or devhash.COUNT.reads:
+        raise AssertionError("ShardedHashCounter: not one rows-entry launch "
+                             "a shard and batch")
     # (d)'s first batch again, now that its counts are read: the same
     # routing and exchange into fresh kernel tables and fresh plain tables
     # of the shards' capacity, so the kernel is held at (d)'s own shape
@@ -2317,8 +2367,7 @@ def phase_secondary_engines(bench):
     log(f"secondary engines (f) KMC database of phase 5's {len(ke_back)} "
         f"k-edges ({size / 1e6:.1f} MB of records) written and loaded back "
         f"equal: {time.perf_counter() - t1:.3f} s")
-    return launches, rep
-
+    return read_launches, sh_launches, rep
 
 
 def build_kernels():
@@ -2363,7 +2412,7 @@ def main():
         launches, shapes = launches + n, shapes + sh
         n, sh = phase(phase_multi_process, *parity, full_out)
         launches, shapes = launches + n, shapes + sh
-    dh_launches, dh = phase(phase_secondary_engines, bench)
+    dh_reads, dh_rows, dh = phase(phase_secondary_engines, bench)
     del bench
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
@@ -2382,10 +2431,20 @@ def main():
         "name": "devhash", "route": "cuda",
         "source": "turingassembler_tpu_torch/csrc/devhash.cu",
         "replaces": "turingassembler_tpu/ops/devhash.py:103",
-        "launches": dh_launches, "max_abs_err": dh["max_abs_err"],
+        "launches": dh_rows, "max_abs_err": dh["max_abs_err"],
         "ms": dh["ms"], "kernel_ms": dh["kernel_ms"],
         "plain_ms": dh["plain_ms"], "bound_ms": dh["bound_ms"],
-        "bound_by": "bytes", "library_ms": dh["library_ms"]}]}), flush=True)
+        "bound_by": "bytes", "library_ms": dh["library_ms"],
+        "fused_launches": dh_reads, "fused_ms": dh["fused_ms"],
+        "fused_bound_ms": dh["fused_bound_ms"],
+        "unfused_ms": dh["unfused_ms"]}, {
+        "name": "devhash_count_reads", "route": "cuda",
+        "source": "turingassembler_tpu_torch/csrc/devhash.cu",
+        "replaces": "turingassembler_tpu/kmer/count.py:101",
+        "launches": dh_reads, "max_abs_err": dh["max_abs_err"],
+        "ms": dh["fused_ms"], "plain_ms": dh["fused_plain_ms"],
+        "bound_ms": dh["fused_bound_ms"], "bound_by": "bytes",
+        "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

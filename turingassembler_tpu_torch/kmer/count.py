@@ -6,20 +6,21 @@ int64 counts, then the min_count filter.  Four engines meet it on
 `device` (engine=, the JAX names):
   "megasort" — the sort-based count of kmer/megasort.py, which every
                path of the port uses;
-  "hash"     — each batch's canonical (k+1)-mers inserted into one
-               DeviceHashCounter (ops/devhash.py, the CUDA kernel
-               csrc/devhash.cu on a card), capacity 2^TA_HASH_CAP_LOG2
-               (default 25), finalize compaction capacity
-               2^TA_HASH_OUT_LOG2 (default TA_HASH_CAP_LOG2 - 2, at
-               least 10);
+  "hash"     — each batch's canonical (k+1)-mers extracted and inserted
+               into one DeviceHashCounter by insert_reads (ops/devhash.py:
+               on a card one launch a batch of the CUDA kernel
+               csrc/devhash.cu, the JAX _count_batch_fused), capacity
+               2^TA_HASH_CAP_LOG2 (default 25), finalize compaction
+               capacity 2^TA_HASH_OUT_LOG2 (default TA_HASH_CAP_LOG2 - 2,
+               at least 10);
   "device"   — a sorted run a batch (batch_count_tile), merged on the
                device in a DeviceCountAccumulator (ops/merge.py);
   "np"       — the same runs merged on the host (np_merge_count_runs).
   "auto" is "megasort" on every device.  The JAX package's "auto" picks
   by backend ("np" on its CPU backend) for TPU reasons, and every engine
-  returns the same arrays, so no path of the port changes engine:
-  megasort is also the fastest of the four on an H100 (chip_smoke.py
-  phase 14 (b), (c)); the others are kept for the JAX API.  The
+  returns the same arrays, so no path of the port changes engine; the
+  others are kept for the JAX API (chip_smoke.py phase 14 (b), (c)
+  times them beside megasort).  The
   hash engine ships uint8 codes, as the rest of the port does; the JAX
   2-bit read pack (host_pack_reads, device_unpack_reads) is not ported.
 """
@@ -64,8 +65,7 @@ def _count_hash(batches, k1: int, dev: torch.device):
         b, ln = _to_device(bases, lengths, dev)
         if counter is None:
             counter = DeviceHashCounter(cap_log2, lb.n_limbs(k1), device=dev)
-        canon, _, valid = km.extract_canonical_kmers(b, ln, k1)
-        counter.insert(canon.reshape(-1, canon.shape[-1]), valid.reshape(-1))
+        counter.insert_reads(b, ln, k1)
     if counter is None:
         return np.zeros((0, lb.n_limbs(k1)), np.uint32), np.zeros(0, np.int64)
     return counter.finalize(out_cap_log2=out_log2)
