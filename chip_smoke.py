@@ -6,7 +6,11 @@ Phases, in order; any failure raises and the script exits non-zero
 before printing a result:
   1. device: name, power limit (nvidia-smi), torch and CUDA versions
   2. build: compile every CUDA kernel of the port (nvcc, sm_90a, one
-     nvcc a source, all started together)
+     nvcc a source) and its four host C++ libraries (native/*.cpp: the
+     FASTQ reader, the barcode sorter, the graph kernels, the read pack;
+     the host compiler, one a source), all started together.  Every
+     phase below reads FASTQ, sorts the archive and builds host graphs
+     through the host libraries
   3. kernel vs plain: the NW alignment kernel against its plain PyTorch
      version on the card, exact equality: map, ragged and long-query
      shapes, every compiled strip width at and around its tile edge
@@ -114,13 +118,29 @@ before printing a result:
      5's k-edges through a KMC database and back.  The devhash launches
      of (d) (rows entry) and (b) (reads entry) are the kernels line's
      counts of `devhash` and `devhash_count_reads`
+ 15. host twins (after phase 13, on its files): each host library
+     against its plain version on this host, with both times: (a) the
+     FASTQ reader on phase 9's R1 and R2 in the archive maps' batches
+     (bases, lengths, headers == the Python reader's) and a .gz copy of
+     R1; (b) the sorter on phase 9's library under a budget of a fifth
+     of its records' bytes (at least 4 spilled runs merged) == phase 9's
+     archive byte for byte, and on phase 8's library == the Python loop;
+     (c) the level-0 host build of phase 5's 1,999,953 k-edges through
+     the graph kernels == through their numpy versions, array for array,
+     and each kernel alone; (d) the read pack of phase 5's first 131,072
+     reads == numpy, unpacked on the card == the codes, timed beside the
+     plain copy of the codes (pageable and pinned); (e) (c)'s build twice
+     in a fresh process with tune_host_malloc and in one without
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
      9, 10, 11 and 13 launched the kernel at, with their scoring and mode
- 15. the `kernels` JSON line, the nvidia-smi line, and last the result
+ 16. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
-result.  Kernels build at first use into build/kernels/.
+result.  Kernels build at first use into build/kernels/, the host
+libraries into build/native/.  The peak RSS of the process is printed
+after each phase: cli.main, first called in phase 7, tunes glibc's
+malloc for the rest of the process (no mmap, no trim).
 """
 
 from __future__ import annotations
@@ -131,6 +151,8 @@ import glob
 import io
 import json
 import os
+import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1684,7 +1706,8 @@ def rank_worker(spec):
     nw_align.COUNT.reset()
     t0 = time.perf_counter()
     res = {"cli": rank_cli, "stripes": rank_stripes,
-           "aux_single": aux_single}[spec["kind"]](spec)
+           "aux_single": aux_single,
+           "host_build": host_build}[spec["kind"]](spec)
     res.update(seconds=time.perf_counter() - t0,
                launches=nw_align.COUNT.launches, pairs=nw_align.COUNT.pairs,
                shapes=nw_align.COUNT.shapes)
@@ -2370,11 +2393,278 @@ def phase_secondary_engines(bench):
     return read_launches, sh_launches, rep
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the host twins (native/*.cpp) against their plain versions
+# ---------------------------------------------------------------------------
+
+def peak_rss_gib():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def rss_gib():
+    """This process's resident set now (/proc/self/statm; the peak,
+    ru_maxrss, of a subprocess holds its parent's from before exec)."""
+    with open("/proc/self/statm") as fp:
+        pages = int(fp.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def host_seconds(fn, reps=3, warm=True):
+    """Median host seconds of fn() over reps runs (after one warm-up
+    run unless warm is False), and the last result."""
+    out = fn() if warm else None
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def read_all(reader, path, with_headers=True):
+    """Every batch of a reader, as _iter_sorted_pairs reads the archive
+    (131,072 reads a batch, padded to 256)."""
+    return list(reader(path, 131_072, 256, with_headers))
+
+
+def hold_batches(what, got, want):
+    if len(got) != len(want):
+        raise AssertionError(f"host twins: {what}: {len(got)} batches, "
+                             f"plain {len(want)}")
+    for i, ((b, ln, h), (wb, wl, wh)) in enumerate(zip(got, want)):
+        if not (np.array_equal(b, wb) and np.array_equal(ln, wl)
+                and h == wh):
+            raise AssertionError(f"host twins: {what}: batch {i} differs "
+                                 "from the Python reader's")
+    return sum(len(b[1]) for b in got)
+
+
+def host_build(spec):
+    """One fresh process of (e): phase 5's k-edges through the level-0
+    host build twice, with or without tune_host_malloc first; its
+    resident set after them."""
+    from turingassembler_tpu_torch.graph.build import build_graph_from_kedges
+    from turingassembler_tpu_torch.ops.hostmem import tune_host_malloc
+    tuned = tune_host_malloc() if spec["tune"] else False
+    ke = np.load(spec["kedges"])
+    c = np.load(spec["counts"])
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        g = build_graph_from_kedges(ke, c, spec["k"], first_seen=True)
+        passes.append(time.perf_counter() - t0)
+    return {"tuned": tuned, "passes": passes, "n_e": int(g.n_e),
+            "rss_gib": rss_gib()}
+
+
+def phase_host_twins(parity_files, full_out, bench, work):
+    """The port's host libraries, each against its plain version on this
+    host: (a) the FASTQ reader on phase 9's library, (b) the barcode
+    sorter spilled on phase 9's library and against the Python loop on
+    phase 8's, (c) the graph kernels in the level-0 host build of phase
+    5's k-edges, (d) the read pack beside the plain host-to-device copy,
+    (e) tune_host_malloc in fresh processes."""
+    import gzip
+    from turingassembler_tpu_torch.barcode import sort_read
+    from turingassembler_tpu_torch.graph import build as gbuild
+    from turingassembler_tpu_torch.io.fastq import read_fastq_batches_headers
+    from turingassembler_tpu_torch.io.native_loader import \
+        read_fastq_batches_native
+    from turingassembler_tpu_torch.kmer.count import (device_unpack_reads,
+                                                      host_pack_reads,
+                                                      host_pack_reads_np)
+    lib_dir = os.path.dirname(full_out)
+    rep = {}
+
+    # (a) the reader: phase 9's R1 and R2, batch by batch
+    n = 0
+    for name in ("R1", "R2"):
+        path = os.path.join(lib_dir, f"{name}.fq")
+        t_twin, got = host_seconds(lambda: read_all(
+            read_fastq_batches_native, path), reps=1)
+        t0 = time.perf_counter()
+        want = read_all(read_fastq_batches_headers, path)
+        rep[f"read_{name}"] = (t_twin, time.perf_counter() - t0)
+        n = hold_batches(f"reader {name}", got, want)
+        del got, want
+    gz = os.path.join(work, "R1.fq.gz")
+    with open(os.path.join(lib_dir, "R1.fq"), "rb") as src, \
+            gzip.open(gz, "wb", compresslevel=1) as dst:
+        shutil.copyfileobj(src, dst)
+    t_gz, got = host_seconds(lambda: read_all(read_fastq_batches_native,
+                                              gz, False), reps=1, warm=False)
+    if sum(len(b[1]) for b in got) != n:
+        raise AssertionError("host twins: the .gz copy of R1 read "
+                             f"{sum(len(b[1]) for b in got)} reads of {n}")
+    del got
+    log(f"host twins (a) FASTQ reader on phase 9's {n} pairs (131,072 "
+        "reads a batch, with headers for R1 as the archive maps read it): "
+        "bases, lengths and headers == the Python reader's; seconds, twin "
+        "/ Python: R1 %.3f / %.3f, R2 %.3f / %.3f; R1.fq.gz (level 1) "
+        "through the twin %.3f" % (*rep["read_R1"], *rep["read_R2"], t_gz))
+
+    # (b) the sorter: spilled on phase 9's library; == the Python loop
+    # on phase 8's
+    archive = ("R1.sorted.fq", "R2.sorted.fq", "barcode.idx")
+    want = [file_bytes(os.path.join(full_out, a)) for a in archive]
+    budget = (len(want[0]) + len(want[1])) // 5
+    files = {k_: os.path.join(lib_dir, f"{k_}.fq") for k_ in ("R1", "R2",
+                                                              "I1")}
+    cfg = linked_config(files, os.path.join(work, "spilled"))
+    os.environ["TA_SORT_MEM_BYTES"] = str(budget)
+    try:
+        t0 = time.perf_counter()
+        sort_read.sort_reads(cfg)
+        t_spill = time.perf_counter() - t0
+    finally:
+        del os.environ["TA_SORT_MEM_BYTES"]
+    for a, w in zip(archive, want):
+        if file_bytes(os.path.join(cfg.out_dir, a)) != w:
+            raise AssertionError(f"host twins: the spilled sort's {a} "
+                                 "differs from phase 9's")
+    pcfg = linked_config(parity_files, os.path.join(work, "p_twin"))
+    t_twin, _ = host_seconds(lambda: sort_read.sort_reads(pcfg), reps=1,
+                             warm=False)
+    lcfg = pcfg.replace(out_dir=os.path.join(work, "p_loop"))
+    os.environ["TA_SORT_NATIVE"] = "0"
+    try:
+        t_loop, _ = host_seconds(lambda: sort_read.sort_reads(lcfg), reps=1,
+                                 warm=False)
+    finally:
+        del os.environ["TA_SORT_NATIVE"]
+    for a in archive:
+        if file_bytes(os.path.join(pcfg.out_dir, a)) != \
+                file_bytes(os.path.join(lcfg.out_dir, a)):
+            raise AssertionError(f"host twins: phase 8's {a}: the twin "
+                                 "differs from the Python loop")
+    n8 = file_bytes(os.path.join(pcfg.out_dir, archive[0])).count(b"\n") // 4
+    log(f"host twins (b) sorter: phase 9's {n} pairs with a budget of "
+        f"{budget} bytes (a fifth of the formatted records: at least 4 "
+        f"spilled runs, k-way merged) {t_spill:.3f} s, all three files "
+        f"byte-identical to phase 9's unspilled archive; phase 8's {n8} "
+        f"pairs: twin {t_twin:.3f} s, Python loop {t_loop:.3f} s, "
+        "byte-identical")
+    rep.update(sort_spill=t_spill, sort_p8=(t_twin, t_loop))
+
+    # (c) the graph kernels in the level-0 host build of phase 5's k-edges
+    ke, c, k = bench["kedges"], bench["counts"], bench["k"]
+    t_twin, g = host_seconds(lambda: gbuild.build_graph_from_kedges(
+        ke, c, k, first_seen=True), reps=1, warm=False)
+    twins = gbuild._pointer_double_to_head, gbuild._first_seen_ids
+    gbuild._pointer_double_to_head = gbuild._pointer_double_to_head_np
+    gbuild._first_seen_ids = gbuild._first_seen_ids_np
+    try:
+        t_np, gp = host_seconds(lambda: gbuild.build_graph_from_kedges(
+            ke, c, k, first_seen=True), reps=1, warm=False)
+    finally:
+        gbuild._pointer_double_to_head, gbuild._first_seen_ids = twins
+    for f in ("node_rc", "adj_off", "adj_list", "edge_source",
+              "edge_target", "edge_rc", "edge_count", "seq_off",
+              "seq_data"):
+        if not np.array_equal(getattr(g, f), getattr(gp, f)):
+            raise AssertionError(f"host twins: build {f}: the twins differ "
+                                 "from the numpy versions")
+    prev = np.random.default_rng(0).permutation(2 * len(ke)).astype(
+        np.int32)
+    prev[::64] = -1          # chains of random elements, some pure cycles
+    t_lr, _ = host_seconds(lambda: gbuild._pointer_double_to_head(prev), 1,
+                           warm=False)
+    t_lr_np, _ = host_seconds(
+        lambda: gbuild._pointer_double_to_head_np(prev), reps=1, warm=False)
+    fp = gbuild._np_fingerprint64(np.ascontiguousarray(ke))
+    fp = np.concatenate([fp, fp[::-2]])
+    t_ui, _ = host_seconds(lambda: gbuild._first_seen_ids(fp), 1,
+                           warm=False)
+    t_ui_np, _ = host_seconds(lambda: gbuild._first_seen_ids_np(fp), reps=1,
+                              warm=False)
+    log(f"host twins (c) level-0 host build of phase 5's {len(ke)} "
+        f"k-edges (k={k}, first-seen numbering): {g.n_e} edges, every "
+        f"array == the numpy versions'; seconds, twins {t_twin:.3f}, numpy "
+        f"{t_np:.3f}; alone on {len(prev)} random prev pointers "
+        f"ta_list_rank {t_lr:.4f} vs pointer doubling {t_lr_np:.4f}, on "
+        f"{len(fp)} keys ta_unique_ids {t_ui:.4f} vs np.unique "
+        f"{t_ui_np:.4f}")
+    rep.update(build=(t_twin, t_np), list_rank=(t_lr, t_lr_np),
+               unique_ids=(t_ui, t_ui_np))
+
+    # (d) the read pack beside the plain copy of the codes
+    x = np.ascontiguousarray(bench["reads"][:131_072])
+    L = x.shape[1]
+    t_pack, (packed, nmask) = host_seconds(lambda: host_pack_reads(x))
+    t_pack_np, ref = host_seconds(lambda: host_pack_reads_np(x), reps=1,
+                                  warm=False)
+    if not (np.array_equal(packed, ref[0]) and np.array_equal(nmask, ref[1])):
+        raise AssertionError("host twins: host_pack_reads differs from "
+                             "its numpy version")
+    codes = device_unpack_reads(torch.from_numpy(packed).cuda(),
+                                torch.from_numpy(nmask).cuda(), L)
+    if not np.array_equal(codes.cpu().numpy(), np.where(x < 4, x, 255)):
+        raise AssertionError("host twins: device_unpack_reads on the card "
+                             "differs from the codes")
+    pinned = torch.from_numpy(x).pin_memory()
+
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+    t_page, _ = host_seconds(synced(lambda: torch.from_numpy(x).cuda()), 5)
+    t_pin, _ = host_seconds(synced(
+        lambda: pinned.to("cuda", non_blocking=True)), 5)
+
+    def packed_path():
+        p, m = host_pack_reads(x)
+        return device_unpack_reads(torch.from_numpy(p).cuda(),
+                                   torch.from_numpy(m).cuda(), L)
+    t_packed, _ = host_seconds(synced(packed_path), 5)
+    pp, pm = torch.from_numpy(packed).cuda(), torch.from_numpy(nmask).cuda()
+    t_unpack, _ = host_seconds(synced(lambda: device_unpack_reads(pp, pm,
+                                                                  L)), 5)
+    log(f"host twins (d) read pack of phase 5's first {x.shape[0]} x {L} "
+        f"codes ({x.nbytes} bytes; packed {packed.nbytes + nmask.nbytes}): "
+        f"twin == numpy, unpacked on the card == the codes; ms: raw copy "
+        f"pageable {t_page * 1e3:.3f}, pinned {t_pin * 1e3:.3f}; pack "
+        f"(twin) {t_pack * 1e3:.3f}, numpy pack {t_pack_np * 1e3:.3f}, "
+        f"unpack on the card {t_unpack * 1e3:.3f}, pack + packed copy + "
+        f"unpack {t_packed * 1e3:.3f}")
+    rep.update(copy_pageable=t_page, copy_pinned=t_pin, pack=t_pack,
+               pack_np=t_pack_np, unpack=t_unpack, packed_path=t_packed)
+    del pinned, pp, pm, codes
+
+    # (e) tune_host_malloc: (c)'s build in fresh processes, two passes each
+    np.save(os.path.join(work, "kedges.npy"), ke)
+    np.save(os.path.join(work, "counts.npy"), c)
+    spec = {"kind": "host_build", "k": k,
+            "kedges": os.path.join(work, "kedges.npy"),
+            "counts": os.path.join(work, "counts.npy")}
+    runs = {}
+    for tune in (False, True):
+        runs[tune], = run_ranks([dict(spec, tune=tune)], timeout=300)
+        if runs[tune]["n_e"] != g.n_e or runs[tune]["tuned"] != tune:
+            raise AssertionError(f"host twins: (e) process {runs[tune]}")
+    log("host twins (e) level-0 host build in fresh processes, seconds of "
+        "the first / second pass: without tune_host_malloc "
+        "%.3f / %.3f (RSS after them %.2f GiB), with it %.3f / %.3f (RSS "
+        "%.2f GiB)" % (*runs[False]["passes"], runs[False]["rss_gib"],
+                       *runs[True]["passes"], runs[True]["rss_gib"]))
+    rep["malloc"] = runs
+    return rep
+
+
 def build_kernels():
+    """nvcc for every CUDA source and the host compiler for every
+    native/*.cpp, all started together."""
+    import concurrent.futures
     from turingassembler_tpu_torch import _build
     t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'})")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_build.build_host)
+        logs = _build.build()
+        libs = host.result()
+    log(f"build: {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(logs) or 'cached'}; host: "
+        f"{', '.join(p.name for p in libs.values())})")
     for name, text in logs.items():
         print(f"[{name}] {text}", file=sys.stderr, flush=True)
 
@@ -2383,12 +2673,13 @@ def main():
     smi = device_info()
     build_kernels()
 
-    walls = {}
+    walls, rss = {}, {}
 
     def phase(fn, *args):
         t0 = time.perf_counter()
         res = fn(*args)
         walls[fn.__name__] = time.perf_counter() - t0
+        rss[fn.__name__] = peak_rss_gib()
         return res
 
     nw = phase(phase_kernel_vs_plain)
@@ -2412,6 +2703,7 @@ def main():
         launches, shapes = launches + n, shapes + sh
         n, sh = phase(phase_multi_process, *parity, full_out)
         launches, shapes = launches + n, shapes + sh
+        phase(phase_host_twins, parity[1], full_out, bench, work)
     dh_reads, dh_rows, dh = phase(phase_secondary_engines, bench)
     del bench
     # launches made to compare: read after the paths' counts were taken
@@ -2419,6 +2711,9 @@ def main():
                             phase(phase_hold_path_shapes, shapes))
     log("phase seconds (set-up included): " + ", ".join(
         f"{k_[6:]} {v:.1f}" for k_, v in walls.items()))
+    # cli.main tunes malloc (no mmap, no trim) from phase 7 on
+    log("peak RSS of this process after each phase, GiB: " + ", ".join(
+        f"{k_[6:]} {v:.2f}" for k_, v in rss.items()))
 
     print(json.dumps({"kernels": [{
         "name": "nw_align", "route": "cuda",

@@ -113,9 +113,15 @@ def test_sim_indel_reads_carry_one_indel():
         assert fw(bytes(r)) < 0 and rc(bytes(r)) < 0
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
+    """In a fresh interpreter: importing every module of the port imports
+    neither JAX nor the JAX package; the host FASTQ reader, the barcode
+    sorter and a level-0 host build then run through the port's own
+    libraries (build/native/), and no file of the JAX package's native/
+    directory is mapped into the process.  No source of the port names
+    that directory."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import turingassembler_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -123,13 +129,55 @@ def test_port_imports_no_jax():
         "       or m == 'turingassembler_tpu'\n"
         "       or m.startswith('turingassembler_tpu.')]\n"
         "assert not bad, bad\n"
+        "from turingassembler_tpu_torch import config, testing as tt\n"
+        "from turingassembler_tpu_torch.barcode.sort_read import sort_reads\n"
+        "from turingassembler_tpu_torch.graph.build import "
+        "build_graph_from_kedges\n"
+        "from turingassembler_tpu_torch.io.native_loader import "
+        "read_fastq_batches_native\n"
+        "from turingassembler_tpu_torch.kmer.count import "
+        "count_kedges_from_reads\n"
+        "d = sys.argv[1]\n"
+        "_, files = tt.linked_read_library(6_000, 3, d, n_segments=2,\n"
+        "    repeat_len=300, coverage=8.0, molecule_len=2_000,\n"
+        "    pairs_per_molecule=4)\n"
+        "n = sum(len(b) for b, _, _ in read_fastq_batches_native(\n"
+        "    files['R1'], 256, 160, with_headers=True))\n"
+        "rp = sort_reads(config.Config(out_dir=d + '/o',\n"
+        "    files_1=(files['R1'],), files_2=(files['R2'],),\n"
+        "    files_I=(files['I1'],)))\n"
+        "assert os.path.getsize(rp.idx_path) > 0\n"
+        "g = tt.random_genome(3000, seed=1)\n"
+        "r, l = tt.sim_reads(g, coverage=10, read_len=100, seed=2)\n"
+        "ke, c = count_kedges_from_reads(r, l, 31, engine='np',\n"
+        "                                device='cpu')\n"
+        "assert build_graph_from_kedges(ke, c, 31, first_seen=True).n_e\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'turingassembler_tpu/native' not in maps\n"
+        "own = {os.path.basename(ln.split()[-1]).split('-')[0]\n"
+        "       for ln in maps.splitlines() if '/build/native/' in ln}\n"
+        "assert own == {'fastq_reader', 'sort_read', 'graph_kernels'}, own\n"
         "print(len([m for m in sys.modules\n"
-        "           if m.startswith('turingassembler_tpu_torch')]))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120,
-                         env={**os.environ, "PYTHONPATH": REPO})
+        "           if m.startswith('turingassembler_tpu_torch')]), n)\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=180, env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    n_modules, n_reads = map(int, out.stdout.split())
+    assert n_modules >= 15 and n_reads > 0
+    named = []
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               "turingassembler_tpu_torch")):
+        for name in names:
+            if name.endswith((".py", ".cpp", ".h", ".cu")):
+                path = os.path.join(root, name)
+                with open(path, encoding="utf-8") as fp:
+                    if "turingassembler_tpu/native" in fp.read():
+                        named.append(path)
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as fp:
+        if "turingassembler_tpu/native" in fp.read():
+            named.append("chip_smoke.py")
+    assert not named, named
 
 
 def test_cuda_device_raises_without_gpu():

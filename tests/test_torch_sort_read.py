@@ -1,11 +1,15 @@
-"""The port's barcode sorter (barcode/sort_read.py) and its FASTQ
-additions against the JAX package: the same library files go through
-both, and R1.sorted.fq, R2.sorted.fq and barcode.idx are compared byte
-for byte, once with the JAX package's Python loop and once with its C++
-sorter where that loads.  Tolerance: exact equality.
+"""The port's barcode sorter (barcode/sort_read.py: its C++ sorter
+native/sort_read.cpp, and the Python loop under TA_SORT_NATIVE=0) and its
+FASTQ additions against the JAX package: the same library files go
+through both, and R1.sorted.fq, R2.sorted.fq and barcode.idx are
+compared byte for byte, with the JAX package's Python loop and with its
+C++ sorter, from plain and gzipped files, and with a sort budget small
+enough to spill several runs.  Tolerance: exact equality.
 """
 
+import gzip
 import os
+import shutil
 import struct
 
 import numpy as np
@@ -79,6 +83,102 @@ def test_archive_equals_jax(library, native, monkeypatch):
         assert len(want) > 0
         assert file_bytes(os.path.join(library["dir"], "port", name)) \
             == want, name
+
+
+def archive_bytes(d):
+    return [file_bytes(os.path.join(d, name)) for name in ARCHIVE]
+
+
+def test_port_loop_equals_twin(library, monkeypatch):
+    """The fixture's archive came from the C++ sorter; the Python loop
+    writes the same bytes."""
+    monkeypatch.setenv("TA_SORT_NATIVE", "0")
+    out = os.path.join(library["dir"], "port_loop")
+    cfg = tcfg.Config(out_dir=out, **library["kw"])
+    assert tsort.sort_reads(cfg) == tsort.ReadPath(
+        *(os.path.join(out, name) for name in ARCHIVE))
+    assert archive_bytes(out) == archive_bytes(
+        os.path.join(library["dir"], "port"))
+
+
+def test_gzipped_inputs(library, tmp_path, monkeypatch):
+    kw = dict(library["kw"])
+    for key in ("files_1", "files_2", "files_I"):
+        gz = []
+        for path in kw[key]:
+            gz.append(str(tmp_path / (os.path.basename(path) + ".gz")))
+            with open(path, "rb") as src, gzip.open(gz[-1], "wb") as dst:
+                shutil.copyfileobj(src, dst)
+        kw[key] = tuple(gz)
+    want = archive_bytes(os.path.join(library["dir"], "port"))
+    tsort.sort_reads(tcfg.Config(out_dir=str(tmp_path / "port"), **kw))
+    assert archive_bytes(str(tmp_path / "port")) == want
+    for native in ("0", "1"):
+        monkeypatch.setenv("TA_SORT_NATIVE", native)
+        out = str(tmp_path / ("jax" + native))
+        jsort.sort_reads(jcfg.Config(out_dir=out, **kw))
+        assert archive_bytes(out) == want
+
+
+def test_spilled_runs_merge_to_the_same_archive(library, tmp_path,
+                                               monkeypatch):
+    """A budget of a fifth of the formatted records' bytes (the two
+    sorted files) spills at least four sorted runs before the k-way
+    merge; the archive is byte-identical, and so is the JAX C++ sorter's
+    under the same budget.  The runs are removed."""
+    want = archive_bytes(os.path.join(library["dir"], "port"))
+    budget = (len(want[0]) + len(want[1])) // 5
+    monkeypatch.setenv("TA_SORT_MEM_BYTES", str(budget))
+    out = str(tmp_path / "port")
+    tsort.sort_reads(tcfg.Config(out_dir=out, **library["kw"]))
+    assert archive_bytes(out) == want
+    assert sorted(os.listdir(out)) == sorted(ARCHIVE)
+    if jsort._NATIVE_SORT is not None:
+        jout = str(tmp_path / "jax")
+        jsort.sort_reads(jcfg.Config(out_dir=jout, **library["kw"]))
+        assert archive_bytes(jout) == want
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 10])
+def test_parse_chunks(library, tmp_path, monkeypatch, chunk):
+    """Parsed a few records of each file at a time, spilled or not, the
+    archive is the same; a pair file cut short at a chunk's end is
+    still a count mismatch."""
+    monkeypatch.setattr(tsort, "SORT_CHUNK_RECORDS", chunk)
+    want = archive_bytes(os.path.join(library["dir"], "port"))
+    for budget in ("0", str((len(want[0]) + len(want[1])) // 5)):
+        monkeypatch.setenv("TA_SORT_MEM_BYTES", budget)
+        out = str(tmp_path / ("o" + budget))
+        tsort.sort_reads(tcfg.Config(out_dir=out, **library["kw"]))
+        assert archive_bytes(out) == want
+    short = str(tmp_path / "R2.short.fq")
+    with open(short, "wb") as fp:
+        fp.write(b"\n".join(file_bytes(library["files"]["R2"])
+                            .split(b"\n")[:4 * 70]) + b"\n")
+    kw = dict(library["kw"], files_2=(short,))
+    with pytest.raises(ValueError, match="different read counts"):
+        tsort.sort_reads(tcfg.Config(out_dir=str(tmp_path / "s"), **kw))
+    assert not [f for f in os.listdir(tmp_path / "s") if ".run" in f]
+
+
+def test_sorter_failures_raise(library, tmp_path):
+    """Every failure of the C++ sorter raises; nothing falls back to the
+    Python loop."""
+    kw = library["kw"]
+    out = str(tmp_path / "o")
+    bad = str(tmp_path / "bad.fq")
+    with open(bad, "wb") as fp:
+        fp.write(file_bytes(kw["files_1"][0])[:-200].replace(b"@", b"#", 1))
+    for change, exc, match in (
+            (dict(files_1=(str(tmp_path / "absent.fq"),)),
+             FileNotFoundError, "does not open"),
+            (dict(files_1=(bad,)), ValueError, "malformed"),
+            (dict(lib_type=99), ValueError, "unknown lib type")):
+        with pytest.raises(exc, match=match):
+            tsort.sort_reads(tcfg.Config(out_dir=out, **dict(kw, **change)))
+    os.makedirs(os.path.join(out, ARCHIVE[0]))   # a directory in the way
+    with pytest.raises(OSError, match="cannot be written"):
+        tsort.sort_reads(tcfg.Config(out_dir=out, **kw))
 
 
 def test_index_fetch_and_verify(library):

@@ -14,9 +14,13 @@ secondary exact counters: the device sort and merge (`ops/sortops.py`,
 `ops/merge.py`), the hash counter with its CUDA kernel
 (`ops/devhash.py`, `csrc/devhash.cu`) behind the `engine=` choice of
 `kmer/count.py` and the sharded `ShardedHashCounter`, the span k-mer
-table of the 2-1-2 resolver, and KMC database interop (`io/kmc.py`).  The layout and
-function names follow `turingassembler_tpu`, which stays the reference
-every output is held against.
+table of the 2-1-2 resolver, and KMC database interop (`io/kmc.py`).
+The host C++ libraries under `native/` (built by `_build.build_host`)
+read FASTQ (`io/native_loader.py`), sort the barcode archive
+(`barcode/sort_read.py`), walk unitig chains and number first-seen
+nodes (`graph/build.py`) and pack reads (`kmer/count.py`).  The layout
+and function names follow `turingassembler_tpu`, which stays the
+reference every output is held against.
 
 Entry points (each takes `device=`, default "cuda"):
   cli.main, pipeline.assembly_basic / assembly_to_scaffolds / assembly3

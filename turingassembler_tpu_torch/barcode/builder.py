@@ -30,7 +30,8 @@ import numpy as np
 
 from ..config import Config
 from ..graph.structs import AsmGraph
-from ..io.fastq import NT4, read_fastq_batches_headers
+from ..io.fastq import NT4
+from ..io.native_loader import read_fastq_batches_native
 from ..logging_utils import add_stage_wall, get_logger, timed_iter
 from ..mapper.minimizers import EdgeMinimizerIndex, map_reads
 from .sort_read import ReadPath
@@ -47,15 +48,16 @@ RP_FULL_LEN_SLACK = 30    # DP-score stand-in for rp_count_mapper's
 def _iter_sorted_pairs(rpath: ReadPath, batch_size: int = 131072,
                        pad_to: int = 256, *, stripe=None):
     """Stream (bases1, len1, bases2, len2, barcodes) batches from the
-    sorted archive; batch widths bucket to the library's read length
-    (pipeline.batch_width).  The batch size decides the order in which
-    the callers' dicts are filled, so it is part of the result.  With
+    sorted archive through the host FASTQ reader; batch widths bucket to
+    the library's read length (pipeline.batch_width).  The batch size
+    decides the order in which the callers' dicts are filled, so it is
+    part of the result.  With
     `stripe=(r, n)` only batches r, r + n, r + 2n, ... are yielded (the
     others are parsed and skipped)."""
     from ..pipeline import batch_width
-    g1 = read_fastq_batches_headers(rpath.R1_path, batch_size, pad_to,
-                                    with_headers=True)
-    g2 = read_fastq_batches_headers(rpath.R2_path, batch_size, pad_to)
+    g1 = read_fastq_batches_native(rpath.R1_path, batch_size, pad_to,
+                                   with_headers=True)
+    g2 = read_fastq_batches_native(rpath.R2_path, batch_size, pad_to)
     for bi, (ba1, l1, hdrs) in enumerate(g1):
         ba2, l2, _ = next(g2)
         if stripe is not None and bi % stripe[1] != stripe[0]:

@@ -1,7 +1,9 @@
 """Barcode-sorted read archive — rebuild of src/sort_read.c (a copy of
-turingassembler_tpu/barcode/sort_read.py without its C++ sorter: the
-Python loop is the port's only implementation, and its files equal both
-of the JAX package's byte for byte).
+turingassembler_tpu/barcode/sort_read.py).  sort_reads runs the port's
+host C++ sorter (native/sort_read.cpp, `_sort_reads_native`), which
+spills sorted runs to disk past the -sm budget and k-way merges them;
+TA_SORT_NATIVE=0 selects the Python loop below, its plain version.  The
+files of both equal both of the JAX package's byte for byte.
 
 Produces the reference's durable artifacts byte-compatibly:
   R1.sorted.fq / R2.sorted.fq   reads grouped by barcode, each record
@@ -18,14 +20,13 @@ Barcode extraction per library type (sort_read.c:25-79):
   BioT  'BX:Z:' tag in the comment
   10X   first 16 bp of R1 (+7 bp UMI skipped; R1 trimmed by 23)
 
-The reference's per-thread radix sort + k-way disk merge becomes a
-single numpy argsort over (barcode, record) keys — the archive for a
-bacterial dataset fits in RAM; an external-spill path can be added for
-larger-than-RAM libraries.
+The reference's per-thread radix sort + k-way disk merge becomes, in
+the Python loop, a single numpy argsort over (barcode, record) keys.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 from dataclasses import dataclass
@@ -33,11 +34,24 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import _build
 from ..config import (Config, LIB_TYPE_10X, LIB_TYPE_BIOT, LIB_TYPE_SORTED,
                       LIB_TYPE_UST)
 from ..io.fastq import NT4, decode_barcode_seq, read_fastq_pair_batches
 
 BX_NONE = 0xFFFFFFFFFFFFFFFF
+# records a chunk that the C++ sorter parses of each input file at a time
+SORT_CHUNK_RECORDS = 65_536
+# the C++ sorter's failure codes (native/sort_read.cpp)
+_SORT_ERRORS = {
+    -1: (FileNotFoundError, "an input FASTQ file does not open"),
+    -2: (OSError, "the sorted archive cannot be written"),
+    -3: (OSError, "a spilled run cannot be written or read back"),
+    -4: (ValueError, "malformed FASTQ: a record lacks its '@' or is "
+         "truncated"),
+    -5: (ValueError, "paired FASTQ files have different read counts"),
+    -6: (ValueError, "unknown lib type"),
+}
 
 
 @dataclass
@@ -81,13 +95,58 @@ def _extract_barcode_biot(comment: bytes) -> Tuple[int, bytes, bytes]:
     return _decode_bc_bytes(bseq), bseq, bqual
 
 
+def _sort_reads_native(cfg: Config, out_dir: str) -> ReadPath:
+    """The C++ sorter: the same files as the Python loop.  The budget is
+    cfg.mmem_gb GiB (-sm; TA_SORT_MEM_BYTES overrides it, as in the JAX
+    package): past it the sorter spills sorted runs next to barcode.idx
+    and merges them; beside that it holds SORT_CHUNK_RECORDS parsed
+    records of each input file.  Raises on any failure."""
+    lib_codes = {LIB_TYPE_BIOT: 1, LIB_TYPE_UST: 2, LIB_TYPE_10X: 3}
+    if cfg.lib_type not in lib_codes:
+        raise ValueError(f"unknown lib type {cfg.lib_type}")
+    if len(cfg.files_2) < len(cfg.files_1):
+        raise ValueError("every -1 file needs its -2 file")
+
+    def carr(paths):
+        a = (ctypes.c_char_p * max(len(paths), 1))()
+        for i, p in enumerate(paths):
+            a[i] = os.fsencode(p)
+        return a
+
+    lib = _build.load_host("sort_read")
+    fn = lib.ta_sort_reads_budget
+    fn.argtypes = [ctypes.POINTER(ctypes.c_char_p)] * 3 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64]
+    fn.restype = ctypes.c_int64
+    rp = ReadPath(os.path.join(out_dir, "R1.sorted.fq"),
+                  os.path.join(out_dir, "R2.sorted.fq"),
+                  os.path.join(out_dir, "barcode.idx"))
+    budget = int(os.environ.get("TA_SORT_MEM_BYTES",
+                                cfg.mmem_gb * (1 << 30)))
+    files_1, files_2, files_I = (carr(cfg.files_1), carr(cfg.files_2),
+                                 carr(cfg.files_I))
+    rc = fn(files_1, files_2, files_I, len(cfg.files_1), len(cfg.files_I),
+            lib_codes[cfg.lib_type], os.fsencode(rp.R1_path),
+            os.fsencode(rp.R2_path), os.fsencode(rp.idx_path), budget,
+            SORT_CHUNK_RECORDS)
+    if rc < 0:
+        exc, what = _SORT_ERRORS.get(rc, (RuntimeError, f"code {rc}"))
+        inputs = list(cfg.files_1) + list(cfg.files_2) + list(cfg.files_I)
+        raise exc(f"sort_read: {what} (inputs {inputs})")
+    return rp
+
+
 def sort_reads(cfg: Config, out_dir: Optional[str] = None) -> ReadPath:
-    """Sort read pairs by barcode, write the sorted archive + index."""
+    """Sort read pairs by barcode, write the sorted archive + index:
+    through the C++ sorter, or with TA_SORT_NATIVE=0 the Python loop."""
     out_dir = out_dir or cfg.out_dir
     os.makedirs(out_dir, exist_ok=True)
     lib = cfg.lib_type
     if lib == LIB_TYPE_SORTED:
         return ReadPath.from_sorted(cfg)
+    if os.environ.get("TA_SORT_NATIVE", "1") != "0":
+        return _sort_reads_native(cfg, out_dir)
 
     recs1: List[bytes] = []
     recs2: List[bytes] = []

@@ -54,6 +54,7 @@ import torch
 from .config import LIB_TYPE_NAMES, Config
 from .device import resolve_device
 from .logging_utils import init_logger, set_log_stage
+from .ops.hostmem import tune_host_malloc
 from .parallel.distributed import init_distributed, rank_device
 
 
@@ -604,6 +605,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    tune_host_malloc()
     argv = argv if argv is not None else sys.argv[1:]
     a = build_parser().parse_args(argv)
     cfg = _cfg_from_args(a)

@@ -1,11 +1,13 @@
 """De Bruijn graph construction from counted canonical (k+1)-mers, on
-the host (a copy of turingassembler_tpu/graph/build.py without its
-C++ fast paths: chains are ranked by numpy pointer doubling, and nodes
-are numbered by np.unique, or in order of first appearance as the JAX
-package's C++ `ta_unique_ids` numbers them).  pipeline.build_0 feeds it
-the table of a spilled count, and localasm/local.py the per-gap tables;
-both take the first-appearance numbering, which is the JAX package's
-host build as it ships.
+the host (a copy of turingassembler_tpu/graph/build.py).  Chains are
+ranked by the serial chain walk `ta_list_rank` of the port's host
+library native/graph_kernels.cpp, and nodes are numbered by np.unique,
+or in order of first appearance by its `ta_unique_ids`, as the JAX
+package's C++ library numbers them; the numpy versions
+(`_pointer_double_to_head_np`, `_first_seen_ids_np`) are the tests'
+reference.  pipeline.build_0 feeds it the table of a spilled count, and
+localasm/local.py the per-gap tables; both take the first-appearance
+numbering, which is the JAX package's host build as it ships.
 
 Replaces the reference's kmhash-based build (src/kmer_build.c:78-649):
 
@@ -30,8 +32,11 @@ RC pairs exactly like the reference's edges.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
+from .. import _build
 from ..ops import limbs as lb
 from .structs import AsmGraph
 
@@ -65,14 +70,40 @@ def _np_fingerprint64(limbs: np.ndarray) -> np.ndarray:
         | mix(np.uint32(0x27D4EB2F)).astype(np.uint64)
 
 
-def _pointer_double_to_head(prev: np.ndarray):
-    """Given functional `prev` pointers (-1 = head), return (head index,
-    distance) for every element, breaking cycles at their min element.
+_I32P = ctypes.POINTER(ctypes.c_int32)
 
-    Pointer doubling over a shrinking unconverged frontier, O(log n)
-    gather rounds (the JAX package's fallback when its C++ chain walk is
-    absent; the two give the same head_of and dist).
-    """
+
+def _graph_lib() -> ctypes.CDLL:
+    lib = _build.load_host("graph_kernels")
+    lib.ta_list_rank.argtypes = [_I32P, ctypes.c_int64, _I32P, _I32P]
+    lib.ta_list_rank.restype = None
+    lib.ta_unique_ids.argtypes = [ctypes.POINTER(ctypes.c_uint64),
+                                  ctypes.c_int64, ctypes.c_int64, _I32P]
+    lib.ta_unique_ids.restype = ctypes.c_int64
+    return lib
+
+
+def _pointer_double_to_head(prev: np.ndarray):
+    """Given functional `prev` pointers (-1 = head; no two elements with
+    one prev), return (head index, distance) int32 for every element,
+    breaking cycles at their min element: the serial chain walk
+    `ta_list_rank`, O(n) (the reference's own formulation,
+    src/kmer_build.c:469-492)."""
+    n = len(prev)
+    prev32 = np.ascontiguousarray(prev, np.int32)
+    head_of = np.empty(n, np.int32)
+    dist = np.empty(n, np.int32)
+    _graph_lib().ta_list_rank(prev32.ctypes.data_as(_I32P), n,
+                              head_of.ctypes.data_as(_I32P),
+                              dist.ctypes.data_as(_I32P))
+    return head_of, dist
+
+
+def _pointer_double_to_head_np(prev: np.ndarray):
+    """_pointer_double_to_head by pointer doubling over a shrinking
+    unconverged frontier, O(log n) gather rounds (the JAX package's
+    fallback when its C++ chain walk is absent; the two give the same
+    head_of and dist)."""
     n = len(prev)
     prev = prev.astype(np.int32)
     idx = np.arange(n, dtype=np.int32)
@@ -146,9 +177,22 @@ def rc_consistent_cycle_heads(prev_ptr: np.ndarray, cyc: np.ndarray,
 
 def _first_seen_ids(fp: np.ndarray):
     """(ids (n,) int64, m): dense ids of uint64 keys numbered in order of
-    first appearance — the numbering of the JAX package's C++
-    ta_unique_ids (native/graph_kernels.cpp), whose all-ones empty-slot
-    key stands for the all-ones key minus one."""
+    first appearance, by `ta_unique_ids` (a linear-probing table of the
+    JAX package's capacity: the smallest power of two >= 2n, at least
+    16), whose all-ones empty-slot key stands for the all-ones key minus
+    one."""
+    n = len(fp)
+    keys = np.ascontiguousarray(fp, np.uint64)
+    ids = np.empty(n, np.int32)
+    cap = 1 << max(int(np.ceil(np.log2(max(2 * n, 2)))), 4)
+    m = _graph_lib().ta_unique_ids(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), n, cap,
+        ids.ctypes.data_as(_I32P))
+    return ids.astype(np.int64), int(m)
+
+
+def _first_seen_ids_np(fp: np.ndarray):
+    """_first_seen_ids by np.unique: the ids ranked by first index."""
     top = np.uint64(0xFFFFFFFFFFFFFFFF)
     key = np.where(fp == top, top - np.uint64(1), fp)
     uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)

@@ -1,7 +1,8 @@
-"""Host-side FASTQ ingest — the port's data loader (a copy of
-turingassembler_tpu/io/fastq.py; the JAX package's C++ loader yields the
-same batches and has no twin here yet: read_fastq_batches_headers gives
-what that loader gives, from the Python reader).
+"""Host-side FASTQ ingest in Python (a copy of
+turingassembler_tpu/io/fastq.py).  The main paths read through the host
+C++ reader of io/native_loader.py; read_fastq_batches_headers gives the
+same batches from this reader and is its plain version.  The barcode
+frequencies and the Python sorter read here, as in the JAX package.
 
 Replaces the reference's producer-thread pipeline (src/fastq_producer.c,
 src/get_buffer.c): gzip-chunked FASTQ is parsed with vectorized numpy

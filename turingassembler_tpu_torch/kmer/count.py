@@ -21,18 +21,25 @@ int64 counts, then the min_count filter.  Four engines meet it on
   returns the same arrays, so no path of the port changes engine; the
   others are kept for the JAX API (chip_smoke.py phase 14 (b), (c)
   times them beside megasort).  The
-  hash engine ships uint8 codes, as the rest of the port does; the JAX
-  2-bit read pack (host_pack_reads, device_unpack_reads) is not ported.
+  hash engine ships uint8 codes, as the rest of the port does.
+
+The JAX 2-bit read pack is here, bit-exact, for its tests and for
+chip_smoke.py, which times it against the plain copy of the codes: no
+path calls it.  host_pack_reads runs the port's host library
+native/pack_kernels.cpp (host_pack_reads_np is its numpy version);
+device_unpack_reads is tensor code.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Iterable, Tuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..device import resolve_device
 from ..ops import kmers as km
 from ..ops import limbs as lb
@@ -42,6 +49,56 @@ from ..ops.sortops import np_merge_count_runs, padded_run
 from .megasort import count_kedges_megasort
 
 ENGINES = ("auto", "megasort", "hash", "device", "np")
+
+
+def host_pack_reads(bases: np.ndarray):
+    """(B, L) uint8 codes (>= 4 invalid or pad) -> (packed (B, ceil(L/4))
+    uint8: base i in bits 2*(i%4) of byte i//4, an invalid base as 3;
+    nmask (B, ceil(L/8)) uint8: bit i%8 of byte i//8 set where base i is
+    valid), by `ta_pack_reads`."""
+    bases = np.ascontiguousarray(bases, np.uint8)
+    B, L = bases.shape
+    packed = np.empty((B, (L + 3) // 4), np.uint8)
+    nmask = np.empty((B, (L + 7) // 8), np.uint8)
+    if B * L:
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        fn = _build.load_host("pack_kernels").ta_pack_reads
+        fn.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, u8p, u8p]
+        fn.restype = None
+        fn(bases.ctypes.data_as(u8p), B, L, packed.ctypes.data_as(u8p),
+           nmask.ctypes.data_as(u8p))
+    return packed, nmask
+
+
+def host_pack_reads_np(bases: np.ndarray):
+    """host_pack_reads in numpy (the JAX package's version)."""
+    B, L = bases.shape
+    L4 = (L + 3) // 4 * 4
+    L8 = (L + 7) // 8 * 8
+    b = np.zeros((B, L4), np.uint8)
+    np.minimum(bases, 3, out=b[:, :L], casting="unsafe")
+    q = b.reshape(B, L4 // 4, 4).astype(np.uint16)
+    packed = (q[:, :, 0] | (q[:, :, 1] << 2) | (q[:, :, 2] << 4)
+              | (q[:, :, 3] << 6)).astype(np.uint8)
+    v = np.zeros((B, L8), np.uint8)
+    v[:, :L] = (bases < 4).astype(np.uint8)
+    m = v.reshape(B, L8 // 8, 8).astype(np.uint16)
+    nmask = (m[:, :, 0] | (m[:, :, 1] << 1) | (m[:, :, 2] << 2)
+             | (m[:, :, 3] << 3) | (m[:, :, 4] << 4) | (m[:, :, 5] << 5)
+             | (m[:, :, 6] << 6) | (m[:, :, 7] << 7)).astype(np.uint8)
+    return packed, nmask
+
+
+def device_unpack_reads(packed: torch.Tensor, nmask: torch.Tensor,
+                        L: int) -> torch.Tensor:
+    """Inverse of host_pack_reads on the tensors' device -> (B, L) uint8
+    codes, 255 where a base is invalid."""
+    B = packed.shape[0]
+    shifts2 = torch.arange(4, device=packed.device, dtype=torch.uint8) * 2
+    b = ((packed[:, :, None] >> shifts2) & 3).reshape(B, -1)[:, :L]
+    shifts1 = torch.arange(8, device=nmask.device, dtype=torch.uint8)
+    v = ((nmask[:, :, None] >> shifts1) & 1).reshape(B, -1)[:, :L]
+    return torch.where(v == 1, b, torch.full_like(b, 255))
 
 
 def batch_count_tile(bases: torch.Tensor, lengths: torch.Tensor, k1: int):

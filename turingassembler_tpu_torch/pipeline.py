@@ -59,7 +59,7 @@ from .graph.invariants import check_graph
 from .graph.structs import AsmGraph
 from .io import asmg
 from .io.fasta import write_fasta, write_gfa
-from .io.fastq import read_fastq_batches
+from .io.native_loader import read_fastq_batches_native
 from .kmer.megasort import count_kedges_megasort_device
 from .logging_utils import (add_stage_wall, get_logger, set_log_stage,
                             stage_walls, timed_iter)
@@ -110,16 +110,16 @@ def batch_width(lengths: np.ndarray, lo: int = 64) -> int:
 
 
 def _genomic_batches(cfg: Config, batch_size: int = 4096, pad_to: int = 256):
-    """Yield (bases, lengths) batches over all genomic reads (R1 + R2).
+    """Yield (bases, lengths) batches over all genomic reads (R1 + R2),
+    read by the host FASTQ reader (io/native_loader.py).
 
     10X libraries carry barcode+UMI in the first 23 bp of R1
     (upstream get_barcode_10x, src/sort_read.c:62-79) — trimmed here
     before counting."""
     for i, path in enumerate(list(cfg.files_1) + list(cfg.files_2)):
         is_r1 = i < len(cfg.files_1)
-        for batch in read_fastq_batches(path, batch_size=batch_size,
-                                        pad_to=pad_to):
-            bases, lengths = batch.bases, batch.lengths
+        for bases, lengths, _ in read_fastq_batches_native(
+                path, batch_size=batch_size, pad_to=pad_to):
             if cfg.lib_type == LIB_TYPE_10X and is_r1:
                 # trim, then re-pad so R1/R2 batch widths stay equal
                 bases = np.concatenate(
