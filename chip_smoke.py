@@ -34,7 +34,10 @@ before printing a result:
      reads of 150 bp, 0.5% substitutions, k=45, min count 2; the depth
      is cut from 2 Mbp to keep the script short) through the CLI
      function, `basic --device cuda`: stage seconds, the bubble check's
-     NW launches, and checks of the three graphs against the haplotypes
+     NW launches, and checks of the three graphs against the haplotypes;
+     then the count alone under the profiler on the parsed batches: the
+     records of at most 131,072 reads (COUNT_CHUNK) the batches were
+     joined into, and the device's busy share
   8. assembly3 parity: the linked-read recipe of phase 9 (segments
      between identical repeat copies, barcoded molecules, an index read),
      cut to 4 segments (3 gaps), through pipeline.assembly3 on the card
@@ -123,7 +126,8 @@ before printing a result:
      FASTQ reader on phase 9's R1 and R2 in the archive maps' batches
      (bases, lengths, headers == the Python reader's) and a .gz copy of
      R1; (b) the sorter on phase 9's library under a budget of a fifth
-     of its records' bytes (at least 4 spilled runs merged) == phase 9's
+     of its records' bytes (at least 4 spilled runs, as the sorter
+     counts them, merged) == phase 9's
      archive byte for byte, and on phase 8's library == the Python loop;
      (c) the level-0 host build of phase 5's 1,999,953 k-edges through
      the graph kernels == through their numpy versions, array for array,
@@ -131,9 +135,27 @@ before printing a result:
      reads == numpy, unpacked on the card == the codes, timed beside the
      plain copy of the codes (pageable and pinned); (e) (c)'s build twice
      in a fresh process with tune_host_malloc and in one without
+ 16. E. coli scale (after phase 14): the E. coli twin
+     (turingassembler_tpu_torch/tools/ecoli_scale.py) at its defaults, in
+     this process: a 4.6 Mbp genome with 7x900 bp and 4x700 bp repeat
+     families, 715,000 barcoded pairs of 120 bp, `assembly3 --device
+     cuda`, then evaluate_assembly; it raises unless assembly3 returns 0
+     and the twin's quality gates hold (no misassembly, genome fraction
+     >= 0.99, NGA50 >= 0.9 x genome, at most 5.65 mismatches and 0.47
+     indels per 100 kbp).  Stage seconds by name, the bridge stage's
+     parts, NW launches, peak device memory and RSS, and the quality
+     beside the JAX tool's record (ECOLI_r05.json, quality only)
+ 17. spill scale: the spill twin (tools/spill_scale.py) at 1,000,000
+     pairs, the sorter under 32 MB (at least 4 spilled runs, as the
+     sorter counts them), the
+     archive verified on 512 barcodes and 32 content-exact, and
+     1,000,000 reads counted on the card in memory and under a device
+     budget of a fifth of their unique (k+1)-mers: host and disk runs
+     counted, tables equal
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
-     9, 10, 11 and 13 launched the kernel at, with their scoring and mode
- 16. the `kernels` JSON line, the nvidia-smi line, and last the result
+     9, 10, 11, 13 and 16 launched the kernel at, with their scoring and
+     mode
+ 18. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -737,10 +759,11 @@ def profile_count_and_build(cfg):
     from turingassembler_tpu_torch import pipeline
     from turingassembler_tpu_torch.graph.device_build import \
         build_graph_on_device
-    from turingassembler_tpu_torch.kmer.megasort import \
-        count_kedges_megasort_device
+    from turingassembler_tpu_torch.kmer.megasort import (
+        COUNT_CHUNK, count_kedges_megasort_device)
     batches = list(pipeline._genomic_batches(cfg))
-    prof, st = StageProfiler(), {}
+    n_reads = sum(len(b) for b, _ in batches)
+    prof, st, stats = StageProfiler(), {}, {}
 
     def stage(name, fn):
         torch.cuda.synchronize()
@@ -752,10 +775,23 @@ def profile_count_and_build(cfg):
         return res
 
     u, c, n = stage("count", lambda: count_kedges_megasort_device(
-        iter(batches), cfg.k0, min_count=cfg.device.min_kmer_count))
+        iter(batches), cfg.k0, min_count=cfg.device.min_kmer_count,
+        stats=stats))
     stage("build", lambda: build_graph_on_device(u, c, n, cfg.k0))
     prof.report(f"levels profile ({len(batches)} parsed batches of "
                 f"{len(batches[0][0])} reads)", st)
+    busy = prof.busy["count"] / st["count"] * 100 if prof.busy["count"] \
+        else None
+    log(f"levels count records: {len(batches)} parser batches "
+        f"({n_reads} reads, {len(batches[0][0])} a batch) coalesced into "
+        f"{stats['records']} records of at most {COUNT_CHUNK} reads; count "
+        f"wall {st['count']:.3f} s, "
+        "device busy " + (f"{busy:.1f}%" if busy is not None
+                          else "not measured (the profiler saw no device "
+                          "time)"))
+    if stats["records"] != -(-n_reads // COUNT_CHUNK):
+        raise AssertionError(f"levels: the count received {stats['records']}"
+                             f" records of {len(batches)} batches")
 
 
 def phase_levels_full_width(genome_len=250_000):
@@ -2512,12 +2548,17 @@ def phase_host_twins(parity_files, full_out, bench, work):
                                                               "I1")}
     cfg = linked_config(files, os.path.join(work, "spilled"))
     os.environ["TA_SORT_MEM_BYTES"] = str(budget)
+    sort_stats = {}
     try:
         t0 = time.perf_counter()
-        sort_read.sort_reads(cfg)
+        sort_read.sort_reads(cfg, stats=sort_stats)
         t_spill = time.perf_counter() - t0
     finally:
         del os.environ["TA_SORT_MEM_BYTES"]
+    if sort_stats["runs"] < 4:
+        raise AssertionError(f"host twins: the sorter spilled "
+                             f"{sort_stats['runs']} runs under {budget} "
+                             "bytes, expected at least 4")
     for a, w in zip(archive, want):
         if file_bytes(os.path.join(cfg.out_dir, a)) != w:
             raise AssertionError(f"host twins: the spilled sort's {a} "
@@ -2539,8 +2580,9 @@ def phase_host_twins(parity_files, full_out, bench, work):
                                  "differs from the Python loop")
     n8 = file_bytes(os.path.join(pcfg.out_dir, archive[0])).count(b"\n") // 4
     log(f"host twins (b) sorter: phase 9's {n} pairs with a budget of "
-        f"{budget} bytes (a fifth of the formatted records: at least 4 "
-        f"spilled runs, k-way merged) {t_spill:.3f} s, all three files "
+        f"{budget} bytes (a fifth of the formatted records) spilled "
+        f"{sort_stats['runs']} runs, k-way merged, {t_spill:.3f} s; all "
+        "three files "
         f"byte-identical to phase 9's unspilled archive; phase 8's {n8} "
         f"pairs: twin {t_twin:.3f} s, Python loop {t_loop:.3f} s, "
         "byte-identical")
@@ -2652,6 +2694,107 @@ def phase_host_twins(parity_files, full_out, bench, work):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the scale tools, the E. coli run and the spill run
+# ---------------------------------------------------------------------------
+
+# the JAX tool's record of the same run, for its quality figures only
+ECOLI_RECORD = "ECOLI_r05.json"
+QUALITY = ("nga50", "n_misassemblies", "genome_fraction",
+           "mismatches_per_100kbp", "indels_per_100kbp", "n_contigs",
+           "gapless")
+
+
+def phase_ecoli():
+    """The E. coli twin at its defaults on the card: 4.6 Mbp, 715,000
+    pairs of 120 bp, assembly3 --device cuda, the quality gates (its exit
+    code).  Returns its NW launches and their shapes."""
+    from turingassembler_tpu_torch.localasm import bridge
+    from turingassembler_tpu_torch.ops import nw_align
+    from turingassembler_tpu_torch.tools import ecoli_scale
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ECOLI_RECORD)) as fp:
+        record = json.load(fp)["result"]
+    with tempfile.TemporaryDirectory() as d:
+        report = os.path.join(d, "report.json")
+        # the twin prints its whole report: into the log's stderr
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = ecoli_scale.main(["--out", os.path.join(d, "lib"),
+                                   "--report", report])
+        shapes = list(nw_align.COUNT.shapes)
+        parts, outcomes = dict(bridge.BRIDGE_PROF), dict(bridge.BRIDGE_COUNTS)
+        if not os.path.exists(report):
+            raise AssertionError(f"ecoli: assembly3 returned {rc}")
+        with open(report) as fp:
+            rep = json.load(fp)
+    ds, res, nw = rep["dataset"], rep["result"], rep["nw"]
+    log(f"ecoli ({ds['genome_bp']} bp, repeats {ds['repeats']}, "
+        f"{ds['n_pairs']} pairs of {ds['read_len']} bp, "
+        f"{ds['coverage_x']}x, errors {ds['error_rate']}, seed "
+        f"{ds['seed']}; assembly3 --device cuda on {rep['device_name']}): "
+        f"simulation {rep['sim_s']:.3f} s, assembly3 "
+        f"{rep['wall_total_s']:.3f} s, evaluate {rep['eval_s']:.3f} s; NW "
+        f"{nw['pairs']} pairs in {nw['launches']} launches; peak device "
+        f"memory {rep['peak_device_memory_gib']:.3f} GiB, peak RSS "
+        f"{rep['peak_rss_gib']:.3f} GiB")
+    log("ecoli stage seconds: " + ", ".join(
+        f"{k_} {v:.3f}" for k_, v in rep["walls_s"].items()))
+    log("ecoli bridge stage parts, thread-seconds: " + ", ".join(
+        f"{k_} {parts.get(k_, 0.0):.3f}" for k_ in (
+            "prebuild", "flank_map", "filters", "kmer_set", "path_search",
+            "score_paths"))
+        + f"; bridges {outcomes}")
+    log("ecoli quality, this run / the JAX tool's record: " + ", ".join(
+        f"{k_} {res[k_]} / {record[k_]}" for k_ in QUALITY))
+    if rc != 0:
+        raise AssertionError(f"ecoli: the quality gates failed (exit {rc})"
+                             f": {res}")
+    if nw["launches"] < 1 or nw["launches"] != len(shapes):
+        raise AssertionError(f"ecoli: {nw['launches']} NW launches, "
+                             f"{len(shapes)} shapes recorded")
+    # the bubble check pads both branches to one width (Lq == Lt); the
+    # mappers' and the path scoring's DP has Lt = Lq + 32
+    return nw["launches"], [("bubble" if sh[1] == sh[2] else "map", sh)
+                            for sh in shapes]
+
+
+# phase 17: the spill twin at a tenth of its default library
+SPILL_ARGS = ["--pairs", "1000000", "--sort-budget-mb", "32",
+              "--count-pairs", "500000"]
+
+
+def phase_spill():
+    """The spill twin on the card: 1,000,000 pairs sorted under 32 MB
+    (at least 4 spilled runs), the archive verified; 1,000,000 reads
+    counted in memory and under a device budget, which must leave host
+    and disk runs and the same table."""
+    from turingassembler_tpu_torch.tools import spill_scale
+    with tempfile.TemporaryDirectory() as d:
+        report = os.path.join(d, "report.json")
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = spill_scale.main(SPILL_ARGS + [
+                "--out", os.path.join(d, "lib"), "--report", report])
+        with open(report) as fp:
+            rep = json.load(fp)
+    srt, ab = rep["sort"], rep["count_ab"]
+    log(f"spill: {rep['n_pairs']} pairs (simulation {rep['sim_s']:.3f} s); "
+        f"sort_read under {srt['budget_mb']} MB spilled {srt['runs']} runs, "
+        f"{srt['wall_s']:.3f} s = {srt['pairs_per_s']} pairs/s, peak RSS "
+        f"{srt['peak_rss_mb']} MB; "
+        f"archive verified on {srt['verified_barcodes_structural']} "
+        f"barcodes, {srt['verified_barcodes_content']} content-exact; "
+        f"count of {ab['reads']} reads on the card: in memory "
+        f"{ab['in_memory_s']:.3f} s, under a device budget of "
+        f"{ab['device_lanes']} rows and {ab['budget_mb']} MB of host runs "
+        f"{ab['spilled_s']:.3f} s ({ab['host_runs']} host runs, "
+        f"{ab['disk_runs']} disk runs), {ab['unique_kedges']} unique, "
+        "tables equal")
+    # the twin itself raises unless the archive checks hold, the budgeted
+    # count left at least 2 host runs and 1 disk run and the tables agree
+    if rc != 0 or srt["runs"] < 4:
+        raise AssertionError(f"spill: exit {rc}, {srt['runs']} sort runs")
+
+
 def build_kernels():
     """nvcc for every CUDA source and the host compiler for every
     native/*.cpp, all started together."""
@@ -2706,6 +2849,9 @@ def main():
         phase(phase_host_twins, parity[1], full_out, bench, work)
     dh_reads, dh_rows, dh = phase(phase_secondary_engines, bench)
     del bench
+    n, sh = phase(phase_ecoli)
+    launches, shapes = launches + n, shapes + sh
+    phase(phase_spill)
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
                             phase(phase_hold_path_shapes, shapes))

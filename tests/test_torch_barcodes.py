@@ -12,6 +12,7 @@ insertion order, and the saved .bin bytes.
 
 import numpy as np
 import pytest
+import torch
 
 from test_barcode_resolve import _attach_sets, _bridge_2_2_graph
 from turingassembler_tpu import testing as jt
@@ -27,6 +28,8 @@ from turingassembler_tpu_torch.graph.mutable import MutableGraph as TMutable
 from turingassembler_tpu_torch.io import asmg as tasmg
 from turingassembler_tpu_torch.resolve import barcodes as TB
 from turingassembler_tpu_torch.resolve import driver as tdriver
+
+torch.set_num_threads(1)
 
 ARRAYS = ("node_rc", "adj_off", "adj_list", "edge_source", "edge_target",
           "edge_rc", "edge_count", "seq_off", "seq_data")

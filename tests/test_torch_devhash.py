@@ -34,6 +34,8 @@ from turingassembler_tpu_torch.ops import devhash
 from turingassembler_tpu_torch.ops import kmers as km
 from turingassembler_tpu_torch.ops.devhash import DeviceHashCounter as TCounter
 
+torch.set_num_threads(1)
+
 
 def both(capacity_log2, nl):
     return JCounter(capacity_log2, nl), TCounter(capacity_log2, nl,

@@ -9,6 +9,7 @@ Tolerance: exact — parsed records, graph arrays, file bytes.
 
 import numpy as np
 import pytest
+import torch
 
 from turingassembler_tpu.io import fasta as jfasta
 from turingassembler_tpu.io import fastg as jfastg
@@ -17,6 +18,8 @@ from turingassembler_tpu_torch import testing as tt
 from turingassembler_tpu_torch.graph.invariants import check_graph
 from turingassembler_tpu_torch.io import fasta as tfasta
 from turingassembler_tpu_torch.io import fastg as tfastg
+
+torch.set_num_threads(1)
 
 ARRAYS = ("node_rc", "adj_off", "adj_list", "edge_source", "edge_target",
           "edge_rc", "edge_count", "seq_off", "seq_data")

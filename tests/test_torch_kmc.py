@@ -10,12 +10,15 @@ numpy-seeded.  Tolerance: exact, byte for byte.
 
 import numpy as np
 import pytest
+import torch
 
 from turingassembler_tpu import testing as jt
 from turingassembler_tpu.io import kmc as jkmc
 from turingassembler_tpu_torch.io import kmc as tkmc
 from turingassembler_tpu_torch.kmer.count import count_kedges_from_reads
 from turingassembler_tpu_torch.ops import limbs as lb
+
+torch.set_num_threads(1)
 
 
 def sorted_kmers(n, k, seed):

@@ -15,6 +15,7 @@ span test (35x each).
 
 import numpy as np
 import pytest
+import torch
 
 from test_resolve_big import make_212_genome
 from turingassembler_tpu import testing as jt
@@ -30,6 +31,8 @@ from turingassembler_tpu_torch.graph.condense import asm_condense
 from turingassembler_tpu_torch.graph.invariants import check_graph
 from turingassembler_tpu_torch.graph.mutable import MutableGraph as TMutable
 from turingassembler_tpu_torch.resolve import big as TBIG
+
+torch.set_num_threads(1)
 
 ARRAYS = ("node_rc", "adj_off", "adj_list", "edge_source", "edge_target",
           "edge_rc", "edge_count", "seq_off", "seq_data")

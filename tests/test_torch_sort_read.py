@@ -14,6 +14,7 @@ import struct
 
 import numpy as np
 import pytest
+import torch
 
 from turingassembler_tpu import config as jcfg
 from turingassembler_tpu.barcode import sort_read as jsort
@@ -24,6 +25,8 @@ from turingassembler_tpu_torch import convert
 from turingassembler_tpu_torch import testing as tt
 from turingassembler_tpu_torch.barcode import sort_read as tsort
 from turingassembler_tpu_torch.io import fastq as tfq
+
+torch.set_num_threads(1)
 
 ARCHIVE = ("R1.sorted.fq", "R2.sorted.fq", "barcode.idx")
 LIBS = {"ust": 5, "bioturing": 6, "10x": 7}
@@ -130,13 +133,30 @@ def test_spilled_runs_merge_to_the_same_archive(library, tmp_path,
     budget = (len(want[0]) + len(want[1])) // 5
     monkeypatch.setenv("TA_SORT_MEM_BYTES", str(budget))
     out = str(tmp_path / "port")
-    tsort.sort_reads(tcfg.Config(out_dir=out, **library["kw"]))
+    stats = {}
+    tsort.sort_reads(tcfg.Config(out_dir=out, **library["kw"]), stats=stats)
+    assert stats["runs"] >= 4
     assert archive_bytes(out) == want
     assert sorted(os.listdir(out)) == sorted(ARCHIVE)
     if jsort._NATIVE_SORT is not None:
         jout = str(tmp_path / "jax")
         jsort.sort_reads(jcfg.Config(out_dir=jout, **library["kw"]))
         assert archive_bytes(jout) == want
+
+
+@pytest.mark.parametrize("native", ["1", "0"])
+def test_sort_in_ram_reports_no_runs(library, tmp_path, monkeypatch,
+                                     native):
+    """With no budget the C++ sorter spills nothing, and the Python loop
+    never does: both report 0 runs."""
+    monkeypatch.setenv("TA_SORT_NATIVE", native)
+    monkeypatch.setenv("TA_SORT_MEM_BYTES", "0")
+    stats = {}
+    out = str(tmp_path / "o")
+    tsort.sort_reads(tcfg.Config(out_dir=out, **library["kw"]), stats=stats)
+    assert stats == {"runs": 0}
+    assert archive_bytes(out) == archive_bytes(
+        os.path.join(library["dir"], "port"))
 
 
 @pytest.mark.parametrize("chunk", [1, 7, 10])

@@ -16,6 +16,8 @@ from turingassembler_tpu.ops import sortops as jso
 from turingassembler_tpu_torch.ops import merge as tmerge
 from turingassembler_tpu_torch.ops import sortops as tso
 
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

@@ -95,12 +95,15 @@ def _extract_barcode_biot(comment: bytes) -> Tuple[int, bytes, bytes]:
     return _decode_bc_bytes(bseq), bseq, bqual
 
 
-def _sort_reads_native(cfg: Config, out_dir: str) -> ReadPath:
+def _sort_reads_native(cfg: Config, out_dir: str,
+                       stats: Optional[dict] = None) -> ReadPath:
     """The C++ sorter: the same files as the Python loop.  The budget is
     cfg.mmem_gb GiB (-sm; TA_SORT_MEM_BYTES overrides it, as in the JAX
     package): past it the sorter spills sorted runs next to barcode.idx
     and merges them; beside that it holds SORT_CHUNK_RECORDS parsed
-    records of each input file.  Raises on any failure."""
+    records of each input file.  `stats`, when given, receives "runs":
+    the sorted runs spilled and merged (0 when sorted in RAM).  Raises on
+    any failure."""
     lib_codes = {LIB_TYPE_BIOT: 1, LIB_TYPE_UST: 2, LIB_TYPE_10X: 3}
     if cfg.lib_type not in lib_codes:
         raise ValueError(f"unknown lib type {cfg.lib_type}")
@@ -117,7 +120,8 @@ def _sort_reads_native(cfg: Config, out_dir: str) -> ReadPath:
     fn = lib.ta_sort_reads_budget
     fn.argtypes = [ctypes.POINTER(ctypes.c_char_p)] * 3 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_char_p,
-        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64]
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64)]
     fn.restype = ctypes.c_int64
     rp = ReadPath(os.path.join(out_dir, "R1.sorted.fq"),
                   os.path.join(out_dir, "R2.sorted.fq"),
@@ -126,27 +130,35 @@ def _sort_reads_native(cfg: Config, out_dir: str) -> ReadPath:
                                 cfg.mmem_gb * (1 << 30)))
     files_1, files_2, files_I = (carr(cfg.files_1), carr(cfg.files_2),
                                  carr(cfg.files_I))
+    n_runs = ctypes.c_int64(0)
     rc = fn(files_1, files_2, files_I, len(cfg.files_1), len(cfg.files_I),
             lib_codes[cfg.lib_type], os.fsencode(rp.R1_path),
             os.fsencode(rp.R2_path), os.fsencode(rp.idx_path), budget,
-            SORT_CHUNK_RECORDS)
+            SORT_CHUNK_RECORDS, ctypes.byref(n_runs))
     if rc < 0:
         exc, what = _SORT_ERRORS.get(rc, (RuntimeError, f"code {rc}"))
         inputs = list(cfg.files_1) + list(cfg.files_2) + list(cfg.files_I)
         raise exc(f"sort_read: {what} (inputs {inputs})")
+    if stats is not None:
+        stats["runs"] = n_runs.value
     return rp
 
 
-def sort_reads(cfg: Config, out_dir: Optional[str] = None) -> ReadPath:
+def sort_reads(cfg: Config, out_dir: Optional[str] = None,
+               stats: Optional[dict] = None) -> ReadPath:
     """Sort read pairs by barcode, write the sorted archive + index:
-    through the C++ sorter, or with TA_SORT_NATIVE=0 the Python loop."""
+    through the C++ sorter, or with TA_SORT_NATIVE=0 the Python loop
+    (which sorts in RAM).  `stats`, when given, receives "runs": the
+    sorted runs spilled to disk and merged."""
     out_dir = out_dir or cfg.out_dir
     os.makedirs(out_dir, exist_ok=True)
     lib = cfg.lib_type
     if lib == LIB_TYPE_SORTED:
         return ReadPath.from_sorted(cfg)
     if os.environ.get("TA_SORT_NATIVE", "1") != "0":
-        return _sort_reads_native(cfg, out_dir)
+        return _sort_reads_native(cfg, out_dir, stats)
+    if stats is not None:
+        stats["runs"] = 0
 
     recs1: List[bytes] = []
     recs2: List[bytes] = []

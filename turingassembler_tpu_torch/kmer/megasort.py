@@ -100,10 +100,15 @@ class _Accumulator:
         self.disk_runs = 0
 
     def feed(self, rows: torch.Tensor) -> None:
-        self.window.append(rows)
-        self.lanes += rows.shape[0]
-        if self.lanes >= self.flush_lanes:
-            self.flush()
+        # a record may hold more rows than a window: it is cut at the
+        # window's edge, so no window passes flush_lanes rows
+        while rows.shape[0]:
+            take = self.flush_lanes - self.lanes
+            self.window.append(rows[:take])
+            self.lanes += min(take, rows.shape[0])
+            rows = rows[take:]
+            if self.lanes >= self.flush_lanes:
+                self.flush()
 
     def flush(self) -> None:
         if not self.lanes:
@@ -197,6 +202,43 @@ def count_reads_device(
     return uniq, counts, int(counts.shape[0])
 
 
+# reads a count record holds (the JAX package's TA_COUNT_CHUNK default)
+COUNT_CHUNK = 131072
+
+
+def _coalesce_batches(batches, target_reads: int):
+    """Merge a stream of (bases, lengths) host batches into records of
+    `target_reads` rows (width = max width in the group, padded with
+    255), so the count extracts few large records and not many small
+    batches.  Unlike the JAX function the tail record keeps only its
+    reads: no fixed shape is reused here, so pad rows would only be sent
+    to the device to hold no window."""
+    buf: List[tuple] = []
+    nb = 0
+
+    def _cat():
+        nonlocal buf, nb
+        W = max(b.shape[1] for b, _ in buf)
+        bases = np.concatenate([
+            b if b.shape[1] == W else np.concatenate(
+                [b, np.full((len(b), W - b.shape[1]), 255, np.uint8)], 1)
+            for b, _ in buf])
+        lens = np.concatenate([l for _, l in buf]).astype(np.int32)
+        buf, nb = [], 0
+        return bases, lens
+
+    for b, l in batches:
+        while len(b):
+            take = min(len(b), target_reads - nb)
+            buf.append((b[:take], l[:take]))
+            nb += take
+            b, l = b[take:], l[take:]
+            if nb >= target_reads:
+                yield _cat()
+    if nb:
+        yield _cat()
+
+
 def pull_rows(arr: torch.Tensor, n: int) -> np.ndarray:
     """Host copy of arr[:n]."""
     return arr[:n].cpu().numpy()
@@ -206,27 +248,40 @@ def count_kedges_megasort_device(
     batches: Iterable[Tuple[np.ndarray, np.ndarray]], k: int,
     min_count: int = 1, *, max_lanes: int = 1 << 28,
     device_lanes: int = 0, host_mb: float = 0,
-    spill_dir: str | None = None, device: str | torch.device = "cuda"):
+    spill_dir: str | None = None, device: str | torch.device = "cuda",
+    stats: dict | None = None):
     """Count over a stream of host (bases, lengths) batches; returns the
     device table (uniq, counts, n) filtered to count >= min_count.  When
     the `device_lanes` budget forced a spill, returns host arrays
-    instead, a 2-tuple (kedges (n, nl) uint32, counts (n,) int64)."""
+    instead, a 2-tuple (kedges (n, nl) uint32, counts (n,) int64).
+
+    The batches are joined into records of COUNT_CHUNK reads first
+    (_coalesce_batches, as the JAX count joins them), one extraction a
+    record.  `stats`, when given, receives "records" (records counted),
+    "host_runs" (runs kept in host memory) and "disk_runs" (runs saved
+    under spill_dir)."""
     dev = resolve_device(device)
     k1 = k + 1
     acc = _Accumulator(lb.n_limbs(k1), max_lanes, dev, device_lanes,
                        host_mb, spill_dir)
-    for bases, lengths in batches:
+    records = 0
+    for bases, lengths in _coalesce_batches(batches, COUNT_CHUNK):
+        records += 1
         acc.feed(_extract_chunk(
             torch.as_tensor(np.ascontiguousarray(bases, np.uint8)).to(dev),
-            torch.as_tensor(np.ascontiguousarray(lengths, np.int32)).to(dev),
-            k1))
+            torch.as_tensor(lengths).to(dev), k1))
     acc.flush()
     if acc.host_runs:
-        return acc.merged_host_runs(min_count)
-    uniq, counts = acc.result()
-    if min_count > 1:
-        uniq, counts = _filter_min_count_device(uniq, counts, min_count)
-    return uniq, counts, int(counts.shape[0])
+        res = acc.merged_host_runs(min_count)
+    else:
+        uniq, counts = acc.result()
+        if min_count > 1:
+            uniq, counts = _filter_min_count_device(uniq, counts, min_count)
+        res = uniq, counts, int(counts.shape[0])
+    if stats is not None:
+        stats.update(records=records, disk_runs=acc.disk_runs,
+                     host_runs=len(acc.host_runs) - acc.disk_runs)
+    return res
 
 
 def count_kedges_megasort(
@@ -234,13 +289,14 @@ def count_kedges_megasort(
     min_count: int = 1, *, max_lanes: int = 1 << 28,
     device_lanes: int = 0, host_mb: float = 0,
     spill_dir: str | None = None,
-    device: str | torch.device = "cuda") -> Tuple[np.ndarray, np.ndarray]:
+    device: str | torch.device = "cuda",
+    stats: dict | None = None) -> Tuple[np.ndarray, np.ndarray]:
     """Host form of count_kedges_megasort_device: (kedges (n, nl) uint32
     sorted unique, counts (n,) int64), spilled or not."""
     res = count_kedges_megasort_device(
         batches, k, min_count, max_lanes=max_lanes,
         device_lanes=device_lanes, host_mb=host_mb, spill_dir=spill_dir,
-        device=device)
+        device=device, stats=stats)
     if len(res) == 2:
         return res
     uniq, counts, n = res

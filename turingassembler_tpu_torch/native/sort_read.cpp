@@ -354,7 +354,8 @@ extern "C" {
 // Returns the number of read pairs sorted, or one of the codes below.
 // filesI may be null or shorter than n_files (UST pairs without an index
 // read get BX_NONE).  Each file is parsed `chunk_records` records at a
-// time.
+// time.  `n_runs`, when not null, receives the number of sorted runs
+// spilled to disk and merged (0 when everything was sorted in RAM).
 enum {
     ERR_OPEN_INPUT = -1,     // an input file does not open
     ERR_WRITE_ARCHIVE = -2,  // the sorted archive cannot be written
@@ -370,7 +371,7 @@ int64_t ta_sort_reads_budget(const char **files1, const char **files2,
                              const char *out_r1, const char *out_r2,
                              const char *out_idx,
                              int64_t mem_budget_bytes,
-                             int64_t chunk_records) {
+                             int64_t chunk_records, int64_t *n_runs) {
     if (lib_type != 1 && lib_type != 2 && lib_type != 3) return ERR_LIB_TYPE;
     if (chunk_records < 1) chunk_records = 1;
     Arena a1, a2;
@@ -523,6 +524,7 @@ int64_t ta_sort_reads_budget(const char **files1, const char **files2,
     if (!out.open(out_r1, out_r2, out_idx)) return ERR_WRITE_ARCHIVE;
 
     if (run_paths.empty()) {
+        if (n_runs) *n_runs = 0;
         // all in RAM: stable sort by barcode preserves input order
         // within a barcode, matching numpy argsort(kind="stable")
         std::vector<int64_t> order(metas.size());
@@ -547,6 +549,7 @@ int64_t ta_sort_reads_budget(const char **files1, const char **files2,
         if (RunWriter::flush(a1, a2, metas, p) < 0) return ERR_RUN_IO;
         run_paths.push_back(p);
     }
+    if (n_runs) *n_runs = (int64_t)run_paths.size();
     std::vector<RunReader> runs(run_paths.size());
     for (size_t i = 0; i < run_paths.size(); ++i)
         if (!runs[i].open(run_paths[i])) return ERR_RUN_IO;

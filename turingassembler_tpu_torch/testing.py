@@ -1,6 +1,6 @@
 """Synthetic genomes and reads.
 
-random_genome, revcomp and sim_reads are copies of
+random_genome, revcomp, sim_reads and codes_to_str are copies of
 turingassembler_tpu/testing.py: the same seeds give the same arrays, so
 a run of the port and a run of the JAX package start from identical
 data.  mutate_identity and genome_with_repeat_family are copies too.
@@ -13,7 +13,8 @@ copies as well; plant_single_indels is their vectorised single-indel
 form, genome_with_exact_repeats the genome whose contigs only barcodes
 can order, sim_molecule_pairs samples barcoded molecules evenly up to
 a linear genome's ends, and linked_read_library writes a linked-read
-library of such a genome as FASTQ files.  two_path_local_graph and
+library of such a genome as FASTQ files; fastq_block formats reads of
+one length as FASTQ records at numpy speed.  two_path_local_graph and
 read_pairs_of make a local graph with two candidate paths between its
 flanks and the read pairs of one of them, for the bridge's path
 scoring.  make_212_genome (a copy of tests/test_resolve_big.py's) makes
@@ -34,6 +35,37 @@ def random_genome(n: int, seed: int = 0) -> np.ndarray:
 
 def revcomp(seq: np.ndarray) -> np.ndarray:
     return (3 - seq)[::-1]
+
+
+def codes_to_str(codes: np.ndarray) -> str:
+    return np.frombuffer(b"ACGT", np.uint8)[codes].tobytes().decode()
+
+
+def fastq_block(first_id: int, seqs: np.ndarray) -> bytes:
+    """FASTQ records `@r<i>`, i from first_id, of the rows of `seqs`
+    ((n, L) ASCII bytes, every read L long), each with a quality line of
+    L 'I': the bytes of one f"@r{i}\n{seq}\n+\n{'I' * L}\n" a record,
+    built a group of equal id widths at a time."""
+    n, L = seqs.shape
+    ids = np.arange(first_id, first_id + n, dtype=np.int64)
+    width = np.char.str_len(ids.astype(str))
+    out = []
+    for w in np.unique(width):
+        sel = np.flatnonzero(width == w)
+        rec = np.empty((len(sel), w + 2 * L + 7), np.uint8)
+        rec[:, 0], rec[:, 1] = ord("@"), ord("r")
+        v = ids[sel].copy()
+        for j in range(w + 1, 1, -1):
+            rec[:, j] = 48 + v % 10
+            v //= 10
+        rec[:, w + 2] = ord("\n")
+        rec[:, w + 3: w + 3 + L] = seqs[sel]
+        tail = w + 3 + L
+        rec[:, tail: tail + 3] = np.frombuffer(b"\n+\n", np.uint8)
+        rec[:, tail + 3: tail + 3 + L] = ord("I")
+        rec[:, -1] = ord("\n")
+        out.append(rec.tobytes())
+    return b"".join(out)
 
 
 def sim_reads(
@@ -461,7 +493,7 @@ def sim_molecule_pairs(genome: np.ndarray, molecule_len: int,
     return r1, r2, mol.astype(np.int64)
 
 
-def _encode_barcodes(bcs: np.ndarray, length: int) -> np.ndarray:
+def encode_barcodes(bcs: np.ndarray, length: int) -> np.ndarray:
     """(N,) barcode numbers -> (N, length) ASCII of their base-5 digits,
     most significant first (the inverse of io.fastq.decode_barcode_seq)."""
     digits = np.zeros((len(bcs), length), np.int64)
@@ -505,7 +537,7 @@ def linked_read_library(genome_len: int, seed: int, out_dir: str, *,
     acgt = np.frombuffer(b"ACGT", np.uint8)
     if lib == "10x":
         barcode_len = 16
-    bseq = _encode_barcodes(bcs + 1, barcode_len)
+    bseq = encode_barcodes(bcs + 1, barcode_len)
     os.makedirs(out_dir, exist_ok=True)
     files = {n: os.path.join(out_dir, n + ".fq") for n in
              (("R1", "R2", "I1") if lib == "ust" else ("R1", "R2"))}
