@@ -21,7 +21,8 @@ before printing a result:
   4. slice parity: a reduced error-laden workload through the port on
      the card and on the CPU; every output identical
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
-     150 bp, k=45) through count -> level-0 build -> minimizer index ->
+     150 bp, k=45; the bench twin's make_workload) through the bench
+     twin's stages, count -> level-0 build -> minimizer index ->
      DP-verified map, plus 66,560 reads with one mid-read indel; launch
      counts are reset just before and read just after; then one more
      pass under torch.profiler for the device's busy share
@@ -152,10 +153,24 @@ before printing a result:
      1,000,000 reads counted on the card in memory and under a device
      budget of a fifth of their unique (k+1)-mers: host and disk runs
      counted, tables equal
+ 18. the bench twin as users run it: `python -m
+     turingassembler_tpu_torch.bench` in a subprocess at its defaults
+     (phase 5's workload; best of 5 count + build passes and of 3 map
+     passes, the twin's own output checks); exit 0 and one JSON line
+     with bench.py's keys, the card and the NW counts; its value,
+     passes, weather and NW launches and pairs beside phase 5's reads/s;
+     the NW launches of all its map passes join the kernels line, their
+     shapes phase 12
+ 19. the graft twin (turingassembler_tpu_torch/graft_entry.py): entry()'s
+     forward card == CPU, then dryrun_multichip(1) and (4) on cuda:0
+     with every check of the JAX function, and unique by the hash engine
+     == unique by sort; the devhash rows launches of their hash counters
+     join the kernels line, their NW shapes phase 12; each dryrun's hash
+     stage again into kernel and plain tables of 2^12 slots, equal
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
-     9, 10, 11, 13 and 16 launched the kernel at, with their scoring and
-     mode
- 18. the `kernels` JSON line, the nvidia-smi line, and last the result
+     9, 10, 11, 13, 16, 18 and 19 launched the kernel at, with their scoring
+     and mode
+ 20. the `kernels` JSON line, the nvidia-smi line, and last the result
      line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
@@ -487,37 +502,24 @@ N_INDEL = 66_560   # 65,536 + 1,024: a few hundred indel reads near
 
 def run_main_path(reads, lengths, ir, il, k, around=None):
     """count -> build -> index -> verified map of the reads (from the
-    count's device tensors), then the verified map of the indel reads.
-    Each stage ends in a device sync; `around(name)`, when given, is a
-    context manager entered around each stage.  Returns stage seconds
-    and the outputs."""
-    from turingassembler_tpu_torch.graph.device_build import \
-        build_graph_on_device
-    from turingassembler_tpu_torch.kmer.megasort import count_reads_device
+    count's device tensors), then the verified map of the indel reads:
+    the bench twin's stages (turingassembler_tpu_torch/bench.py), each
+    ending in a device sync; `around(name)`, when given, is a context
+    manager entered around each stage.  Returns stage seconds and the
+    outputs."""
+    from turingassembler_tpu_torch import bench
     from turingassembler_tpu_torch.mapper.minimizers import (
         EdgeMinimizerIndex, map_reads)
-    st, out = {}, {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        with around(name) if around else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            st[name] = time.perf_counter() - t0
-        return res
-
-    u, c, out["n"], shipped = stage("count", lambda: count_reads_device(
-        reads, lengths, k, return_chunks=True))
-    out["u"], out["c"] = u, c
-    g = out["g"] = stage("build", lambda: build_graph_on_device(
-        u, c, out["n"], k))
+    stage, out = bench.Stages("cuda", around), {}
+    out["u"], out["c"], out["n"], shipped, g = bench.count_and_build(
+        stage, reads, lengths, k)
+    out["g"] = g
     idx = out["idx"] = stage("index", lambda: EdgeMinimizerIndex.build(g))
-    out["e"], _, out["s"] = stage("map", lambda: map_reads(
-        idx, reads, lengths, graph=g, shipped=shipped, with_hits=False))
+    out["e"], out["s"] = bench.map_shipped(stage, idx, reads, lengths, g,
+                                           shipped)
     out["ei"], _, _ = stage("map_indel", lambda: map_reads(
         idx, ir, il, graph=g))
-    return st, out
+    return stage.seconds, out
 
 
 class StageProfiler:
@@ -569,15 +571,12 @@ class StageProfiler:
 
 
 def phase_full_width():
+    from turingassembler_tpu_torch import bench
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.ops import nw_align
 
     k, read_len, n_reads, G = 45, 150, 1_048_576, 2_000_000
-    genome = tt.random_genome(G, seed=0)
-    reads, lengths = tt.sim_reads(genome, coverage=n_reads * read_len / G,
-                                  read_len=read_len, seed=1,
-                                  pad_to=read_len + 2)
-    reads, lengths = reads[:n_reads], lengths[:n_reads]
+    genome, reads, lengths = bench.make_workload(G, n_reads)
     ir, il = tt.sim_indel_reads(genome, N_INDEL, read_len, seed=2,
                                 pad_to=read_len + 2)
 
@@ -601,38 +600,28 @@ def phase_full_width():
         f"indel reads; remainder DP pairs {pairs} in {launches} NW launches"
         f"; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("full width: count+build+map "
-        f"{n_reads / (st['count'] + st['build'] + st['map']):.1f} reads/s "
+    reads_per_s = n_reads / (st['count'] + st['build'] + st['map'])
+    log(f"full width: count+build+map {reads_per_s:.1f} reads/s "
         f"(median of {len(passes)} passes; index build excluded, as "
         f"bench.py does)")
     # the assembly against the reference: a 2 Mbp random genome at 79x
-    # with error-free reads is one unitig per strand
-    lens = g.edge_len()
-    longest = g.get_seq(int(np.argmax(lens))).tobytes()
-    if not (genome.tobytes().find(longest) >= 0
-            or tt.revcomp(genome).copy().tobytes().find(longest) >= 0):
-        raise AssertionError("longest unitig is not a genome substring")
-    if lens.max() < 0.999 * G:
-        raise AssertionError(f"longest unitig {lens.max()} < 99.9% genome")
-    if mapped < 0.99:
-        raise AssertionError(f"only {mapped:.4f} of error-free reads mapped")
+    # with error-free reads is one unitig per strand; the bench twin's
+    # checks of the unitig and of the map
+    bench.check_outputs(genome, g, e, s)
     if acc_indel < 0.95:
         raise AssertionError(f"only {acc_indel:.4f} of indel reads accepted")
     if pairs < 65_536 or launches < 1:
         raise AssertionError(f"remainder DP ran {pairs} pairs through the "
                              "NW kernel, expected >= 65536")
-    m = e >= 0
-    if not ((s[m] >= 0).all() and (s[m] < lens[e[m]]).all()):
-        raise AssertionError("mapped starts outside their edges")
     # one more pass with the profiler around each stage on its own
     prof = StageProfiler()
     st, _ = run_main_path(reads, lengths, ir, il, k, prof.around)
     prof.report("profile, one more full-width pass", st)
     n = out["n"]
-    bench = dict(reads=reads, lengths=lengths, k=k,
-                 kedges=out["u"][:n].cpu().numpy().astype(np.uint32),
-                 counts=out["c"][:n].cpu().numpy().astype(np.int64))
-    return launches, shapes, bench
+    bench_data = dict(reads=reads, lengths=lengths, k=k,
+                      kedges=out["u"][:n].cpu().numpy().astype(np.uint32),
+                      counts=out["c"][:n].cpu().numpy().astype(np.int64))
+    return launches, shapes, bench_data, reads_per_s
 
 
 # ---------------------------------------------------------------------------
@@ -2795,6 +2784,135 @@ def phase_spill():
         raise AssertionError(f"spill: exit {rc}, {srt['runs']} sort runs")
 
 
+# bench.py's keys, then the twin's own; bench.py's weather keys on a card
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "value_count_build",
+              "vs_baseline_count_build", "weather", "device", "nw_launches",
+              "nw_pairs")
+BENCH_WEATHER = ("h2d_MBps", "d2h_MBps", "compile_warmup_s", "count_s",
+                 "build_s", "map_s")
+
+
+def phase_bench_twin(phase5_reads_per_s):
+    """The bench twin as users run it: `python -m
+    turingassembler_tpu_torch.bench` in a subprocess on the card at its
+    defaults (phase 5's workload).  Raises unless it exits 0 with one
+    stdout line holding every key.  Returns the NW launches of all its
+    map passes, warm one included, and their shapes (its stderr's
+    `nw shapes:` line)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    torch.cuda.empty_cache()          # the card's memory for the twin
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "turingassembler_tpu_torch.bench"], cwd=root,
+        env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    # its per-pass seconds and shares: into the log's stderr
+    print(proc.stderr, file=sys.stderr, end="", flush=True)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench twin: exit {proc.returncode}, "
+                             f"{len(lines)} stdout lines")
+    line = json.loads(lines[-1])
+    missing = [k_ for k_ in BENCH_KEYS if k_ not in line] + [
+        k_ for k_ in BENCH_WEATHER if k_ not in line["weather"]]
+    if missing:
+        raise AssertionError(f"bench twin: keys missing {missing}")
+    w = line["weather"]
+    log(f"bench twin (python -m turingassembler_tpu_torch.bench, "
+        f"{wall:.1f} s wall, {line['device']}): value {line['value']} "
+        f"reads/s (vs_baseline {line['vs_baseline']}), value_count_build "
+        f"{line['value_count_build']} (vs_baseline "
+        f"{line['vs_baseline_count_build']}); phase 5's count+build+map "
+        f"{phase5_reads_per_s:.1f} reads/s")
+    log(f"bench twin: count_s {w['count_s']}, build_s {w['build_s']}, map_s "
+        f"{w['map_s']}, compile_warmup_s {w['compile_warmup_s']}, h2d "
+        f"{w['h2d_MBps']} MB/s, d2h {w['d2h_MBps']} MB/s; best map pass: NW "
+        f"{line['nw_launches']} launches, {line['nw_pairs']} pairs")
+    log(f"bench twin line: {lines[-1]}")
+    nw = [json.loads(ln[len("nw shapes: "):])
+          for ln in proc.stderr.splitlines() if ln.startswith("nw shapes: ")]
+    if len(nw) != 1 or len(nw[0]) < line["nw_launches"]:
+        raise AssertionError("bench twin: no `nw shapes:` line holding the "
+                             "best map pass's launches")
+    log(f"bench twin: NW {len(nw[0])} launches over all its map passes")
+    return len(nw[0]), [("map", tuple(sh)) for sh in nw[0]]
+
+
+def phase_graft_twin():
+    """The graft twin (turingassembler_tpu_torch/graft_entry.py): entry()'s
+    forward on the card == on the CPU, then dryrun_multichip(1) and (4)
+    on cuda:0, every check of the JAX function; then each dryrun's hash
+    stage again into kernel tables and plain tables.  Returns the devhash
+    rows-entry launches of their hash counters, the largest |count
+    difference| of that hold (0), the NW launches and their shapes."""
+    from turingassembler_tpu_torch import graft_entry
+    from turingassembler_tpu_torch.ops import devhash, nw_align
+    fwd, args = graft_entry.entry("cuda")
+    u, c, n = fwd(*args)
+    fwd_c, args_c = graft_entry.entry("cpu")
+    uc, cc, nc = fwd_c(*args_c)
+    n = int(n)
+    if n != int(nc) or not (torch.equal(u[:n].cpu(), uc[:n])
+                            and torch.equal(c[:n].cpu(), cc[:n])):
+        raise AssertionError("graft entry: card != CPU")
+    log(f"graft entry: forward on the card == on the CPU ({n} unique "
+        f"(k+1)-mers of {args[0].shape[0]} reads)")
+    devhash.COUNT.reset()
+    nw_align.COUNT.reset()
+    for n_shards in (1, 4):
+        t0 = time.perf_counter()
+        fig = graft_entry.dryrun_multichip(n_shards, device="cuda:0")
+        log(f"graft dryrun_multichip({n_shards}) on cuda:0: "
+            f"{time.perf_counter() - t0:.3f} s")
+        if fig["unique_hash"] != fig["unique_sort"]:
+            raise AssertionError(f"graft dryrun_multichip({n_shards}): "
+                                 f"{fig['unique_hash']} unique by the hash "
+                                 f"engine, {fig['unique_sort']} by sort")
+    rows = devhash.COUNT.rows
+    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
+    shapes = [("map", sh) for sh in nw_align.COUNT.shapes]
+    log(f"graft dryruns: devhash rows entry {rows} launches; NW {pairs} "
+        f"pairs in {launches} launches")
+    # one rows-entry launch a shard of each hash counter
+    if rows != 1 + 4 or devhash.COUNT.reads:
+        raise AssertionError(f"graft dryruns: {rows} rows launches, "
+                             f"{devhash.COUNT.reads} reads launches")
+    err = max(hold_graft_hash_stage(n_shards) for n_shards in (1, 4))
+    return rows, err, launches, shapes
+
+
+def hold_graft_hash_stage(n_shards):
+    """A dryrun's hash stage on its own batch (k=31, 2^12 slots a shard),
+    now that the paths' counts are read: the same routing and exchange
+    into fresh kernel tables and fresh plain tables, so the kernel is
+    held at the dryrun's own shape.  Returns the largest |count
+    difference| (0)."""
+    from turingassembler_tpu_torch import graft_entry as ge
+    from turingassembler_tpu_torch.ops import limbs as lb
+    from turingassembler_tpu_torch.ops.devhash import DeviceHashCounter
+    from turingassembler_tpu_torch.parallel.mesh import make_mesh
+    from turingassembler_tpu_torch.parallel.sharded_count import (
+        _route_and_insert, device_put_sharded_batch)
+    mesh = make_mesh(n_shards, "cuda:0")
+    _, bases, lengths = ge.dryrun_batch(n_shards)
+    k1 = ge.DRYRUN_K + 1
+    cap = ge.hash_cap_per_dest(n_shards, bases)
+    db, dl = device_put_sharded_batch(bases, lengths, mesh)
+    tables = {}
+    for plain in (False, True):
+        tables[plain] = [DeviceHashCounter(ge.HASH_CAP_LOG2, lb.n_limbs(k1),
+                                           device=d, plain=plain)
+                         for d in mesh.devices]
+        _route_and_insert(tables[plain], db, dl, mesh=mesh, k1=k1,
+                          cap_per_dest=cap)
+    return max(hold_tables(
+        f"graft dryrun_multichip({n_shards}) shard {i} (2^"
+        f"{ge.HASH_CAP_LOG2} slots, {n_shards * cap} routed lanes)", kc, pc)
+        for i, (kc, pc) in enumerate(zip(tables[False], tables[True])))
+
+
 def build_kernels():
     """nvcc for every CUDA source and the host compiler for every
     native/*.cpp, all started together."""
@@ -2827,7 +2945,7 @@ def main():
 
     nw = phase(phase_kernel_vs_plain)
     phase(phase_slice_parity)
-    launches, shapes, bench = phase(phase_full_width)
+    launches, shapes, bench, reads_per_s = phase(phase_full_width)
     phase(phase_levels_parity)
     n, sh = phase(phase_levels_full_width)
     launches, shapes = launches + n, shapes + sh
@@ -2852,6 +2970,11 @@ def main():
     n, sh = phase(phase_ecoli)
     launches, shapes = launches + n, shapes + sh
     phase(phase_spill)
+    n, sh = phase(phase_bench_twin, reads_per_s)
+    launches, shapes = launches + n, shapes + sh
+    rows, err, n, sh = phase(phase_graft_twin)
+    dh_rows, launches, shapes = dh_rows + rows, launches + n, shapes + sh
+    dh["max_abs_err"] = max(dh["max_abs_err"], err)
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
                             phase(phase_hold_path_shapes, shapes))

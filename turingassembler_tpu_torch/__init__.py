@@ -36,6 +36,9 @@ Entry points (each takes `device=`, default "cuda"):
   graph.device_build.build_graph_on_device
   mapper.minimizers.EdgeMinimizerIndex.build / map_reads
   ops.dp.affine_scores
+  bench.main (`python -m turingassembler_tpu_torch.bench`, twin of
+    bench.py), graft_entry.entry / dryrun_multichip (twin of
+    __graft_entry__.py)
 Host-only (no device): resolve.barcodes.resolve_n_m_simple /
   resolve_n_m_bridges / resolve_complex, resolve.big.resolve_212_by_cov,
   io.fastg.load_fastg, io.kmc.read_kmc_database / write_kmc_database /
