@@ -20,12 +20,23 @@ before printing a result:
      the scaffolds path gives it
   4. slice parity: a reduced error-laden workload through the port on
      the card and on the CPU; every output identical
+ 21. mm_map kernel vs plain (run here, before phase 5): the minimizer
+     map kernel (csrc/mm_map.cu) against its plain versions on the card,
+     exact: its three entries (map_batch, vote and verified;
+     gapless_bound; minimizer_rows) on testing.mm_map_cases' edge cases,
+     with an index the kernel built == the CPU's; then phase 5's
+     workload counted and built, its index, and each entry at its own
+     bench shape (the first 65,536 reads, their votes, the index build's
+     first 256 segment rows): kernel, plain and bound ms
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
      150 bp, k=45; the bench twin's make_workload) through the bench
      twin's stages, count -> level-0 build -> minimizer index ->
      DP-verified map, plus 66,560 reads with one mid-read indel; launch
      counts are reset just before and read just after; then one more
-     pass under torch.profiler for the device's busy share
+     pass under torch.profiler for the device's busy share; then two
+     passes and a profiled one with the mapper's plain versions on the
+     card (the mm_map wrapper swapped by this script for that window):
+     index and map seconds and busy shares before and after the kernel
   6. levels parity: a 100 kbp two-haplotype library from FASTQ files
      through assembly_basic (level 0, 1, 2 graph files) on the card and
      on the CPU, nine files byte-identical; once more with count budgets
@@ -92,7 +103,9 @@ before printing a result:
      bench widths (262,144 reads of 150 bp, k=45): the sharded count ==
      the single count with none dropped, the sharded verified map ==
      map_reads.  Each rank prints its seconds and its NW launches; the
-     ranks' launches and (c)'s join the kernels line's count.  The ranks are this script again: `chip_smoke.py --rank <spec>`
+     ranks' launches and (c)'s join the kernels line's count, and the
+     card ranks' mm_map launches (each rank reports its own).  The ranks
+     are this script again: `chip_smoke.py --rank <spec>`
  14. secondary engines (after phase 13): (a) the devhash kernel
      (csrc/devhash.cu): its own hashes (the check entry) == hashes() bit
      for bit on the bench batch's 876,544 lanes and on random keys at
@@ -160,7 +173,8 @@ before printing a result:
      with bench.py's keys, the card and the NW counts; its value,
      passes, weather and NW launches and pairs beside phase 5's reads/s;
      the NW launches of all its map passes join the kernels line, their
-     shapes phase 12
+     shapes phase 12; its mm_map launches (its `mm_map shapes:` line)
+     join the kernels line, their shapes phase 22
  19. the graft twin (turingassembler_tpu_torch/graft_entry.py): entry()'s
      forward card == CPU, then dryrun_multichip(1) and (4) on cuda:0
      with every check of the JAX function, and unique by the hash engine
@@ -170,8 +184,13 @@ before printing a result:
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
      9, 10, 11, 13, 16, 18 and 19 launched the kernel at, with their scoring
      and mode
- 20. the `kernels` JSON line, the nvidia-smi line, and last the result
-     line {"ok": true, "device": {...}}
+ 22. the mm_map kernel vs plain once more, at every (B, L, entry) that
+     phases 5, 9, 10, 11, 13, 16, 18 and 19 launched it at (their mm_map
+     counts are set to 0 just before each and read just after), on a
+     synthetic world's reads, queries or segment rows of that shape
+ 20. the `kernels` JSON line (nw_align, devhash, devhash_count_reads,
+     mm_map), the nvidia-smi line, and last the result line {"ok": true,
+     "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
 result.  Kernels build at first use into build/kernels/, the host
@@ -570,13 +589,15 @@ class StageProfiler:
             log(f"{what}:   {ms:10.3f} ms  x{cnt:<6d} {key[:100]}")
 
 
-def phase_full_width():
+def phase_full_width(workload):
+    """workload: (genome, reads, lengths) of bench.make_workload at the
+    bench twin's defaults (phase 21 made it)."""
     from turingassembler_tpu_torch import bench
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.ops import nw_align
 
-    k, read_len, n_reads, G = 45, 150, 1_048_576, 2_000_000
-    genome, reads, lengths = bench.make_workload(G, n_reads)
+    k, read_len, n_reads = 45, 150, 1_048_576
+    genome, reads, lengths = workload
     ir, il = tt.sim_indel_reads(genome, N_INDEL, read_len, seed=2,
                                 pad_to=read_len + 2)
 
@@ -615,13 +636,302 @@ def phase_full_width():
                              "NW kernel, expected >= 65536")
     # one more pass with the profiler around each stage on its own
     prof = StageProfiler()
-    st, _ = run_main_path(reads, lengths, ir, il, k, prof.around)
-    prof.report("profile, one more full-width pass", st)
+    st_prof, _ = run_main_path(reads, lengths, ir, il, k, prof.around)
+    prof.report("profile, one more full-width pass", st_prof)
+    # the map before the mm_map kernel: the same passes with the mapper's
+    # plain versions on the card, timed and profiled in this call
+    with plain_mapper():
+        plain = [run_main_path(reads, lengths, ir, il, k)[0]
+                 for _ in range(2)]
+        prof_p = StageProfiler()
+        st_pp, _ = run_main_path(reads, lengths, ir, il, k, prof_p.around)
+    prof_p.report("profile, one full-width pass, plain mapper", st_pp)
+    for i, p in enumerate(plain):
+        log(f"full width plain-mapper pass {i} stage seconds: " + ", ".join(
+            f"{k_} {v:.4f}" for k_, v in p.items()))
+    for name in ("index", "map"):
+        busy = (prof.busy[name] / st_prof[name] * 100,
+                prof_p.busy[name] / st_pp[name] * 100)
+        log(f"full width {name}: mm_map kernel {st[name]:.4f} s (median of "
+            f"{len(passes)}) at {busy[0]:.1f}% busy; plain versions on the "
+            f"card " + ", ".join(f"{p[name]:.4f}" for p in plain)
+            + f" s at {busy[1]:.1f}% busy")
     n = out["n"]
     bench_data = dict(reads=reads, lengths=lengths, k=k,
                       kedges=out["u"][:n].cpu().numpy().astype(np.uint32),
                       counts=out["c"][:n].cpu().numpy().astype(np.int64))
     return launches, shapes, bench_data, reads_per_s
+
+
+# ---------------------------------------------------------------------------
+# phases 21-22: the mm_map kernel (the minimizer map's device program)
+# ---------------------------------------------------------------------------
+
+MM_BATCH = 65_536        # map_reads' batch: phase 5's map launches
+MM_K, MM_W = 17, 17
+
+
+def plain_map_batch(bases, lengths, hkeys, vals, salt, k, w, seq_pk=None,
+                    seq_off=None, thr=None, mt=0, mm=0):
+    """ops/mm_map.map_batch's plain version on any device."""
+    from turingassembler_tpu_torch.mapper import minimizers as mz
+    if seq_pk is None:
+        return mz._vote_core(bases, lengths, hkeys, vals, salt, k, w)
+    return mz._verified_core(bases, lengths, hkeys, vals, salt, seq_pk,
+                             seq_off, thr, k, w, mt, mm)
+
+
+def plain_minimizer_rows(bases, lengths, k, w):
+    """ops/mm_map.minimizer_rows's plain version on any device."""
+    from turingassembler_tpu_torch.mapper import minimizers as mz
+    km, _h, is_mm = mz.minimizer_mask(bases, lengths, k, w)
+    return km, is_mm
+
+
+@contextlib.contextmanager
+def plain_mapper():
+    """map_reads and the index build through the plain versions on the
+    card, for phase 5's before figures.  No path has such a switch: only
+    this script swaps the wrapper's entries, for one window."""
+    from unittest import mock
+    from turingassembler_tpu_torch.ops import mm_map
+    with mock.patch.object(mm_map, "map_batch", plain_map_batch), \
+            mock.patch.object(mm_map, "minimizer_rows", plain_minimizer_rows):
+        yield
+
+
+def hold_mm(what, got, want) -> int:
+    """Each output of an mm_map entry == the plain version's: the same
+    dtype, shape and values.  Returns the largest |difference| (0)."""
+    torch.cuda.synchronize()
+    err = 0
+    if len(got) != len(want):
+        raise AssertionError(f"mm_map {what}: {len(got)} outputs, plain "
+                             f"{len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(
+                f"mm_map {what}: output {i} is {a.dtype} {tuple(a.shape)}, "
+                f"plain {b.dtype} {tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    log(f"mm_map kernel vs plain, {what}: max |diff| {err}")
+    if err:
+        raise AssertionError(f"mm_map {what}: the kernel disagrees with the "
+                             "plain version")
+    return err
+
+
+def hold_mm_entry(what, entry, arrays, tables, pool) -> int:
+    """One mm_map entry on the card against its plain version on the
+    same tensors: "map" arrays (bases, lengths, thr), vote and verified;
+    "bound" (edges, starts, bases, lengths); "rows" (rows, lengths).
+    Returns the largest |difference| (0)."""
+    from turingassembler_tpu_torch.mapper import minimizers as mz
+    from turingassembler_tpu_torch.ops import mm_map
+    from turingassembler_tpu_torch.ops.dp import SCORING_BWA
+    mt, mm = SCORING_BWA[:2]
+    t = [torch.as_tensor(np.ascontiguousarray(a)).to("cuda") for a in arrays]
+    shape = "x".join(map(str, arrays[-2 if entry == "bound" else 0].shape))
+    if entry == "map":
+        bases, lengths, thr = t
+        args = (bases, lengths, *tables, MM_K, MM_W)
+        err = hold_mm(f"{what} ({shape}) vote", mm_map.map_batch(*args),
+                      plain_map_batch(*args))
+        args += (*pool, thr, mt, mm)
+        return max(err, hold_mm(f"{what} ({shape}) verified",
+                                mm_map.map_batch(*args),
+                                plain_map_batch(*args)))
+    if entry == "bound":
+        args = (*pool, *t, mt, mm)
+        return hold_mm(f"{what} ({shape})", mm_map.gapless_bound(*args),
+                       mz._gapless_bound_dev(*args))
+    return hold_mm(f"{what} ({shape})", mm_map.minimizer_rows(
+        *t, MM_K, MM_W), plain_minimizer_rows(*t, MM_K, MM_W))
+
+
+def mm_ops(n_pos, n_win):
+    """Least integer operations of the marks: a window position packs its
+    k-mer (a shift-or a base, 2k) and hashes two limbs (two limb mixes of
+    5, two rounds of 6, fmix32's 7: 29, and its validity: 30); a window
+    takes its leftmost minimum with a compare and a select a position
+    after the first."""
+    return n_pos * (2 * MM_K + 30) + n_win * 2 * (MM_W - 1)
+
+
+def pool_words(pool, edges, starts, lengths, L):
+    """Pool words (8 bytes each) under the on-edge positions of queries
+    of width L at (edges, starts): what the bound must read."""
+    from turingassembler_tpu_torch.mapper.minimizers import POOL_PAD_W
+    pk, off = pool
+    e = torch.clamp(edges, min=0)
+    elen = off[e + 1] - off[e]
+    lo = torch.clamp(starts, min=0)
+    hi = torch.minimum(starts + torch.clamp(lengths.long(), max=L), elen)
+    g0 = off[e] + lo + 8 * POOL_PAD_W
+    g1 = off[e] + hi - 1 + 8 * POOL_PAD_W
+    return int(torch.where(hi > lo, (g1 >> 3) - (g0 >> 3) + 1, 0).sum())
+
+
+def n_windows(lengths, L):
+    """Complete windows of the reads (the marks' argmins)."""
+    w_len = torch.clamp(lengths.long() - MM_K - MM_W + 2, min=0)
+    return int(torch.clamp(w_len, max=L - MM_K + 1).sum())
+
+
+def mm_map_bytes(bases, lengths, tables, pool, out):
+    """Least bytes of the verified map of a batch, from this run's data:
+    codes, lengths and thresholds read once; for each probed minimizer
+    the bucket rows it needs (b1's 64 bytes, and b2's where the key is
+    not in b1) and the value row of a key found (16 bytes); the pool
+    words under each read's on-edge positions and its two seq_off
+    entries; five outputs (33 bytes a read).  Returns (bytes, probes,
+    bytes with both bucket rows and a value row every probe)."""
+    from turingassembler_tpu_torch.mapper import minimizers as mz
+    hkeys, vals, salt = tables
+    B, L = bases.shape
+    km, _h, is_mm = mz.minimizer_mask(bases, lengths, MM_K, MM_W)
+    P = km.shape[1]
+    pos = torch.where(is_mm, torch.arange(P, device=bases.device), mz.BIG)
+    sp = torch.sort(pos, dim=1).values[:, :mz.MM_CAP]
+    q = torch.gather(km, 1, torch.clamp(sp, max=P - 1)[:, :, None]
+                     .expand(-1, -1, 2))[sp < P]
+    r1 = hkeys[mz._cuckoo_h(q[:, 0], q[:, 1], salt, hkeys.shape[0] - 1, 0)]
+    in_b1 = ((r1[:, 0::2] == q[:, :1]) & (r1[:, 1::2] == q[:, 1:])).any(1)
+    found = mz._cuckoo_probe(hkeys, vals, salt, q)[2]
+    n_probe = q.shape[0]
+    rest = B * (L + 4 + 8 + 16 + 33) + 8 * pool_words(
+        pool, out[0], out[2], lengths, L)
+    nbytes = rest + 64 * (n_probe + int((~in_b1).sum())) \
+        + 16 * int(found.sum())
+    return nbytes, n_probe, rest + 144 * n_probe
+
+
+def bound_of(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_mm_kernel_vs_plain():
+    """Phase 21: the mm_map kernel's three entries against their plain
+    versions on the card, exact: (a) on testing.mm_map_cases (Ns, reads
+    too short for a window, more than 48 minimizers, ties, overhangs,
+    per-read thresholds, both bound branches, rows too narrow for a
+    window) with an index the kernel built == the CPU's; (b) at the bench
+    batch: phase 5's workload counted and built on the card, its index,
+    the first 65,536 reads (one map_reads batch) through map_batch, their
+    votes through gapless_bound, the index build's first batch of 256
+    segment rows through minimizer_rows; kernel, plain and bound ms of
+    each.  Returns the kernels line's figures and the workload."""
+    from turingassembler_tpu_torch import bench
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.mapper import minimizers as mz
+    from turingassembler_tpu_torch.ops import dp, mm_map
+    err = 0
+    # (a) the edge cases
+    g, cases = tt.mm_map_cases(seed=0)
+    idx = mz.EdgeMinimizerIndex.build(g, device="cuda")
+    ref = mz.EdgeMinimizerIndex.build(g, device="cpu")
+    for f in ("keys", "edge", "pos", "count"):
+        if not np.array_equal(getattr(idx, f), getattr(ref, f)):
+            raise AssertionError(f"mm_map: the card's index {f} differs")
+    tables = idx.device_tables("cuda")
+    pool = mz._device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
+    for name, (entry, arrays) in cases.items():
+        err = max(err, hold_mm_entry(name, entry, arrays, tables, pool))
+    log(f"mm_map (a): {len(idx.keys)} index keys of the edge-case world "
+        "(card == CPU); every case equal")
+
+    # (b) the bench batch
+    genome, reads, lengths = bench.make_workload(2_000_000, 1_048_576)
+    stage = bench.Stages("cuda")
+    _, _, _, shipped, gb = bench.count_and_build(stage, reads, lengths, 45)
+    idx = mz.EdgeMinimizerIndex.build(gb, device="cuda")
+    tables = idx.device_tables("cuda")
+    pool = mz._device_pool(gb.seq_data, gb.seq_off, torch.device("cuda"))
+    bases, lens = shipped[0][:MM_BATCH], shipped[1][:MM_BATCH]
+    thr = torch.full((MM_BATCH,), dp.MIN_MAP_SCORE, dtype=torch.int64,
+                     device="cuda")
+    mt, mm = dp.SCORING_BWA[:2]
+    args = (bases, lens, *tables, MM_K, MM_W, *pool, thr, mt, mm)
+    out = mm_map.map_batch(*args)
+    err = max(err, hold_mm("bench batch verified", out,
+                           plain_map_batch(*args)),
+              hold_mm("bench batch vote", mm_map.map_batch(*args[:7]),
+                      plain_map_batch(*args[:7])))
+    B, L = bases.shape
+    res = {}
+
+    def timed(name, kernel, plain, nbytes, ops, extra=""):
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 3)
+        ms2 = cuda_ms(kernel, 20)
+        bound, by = bound_of(nbytes, ops)
+        log(f"mm_map {name}: kernel {ms:.4f} ms then {ms2:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; bound {bound:.5f} ms ({by}: {nbytes} "
+            f"bytes, {ops} operations){extra}")
+        res[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by)
+
+    nbytes, n_probe, two_rows = mm_map_bytes(bases, lens, tables, pool, out)
+    timed("map_batch", lambda: mm_map.map_batch(*args),
+          lambda: plain_map_batch(*args), nbytes,
+          mm_ops(B * (L - MM_K + 1), n_windows(lens, L)),
+          f"; B={B} L={L} verified, {len(idx.keys)} index keys, "
+          f"{tables[0].shape[0]} buckets, {n_probe} probes; "
+          f"{(out[0] >= 0).float().mean().item() * 100:.3f}% voted; "
+          f"{two_rows} bytes with both bucket rows and a value row every "
+          f"probe ({bound_of(two_rows, 0)[0]:.5f} ms)")
+    # the bound alone on the votes: the bridge's rescore_hits entry
+    edges, starts = out[0], out[2]
+    bargs = (*pool, edges, starts, bases, lens, mt, mm)
+    err = max(err, hold_mm("bench batch gapless bound",
+                           mm_map.gapless_bound(*bargs),
+                           mz._gapless_bound_dev(*bargs)))
+    timed("gapless_bound", lambda: mm_map.gapless_bound(*bargs),
+          lambda: mz._gapless_bound_dev(*bargs),
+          B * (L + 4 + 16 + 16 + 9) + 8 * pool_words(pool, edges, starts,
+                                                     lens, L), 0)
+    # the index build's first device batch
+    _, _, mat, elen = next(mz.EdgeMinimizerIndex.segment_batches(gb))
+    rows, rlen = (torch.as_tensor(a).to("cuda") for a in (mat, elen))
+    err = max(err, hold_mm("bench index rows",
+                           mm_map.minimizer_rows(rows, rlen, MM_K, MM_W),
+                           plain_minimizer_rows(rows, rlen, MM_K, MM_W)))
+    R, RL = rows.shape
+    timed("minimizer_rows",
+          lambda: mm_map.minimizer_rows(rows, rlen, MM_K, MM_W),
+          lambda: plain_minimizer_rows(rows, rlen, MM_K, MM_W),
+          R * (RL + 4 + 17 * (RL - MM_K + 1)),
+          mm_ops(R * (RL - MM_K + 1), n_windows(rlen, RL)),
+          f"; B={R} L={RL}")
+    res["max_abs_err"] = err
+    return res, (genome, reads, lengths)
+
+
+def phase_mm_hold_path_shapes(recorded):
+    """Phase 22: every (B, L, entry, verified) the paths launched the
+    mm_map kernel at, held against the plain version on a synthetic
+    world's reads (testing.mm_reads), queries or segment rows of that
+    very shape.  Returns the largest |difference| (0)."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.mapper import minimizers as mz
+    g = tt.mm_world(seed=9)
+    idx = mz.EdgeMinimizerIndex.build(g, device="cuda")
+    tables = idx.device_tables("cuda")
+    pool = mz._device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
+    make = {"map_batch": ("map", tt.mm_reads),
+            "gapless_bound": ("bound", tt.mm_bound_queries),
+            "minimizer_rows": ("rows", tt.mm_segment_rows)}
+    err = 0
+    shapes = sorted({(B, L, entry) for B, L, entry, _v in recorded})
+    for i, (B, L, entry) in enumerate(shapes):
+        kind, gen = make[entry]
+        err = max(err, hold_mm_entry(f"{entry} shape of the paths", kind,
+                                     gen(g, B, L, 100 + i), tables, pool))
+    log(f"mm_map: {len(shapes)} shapes of the paths held, max |diff| {err}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1727,15 +2037,18 @@ def aux_single(spec):
 
 
 def rank_worker(spec):
-    from turingassembler_tpu_torch.ops import nw_align
+    from turingassembler_tpu_torch.ops import mm_map, nw_align
     nw_align.COUNT.reset()
+    mm_map.COUNT.reset()
     t0 = time.perf_counter()
     res = {"cli": rank_cli, "stripes": rank_stripes,
            "aux_single": aux_single,
            "host_build": host_build}[spec["kind"]](spec)
     res.update(seconds=time.perf_counter() - t0,
                launches=nw_align.COUNT.launches, pairs=nw_align.COUNT.pairs,
-               shapes=nw_align.COUNT.shapes)
+               shapes=nw_align.COUNT.shapes,
+               mm_launches=mm_map.COUNT.launches,
+               mm_shapes=mm_map.COUNT.shapes)
     print(json.dumps(res), flush=True)
 
 
@@ -1772,6 +2085,7 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
         sharded_count_to_host
     work = os.path.dirname(full_out)
     shapes, launches = [], 0
+    mm = [0, [], []]      # the card ranks' mm_map launches, shapes; refs
 
     # (a) the CLI as two ranks on the card, and as two ranks on the CPU
     t0 = time.perf_counter()
@@ -1802,6 +2116,8 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
     for rep in reps:
         launches += rep["launches"]
         shapes += label(rep["shapes"])
+        mm[0] += rep["mm_launches"]
+        mm[1] += [tuple(sh) for sh in rep["mm_shapes"]]
     card, cpu = (dir_files(outs[d]) for d in ("cuda", "cpu"))
     if sorted(card) != sorted(cpu):
         raise AssertionError("dist assembly3: card and CPU ranks wrote "
@@ -1868,6 +2184,7 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
                          "out": out}])
     reps, ref = reps[:DIST_RANKS], reps[DIST_RANKS]
     shapes += label(ref["shapes"])      # held by phase 12, not counted
+    mm[2] += [tuple(sh) for sh in ref["mm_shapes"]]    # and by phase 22
     t_b = time.perf_counter() - t0
     n_pairs = file_bytes(os.path.join(full_out, SCAFFOLD_FILES[0])
                          ).count(b"\n") // 4
@@ -1891,6 +2208,8 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
     for rep in reps:
         launches += rep["launches"]
         shapes += label(rep["shapes"])
+        mm[0] += rep["mm_launches"]
+        mm[1] += [tuple(sh) for sh in rep["mm_shapes"]]
     log(f"multi-process (b) stripes at 2 Mbp ({n_pairs} pairs in "
         f"{n_batches} archive batches, {DIST_RANKS} ranks on cuda:0): "
         f"{t_b:.3f} s; " + "; ".join(
@@ -1966,7 +2285,10 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
         f"{n_c} launches (one a shard); part {time.perf_counter() - t0:.3f} s")
     if n_c < SHARDS:
         raise AssertionError("sharded map: fewer NW launches than shards")
-    return launches, shapes
+    log(f"multi-process: the card ranks launched mm_map {mm[0]} times")
+    if mm[0] < 1:
+        raise AssertionError("multi-process: no card rank launched mm_map")
+    return launches, shapes, mm
 
 
 # ---------------------------------------------------------------------------
@@ -2798,7 +3120,8 @@ def phase_bench_twin(phase5_reads_per_s):
     defaults (phase 5's workload).  Raises unless it exits 0 with one
     stdout line holding every key.  Returns the NW launches of all its
     map passes, warm one included, and their shapes (its stderr's
-    `nw shapes:` line)."""
+    `nw shapes:` line), and its mm_map launches, their shapes and no
+    reference shapes (its `mm_map shapes:` line)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p)}
@@ -2837,7 +3160,15 @@ def phase_bench_twin(phase5_reads_per_s):
         raise AssertionError("bench twin: no `nw shapes:` line holding the "
                              "best map pass's launches")
     log(f"bench twin: NW {len(nw[0])} launches over all its map passes")
-    return len(nw[0]), [("map", tuple(sh)) for sh in nw[0]]
+    mm = [json.loads(ln[len("mm_map shapes: "):])
+          for ln in proc.stderr.splitlines()
+          if ln.startswith("mm_map shapes: ")]
+    if len(mm) != 1 or not any(sh[2] == "map_batch" for sh in mm[0]):
+        raise AssertionError("bench twin: no `mm_map shapes:` line with a "
+                             "map_batch launch")
+    log(f"bench twin: mm_map {len(mm[0])} launches (index builds and maps)")
+    return (len(nw[0]), [("map", tuple(sh)) for sh in nw[0]],
+            (len(mm[0]), [tuple(sh) for sh in mm[0]], []))
 
 
 def phase_graft_twin():
@@ -2943,9 +3274,32 @@ def main():
         rss[fn.__name__] = peak_rss_gib()
         return res
 
+    from turingassembler_tpu_torch.ops import mm_map
+    # the mm_map kernel's launches on the paths (phases 5, 9, 10, 11, 13,
+    # 16, 18, 19) and each launch's (B, L, entry, verified)
+    mm_count = {"launches": 0, "shapes": [], "refs": []}
+
+    def path(fn, *args):
+        """A phase that drives a path: mm_map's count is set to 0 just
+        before it and read just after."""
+        mm_map.COUNT.reset()
+        res = phase(fn, *args)
+        mm_count["launches"] += mm_map.COUNT.launches
+        mm_count["shapes"] += mm_map.COUNT.shapes
+        return res
+
+    def add_mm(sub):
+        """Launches a path made in subprocesses (their own counts), and
+        the shapes of reference runs beside it (held, not counted)."""
+        mm_count["launches"] += sub[0]
+        mm_count["shapes"] += sub[1]
+        mm_count["refs"] += sub[2]
+
     nw = phase(phase_kernel_vs_plain)
     phase(phase_slice_parity)
-    launches, shapes, bench, reads_per_s = phase(phase_full_width)
+    mm, workload = phase(phase_mm_kernel_vs_plain)
+    launches, shapes, bench, reads_per_s = path(phase_full_width, workload)
+    del workload
     phase(phase_levels_parity)
     n, sh = phase(phase_levels_full_width)
     launches, shapes = launches + n, shapes + sh
@@ -2954,30 +3308,41 @@ def main():
         os.makedirs(os.path.join(work, "parity"))
         os.makedirs(os.path.join(work, "full"))
         parity = phase(phase_scaffold_parity, os.path.join(work, "parity"))
-        n, sh, full_out, genome = phase(phase_scaffold_full_width,
-                                        os.path.join(work, "full"))
+        n, sh, full_out, genome = path(phase_scaffold_full_width,
+                                       os.path.join(work, "full"))
         launches, shapes = launches + n, shapes + sh
-        n, sh = phase(phase_path_scoring)
+        n, sh = path(phase_path_scoring)
         launches, shapes = launches + n, shapes + sh
         parity_out = parity[0]
-        n, sh = phase(phase_barcode_levels, parity_out, full_out, genome)
+        n, sh = path(phase_barcode_levels, parity_out, full_out, genome)
         launches, shapes = launches + n, shapes + sh
-        n, sh = phase(phase_multi_process, *parity, full_out)
+        n, sh, sub = path(phase_multi_process, *parity, full_out)
         launches, shapes = launches + n, shapes + sh
+        add_mm(sub)
         phase(phase_host_twins, parity[1], full_out, bench, work)
     dh_reads, dh_rows, dh = phase(phase_secondary_engines, bench)
     del bench
-    n, sh = phase(phase_ecoli)
+    n, sh = path(phase_ecoli)
     launches, shapes = launches + n, shapes + sh
     phase(phase_spill)
-    n, sh = phase(phase_bench_twin, reads_per_s)
+    n, sh, sub = phase(phase_bench_twin, reads_per_s)
     launches, shapes = launches + n, shapes + sh
-    rows, err, n, sh = phase(phase_graft_twin)
+    add_mm(sub)
+    rows, err, n, sh = path(phase_graft_twin)
     dh_rows, launches, shapes = dh_rows + rows, launches + n, shapes + sh
     dh["max_abs_err"] = max(dh["max_abs_err"], err)
+    log(f"mm_map on the paths: {mm_count['launches']} launches; by entry "
+        + ", ".join(f"{e} {sum(1 for s_ in mm_count['shapes'] if s_[2] == e)}"
+                    for e in ("map_batch", "gapless_bound", "minimizer_rows")))
+    if mm_count["launches"] < 1 or \
+            mm_count["launches"] != len(mm_count["shapes"]):
+        raise AssertionError("mm_map: the paths launched the kernel "
+                             f"{mm_count['launches']} times")
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
                             phase(phase_hold_path_shapes, shapes))
+    mm["max_abs_err"] = max(mm["max_abs_err"], phase(
+        phase_mm_hold_path_shapes, mm_count["shapes"] + mm_count["refs"]))
     log("phase seconds (set-up included): " + ", ".join(
         f"{k_[6:]} {v:.1f}" for k_, v in walls.items()))
     # cli.main tunes malloc (no mmap, no trim) from phase 7 on
@@ -3008,7 +3373,19 @@ def main():
         "launches": dh_reads, "max_abs_err": dh["max_abs_err"],
         "ms": dh["fused_ms"], "plain_ms": dh["fused_plain_ms"],
         "bound_ms": dh["fused_bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "mm_map", "route": "cuda",
+        "source": "turingassembler_tpu_torch/csrc/mm_map.cu",
+        "replaces": "turingassembler_tpu/mapper/minimizers.py:578",
+        "launches": mm_count["launches"], "max_abs_err": mm["max_abs_err"],
+        **mm["map_batch"], "library_ms": None,
+        "launches_by_entry": {e: sum(1 for s_ in mm_count["shapes"]
+                                     if s_[2] == e)
+                              for e in ("map_batch", "gapless_bound",
+                                        "minimizer_rows")},
+        **{f"{e}_{k_}": mm[e][k_] for e in ("gapless_bound", "minimizer_rows")
+           for k_ in ("ms", "plain_ms", "bound_ms", "bound_by")}}]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,10 @@ timed map pass (the remainder DP of the verified map; 0 on the CPU,
 where the plain version scores the pairs).  Stage seconds in `weather`
 keep 4 decimals (bench.py keeps 2; the build stage takes hundredths).
 Every NW launch of the map passes, warm one included, goes to stderr on
-a line of its own: `nw shapes: [[B, Lq, Lt], ...]`.
+a line of its own: `nw shapes: [[B, Lq, Lt], ...]`; every launch of the
+minimizer map kernel in the process (the index build's and the map's,
+csrc/mm_map.cu) on the next: `mm_map shapes: [[B, L, entry, verified],
+...]`.
 
 Baselines (upstream publishes no throughput; bench.py's estimates for
 the upstream C pipeline, not a measurement of any device): count +
@@ -204,7 +207,7 @@ def main(argv=None) -> int:
     from .device import resolve_device
     from .kmer.megasort import COUNT_CHUNK
     from .mapper.minimizers import EdgeMinimizerIndex
-    from .ops import nw_align
+    from .ops import mm_map, nw_align
     from .ops.hostmem import tune_host_malloc
 
     dev = resolve_device(args.device)
@@ -284,6 +287,7 @@ def main(argv=None) -> int:
         if time.perf_counter() - t_start > BUDGET_S + 120:
             break
     log("nw shapes: " + json.dumps(nw_align.COUNT.shapes))
+    log("mm_map shapes: " + json.dumps(mm_map.COUNT.shapes))
 
     longest, mapped = check_outputs(genome, g_asm, e, s)
     log(f"checks: longest unitig {longest} of {genome_size} bp, "

@@ -11,6 +11,12 @@ a graph, every voted hit is verified: the gapless score at the voted
 offset accepts most reads on the device, and the rest go to the full
 affine-gap DP (ops/dp.py, the CUDA kernel on the card).
 
+On the card the minimizer marks, probe, vote and gapless bound of a
+batch are one launch of the csrc/mm_map.cu kernel (ops/mm_map.py), and
+the index build's marks another; the tensor functions below
+(minimizer_mask, _cuckoo_probe, _vote_core, _verified_core,
+_gapless_bound_dev) are its plain versions, which CPU tensors take.
+
 Hashes and limbs are int64 values in [0, 2^32) (ops/limbs.py).  The
 cuckoo tables are built on the host with numpy int64 and probed on the
 device with the same mixer, bit for bit.
@@ -29,6 +35,7 @@ from ..graph.structs import AsmGraph
 from ..ops import dp
 from ..ops import kmers as kmod
 from ..ops import limbs as lb
+from ..ops import mm_map
 
 MM_K = 17       # MINIMIZERS_KMER (reference src/attribute.h:21)
 MM_W = 17       # MINIMIZERS_WINDOW (reference src/attribute.h:20)
@@ -183,10 +190,10 @@ def _cuckoo_probe(hkeys: torch.Tensor, vals: torch.Tensor, salt: int,
 
 def _compact_minimizer_rows(mat: torch.Tensor, elen: torch.Tensor,
                             k: int, w: int) -> torch.Tensor:
-    """minimizer_mask + ascending compaction of the marked positions:
-    (n, NL + 2) int64 rows of key limbs, segment row, in-segment
-    position."""
-    km, _h, is_mm = minimizer_mask(mat, elen, k, w)
+    """The minimizer marks (the mm_map kernel's rows entry on a card) +
+    ascending compaction of the marked positions: (n, NL + 2) int64 rows
+    of key limbs, segment row, in-segment position."""
+    km, is_mm = mm_map.minimizer_rows(mat, elen, k, w)
     B, P, nl = km.shape
     flat = torch.nonzero(is_mm.reshape(-1)).squeeze(1)
     return torch.cat([km.reshape(-1, nl)[flat], (flat // P)[:, None],
@@ -225,15 +232,10 @@ class EdgeMinimizerIndex:
     SEG_B = 256    # rows per device batch
 
     @classmethod
-    def build(cls, g: AsmGraph, k: int = MM_K, w: int = MM_W, *,
-              device: str | torch.device = "cuda") -> "EdgeMinimizerIndex":
-        """Index every live edge (reference mm_index_edges).
-
-        Edges are cut into fixed-width segments overlapping by w+k-2, so
-        every window lies in exactly one segment; a minimizer marked from
-        two adjacent segments is an exact duplicate (key, edge, pos) row
-        and is dropped before the run-length count."""
-        dev = resolve_device(device)
+    def segment_batches(cls, g: AsmGraph, k: int = MM_K, w: int = MM_W):
+        """The build's device batches: (edge (n,), segment start (n,),
+        rows (n, SEG + k + w - 2) uint8 codes with 255 past each part,
+        lengths (n,) int32) for n <= SEG_B segments at a time."""
         SEG, B = cls.SEG, cls.SEG_B
         Wd = SEG + k + w - 2
         span = k + w - 1
@@ -244,7 +246,6 @@ class EdgeMinimizerIndex:
             for i in range(-(-n_pos // SEG) if n_pos > 0 else 0):
                 segs_e.append(int(e))
                 segs_s.append(i * SEG)
-        all_rows = []
         for i in range(0, len(segs_e), B):
             ce = np.asarray(segs_e[i:i + B], np.int64)
             cs = np.asarray(segs_s[i:i + B], np.int64)
@@ -254,6 +255,20 @@ class EdgeMinimizerIndex:
                 part = g.get_seq(e)[s:s + Wd]
                 mat[j, :len(part)] = part
                 elen[j] = len(part)
+            yield ce, cs, mat, elen
+
+    @classmethod
+    def build(cls, g: AsmGraph, k: int = MM_K, w: int = MM_W, *,
+              device: str | torch.device = "cuda") -> "EdgeMinimizerIndex":
+        """Index every live edge (reference mm_index_edges).
+
+        Edges are cut into fixed-width segments overlapping by w+k-2, so
+        every window lies in exactly one segment; a minimizer marked from
+        two adjacent segments is an exact duplicate (key, edge, pos) row
+        and is dropped before the run-length count."""
+        dev = resolve_device(device)
+        all_rows = []
+        for ce, cs, mat, elen in cls.segment_batches(g, k, w):
             packed = _compact_minimizer_rows(
                 torch.as_tensor(mat).to(dev), torch.as_tensor(elen).to(dev),
                 k, w).cpu().numpy()
@@ -450,8 +465,8 @@ def rescore_hits(seq_data: np.ndarray, seq_off: np.ndarray,
     edges_d = _on_device(edges, torch.int64, dev)
     starts_d = _on_device(starts, torch.int64, dev)
     bases_d = _on_device(bases, torch.uint8, dev)
-    lens_d = _on_device(lengths, torch.int64, dev)
-    bound_d, feas_d = _gapless_bound_dev(
+    lens_d = _on_device(lengths, torch.int32, dev)
+    bound_d, feas_d = mm_map.gapless_bound(
         sd, sod, edges_d, starts_d, bases_d, lens_d,
         int(scoring[0]), int(scoring[1]))
     bound = bound_d.cpu().numpy()
@@ -554,13 +569,13 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
     for i in range(0, N, batch_size):
         rb, lb_ = bases_d[i:i + batch_size], lens_d[i:i + batch_size]
         if verified:
-            out = _verified_core(rb, lb_, hkeys, vals, salt, sd, sod,
-                                 thr_d[i:i + batch_size], index.k, index.w,
-                                 mt, mm)
+            out = mm_map.map_batch(rb, lb_, hkeys, vals, salt, index.k,
+                                   index.w, sd, sod,
+                                   thr_d[i:i + batch_size], mt, mm)
             outs.append((out[0], out[1], out[2], out[4]))
         else:
-            outs.append(_vote_core(rb, lb_, hkeys, vals, salt, index.k,
-                                   index.w))
+            outs.append(mm_map.map_batch(rb, lb_, hkeys, vals, salt,
+                                         index.k, index.w))
     edges_d = torch.cat([o[0] for o in outs])
     starts_d = torch.cat([o[2] for o in outs])
     edges = edges_d.to(torch.int32).cpu().numpy()

@@ -18,7 +18,9 @@ one length as FASTQ records at numpy speed.  two_path_local_graph and
 read_pairs_of make a local graph with two candidate paths between its
 flanks and the read pairs of one of them, for the bridge's path
 scoring.  make_212_genome (a copy of tests/test_resolve_big.py's) makes
-the two sequences through one short repeat of the 2-1-2 resolvers."""
+the two sequences through one short repeat of the 2-1-2 resolvers.
+mm_world, mm_reads, mm_bound_queries, mm_segment_rows and mm_map_cases
+make the minimizer map kernel's edge cases (ops/mm_map.py)."""
 
 from __future__ import annotations
 
@@ -622,3 +624,147 @@ def read_pairs_of(seq: np.ndarray, n_pairs: int, seed: int,
     reads[errs] = (reads[errs] + rng.integers(1, 4, int(errs.sum()))) % 4
     reads, lengths = plant_single_indels(reads, indel_frac, seed=seed + 1)
     return reads, lengths, n_pairs
+
+
+# ---------------------------------------------------------------------------
+# the minimizer map's edge cases (ops/mm_map.py: kernel against plain)
+# ---------------------------------------------------------------------------
+
+MM_EDGE_LENS = (5_000, 900, 600, 160)   # forward edges; their rcs follow
+
+
+def mm_world(seed: int = 0):
+    """A pool of random edges and their reverse complements as an AsmGraph
+    the minimizer index can be built on (the bridge's candidate-graph
+    layout).  Edge 2 carries a 300 bp copy of edge 0, so some minimizers
+    occur twice and vote nothing; edge 3 is shorter than a read."""
+    from .graph.structs import AsmGraph
+    rng = np.random.default_rng(seed)
+    fwd = [rng.integers(0, 4, n).astype(np.uint8) for n in MM_EDGE_LENS]
+    fwd[2][100:400] = fwd[0][1_000:1_300]
+    seqs = [s for f in fwd for s in (f, revcomp(f).copy())]
+    g = AsmGraph(ksize=31)
+    g.seq_off = np.concatenate(
+        [[0], np.cumsum([len(s) for s in seqs])]).astype(np.int64)
+    g.seq_data = np.concatenate(seqs).astype(np.uint8)
+    g.edge_source = np.zeros(len(seqs), np.int64)
+    g.edge_target = np.zeros(len(seqs), np.int64)
+    g.edge_rc = np.arange(len(seqs), dtype=np.int64) ^ 1
+    g.edge_count = np.ones(len(seqs), np.int64)
+    g.node_rc = np.zeros(1, np.int64)
+    return g
+
+
+def mm_reads(g, B: int, L: int, seed: int, k: int = 17, w: int = 17):
+    """B reads of width L on the edges of g, eight kinds by row: three of
+    plain reads with 1% substitutions, reads with code-4 bases, reads
+    shorter than k + w - 1 (lengths 0 to k + w - 1), head and tail
+    overhangs (negative starts, reads past the edge end; random bases
+    off the edge), and junctions of two edges split anywhere in the
+    middle half (ties between two edges, reads under the confidence
+    gate).  Returns (bases (B, L) uint8, 255 past each length, lengths
+    (B,) int32, thresholds (B,) int64 drawn per read)."""
+    rng = np.random.default_rng(seed)
+    pool, off, elen = g.seq_data, g.seq_off, g.edge_len()
+    kind = np.arange(B) % 8
+    n = rng.integers(max((3 * L) // 4, 1), L + 1, B)
+    n[kind == 4] = rng.integers(0, k + w, int((kind == 4).sum()))
+    e = rng.integers(0, g.n_e, B)
+    e2 = (e + 1 + rng.integers(0, g.n_e - 1, B)) % g.n_e
+    st = rng.integers(0, np.maximum(elen[e] - n, 0) + 1)
+    ovh = rng.integers(1, np.maximum(n // 2, 1) + 1)
+    st = np.where(kind == 5, -ovh, st)
+    st = np.where(kind == 6, elen[e] - n + ovh, st)
+    split = rng.integers(n // 4, 3 * n // 4 + 1)
+    st = np.where(kind == 7, elen[e] - split, st)
+    j = np.arange(L)[None, :]
+    # junction reads leave edge e after `split` bases and go on into e2
+    on2 = (kind[:, None] == 7) & (j >= split[:, None])
+    ee = np.where(on2, e2[:, None], e[:, None])
+    tpos = np.where(on2, j - split[:, None], st[:, None] + j)
+    on = (tpos >= 0) & (tpos < elen[ee])
+    src = np.clip(off[ee] + tpos, 0, len(pool) - 1)
+    reads = np.where(on, pool[src], rng.integers(0, 4, (B, L))
+                     ).astype(np.uint8)
+    sub = rng.random((B, L)) < 0.01
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    ns = kind == 3
+    reads[np.flatnonzero(ns)[:, None],
+          rng.integers(0, L, (int(ns.sum()), 2))] = 4
+    reads[j >= n[:, None]] = 255
+    thr = rng.integers(0, L + 1, B).astype(np.int64)
+    return reads, n.astype(np.int32), thr
+
+
+def mm_bound_queries(g, N: int, L: int, seed: int):
+    """Queries for the gapless bound alone: edges (-1 for unmapped lanes),
+    signed starts from a full query left of the edge to past its end,
+    lengths 0 to L, codes copied from the edge where the query lies on it
+    in three rows of four (with substitutions and code-4 bases), random
+    elsewhere.  Returns (edges (N,) int64, starts (N,) int64, bases (N,
+    L) uint8, lengths (N,) int32)."""
+    rng = np.random.default_rng(seed)
+    elen = g.edge_len()
+    edges = rng.integers(-1, g.n_e, N).astype(np.int64)
+    starts = rng.integers(-L + 1, int(elen.max()) + 10, N).astype(np.int64)
+    lengths = rng.integers(0, L + 1, N).astype(np.int32)
+    e = np.maximum(edges, 0)
+    tpos = starts[:, None] + np.arange(L)[None, :]
+    on = (tpos >= 0) & (tpos < elen[e][:, None]) & (np.arange(N) % 4 != 3
+                                                    )[:, None]
+    src = np.clip(g.seq_off[e][:, None] + tpos, 0, len(g.seq_data) - 1)
+    bases = np.where(on, g.seq_data[src], rng.integers(0, 4, (N, L))
+                     ).astype(np.uint8)
+    sub = rng.random((N, L)) < 0.02
+    bases[sub] = rng.integers(0, 5, int(sub.sum()))
+    bases[np.arange(L)[None, :] >= lengths[:, None]] = 255
+    return edges, starts, bases, lengths
+
+
+def mm_segment_rows(g, B: int, L: int, seed: int, k: int = 17,
+                    w: int = 17):
+    """Segment rows as the minimizer index build cuts them (an edge's
+    codes from an offset, 255 past its end): B rows of width L with their
+    lengths, from edges drawn by length, some with code-4 bases, some
+    shorter than k + w - 1.
+    Returns (rows (B, L) uint8, lengths (B,) int32)."""
+    rng = np.random.default_rng(seed)
+    elen = g.edge_len()
+    e = rng.choice(g.n_e, B, p=elen / elen.sum())     # by length
+    s = rng.integers(0, np.maximum(elen[e] - k, 0) + 1)
+    tpos = s[:, None] + np.arange(L)[None, :]
+    on = tpos < elen[e][:, None]
+    rows = np.where(on, g.seq_data[np.clip(g.seq_off[e][:, None] + tpos, 0,
+                                           len(g.seq_data) - 1)], 255
+                    ).astype(np.uint8)
+    lengths = np.minimum(elen[e] - s, L).astype(np.int32)
+    short = np.arange(B) % 4 == 1
+    lengths[short] = rng.integers(0, k + w - 1, int(short.sum()))
+    bad = rng.random((B, L)) < 0.002
+    rows[bad & on] = 4
+    rows[np.arange(L)[None, :] >= lengths[:, None]] = 255
+    return rows, lengths
+
+
+def mm_map_cases(seed: int = 0):
+    """The minimizer map's edge cases on one mm_world: (graph, cases),
+    cases a dict name -> (entry, arrays).  "map" entries hold (bases,
+    lengths, thr) for the vote and the verified map: widths 152 (the
+    reads), 640 (more than 48 minimizers a read, and a query past the
+    bound's window, the wide branch) and 64 (exactly 48 window
+    positions).  "bound" entries hold (edges, starts, bases, lengths) at
+    widths 152 and 300 (the wide branch).  "rows" entries hold (rows,
+    lengths) at the index build's width 4,128, at 200, and at 30, too
+    narrow for one window."""
+    g = mm_world(seed)
+    cases = {
+        "reads": ("map", mm_reads(g, 512, 152, seed + 1)),
+        "wide reads": ("map", mm_reads(g, 96, 640, seed + 2)),
+        "narrowest reads": ("map", mm_reads(g, 64, 64, seed + 3)),
+        "queries": ("bound", mm_bound_queries(g, 256, 152, seed + 4)),
+        "wide queries": ("bound", mm_bound_queries(g, 128, 300, seed + 5)),
+        "segment rows": ("rows", mm_segment_rows(g, 6, 4_128, seed + 6)),
+        "short rows": ("rows", mm_segment_rows(g, 16, 200, seed + 7)),
+        "narrow rows": ("rows", mm_segment_rows(g, 4, 30, seed + 8)),
+    }
+    return g, cases
