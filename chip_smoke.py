@@ -22,12 +22,18 @@ before printing a result:
      the card and on the CPU; every output identical
  21. mm_map kernel vs plain (run here, before phase 5): the minimizer
      map kernel (csrc/mm_map.cu) against its plain versions on the card,
-     exact: its three entries (map_batch, vote and verified;
-     gapless_bound; minimizer_rows) on testing.mm_map_cases' edge cases,
-     with an index the kernel built == the CPU's; then phase 5's
-     workload counted and built, its index, and each entry at its own
-     bench shape (the first 65,536 reads, their votes, the index build's
-     first 256 segment rows): kernel, plain and bound ms
+     exact: its three entries (map_batch, vote and verified with a
+     per-read and a scalar threshold; gapless_bound; minimizer_rows) on
+     testing.mm_map_cases' edge cases, with an index the kernel built ==
+     the CPU's; then phase 5's workload counted and built, its index, and
+     each entry at its own bench shape (the first 65,536 reads, their
+     votes, the index build's first 256 segment rows): kernel, plain and
+     bound ms (and the int64 layout's bound); map_batch's stage
+     split and its two alternatives (key-only and value rows; a
+     nibble-packed pool), scratch copies of the source built beside the
+     phase, held equal and timed in turns; the graph pool's first copy
+     and its cached lookup; map_reads of the bench reads, wall beside
+     device time
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
      150 bp, k=45; the bench twin's make_workload) through the bench
      twin's stages, count -> level-0 build -> minimizer index ->
@@ -174,7 +180,9 @@ before printing a result:
      passes, weather and NW launches and pairs beside phase 5's reads/s;
      the NW launches of all its map passes join the kernels line, their
      shapes phase 12; its mm_map launches (its `mm_map shapes:` line)
-     join the kernels line, their shapes phase 22
+     join the kernels line, their shapes phase 22; the graph's device
+     pool is made 0 times in its timed map passes (its `pool builds`
+     line)
  19. the graft twin (turingassembler_tpu_torch/graft_entry.py): entry()'s
      forward card == CPU, then dryrun_multichip(1) and (4) on cuda:0
      with every check of the JAX function, and unique by the hash engine
@@ -254,6 +262,23 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time a call of fn spends in the kernels whose names hold
+    `kernel`, from torch.profiler over reps calls: the kernels alone,
+    without the host's time to enqueue them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if kernel in e.key]
+    if sum(e.count for e in ev) < reps:
+        raise AssertionError(f"the profiler saw no {kernel} launch a call")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / reps
 
 
 def random_pairs(rng, B, Lq, Lt):
@@ -671,45 +696,219 @@ MM_BATCH = 65_536        # map_reads' batch: phase 5's map launches
 MM_K, MM_W = 17, 17
 
 
+def plain_tables(hkeys, vals):
+    """The plain version's int64 (hkeys (NB, 8), vals (NB * 4, 2)) from
+    the tables of a device: the kernel's bucket records (NB, 16) int32
+    (vals None) on a card are unpacked on their device."""
+    if vals is not None:
+        return hkeys, vals
+    nb = hkeys.shape[0]
+    r = (hkeys.long() & 0xFFFFFFFF).view(nb, 4, 4)
+    return (r[:, :, :2].reshape(nb, 8).contiguous(),
+            r[:, :, 2:].reshape(nb * 4, 2).contiguous())
+
+
+def plain_pool(pool):
+    """The plain version's nibble-packed pool (_pack_pool_nibbles, on the
+    pool's device) from the kernel's uint8 codes; a packed pool as it
+    is."""
+    from turingassembler_tpu_torch.mapper.minimizers import POOL_PAD_W
+    if pool.dtype != torch.uint8:
+        return pool
+    n, dev = pool.shape[0], pool.device
+    nw = -(-n // 8)
+    buf = torch.full((8 * nw,), 0xF, dtype=torch.int64, device=dev)
+    buf[:n] = pool
+    words = (buf.view(nw, 8) << (4 * torch.arange(8, device=dev))).sum(1)
+    pad = torch.full((POOL_PAD_W,), 0xFFFFFFFF, dtype=torch.int64,
+                     device=dev)
+    return torch.cat([pad, words, pad])
+
+
 def plain_map_batch(bases, lengths, hkeys, vals, salt, k, w, seq_pk=None,
-                    seq_off=None, thr=None, mt=0, mm=0):
-    """ops/mm_map.map_batch's plain version on any device."""
+                    seq_off=None, thr=None, mt=0, mm=0, out=None):
+    """ops/mm_map.map_batch's plain version on any device, from the
+    tables and pool in either layout."""
     from turingassembler_tpu_torch.mapper import minimizers as mz
+    hkeys, vals = plain_tables(hkeys, vals)
     if seq_pk is None:
-        return mz._vote_core(bases, lengths, hkeys, vals, salt, k, w)
-    return mz._verified_core(bases, lengths, hkeys, vals, salt, seq_pk,
-                             seq_off, thr, k, w, mt, mm)
+        res = mz._vote_core(bases, lengths, hkeys, vals, salt, k, w)
+    else:
+        res = mz._verified_core(bases, lengths, hkeys, vals, salt,
+                                plain_pool(seq_pk), seq_off, thr, k, w, mt,
+                                mm)
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)
+
+
+def plain_gapless_bound(seq_pk, *args):
+    """ops/mm_map.gapless_bound's plain version on any device."""
+    from turingassembler_tpu_torch.mapper import minimizers as mz
+    return mz._gapless_bound_dev(plain_pool(seq_pk), *args)
 
 
 def plain_minimizer_rows(bases, lengths, k, w):
     """ops/mm_map.minimizer_rows's plain version on any device."""
     from turingassembler_tpu_torch.mapper import minimizers as mz
-    km, _h, is_mm = mz.minimizer_mask(bases, lengths, k, w)
-    return km, is_mm
+    return mz._compact_minimizer_rows(bases, lengths, k, w)
 
 
 @contextlib.contextmanager
 def plain_mapper():
-    """map_reads and the index build through the plain versions on the
-    card, for phase 5's before figures.  No path has such a switch: only
-    this script swaps the wrapper's entries, for one window."""
+    """map_reads, rescore_hits and the index build through the plain
+    versions on the card, for phase 5's before figures.  No path has such
+    a switch: only this script swaps the wrapper's entries, for one
+    window."""
     from unittest import mock
     from turingassembler_tpu_torch.ops import mm_map
     with mock.patch.object(mm_map, "map_batch", plain_map_batch), \
+            mock.patch.object(mm_map, "gapless_bound", plain_gapless_bound), \
             mock.patch.object(mm_map, "minimizer_rows", plain_minimizer_rows):
         yield
 
 
+def mm_variants(variants, src=None):
+    """Scratch copies of csrc/mm_map.cu with text edits, for timing stages
+    and layouts; the committed source is never edited.  variants:
+    {name: [(anchor, text), ...]}: each anchor, found exactly once, is
+    replaced by text.  All copies build at once (one nvcc each) into a
+    fresh directory under build/.  Returns {name: ctypes library}."""
+    import ctypes
+    from turingassembler_tpu_torch import _build
+    src = src if src is not None else (_build.CSRC / "mm_map.cu").read_text()
+    d = tempfile.mkdtemp(prefix="mm_variants_", dir=_build.BUILD_DIR.parent)
+    procs = {}
+    for name, edits in variants.items():
+        text = src
+        for anchor, new in edits:
+            if text.count(anchor) != 1:
+                raise AssertionError(f"mm_map variant {name}: anchor found "
+                                     f"{text.count(anchor)} times: {anchor!r}")
+            text = text.replace(anchor, new)
+        cu, so = os.path.join(d, f"{name}.cu"), os.path.join(d, f"{name}.so")
+        with open(cu, "w") as fp:
+            fp.write(text)
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"mm_map variant {name}: nvcc failed:\n{out}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+@contextlib.contextmanager
+def mm_library(lib):
+    """ops/mm_map's launches go to `lib` (a variant of mm_variants)."""
+    from unittest import mock
+    from turingassembler_tpu_torch import _build
+    real = _build.load
+    with mock.patch.object(_build, "load",
+                           lambda name: lib if name == "mm_map" else
+                           real(name)):
+        yield
+
+
+def _stop(value):
+    """A map_kernel stage's end in a timing variant: the warp writes a
+    value that depends on the stage's work and goes on to its next
+    read."""
+    return (f"        {{ const int z_ = __reduce_add_sync(FULL, {value});\n"
+            "          if (lane == 0) a.best_hits[b] = z_;\n"
+            "          __syncwarp(); continue; }\n")
+
+
+# map_kernel cut after each stage (anchor, its text with the stop after)
+MM_STAGES = {
+    "load": "            len_next = a.lengths[b + stride];\n        }\n",
+    "pack": ("        pack_row(seq, L, words, bad, lane, 32);\n"
+             "        __syncwarp();\n"),
+    "marks": ("            n = n < a.cap ? n : a.cap;\n        }\n"
+              "        __syncwarp();\n"),
+    "probe": ("        // vote: each slot's count of its edge among the "
+              "read's hits\n"),
+}
+MM_STOPS = {"load": "(int)seq[lane] + len",
+            "pack": "(int)words[lane & 3] + len",
+            "marks": "n + s_pos[lane]",
+            "probe": "edge[0] + edge[1] + start[0] + start[1]"}
+
+# the probe of key-only rows (32 bytes a bucket) and value rows (8 bytes a
+# slot) in one (NB, 16) buffer: NB key rows, then NB * 4 value rows
+MM_SPLIT_PROBE = """\
+__device__ __forceinline__ void probe(const MapArgs& a, const uint32_t* words,
+                                      const uint32_t* bad, int p, int* edge,
+                                      int* start) {
+    const Win wd = window_at(words, bad, p, a.k);
+    const uint2* vals = reinterpret_cast<const uint2*>(
+        a.table + ((size_t)a.mask + 1) * 2);
+    for (int which = 0; which < 2; ++which) {
+        const uint32_t bk = cuckoo_h(wd.l0, wd.l1, a.salt, a.mask, which);
+        const uint4 r0 = __ldg(a.table + (size_t)bk * 2);
+        const uint4 r1 = __ldg(a.table + (size_t)bk * 2 + 1);
+        const uint32_t key[8] = {r0.x, r0.y, r0.z, r0.w,
+                                 r1.x, r1.y, r1.z, r1.w};
+        int t = -1;
+#pragma unroll
+        for (int u = CUCKOO_CAP - 1; u >= 0; --u)
+            if (key[2 * u] == wd.l0 && key[2 * u + 1] == wd.l1) t = u;
+        if (t >= 0) {
+            const uint2 v = __ldg(vals + (size_t)bk * CUCKOO_CAP + t);
+            if (v.x > 0) {
+                *edge = (int)(v.x - 1);
+                *start = (int)v.y - p;
+            }
+            return;
+        }
+    }
+}
+
+"""
+
+
+def mm_timing_variants():
+    """The variants phase 21 times: map_kernel stopped after each stage
+    (the stage split); the probe of key-only rows and value rows ("split
+    tables"); the bound read from a nibble-packed uint32 pool ("nibble
+    pool")."""
+    from turingassembler_tpu_torch import _build
+    src = (_build.CSRC / "mm_map.cu").read_text()
+    v = {}
+    for name, anchor in MM_STAGES.items():
+        v[name] = [(anchor, anchor + _stop(MM_STOPS[name]))]
+    v["vote"] = [("        if (a.verified) {\n            int bound;",
+                  "        { __syncwarp(); continue; }\n"
+                  "        if (a.verified) {\n            int bound;")]
+    probe = src[src.index("__device__ __forceinline__ void probe("):
+                src.index("__global__ void __launch_bounds__(32 * MAP_WARPS)\n"
+                          "map_kernel")]
+    v["split tables"] = [(probe, MM_SPLIT_PROBE)]
+    v["nibble pool"] = [
+        ("nm += q[j] == __ldg(t + j);",
+         "{ const long long g_ = off + start + j + 8 * 32;\n"
+         "        nm += q[j] == ((__ldg(reinterpret_cast<const uint32_t*>("
+         "pool.codes) + (g_ >> 3)) >> (4 * (g_ & 7))) & 0xFu); }")]
+    return mm_variants(v, src)
+
+
 def hold_mm(what, got, want) -> int:
     """Each output of an mm_map entry == the plain version's: the same
-    dtype, shape and values.  Returns the largest |difference| (0)."""
+    shape and values (the kernel's int32 where the plain version has
+    int64).  Returns the largest |difference| (0)."""
     torch.cuda.synchronize()
     err = 0
     if len(got) != len(want):
         raise AssertionError(f"mm_map {what}: {len(got)} outputs, plain "
                              f"{len(want)}")
     for i, (a, b) in enumerate(zip(got, want)):
-        if a.dtype != b.dtype or a.shape != b.shape:
+        if a.shape != b.shape or (a.dtype != b.dtype and (
+                a.dtype, b.dtype) != (torch.int32, torch.int64)):
             raise AssertionError(
                 f"mm_map {what}: output {i} is {a.dtype} {tuple(a.shape)}, "
                 f"plain {b.dtype} {tuple(b.shape)}")
@@ -724,10 +923,10 @@ def hold_mm(what, got, want) -> int:
 
 def hold_mm_entry(what, entry, arrays, tables, pool) -> int:
     """One mm_map entry on the card against its plain version on the
-    same tensors: "map" arrays (bases, lengths, thr), vote and verified;
-    "bound" (edges, starts, bases, lengths); "rows" (rows, lengths).
-    Returns the largest |difference| (0)."""
-    from turingassembler_tpu_torch.mapper import minimizers as mz
+    same tensors: "map" arrays (bases, lengths, thr), vote and verified,
+    with thr per read and with one scalar; "bound" (edges, starts, bases,
+    lengths); "rows" (rows, lengths).  tables and pool as the card's map
+    takes them.  Returns the largest |difference| (0)."""
     from turingassembler_tpu_torch.ops import mm_map
     from turingassembler_tpu_torch.ops.dp import SCORING_BWA
     mt, mm = SCORING_BWA[:2]
@@ -738,16 +937,19 @@ def hold_mm_entry(what, entry, arrays, tables, pool) -> int:
         args = (bases, lengths, *tables, MM_K, MM_W)
         err = hold_mm(f"{what} ({shape}) vote", mm_map.map_batch(*args),
                       plain_map_batch(*args))
-        args += (*pool, thr, mt, mm)
-        return max(err, hold_mm(f"{what} ({shape}) verified",
-                                mm_map.map_batch(*args),
-                                plain_map_batch(*args)))
+        for th in (thr, int(thr[0])):
+            a = args + (*pool, th, mt, mm)
+            kind = "scalar" if isinstance(th, int) else "per-read"
+            err = max(err, hold_mm(
+                f"{what} ({shape}) verified, {kind} threshold",
+                mm_map.map_batch(*a), plain_map_batch(*a)))
+        return err
     if entry == "bound":
         args = (*pool, *t, mt, mm)
         return hold_mm(f"{what} ({shape})", mm_map.gapless_bound(*args),
-                       mz._gapless_bound_dev(*args))
-    return hold_mm(f"{what} ({shape})", mm_map.minimizer_rows(
-        *t, MM_K, MM_W), plain_minimizer_rows(*t, MM_K, MM_W))
+                       plain_gapless_bound(*args))
+    return hold_mm(f"{what} ({shape})", (mm_map.minimizer_rows(
+        *t, MM_K, MM_W),), (plain_minimizer_rows(*t, MM_K, MM_W),))
 
 
 def mm_ops(n_pos, n_win):
@@ -759,17 +961,31 @@ def mm_ops(n_pos, n_win):
     return n_pos * (2 * MM_K + 30) + n_win * 2 * (MM_W - 1)
 
 
-def pool_words(pool, edges, starts, lengths, L):
-    """Pool words (8 bytes each) under the on-edge positions of queries
-    of width L at (edges, starts): what the bound must read."""
-    from turingassembler_tpu_torch.mapper.minimizers import POOL_PAD_W
-    pk, off = pool
-    e = torch.clamp(edges, min=0)
+def on_edge(off, edges, starts, lengths, L):
+    """The on-edge span [lo, hi) of queries of width L at (edges,
+    starts), and its first pool position g0 = off[e] + lo."""
+    e = torch.clamp(edges.long(), min=0)
     elen = off[e + 1] - off[e]
-    lo = torch.clamp(starts, min=0)
-    hi = torch.minimum(starts + torch.clamp(lengths.long(), max=L), elen)
-    g0 = off[e] + lo + 8 * POOL_PAD_W
-    g1 = off[e] + hi - 1 + 8 * POOL_PAD_W
+    lo = torch.clamp(starts.long(), min=0)
+    hi = torch.minimum(starts.long() + torch.clamp(lengths.long(), max=L),
+                       elen)
+    return lo, hi, off[e] + lo
+
+
+def pool_bytes(off, edges, starts, lengths, L):
+    """Pool codes (1 byte each) under the on-edge positions of queries:
+    what the bound must read from the uint8 pool."""
+    lo, hi, _ = on_edge(off, edges, starts, lengths, L)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def pool_words(off, edges, starts, lengths, L):
+    """Nibble-packed pool words (8 bytes each, the int64 layout) under the
+    on-edge positions of queries."""
+    from turingassembler_tpu_torch.mapper.minimizers import POOL_PAD_W
+    lo, hi, g0 = on_edge(off, edges, starts, lengths, L)
+    g0 = g0 + 8 * POOL_PAD_W
+    g1 = g0 + hi - lo - 1
     return int(torch.where(hi > lo, (g1 >> 3) - (g0 >> 3) + 1, 0).sum())
 
 
@@ -779,16 +995,18 @@ def n_windows(lengths, L):
     return int(torch.clamp(w_len, max=L - MM_K + 1).sum())
 
 
-def mm_map_bytes(bases, lengths, tables, pool, out):
-    """Least bytes of the verified map of a batch, from this run's data:
-    codes, lengths and thresholds read once; for each probed minimizer
-    the bucket rows it needs (b1's 64 bytes, and b2's where the key is
-    not in b1) and the value row of a key found (16 bytes); the pool
-    words under each read's on-edge positions and its two seq_off
-    entries; five outputs (33 bytes a read).  Returns (bytes, probes,
-    bytes with both bucket rows and a value row every probe)."""
+def mm_map_bytes(bases, lengths, ptables, off, out, per_read_thr):
+    """Least bytes of the verified map of a batch, from this run's data,
+    in the kernel's layout: codes and lengths read once (and a per-read
+    threshold, 4 bytes, where there is one); for each probed minimizer
+    the bucket records it needs (b1's 64 bytes, and b2's where the key is
+    not in b1); the pool codes under each read's on-edge positions and
+    its two seq_off entries; five outputs (17 bytes a read).  Returns
+    (bytes, probes, the int64 layout's bytes: key rows of 64 bytes and value
+    rows of 16, nibble-packed int64 pool words, int64 thresholds, 33
+    bytes of outputs)."""
     from turingassembler_tpu_torch.mapper import minimizers as mz
-    hkeys, vals, salt = tables
+    hkeys, vals, salt = ptables
     B, L = bases.shape
     km, _h, is_mm = mz.minimizer_mask(bases, lengths, MM_K, MM_W)
     P = km.shape[1]
@@ -800,11 +1018,13 @@ def mm_map_bytes(bases, lengths, tables, pool, out):
     in_b1 = ((r1[:, 0::2] == q[:, :1]) & (r1[:, 1::2] == q[:, 1:])).any(1)
     found = mz._cuckoo_probe(hkeys, vals, salt, q)[2]
     n_probe = q.shape[0]
-    rest = B * (L + 4 + 8 + 16 + 33) + 8 * pool_words(
-        pool, out[0], out[2], lengths, L)
-    nbytes = rest + 64 * (n_probe + int((~in_b1).sum())) \
-        + 16 * int(found.sum())
-    return nbytes, n_probe, rest + 144 * n_probe
+    rows = n_probe + int((~in_b1).sum())
+    edges, starts = out[0], out[2]
+    nbytes = B * (L + 4 + 4 * per_read_thr + 16 + 17) + 64 * rows \
+        + pool_bytes(off, edges, starts, lengths, L)
+    old = B * (L + 4 + 8 + 16 + 33) + 64 * rows + 16 * int(found.sum()) \
+        + 8 * pool_words(off, edges, starts, lengths, L)
+    return nbytes, n_probe, old
 
 
 def bound_of(nbytes, ops):
@@ -817,13 +1037,25 @@ def phase_mm_kernel_vs_plain():
     """Phase 21: the mm_map kernel's three entries against their plain
     versions on the card, exact: (a) on testing.mm_map_cases (Ns, reads
     too short for a window, more than 48 minimizers, ties, overhangs,
-    per-read thresholds, both bound branches, rows too narrow for a
-    window) with an index the kernel built == the CPU's; (b) at the bench
-    batch: phase 5's workload counted and built on the card, its index,
-    the first 65,536 reads (one map_reads batch) through map_batch, their
-    votes through gapless_bound, the index build's first batch of 256
-    segment rows through minimizer_rows; kernel, plain and bound ms of
-    each.  Returns the kernels line's figures and the workload."""
+    per-read and scalar thresholds, both bound branches, rows too narrow
+    for a window) with an index the kernel built == the CPU's; (b) at the
+    bench batch: phase 5's workload counted and built on the card, its
+    index, the first 65,536 reads (one map_reads batch) through
+    map_batch, their votes through gapless_bound, the index build's first
+    batch of 256 segment rows through minimizer_rows; kernel, plain and
+    bound ms of each; map_batch's stage split and its two alternatives
+    (scratch variants of the source, mm_timing_variants), held equal and
+    timed in turns; the pool's first copy and its cached lookup; and
+    map_reads of all the bench reads, its wall beside its device time.
+    Returns the kernels line's figures and the workload."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        # the variants build (nvcc) while the edge cases run
+        return mm_kernel_vs_plain(ex.submit(mm_timing_variants))
+
+
+def mm_kernel_vs_plain(variants):
+    """Phase 21's body; variants: the future of mm_timing_variants."""
     from turingassembler_tpu_torch import bench
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.mapper import minimizers as mz
@@ -849,63 +1081,154 @@ def phase_mm_kernel_vs_plain():
     _, _, _, shipped, gb = bench.count_and_build(stage, reads, lengths, 45)
     idx = mz.EdgeMinimizerIndex.build(gb, device="cuda")
     tables = idx.device_tables("cuda")
-    pool = mz._device_pool(gb.seq_data, gb.seq_off, torch.device("cuda"))
+    hk, vals, salt = idx.hash_tables()
+    ptables = (torch.as_tensor(hk).to("cuda"),
+               torch.as_tensor(vals).to("cuda"), salt)
+    mz._POOL_CACHE.clear()
+    pool_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool = mz._device_pool(gb.seq_data, gb.seq_off, torch.device("cuda"))
+        torch.cuda.synchronize()
+        pool_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    pk_host = mz._pack_pool_nibbles(gb.seq_data)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    log(f"mm_map pool of the bench graph ({len(gb.seq_data)} codes): first "
+        f"map {pool_ms[0]:.3f} ms (the codes copied), then {pool_ms[1]:.3f} "
+        f"ms (cached); the host nibble pack alone {pack_ms:.3f} ms")
+    ppool = (torch.as_tensor(pk_host).to("cuda"), pool[1])
     bases, lens = shipped[0][:MM_BATCH], shipped[1][:MM_BATCH]
-    thr = torch.full((MM_BATCH,), dp.MIN_MAP_SCORE, dtype=torch.int64,
-                     device="cuda")
+    thr = dp.MIN_MAP_SCORE           # one scalar, as map_reads passes it
     mt, mm = dp.SCORING_BWA[:2]
     args = (bases, lens, *tables, MM_K, MM_W, *pool, thr, mt, mm)
+    pargs = (bases, lens, *ptables, MM_K, MM_W, *ppool, thr, mt, mm)
     out = mm_map.map_batch(*args)
     err = max(err, hold_mm("bench batch verified", out,
-                           plain_map_batch(*args)),
+                           plain_map_batch(*pargs)),
               hold_mm("bench batch vote", mm_map.map_batch(*args[:7]),
-                      plain_map_batch(*args[:7])))
+                      plain_map_batch(*pargs[:7])))
     B, L = bases.shape
     res = {}
 
-    def timed(name, kernel, plain, nbytes, ops, extra=""):
+    def timed(name, kernel, plain, nbytes, ops, key, extra=""):
         ms = cuda_ms(kernel, 20)
         plain_ms = cuda_ms(plain, 3)
         ms2 = cuda_ms(kernel, 20)
+        dev = device_ms(kernel, 20, key)
         bound, by = bound_of(nbytes, ops)
-        log(f"mm_map {name}: kernel {ms:.4f} ms then {ms2:.4f} ms; plain "
+        log(f"mm_map {name}: kernel {ms:.4f} ms then {ms2:.4f} ms (wrapper "
+            f"and launch), {dev:.4f} ms on the device (profiler); plain "
             f"{plain_ms:.4f} ms; bound {bound:.5f} ms ({by}: {nbytes} "
             f"bytes, {ops} operations){extra}")
-        res[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by)
+        res[name] = dict(ms=min(ms, ms2), kernel_ms=dev, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by)
 
-    nbytes, n_probe, two_rows = mm_map_bytes(bases, lens, tables, pool, out)
+    nbytes, n_probe, old = mm_map_bytes(bases, lens, ptables, pool[1], out,
+                                        False)
+    ops = mm_ops(B * (L - MM_K + 1), n_windows(lens, L))
     timed("map_batch", lambda: mm_map.map_batch(*args),
-          lambda: plain_map_batch(*args), nbytes,
-          mm_ops(B * (L - MM_K + 1), n_windows(lens, L)),
+          lambda: plain_map_batch(*pargs), nbytes, ops, "map_kernel",
           f"; B={B} L={L} verified, {len(idx.keys)} index keys, "
           f"{tables[0].shape[0]} buckets, {n_probe} probes; "
-          f"{(out[0] >= 0).float().mean().item() * 100:.3f}% voted; "
-          f"{two_rows} bytes with both bucket rows and a value row every "
-          f"probe ({bound_of(two_rows, 0)[0]:.5f} ms)")
+          f"{(out[0] >= 0).float().mean().item() * 100:.3f}% voted; the int64 "
+          f"layout {old} bytes, bound {bound_of(old, ops)[0]:.5f} ms")
+    res["map_batch"]["int64_layout_bound_ms"] = bound_of(old, ops)[0]
+
+    # map_batch's stage split and its alternatives, in turns with the kernel
+    stage_of = ("load", "pack", "marks", "probe", "vote")
+    variants = variants.result()
+    split = (torch.as_tensor(np.concatenate([
+        hk.astype(np.uint32).ravel(), vals.astype(np.uint32).ravel()])
+        .view(np.int32).reshape(-1, 16)).to("cuda"), None, salt)
+    nib = (torch.as_tensor(pk_host.astype(np.uint32).view(np.int32))
+           .to("cuda").view(torch.uint8), pool[1])
+    alt = {"split tables": (bases, lens, *split, MM_K, MM_W, *pool, thr, mt,
+                            mm),
+           "nibble pool": (bases, lens, *tables, MM_K, MM_W, *nib, thr, mt,
+                           mm)}
+    for name, a in alt.items():
+        with mm_library(variants[name]):
+            err = max(err, hold_mm(f"bench batch, {name} variant",
+                                   mm_map.map_batch(*a), out))
+    times = {}
+    for turn in range(2):
+        times.setdefault("kernel", []).append(
+            device_ms(lambda: mm_map.map_batch(*args), 30, "map_kernel"))
+        for name in stage_of + tuple(alt):
+            a = alt.get(name, args)
+            with mm_library(variants[name]):
+                times.setdefault(name, []).append(device_ms(
+                    lambda: mm_map.map_batch(*a), 30, "map_kernel"))
+    best = {k_: min(v) for k_, v in times.items()}
+    prev, parts = 0.0, []
+    for name in stage_of + ("kernel",):
+        parts.append(f"{'bound' if name == 'kernel' else name} "
+                     f"{best[name] - prev:+.4f}")
+        prev = best[name]
+    log("mm_map map_batch stage split (device ms from the profiler, each "
+        "the cut's best of 2 turns less the cut before): " + ", ".join(parts)
+        + "; cuts " + ", ".join(f"{k_} " + "/".join(f"{x:.4f}" for x in v)
+                                for k_, v in times.items()))
+    res["map_batch"]["stages_ms"] = {k_: round(v, 4) for k_, v in best.items()}
+
+    # map_reads of all the bench reads: its wall beside its device time
+    from turingassembler_tpu_torch.mapper.minimizers import map_reads
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        map_reads(idx, reads, lengths, graph=gb, shipped=shipped)
+        walls.append(time.perf_counter() - t0)
+    prof = StageProfiler()
+    with prof.around("map"):
+        t0 = time.perf_counter()
+        map_reads(idx, reads, lengths, graph=gb, shipped=shipped)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.report("mm_map map_reads of the 1,048,576 bench reads (tables and "
+                "pool cached)", {"map": wall})
+    log(f"mm_map map_reads: wall " + ", ".join(f"{x:.4f}" for x in walls)
+        + f" s; device busy {prof.busy['map']:.4f} s of the profiled "
+        f"{wall:.4f} s: the rest is host glue")
+
     # the bound alone on the votes: the bridge's rescore_hits entry
-    edges, starts = out[0], out[2]
+    edges, starts = out[0].long(), out[2].long()
     bargs = (*pool, edges, starts, bases, lens, mt, mm)
     err = max(err, hold_mm("bench batch gapless bound",
                            mm_map.gapless_bound(*bargs),
-                           mz._gapless_bound_dev(*bargs)))
+                           plain_gapless_bound(*bargs)))
     timed("gapless_bound", lambda: mm_map.gapless_bound(*bargs),
-          lambda: mz._gapless_bound_dev(*bargs),
-          B * (L + 4 + 16 + 16 + 9) + 8 * pool_words(pool, edges, starts,
-                                                     lens, L), 0)
+          lambda: mz._gapless_bound_dev(ppool[0], *bargs[1:]),
+          B * (L + 4 + 16 + 16 + 9) + pool_bytes(pool[1], edges, starts,
+                                                 lens, L), 0, "bound_kernel")
     # the index build's first device batch
     _, _, mat, elen = next(mz.EdgeMinimizerIndex.segment_batches(gb))
     rows, rlen = (torch.as_tensor(a).to("cuda") for a in (mat, elen))
-    err = max(err, hold_mm("bench index rows",
-                           mm_map.minimizer_rows(rows, rlen, MM_K, MM_W),
-                           plain_minimizer_rows(rows, rlen, MM_K, MM_W)))
+    got = mm_map.minimizer_rows(rows, rlen, MM_K, MM_W)
+    err = max(err, hold_mm("bench index rows", (got,),
+                           (plain_minimizer_rows(rows, rlen, MM_K, MM_W),)))
     R, RL = rows.shape
     timed("minimizer_rows",
           lambda: mm_map.minimizer_rows(rows, rlen, MM_K, MM_W),
           lambda: plain_minimizer_rows(rows, rlen, MM_K, MM_W),
-          R * (RL + 4 + 17 * (RL - MM_K + 1)),
-          mm_ops(R * (RL - MM_K + 1), n_windows(rlen, RL)),
-          f"; B={R} L={RL}")
+          R * (RL + 4) + 16 * got.shape[0] + 4,
+          mm_ops(R * (RL - MM_K + 1), n_windows(rlen, RL)), "rows_",
+          f"; B={R} L={RL}, {got.shape[0]} marks; writing every "
+          f"position would take {R * (RL - MM_K + 1) * 17} bytes, bound "
+          f"{bound_of(R * (RL + 4 + 17 * (RL - MM_K + 1)), 0)[0]:.5f} ms")
+    P = RL - MM_K + 1
+    bufs = [torch.empty((R, -(-P // 32)), dtype=torch.int32, device="cuda"),
+            torch.empty(R, dtype=torch.int32, device="cuda"),
+            torch.empty((R * P, 4), dtype=torch.int64, device="cuda"),
+            torch.empty(1, dtype=torch.int32, device="cuda")]
+    res["minimizer_rows"]["launch_ms"] = cuda_ms(lambda: mm_map._launch(
+        "mm_minimizer_rows_launch", rows.device, rows.data_ptr(),
+        rlen.data_ptr(), R, RL, MM_K, MM_W, *(b_.data_ptr() for b_ in bufs)),
+        20)
+    log(f"mm_map minimizer_rows: the launch alone (both passes, no wrapper, "
+        f"no sync) {res['minimizer_rows']['launch_ms']:.4f} ms")
     res["max_abs_err"] = err
     return res, (genome, reads, lengths)
 
@@ -1432,8 +1755,8 @@ def phase_scaffold_full_width(d, genome_len=2_000_000):
     parts, outcomes = dict(bridge.BRIDGE_PROF), dict(bridge.BRIDGE_COUNTS)
 
     g = asmg.load_graph(path(SCAFFOLD_FILES[4]))
-    # what the head of every verified map_reads call costs: packing
-    # the contig pool on the host and copying it over
+    # what the head of a verified map_reads call costs: the graph's codes
+    # copied to the card at its first map, the cached pool after
     pool_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1489,9 +1812,9 @@ def phase_scaffold_full_width(d, genome_len=2_000_000):
             "rp_count.tally", "extend", "recount.table", "recount.parse",
             "recount.count", "recount.join", "aux.index", "aux.parse",
             "aux.map", "aux.attach"))
-        + "; contig pool pack + copy, paid at the head of every verified "
-        "map_reads call (two a batch in each map stage): "
-        + ", ".join(f"{m:.1f}" for m in pool_ms) + " ms")
+        + "; contig pool to the card at the head of a verified map_reads "
+        "call: the graph's first map, then cached: "
+        + ", ".join(f"{m:.3f}" for m in pool_ms) + " ms")
     for name, what in (("debug_current", "rp-count map (+ extension)"),
                        ("build_coverage", "k=31 recount"),
                        ("build_barcode", "aux map"),
@@ -3167,6 +3490,13 @@ def phase_bench_twin(phase5_reads_per_s):
         raise AssertionError("bench twin: no `mm_map shapes:` line with a "
                              "map_batch launch")
     log(f"bench twin: mm_map {len(mm[0])} launches (index builds and maps)")
+    builds = [int(ln.rsplit(":", 1)[1]) for ln in proc.stderr.splitlines()
+              if ln.startswith("pool builds in the timed map passes:")]
+    log(f"bench twin: the graph's pool made {builds} times in the timed map "
+        "passes")
+    if builds != [0]:
+        raise AssertionError("bench twin: the timed map passes made the "
+                             f"graph's pool again ({builds})")
     return (len(nw[0]), [("map", tuple(sh)) for sh in nw[0]],
             (len(mm[0]), [tuple(sh) for sh in mm[0]], []))
 

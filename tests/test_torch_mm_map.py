@@ -2,26 +2,33 @@
 ops/mm_map.py) against the JAX package's mapper on the edge cases of
 turingassembler_tpu_torch/testing.py:mm_map_cases.
 
-(a) A numpy model of the kernel's own formulation (hash of each window
-position, leftmost argmin over each complete window, the first MM_CAP
-marked positions as the ballot compaction keeps them, the cuckoo probe,
-a count tally in place of the row sort, the bound read one nibble an
-on-edge position) equals JAX _map_batch_verified, _map_batch,
-_gapless_bound_dev and minimizer_mask.  (b) The wrapper on CPU tensors
-(the plain versions) equals them too.  (c) The wrapper refuses what the
-kernel does not take, and the entry points raise for "cuda" without a
-GPU.  (d) The CPU path never looks for nvcc and counts no launch.
+(a) A numpy model of the kernel's own formulation equals JAX
+_map_batch_verified, _map_batch, _gapless_bound_dev, minimizer_mask,
+_cuckoo_probe, _vote_core and _compact_minimizer_rows: the read packed
+once into 2-bit words and an invalid-base bitmask four codes at a time
+(byte compare, byte reversal, a multiply for the bad bits), the limbs
+by funnel shifts, each window's leftmost minimum of the key (hash << 32)
+| position by the warp's sparse-table pass (lanes simulated), the first
+MM_CAP marked positions, the probe of the one-record bucket table
+(mm_map.bucket_records), the match-any count tally, the bound read from
+the uint8 codes, the rows compacted from per-row counts and mark
+bitmasks.  (b) The wrapper on CPU tensors (the plain versions) equals
+them too, and so does map_reads with a scalar and a per-read threshold.
+(c) The wrapper refuses what the kernel does not take, and the entry
+points raise for "cuda" without a GPU.  (d) The CPU path never looks for
+nvcc and counts no launch.  (e) The device pool is cached per array
+identity, and threads get one pool.
 
 Tolerance: exact equality; every output is an integer or a flag.
 """
 
+import threading
 from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from numpy.lib.stride_tricks import sliding_window_view
 
 from turingassembler_tpu.mapper import minimizers as jm
 from turingassembler_tpu_torch import _build
@@ -34,6 +41,7 @@ torch.set_num_threads(1)
 K, W = tm.MM_K, tm.MM_W
 MT, MM = 1, -2                    # dp.SCORING_BWA's match and mismatch
 M32 = np.uint32(0xFFFFFFFF)
+SENT = 0x7FFFFFFF
 
 
 # ---------------------------------------------------------------------------
@@ -68,93 +76,221 @@ def _cuckoo(q0, q1, salt, mask, which):
     if which == 0:
         x = (q0 ^ (q1 * np.uint32(0x9E3779B1))) + salt
     else:
-        x = (q1 ^ (q0 * np.uint32(0x85EBCA77))) + (salt ^ np.uint32(0x5BD1E995))
+        x = (q1 ^ (q0 * np.uint32(0x85EBCA77))) + \
+            (salt ^ np.uint32(0x5BD1E995))
     return int((_fmix(x) & np.uint32(mask))[0])
 
 
-def model_marks(seq, n, k=K, w=W):
-    """pack_key and mark_minimizers on one row: (limb 0, limb 1, marks)
-    over its P = L - k + 1 window positions."""
-    L = len(seq)
+def _ballot(bits):
+    """(B, 32) bools -> (B,) uint64 masks, bit i from lane i."""
+    return (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+        axis=1, dtype=np.uint64)
+
+
+def model_pack(rows):
+    """pack_row over rows (B, L): (words (B, L/16 + 3), bad (B, L/32 + 2))
+    uint64 holding uint32, a word of 16 codes four codes at a time as the
+    kernel packs them: the byte compare (codes >= 4), the byte reversal
+    and two shifts, the multiply that gathers four bad bits; the codes
+    past the row (here a pattern of 2 and 7, the kernel's stale buffer)
+    masked off."""
+    B, L = rows.shape
+    nw = -(-L // 16)
+    x = np.tile(np.array([2, 7], np.uint32), 8 * nw)[None, :].repeat(B, 0)
+    x[:, :L] = rows
+    x = x.reshape(B, nw, 4, 4)
+    m32 = np.uint64(0xFFFFFFFF)
+    v = sum(x[..., i].astype(np.uint64) << np.uint64(8 * i) for i in range(4))
+    big = sum(np.where(x[..., i] > 3, np.uint64(0xFF) << np.uint64(8 * i),
+                       np.uint64(0)) for i in range(4))
+    y = v & ~big & np.uint64(0x03030303)
+    # __byte_perm(y, 0, 0x0123): the four bytes reversed
+    r = sum(((y >> np.uint64(8 * i)) & np.uint64(0xFF))
+            << np.uint64(8 * (3 - i)) for i in range(4))
+    u = r | (r >> np.uint64(6))
+    byte = (u & np.uint64(0xF)) | ((u >> np.uint64(12)) & np.uint64(0xF0))
+    sh = np.array([24, 16, 8, 0], np.uint64)
+    word = np.bitwise_or.reduce(byte << sh, axis=2)
+    bits = ((((big & np.uint64(0x01010101)) * np.uint64(0x01020408)) & m32)
+            >> np.uint64(24)) << (np.uint64(4) * np.arange(4, dtype=np.uint64))
+    bits = np.bitwise_or.reduce(bits, axis=2)
+    n_in = L - 16 * np.arange(nw)
+    part = n_in < 16
+    word[:, part] &= (m32 << np.uint64(32 - 2 * n_in[part])) & m32
+    bits[:, part] &= (np.uint64(1) << n_in[part].astype(np.uint64)) - \
+        np.uint64(1)
+    words = np.zeros((B, L // 16 + 3), np.uint64)
+    words[:, :nw] = word
+    half = np.zeros((B, 2 * (L // 32 + 2)), np.uint64)
+    half[:, :nw] = bits
+    return words, half[:, 0::2] | (half[:, 1::2] << np.uint64(16))
+
+
+def model_window(words, bad, p, k=K):
+    """window_at at positions p (P,) of packed rows: (l0, l1, clean), each
+    (B, P), by the funnel shifts."""
+    m32 = np.uint64(0xFFFFFFFF)
+    q, s = p >> 4, (2 * (p & 15)).astype(np.uint64)
+
+    def funnel_l(lo, hi, sh):     # upper 32 bits of (hi:lo) << sh
+        return (((hi << np.uint64(32)) | lo) << sh) >> np.uint64(32) & m32
+
+    l0 = funnel_l(words[:, q + 1], words[:, q], s)
+    l1 = funnel_l(words[:, q + 2], words[:, q + 1], s) \
+        & ((m32 << np.uint64(64 - 2 * k)) & m32)
+    b = (((bad[:, (p >> 5) + 1] << np.uint64(32)) | bad[:, p >> 5])
+         >> (p & 31).astype(np.uint64)) & m32
+    kmask = m32 if k == 32 else np.uint64((1 << k) - 1)
+    return l0.astype(np.uint32), l1.astype(np.uint32), (b & kmask) == 0
+
+
+def model_elect(lo, hi, c, n_win, w=W):
+    """elect for chunk c of B rows: lo, hi (B, 32) uint64 keys of the
+    lanes; returns (here, next) (B,) uint64 masks.  Lanes are columns; a
+    shuffle reads the column of its source lane."""
+    lane = np.arange(32)
+    a, b = lo.copy(), hi.copy()
+    d = 1
+    while 2 * d <= w:
+        src = (lane + d) & 31
+        xa, xb = a[:, src], b[:, src]
+        wrap = lane + d >= 32
+        a = np.minimum(a, np.where(wrap, xb, xa))
+        b = np.where(wrap, b, np.minimum(b, xb))
+        d *= 2
+    off = w - d
+    src = (lane + off) & 31
+    m = np.minimum(a, np.where(lane + off >= 32, b[:, src], a[:, src]))
+    at = np.where(32 * c + lane < n_win[:, None],
+                  (m & np.uint64(0xFFFFFFFF)).astype(np.int64) - 32 * c, -1)
+    one = np.uint64(1)
+    here = np.where((at >= 0) & (at < 32), one << np.clip(at, 0, 31).astype(
+        np.uint64), 0)
+    nxt = np.where(at >= 32, one << np.clip(at - 32, 0, 31).astype(np.uint64),
+                   0)
+    return (np.bitwise_or.reduce(here.astype(np.uint64), axis=1),
+            np.bitwise_or.reduce(nxt.astype(np.uint64), axis=1))
+
+
+def model_marks(rows, lengths, k=K, w=W):
+    """The kernel's marks of rows (B, L): (limb 0, limb 1, marks), each (B,
+    P), P = L - k + 1 window positions; marks of chunk c are (carry from
+    chunk c - 1 | elected here) & the chunk's valid positions."""
+    rows = np.atleast_2d(rows)
+    lengths = np.atleast_1d(np.asarray(lengths))
+    B, L = rows.shape
     P = L - k + 1
-    c = np.where(seq < 4, seq, 0).astype(np.uint32)
-    win = sliding_window_view(c, k)
-    sh0 = (30 - 2 * np.arange(16)).astype(np.uint32)
-    sh1 = (62 - 2 * np.arange(16, k)).astype(np.uint32)
-    l0 = np.bitwise_or.reduce(win[:, :16] << sh0, axis=1).astype(np.uint32)
-    l1 = np.bitwise_or.reduce(win[:, 16:] << sh1, axis=1).astype(np.uint32)
-    clean = (sliding_window_view(seq, k) < 4).all(axis=1)
-    valid = clean & (np.arange(P) + k <= n)
-    h = np.where(valid, _hash_key(l0, l1), M32)
-    mark = np.zeros(P, bool)
-    w_len = int(n) - k - w + 2
-    n_win = 0 if L - k - w + 2 <= 0 or w_len <= 0 else min(w_len, P)
-    if n_win:
-        ext = np.concatenate([h, np.full(w, M32, np.uint32)])
-        # np.argmin takes the first of equal minima: the leftmost
-        best = np.arange(n_win) + sliding_window_view(ext, w)[:n_win].argmin(1)
-        best = best[best < P]
-        mark[best[valid[best]]] = True
-    return l0, l1, mark
+    words, bad = model_pack(rows)
+    nch = -(-P // 32)
+    p_all = np.arange(32 * nch + 32)
+    l0, l1, clean = model_window(words, bad, np.minimum(p_all, P - 1), k)
+    valid = clean & (p_all < P)[None, :] & \
+        (p_all[None, :] + k <= lengths[:, None])
+    h = np.where(valid, _hash_key(l0, l1), M32).astype(np.uint64)
+    keys = (h << np.uint64(32)) | p_all.astype(np.uint64)
+    w_len = lengths.astype(np.int64) - k - w + 2
+    n_win = np.where((L - k - w + 2 <= 0) | (w_len <= 0), 0,
+                     np.minimum(w_len, P))
+    marks = np.zeros((B, 32 * nch), bool)
+    carry = np.zeros(B, np.uint64)
+    for c in range(nch):
+        here, nxt = model_elect(keys[:, 32 * c:32 * c + 32],
+                                keys[:, 32 * c + 32:32 * c + 64], c, n_win, w)
+        here = np.where(32 * c < n_win, here, 0).astype(np.uint64)
+        nxt = np.where(32 * c < n_win, nxt, 0).astype(np.uint64)
+        mk = (carry | here) & _ballot(valid[:, 32 * c:32 * c + 32])
+        carry = nxt
+        marks[:, 32 * c:32 * c + 32] = \
+            (mk[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1) > 0
+    return l0[:, :P], l1[:, :P], marks[:, :P]
 
 
-def model_bound(pk, off, edge, start, q, n, pad=8 * tm.POOL_PAD_W):
-    """gapless: one nibble an on-edge position of the query."""
+def model_probe(rec, salt, q0, q1):
+    """The kernel's probe of the bucket records (NB, 16): b1's record, b2's
+    only on a miss, the first matching slot.  (found, edge + 1 or 0,
+    pos)."""
+    r = rec.view(np.uint32).reshape(len(rec), 4, 4)
+    for which in (0, 1):
+        slots = r[_cuckoo(q0, q1, salt, len(rec) - 1, which)]
+        for t in range(4):
+            if slots[t, 0] == q0 and slots[t, 1] == q1:
+                return True, int(slots[t, 2]), int(slots[t, 3])
+    return False, 0, 0
+
+
+def model_vote(edge, start):
+    """The match-any tally of the slots' (edge, start), SENT for a slot
+    that is no hit: (best_edge, best_hits, est_start, edges at the best
+    count, hits)."""
+    edge, start = np.asarray(edge, np.int64), np.asarray(start, np.int64)
+    hit = edge != SENT
+    cnt = np.array([(edge == e).sum() if h else 0 for e, h in zip(edge, hit)],
+                   np.int64)
+    best = int(cnt.max(initial=0))
+    tot = int(hit.sum())
+    n_best = int((cnt == best).sum()) // best if best > 0 else 0
+    be, bs = -1, -1
+    if n_best == 1 and (100 * best >= 85 * tot or tot <= 2):
+        be = int(edge[cnt == best].max())
+        bs = int(start[edge == be].min())
+    return be, best, bs, n_best, tot
+
+
+def model_bound(codes, off, edge, start, q, n):
+    """gapless: the read's on-edge span [lo, hi) of positions, each code
+    against the pool's uint8 code under it."""
     e = max(int(edge), 0)
     o, elen = int(off[e]), int(off[e + 1] - off[e])
-    j = np.arange(len(q))
-    t = int(start) + j
-    on = (t >= 0) & (t < elen) & (j < n)
-    g = np.clip(o + t + pad, 0, 8 * len(pk) - 1)
-    nib = (pk[g >> 3] >> (4 * (g & 7))) & 0xF
-    non = int(on.sum())
-    nm = int(((q.astype(np.int64) == nib) & on).sum())
+    start, L = int(start), len(q)
+    lo = min(-start, L) if start < 0 else 0
+    hi = min(int(n), min(max(elen - start, 0), L))
+    j = np.arange(lo, max(hi, lo))
+    nm = int((q[j].astype(np.int64) == codes[o + start + j]).sum())
+    non = max(hi - lo, 0)
     return nm * MT + (non - nm) * MM, non > 0 and edge >= 0
 
 
-def model_map(bases, lengths, hkeys, vals, salt, pool=None, thr=None):
+def model_map(bases, lengths, rec, salt, pool=None, thr=None):
     """map_kernel read by read: (best_edge, best_hits, est_start[, bound,
     fast]) and the diagnostics (marked positions, edges at the best count,
     singleton hits) of each read."""
-    mask = hkeys.shape[0] - 1
     out = {f: [] for f in ("be", "best", "bs", "bound", "fast", "n_marked",
                            "n_best", "tot")}
+    l0, l1, mark = model_marks(bases, lengths)
     for b in range(len(bases)):
         seq, n = bases[b], int(lengths[b])
-        l0, l1, mark = model_marks(seq, n)
-        slots = np.flatnonzero(mark)[:tm.MM_CAP]  # the ballot compaction
-        hits = []
+        slots = np.flatnonzero(mark[b])[:tm.MM_CAP]   # the first cap marks
+        edge, start = [], []
         for p in slots:
-            q0, q1 = l0[p], l1[p]
-            f = -1
-            for which in (0, 1):
-                bk = _cuckoo(q0, q1, salt, mask, which)
-                row = hkeys[bk]
-                match = [t for t in range(4) if row[2 * t] == q0
-                         and row[2 * t + 1] == q1]
-                if match:
-                    f = bk * 4 + match[0]
-                    break
-            if f >= 0 and vals[f, 0] > 0:
-                hits.append((int(vals[f, 0]) - 1, int(vals[f, 1]) - int(p)))
-        tally = Counter(e for e, _ in hits)
-        best = max(tally.values(), default=0)
-        at_best = [e for e, c in tally.items() if c == best]
-        tot = len(hits)
-        be, bs = -1, -1
-        if best > 0 and len(at_best) == 1 and (100 * best >= 85 * tot
-                                               or tot <= 2):
-            be = at_best[0]
-            bs = min(s for e, s in hits if e == be)
+            found, ev, pos = model_probe(rec, salt, l0[b, p], l1[b, p])
+            hit = found and ev > 0
+            edge.append(ev - 1 if hit else SENT)
+            start.append(pos - int(p) if hit else tm.BIG)
+        be, best, bs, n_best, tot = model_vote(edge, start)
         for f, v in (("be", be), ("best", best), ("bs", bs),
-                     ("n_marked", int(mark.sum())), ("tot", tot),
-                     ("n_best", len(at_best) if best else 0)):
+                     ("n_marked", int(mark[b].sum())), ("tot", tot),
+                     ("n_best", n_best)):
             out[f].append(v)
         if pool is not None:
             bound, feas = model_bound(*pool, be, bs, seq, n)
             out["bound"].append(bound)
             out["fast"].append(feas and bound >= thr[b])
     return {f: np.asarray(v) for f, v in out.items()}
+
+
+def model_rows(rows, lengths, k=K, w=W):
+    """The rows entry: the marks pass's per-row mark bitmask and count,
+    then each row's offset (the counts before it) and its marks' rows in
+    bit order: (n, 4) int64 (l0, l1, row, position)."""
+    l0, l1, mark = model_marks(rows, lengths, k, w)
+    counts = mark.sum(axis=1)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    out = np.zeros((int(offsets[-1]), 4), np.int64)
+    for b in range(len(rows)):
+        p = np.flatnonzero(mark[b])
+        out[offsets[b]:offsets[b + 1]] = np.stack(
+            [l0[b, p], l1[b, p], np.full(len(p), b), p], axis=1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -171,20 +307,35 @@ def world():
     hkeys, vals, salt = idx.hash_tables()
     pk = tm._pack_pool_nibbles(g.seq_data)
     return dict(g=g, cases=cases, idx=idx, hkeys=hkeys, vals=vals, salt=salt,
-                pk=pk, off=g.seq_off.astype(np.int64))
+                rec=mm_map.bucket_records(hkeys, vals), pk=pk,
+                codes=g.seq_data, off=g.seq_off.astype(np.int64))
 
 
 def _names(entry):
     return [n for n, (e, _) in CASES.items() if e == entry]
 
 
+def _reads_of(entry, arrays):
+    """The (bases, lengths) of a case."""
+    return (arrays[0], arrays[1]) if entry in ("map", "rows") \
+        else (arrays[2], arrays[3])
+
+
+# the cases wide enough for a vote (MM_CAP window positions)
+VOTE_CASES = [n for n, (e, a) in CASES.items()
+              if _reads_of(e, a)[0].shape[1] - K + 1 >= tm.MM_CAP]
+
+
+def _u32(a):
+    return jnp.asarray(np.asarray(a).astype(np.uint32))
+
+
 def jax_map(world, bases, lengths, thr):
-    u32 = lambda a: jnp.asarray(np.asarray(a).astype(np.uint32))
-    args = (jnp.asarray(bases), jnp.asarray(lengths), u32(world["hkeys"]),
-            u32(world["vals"]), jnp.uint32(world["salt"]))
+    args = (jnp.asarray(bases), jnp.asarray(lengths), _u32(world["hkeys"]),
+            _u32(world["vals"]), jnp.uint32(world["salt"]))
     vote = jm._map_batch(*args, K, W)
     ver = jm._map_batch_verified(
-        *args, u32(world["pk"]), jnp.asarray(world["off"].astype(np.int32)),
+        *args, _u32(world["pk"]), jnp.asarray(world["off"].astype(np.int32)),
         jnp.asarray(thr.astype(np.int32)), K, W, MT, MM)
     return [np.asarray(x) for x in vote], [np.asarray(x) for x in ver]
 
@@ -215,11 +366,13 @@ def test_cases_reach_every_edge(world):
     seen = Counter()
     for name in _names("map"):
         bases, lengths, thr = cases[name][1]
-        m = model_map(bases, lengths, world["hkeys"], world["vals"],
-                      world["salt"], (world["pk"], world["off"]), thr)
+        m = model_map(bases, lengths, world["rec"], world["salt"],
+                      (world["codes"], world["off"]), thr)
         seen["N"] += int(((bases == 4).any(1)).sum())
         seen["short"] += int((lengths < K + W - 1).sum())
         seen["overflow"] += int((m["n_marked"] > tm.MM_CAP).sum())
+        seen["two slot sets"] += int((np.minimum(m["n_marked"], tm.MM_CAP)
+                                      > 32).sum())
         seen["tie"] += int((m["n_best"] > 1).sum())
         seen["gated"] += int(((m["n_best"] == 1) & (m["be"] < 0)).sum())
         seen["negative start"] += int((m["bs"] < -1).sum())
@@ -227,8 +380,8 @@ def test_cases_reach_every_edge(world):
         seen["fast"] += int(m["fast"].sum())
         seen["slow"] += int(((m["be"] >= 0) & ~m["fast"]).sum())
         seen["thresholds"] = max(seen["thresholds"], len(np.unique(thr)))
-    for what in ("N", "short", "overflow", "tie", "gated", "negative start",
-                 "fast", "slow"):
+    for what in ("N", "short", "overflow", "two slot sets", "tie", "gated",
+                 "negative start", "fast", "slow"):
         assert seen[what] >= 3, (what, seen)
     assert seen["mapped"] > 300 and seen["thresholds"] > 50, seen
     assert (world["idx"].count > 1).any()           # shared minimizers
@@ -240,8 +393,8 @@ def test_cases_reach_every_edge(world):
 def test_map_model_and_wrapper_equal_jax(world, name):
     bases, lengths, thr = world["cases"][name][1]
     (jv, jver) = jax_map(world, bases, lengths, thr)
-    m = model_map(bases, lengths, world["hkeys"], world["vals"],
-                  world["salt"], (world["pk"], world["off"]), thr)
+    m = model_map(bases, lengths, world["rec"], world["salt"],
+                  (world["codes"], world["off"]), thr)
     for i, f in enumerate(("be", "best", "bs")):
         _eq(jv[i], m[f], f"model {f}")
         _eq(jver[i], m[f], f"model verified {f}")
@@ -259,13 +412,90 @@ def test_map_model_and_wrapper_equal_jax(world, name):
         _eq(jv[i], vote[i], f"wrapper vote {i}")
     for i in range(5):
         _eq(jver[i], ver[i], f"wrapper verified {i}")
+    # into int32 arrays, as map_reads has it, with one scalar threshold
+    out = [torch.full((len(bases),), -7, dtype=torch.int32) for _ in range(4)]
+    out.append(torch.zeros(len(bases), dtype=torch.bool))
+    got = mm_map.map_batch(*args, t(world["pk"]), t(world["off"]), 40, MT,
+                           MM, out=out)
+    assert all(a is b for a, b in zip(got, out))
+    _, j40 = jax_map(world, bases, lengths, np.full(len(bases), 40, np.int64))
+    for i in range(5):
+        _eq(j40[i], out[i], f"wrapper into int32, scalar threshold {i}")
+
+
+@pytest.mark.parametrize("name", VOTE_CASES)
+def test_vote_model_equals_jax(world, name):
+    """The match-any tally of the model (a slot's count is its edge's
+    slots; (slots at the best count) / best edges at it) equals JAX
+    _vote_core on the reads, queries and segment rows of every case wide
+    enough for MM_CAP slots."""
+    bases, lengths = _reads_of(*world["cases"][name])
+    want = jm._map_batch(jnp.asarray(bases), jnp.asarray(lengths),
+                         _u32(world["hkeys"]), _u32(world["vals"]),
+                         jnp.uint32(world["salt"]), K, W)    # _vote_core
+    m = model_map(bases, lengths, world["rec"], world["salt"])
+    for i, f in enumerate(("be", "best", "bs")):
+        _eq(np.asarray(want[i]), m[f], f"model vote {f}")
+
+
+def _dense_tables(seed=11):
+    """Host cuckoo tables near the greedy placement's limit (1,500 keys in
+    1,024 buckets of 4), so some keys sit in b2, their b1 full."""
+    rng = np.random.default_rng(seed)
+    M = 1_500
+    k0 = rng.choice(1 << 32, M, replace=False).astype(np.int64)
+    k1 = rng.integers(0, 4, M).astype(np.int64) << 30
+    edge = rng.integers(0, 50, M).astype(np.int64)
+    pos = rng.integers(0, 10_000, M).astype(np.int64)
+    count = rng.integers(1, 3, M).astype(np.int64)
+    out = tm._try_build_cuckoo(k0, k1, edge, pos, count, 1_024)
+    assert out is not None
+    absent = np.stack([rng.integers(0, 1 << 32, 300),
+                       rng.integers(0, 4, 300) << 30], axis=1)
+    return out, np.stack([k0, k1], axis=1), absent
+
+
+@pytest.mark.parametrize("tables", ["edge-case index", "dense"])
+def test_bucket_records_probe_equals_jax(world, tables):
+    """The layout function's records, probed as the kernel probes them (b1's
+    record, b2's only on a miss, the first matching slot), equal JAX
+    _cuckoo_probe on the host tables: every key, keys in b2, keys whose b1
+    is full, absent keys."""
+    if tables == "dense":
+        (hkeys, vals, salt), keys, absent = _dense_tables()
+    else:
+        hkeys, vals, salt = world["hkeys"], world["vals"], world["salt"]
+        keys = world["idx"].keys.astype(np.int64)
+        rng = np.random.default_rng(5)
+        absent = np.stack([rng.integers(0, 1 << 32, 300),
+                           rng.integers(0, 4, 300) << 30], axis=1)
+    absent = absent[~(absent[:, None, :] == keys[None, :, :]).all(2).any(1)]
+    q = np.concatenate([keys, absent]).astype(np.uint32)
+    rec = mm_map.bucket_records(hkeys, vals)
+    assert rec.shape == (len(hkeys), 16) and rec.dtype == np.int32
+    je, jp, jf = (np.asarray(x) for x in jm._cuckoo_probe(
+        _u32(hkeys), _u32(vals), jnp.uint32(salt), jnp.asarray(q)))
+    got = [model_probe(rec, salt, a, b) for a, b in q]
+    found = np.array([g[0] for g in got])
+    _eq(jf, found, "found")
+    _eq(je, [g[1] - 1 if g[0] else -1 for g in got], "edge_sing")
+    _eq(jp[jf], [g[2] for g in got if g[0]], "pos")
+    assert found[:len(keys)].all() and not found[len(keys):].any()
+    mask = len(hkeys) - 1
+    b1 = np.array([_cuckoo(a, b, salt, mask, 0) for a, b in keys])
+    in_b1 = ((hkeys[b1, 0::2] == keys[:, :1]) &
+             (hkeys[b1, 1::2] == keys[:, 1:])).any(1)
+    b1_full = (hkeys[b1, 0::2] != 0xFFFFFFFF).all(1) & ~in_b1
+    if tables == "dense":
+        assert (~in_b1).sum() >= 20 and b1_full.sum() >= 20, \
+            ((~in_b1).sum(), b1_full.sum())
 
 
 @pytest.mark.parametrize("name", _names("bound"))
 def test_bound_model_and_wrapper_equal_jax(world, name):
     edges, starts, bases, lengths = world["cases"][name][1]
     want = jax_bound(world, edges, starts, bases, lengths)
-    model = np.array([model_bound(world["pk"], world["off"], e, s, q, n)
+    model = np.array([model_bound(world["codes"], world["off"], e, s, q, n)
                       for e, s, q, n in zip(edges, starts, bases, lengths)])
     _eq(want[0], model[:, 0], "model bound")
     _eq(want[1], model[:, 1], "model feas")
@@ -279,23 +509,169 @@ def test_bound_model_and_wrapper_equal_jax(world, name):
     _eq(want[1], got[1], "wrapper feas")
 
 
+def test_bound_from_codes_at_the_pool_ends(world):
+    """The bound read from the uint8 codes equals JAX _gapless_bound_dev on
+    edge 0 and the last edge, with head and tail overhangs: the pool's
+    first and last bytes."""
+    g, off = world["g"], world["off"]
+    rng = np.random.default_rng(21)
+    last, L = g.n_e - 1, 152
+    edges, starts = [], []
+    for e in (0, last):
+        elen = int(off[e + 1] - off[e])
+        for s in (-L + 1, -60, -1, 0, 7, elen - L, elen - 80, elen - 1,
+                  elen + 3):
+            edges.append(e)
+            starts.append(s)
+    edges, starts = np.array(edges, np.int64), np.array(starts, np.int64)
+    n = len(edges)
+    bases = np.full((n, L), 255, np.uint8)
+    lengths = rng.integers(L - 10, L + 1, n).astype(np.int32)
+    for i, (e, s) in enumerate(zip(edges, starts)):
+        j = np.arange(L)
+        t = s + j
+        on = (t >= 0) & (t < off[e + 1] - off[e]) & (j < lengths[i])
+        bases[i, :lengths[i]] = rng.integers(0, 4, lengths[i])
+        bases[i, on] = g.seq_data[off[e] + t[on]]
+        flip = rng.random(L) < 0.05
+        bases[i, flip & (j < lengths[i])] = 4
+    want = jax_bound(world, edges, starts, bases, lengths)
+    got = np.array([model_bound(world["codes"], off, e, s, q, ln)
+                    for e, s, q, ln in zip(edges, starts, bases, lengths)])
+    _eq(want[0], got[:, 0], "bound")
+    _eq(want[1], got[:, 1], "feas")
+    assert (got[:, 0] > 0).sum() > n // 2
+
+
+def _edge_rows(seed=31):
+    """Rows for the marks: codes >= 4 and 255 fill, a period-5 row whose
+    repeated k-mers tie on hash inside each window, and rows too narrow
+    for a window (L - k - w + 2 <= 0, or lengths under k + w - 1)."""
+    rng = np.random.default_rng(seed)
+    wide = rng.integers(0, 4, (6, 300)).astype(np.uint8)
+    wide[0, rng.integers(0, 300, 12)] = 4
+    wide[1, rng.integers(0, 300, 12)] = 7
+    wide[2, 250:] = 255
+    wide[3] = np.tile(rng.integers(0, 4, 5), 60)          # hash ties
+    wide[4, :] = 4
+    lw = np.array([300, 300, 250, 300, 300, K + W - 2], np.int32)
+    narrow = rng.integers(0, 4, (3, K + W - 2)).astype(np.uint8)
+    return {"Ns and 255 fill": (wide[:3], lw[:3]),
+            "hash ties": (wide[3:4], lw[3:4]),
+            "no window": (wide[4:], lw[4:]),
+            "too narrow": (narrow, np.full(3, K + W - 2, np.int32))}
+
+
+@pytest.mark.parametrize("kind", list(_edge_rows()))
+def test_marks_model_equals_jax_minimizer_mask(kind):
+    """The rolling pack and the sparse-table minimum of (hash << 32) |
+    position equal JAX minimizer_mask's limbs and marks."""
+    rows, lengths = _edge_rows()[kind]
+    jk, _jh, jmm = (np.asarray(x) for x in jm.minimizer_mask(
+        jnp.asarray(rows), jnp.asarray(lengths), K, W))
+    l0, l1, mark = model_marks(rows, lengths)
+    _eq(jk, np.stack([l0, l1], axis=2), "limbs")
+    _eq(jmm, mark, "marks")
+    if kind == "hash ties":
+        h = _hash_key(l0[0], l1[0])
+        assert len(np.unique(h[:50])) <= 5 and mark.sum() > 10
+
+
 @pytest.mark.parametrize("name", _names("rows"))
 def test_rows_model_and_wrapper_equal_jax(world, name):
+    """The marks of the model equal JAX minimizer_mask's, and the rows
+    compacted from per-row counts and mark bitmasks (the model), and by
+    the wrapper on the CPU, equal JAX _compact_minimizer_rows's rows[:n]
+    and n."""
     rows, lengths = world["cases"][name][1]
     jk, _jh, jmm = (np.asarray(x) for x in
                     jm.minimizer_mask(jnp.asarray(rows), jnp.asarray(lengths),
                                       K, W))
-    for r in range(len(rows)):
-        l0, l1, mark = model_marks(rows[r], lengths[r])
-        _eq(jk[r], np.stack([l0, l1], axis=1), f"model limbs, row {r}")
-        _eq(jmm[r], mark, f"model marks, row {r}")
-    km, is_mm = mm_map.minimizer_rows(torch.as_tensor(rows),
-                                      torch.as_tensor(lengths), K, W)
-    assert km.dtype == torch.int64 and is_mm.dtype == torch.bool
-    _eq(jk, km, "wrapper limbs")
-    _eq(jmm, is_mm, "wrapper marks")
+    l0, l1, mark = model_marks(rows, lengths)
+    _eq(jk, np.stack([l0, l1], axis=2), "model limbs")
+    _eq(jmm, mark, "model marks")
+    cap = rows.shape[0] * (rows.shape[1] - K + 1)
+    jrows, jn = jm._compact_minimizer_rows(jnp.asarray(rows),
+                                           jnp.asarray(lengths), K, W, cap)
+    want = np.asarray(jrows)[:int(jn)]
+    _eq(want, model_rows(rows, lengths), "model rows")
+    got = mm_map.minimizer_rows(torch.as_tensor(rows),
+                                torch.as_tensor(lengths), K, W)
+    assert got.dtype == torch.int64 and got.shape == (int(jn), 4)
+    _eq(want, got, "wrapper rows")
     if rows.shape[1] > 1000:
         assert jmm.sum() > 300
+
+
+def test_pool_cache_same_array_same_tensors(world):
+    """(e) The same seq_data and seq_off give the very tensors of the first
+    call; no second pool is made."""
+    g = world["g"]
+    dev = torch.device("cpu")
+    first = tm._device_pool(g.seq_data, g.seq_off, dev)
+    builds = tm.POOL_STATS["builds"]
+    again = tm._device_pool(g.seq_data, g.seq_off, dev)
+    assert again[0] is first[0] and again[1] is first[1]
+    assert tm.POOL_STATS["builds"] == builds
+    _eq(tm._pack_pool_nibbles(g.seq_data), first[0], "packed pool")
+
+
+def test_pool_cache_replaced_seq_data_new_pool(world):
+    """(e) A graph that replaces its seq_data (as every graph module does)
+    gets a new pool with the new codes; the old arrays keep theirs."""
+    g = world["g"]
+    dev = torch.device("cpu")
+    old = tm._device_pool(g.seq_data, g.seq_off, dev)
+    new_seq = g.seq_data.copy()
+    new_seq[:50] = (new_seq[:50] + 1) % 4
+    builds = tm.POOL_STATS["builds"]
+    new = tm._device_pool(new_seq, g.seq_off, dev)
+    assert tm.POOL_STATS["builds"] == builds + 1 and new[0] is not old[0]
+    _eq(tm._pack_pool_nibbles(new_seq), new[0], "new pool")
+    assert not torch.equal(new[0], old[0])
+    assert tm._device_pool(g.seq_data, g.seq_off, dev)[0] is old[0]
+
+
+def test_pool_cache_threads_get_one_pool(world):
+    """(e) Threads mapping against one graph at once get one pool: one
+    build, the same tensors in every thread."""
+    g = world["g"]
+    seq, off = g.seq_data.copy(), g.seq_off.copy()
+    dev = torch.device("cpu")
+    builds = tm.POOL_STATS["builds"]
+    got, go = [], threading.Barrier(8)
+
+    def worker():
+        go.wait()
+        got.append(tm._device_pool(seq, off, dev))
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t_ in threads:
+        t_.start()
+    for t_ in threads:
+        t_.join()
+    assert len(got) == 8 and tm.POOL_STATS["builds"] == builds + 1
+    assert all(p[0] is got[0][0] and p[1] is got[0][1] for p in got)
+
+
+@pytest.mark.parametrize("threshold", ["scalar", "per read"])
+def test_map_reads_int32_equals_jax(world, threshold):
+    """(b) map_reads (verified; accept and clamp on the device) returns
+    int32 arrays equal to the JAX map_reads, with one scalar min_score and
+    with an (N,) one."""
+    g, idx = world["g"], world["idx"]
+    bases, lengths, thr = world["cases"]["reads"][1]
+    min_score = 60 if threshold == "scalar" else thr
+    jidx = jm.EdgeMinimizerIndex(keys=idx.keys, edge=idx.edge, pos=idx.pos,
+                                 count=idx.count, k=idx.k, w=idx.w)
+    want = jm.map_reads(jidx, bases, lengths, batch_size=200, graph=g,
+                        min_score=min_score)
+    got = tm.map_reads(idx, bases, lengths, batch_size=200, graph=g,
+                       min_score=min_score, device="cpu")
+    for a, b in zip(want, got):
+        assert b.dtype == np.int32
+        _eq(a, b, f"map_reads, {threshold} threshold")
+    assert (got[0] >= 0).sum() > 100 and (got[0] < 0).sum() > 50
 
 
 def test_wrapper_refuses_bad_tensors(world):

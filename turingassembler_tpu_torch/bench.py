@@ -19,7 +19,9 @@ Every NW launch of the map passes, warm one included, goes to stderr on
 a line of its own: `nw shapes: [[B, Lq, Lt], ...]`; every launch of the
 minimizer map kernel in the process (the index build's and the map's,
 csrc/mm_map.cu) on the next: `mm_map shapes: [[B, L, entry, verified],
-...]`.
+...]`; before them `pool builds in the timed map passes: N`, the graph
+pools made for the map after the warm map (0: the warm map made the
+graph's pool, and every timed pass found it cached).
 
 Baselines (upstream publishes no throughput; bench.py's estimates for
 the upstream C pipeline, not a measurement of any device): count +
@@ -38,8 +40,9 @@ whose own seconds go to stderr); up to 5 timed count + build passes
 within the budget, the best one keeping its graph and its reads'
 device tensors; the minimizer index (timed on stderr, excluded); one
 warm map of the first 131,072 reads, which builds the index's device
-tables (timed on stderr, excluded); 3 timed map passes of all reads
-from the count's device tensors, the best kept.  value = reads / (count
+tables and the graph's device pool (timed on stderr, excluded); 3
+timed map passes of all reads from the count's device tensors, the
+best kept.  value = reads / (count
 + build + map), value_count_build = reads / (count + build).  Every
 stage ends in a device sync before its clock stops.
 
@@ -206,7 +209,7 @@ def main(argv=None) -> int:
     from . import _build
     from .device import resolve_device
     from .kmer.megasort import COUNT_CHUNK
-    from .mapper.minimizers import EdgeMinimizerIndex
+    from .mapper.minimizers import POOL_STATS, EdgeMinimizerIndex
     from .ops import mm_map, nw_align
     from .ops.hostmem import tune_host_malloc
 
@@ -262,13 +265,15 @@ def main(argv=None) -> int:
     idx = stage("index", lambda: EdgeMinimizerIndex.build(g_asm, device=dev))
     log(f"minimizer index: {len(idx.keys):,} keys over {g_asm.n_e} edges in "
         f"{stage.seconds['index']:.3f}s (excluded)")
-    # the warm map builds and caches the index's device tables
+    # the warm map builds and caches the index's device tables and the
+    # graph's device pool
     nw_align.COUNT.reset()
     nw0 = min(COUNT_CHUNK, n_reads)
     map_shipped(stage, idx, reads[:nw0], lengths[:nw0], g_asm,
                 (shipped_asm[0][:nw0], shipped_asm[1][:nw0]))
     log(f"warm map of {nw0} reads: {stage.seconds['map']:.3f}s (excluded)")
     t_map, map_passes = None, []
+    builds0 = POOL_STATS["builds"]
     for i in range(N_MAP_PASSES):
         stage = Stages(dev)
         launches0, pairs0 = nw_align.COUNT.launches, nw_align.COUNT.pairs
@@ -286,6 +291,8 @@ def main(argv=None) -> int:
             nw = {"launches": launches, "pairs": pairs}
         if time.perf_counter() - t_start > BUDGET_S + 120:
             break
+    log(f"pool builds in the timed map passes: "
+        f"{POOL_STATS['builds'] - builds0}")
     log("nw shapes: " + json.dumps(nw_align.COUNT.shapes))
     log("mm_map shapes: " + json.dumps(mm_map.COUNT.shapes))
 

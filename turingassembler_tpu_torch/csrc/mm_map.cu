@@ -1,5 +1,6 @@
 // The minimizer mapper's device program for Hopper: minimizer marks,
-// cuckoo probe, vote and gapless bound of a read in one warp.
+// cuckoo probe, vote and gapless bound of a read in one warp, and the
+// index build's marks compacted in the kernel.
 //
 // Replaces jitted JAX functions (XLA, not Pallas) of
 // turingassembler_tpu/mapper/minimizers.py:
@@ -9,56 +10,74 @@
 //     (entry mm_map_batch_launch);
 //   - _gapless_bound_dev alone, the bridge's rescore_hits
 //     (entry mm_gapless_bound_launch);
-//   - minimizer_mask inside _compact_minimizer_rows (:232), the index
-//     build's segment rows (entry mm_minimizer_rows_launch).
+//   - _compact_minimizer_rows (:232): minimizer_mask of the index
+//     build's segment rows and the ascending compaction of the marked
+//     positions (entry mm_minimizer_rows_launch).
 // The port's plain versions are the tensor functions of
 // turingassembler_tpu_torch/mapper/minimizers.py; every output equals
 // theirs bit for bit.
 //
-// A warp a read (map and bound entries), a block a segment row (rows
-// entry, 4,096 windows a row):
-//   - hash.  The read's codes are staged in shared memory.  A thread a
-//     window position p packs the k-mer's two limbs (ops/limbs.py:
-//     base_shift: bases p..p+15 in limb 0, base p in the top two bits,
-//     the rest of the k-mer in limb 1; codes >= 4 pack as 0) and hashes
-//     them with the twin of ops/limbs.py:hash_limbs (murmur3's limb mix,
-//     fmix32) on native uint32_t.  A window with a code >= 4 or past the
-//     read's length hashes to 0xFFFFFFFF and is not valid.
-//   - mark.  A thread a window i of the read's complete windows, i in
-//     [0, length - k - w + 2), takes the leftmost minimum hash of
-//     positions i..i+w-1 (positions past the row compare as 0xFFFFFFFF)
-//     and marks it when it is valid: minimizer_mask's run formulation
-//     elects the same positions.
-//   - compact.  A ballot and a popc prefix over the marks, 32 positions
-//     a step, keep the first MM_CAP marked positions in ascending order,
-//     what the plain version's row sort keeps.
-//   - probe.  A lane a slot recomputes its key and reads the first
-//     matching slot of bucket b1's four, then b2's (int64 rows of 64
-//     bytes, read as 16-byte vectors), then the slot's value row: (edge
-//     + 1 when the key is a singleton, else 0; its position).  The hit
-//     is (edge, position - p), the signed start.
-//   - vote.  Each lane counts its slot's edge among the read's <= MM_CAP
-//     hits and takes the least start of that edge; warp reductions give
-//     the best count, the number of edges at it (a tie is unmapped), the
-//     hits in all and the 85% / <= 2 confidence gate.  This is the row
-//     sort and run-length pass of _vote_core without the sort.
-//   - bound (verified).  Each lane takes read positions j, and where
-//     the voted offset puts j on the edge reads the pool nibble under it
-//     (the nibble-packed pool of _pack_pool_nibbles, int64 words of 8
-//     nibbles, POOL_PAD_W sentinel words in front); two warp sums give
-//     the matches and the on-edge positions.  For the on-edge positions
-//     both branches of _gapless_bound_dev (one window a lane, or one
-//     nibble a position past POOL_PAD_W words) read this same nibble,
-//     and no other position counts.
-//
-// What bounds it on an H100: bytes, at 3.35 TB/s.  As a function the map
-// reads each read's codes and length once, for each probed minimizer
-// its bucket rows and value row (random 64- and 16-byte reads), the
-// pool words under each read and its threshold, and writes five values
-// a read; the mask, the hashes and the hit slots never leave shared
-// memory.  What is left is the latency of the dependent random reads of
-// a probe (bucket row, then value row), covered only by the warps in
-// flight.
+// What bounds the map on an H100: instructions.  As a function it moves
+// 0.024 ms of bytes at 3.35 TB/s for a 65,536-read batch (codes,
+// lengths, a 64-byte bucket record a probe, the pool codes under each
+// read, 17 bytes of outputs); what the kernel spends is the marks'
+// integer work (a hash a window position, a leftmost minimum a window):
+// chip_smoke.py phase 21's stage split (an H100 80GB HBM3 at 700 W)
+// puts 0.076 of its 0.134 ms on the device in the marks.  The first,
+// simple design took 0.190 ms of device time: a probe was two or three
+// dependent trips (int64 key rows, then a value row), each window
+// position re-read its 17 codes from shared memory and each window
+// rescanned 17 hashes, the vote looped over n x n slots, a warp waited
+// on its read's codes before any work, and the host packed the contig
+// pool at every call.  This design:
+//   - tables.  One 64-byte, 64-byte-aligned record a bucket, four slots
+//     of (k0, k1, edge + 1 or 0, pos) as uint32 (ops/mm_map.py:
+//     bucket_records, made once an index from the host cuckoo tables).
+//     A key in b1 is one dependent read; b2's record is read only on a
+//     b1 miss; the first matching slot wins, b1's four before b2's.  The
+//     bench index's table is 64 MB (128 MB as int64 rows).  Key-only
+//     rows of 32 bytes with 8-byte value rows (32 MB of keys, inside L2)
+//     were timed beside it (phase 21's "split tables" variant): a hit
+//     then costs a second dependent read, and that kernel was 2% slower.
+//   - pool.  The graph's uint8 codes (seq_data), the copy the remainder
+//     DP reads, cached on the card per graph (mapper/minimizers.py:
+//     _device_pool).  Only on-edge positions count, and there a code
+//     (< 16) equals the plain version's nibble.  A nibble-packed uint32
+//     pool (phase 21's "nibble pool" variant) was 2% slower.
+//   - marks.  A read's codes are packed once into 2-bit words and an
+//     invalid-base bitmask, a thread 16 codes, four at a time (a byte
+//     compare, a byte permute, a multiply); a window position's two
+//     limbs are two funnel shifts, its validity one more.  Each window's
+//     leftmost minimum is the minimum of the 64-bit key (hash << 32) |
+//     position, taken for 32 windows at once by a sparse-table pass over
+//     warp shuffles (log2 w steps, unrolled for the map's w = 17), and
+//     the elected positions are OR-reduced into a 32-bit mark mask a
+//     chunk.  Invalid windows compete at 0xFFFFFFFF and positions past
+//     the row compare as 0xFFFFFFFF, as in minimizer_mask.
+//   - vote.  A lane holds up to two of the <= MM_CAP slots;
+//     __match_any_sync on their edges gives each slot its edge's count
+//     (a loop of ballots over the second set when n > 32); warp
+//     reductions give the best count, the edges at it (a tie is
+//     unmapped), the hits in all, the 85% / <= 2 gate and the least
+//     start of the picked edge.
+//   - latency.  Persistent blocks (as many as are resident) walk the
+//     batch a warp a read; while a read is marked and probed, cp.async
+//     brings the next read's codes into the warp's other buffer (rows of
+//     a width that is a multiple of 4) and its length into a register.
+//     A warp keeps 0.7 KB of shared memory at 152 bases (1.9 KB with a
+//     hash a window position and a mark byte in shared memory).
+//   - outputs.  int32 edge, hits, start and bound and a bool fast flag,
+//     written straight into the caller's (N,) arrays; the threshold is
+//     one scalar or a (B,) int32 array.
+// The rows entry is two launches of the same source, a block of 512
+// threads a segment row: the marks pass stages and packs the row, keys
+// each window position once into shared memory, elects a warp a chunk
+// and writes the row's count and mark bitmask; the write pass takes the
+// row's offset from the counts before it and writes the (l0, l1, row,
+// position) int64 rows of its marks in ascending order (32 bytes a mark,
+// about 3.7 MB a 256-row batch, where writing every position's limbs
+// and mark for torch.nonzero to compact took 17 bytes a position, 17.9
+// MB).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,9 +88,11 @@ constexpr uint32_t INVALID = 0xFFFFFFFFu;   // hash of a window not valid
 constexpr uint32_t SEED = 0x9E3779B9u;      // hash_limbs' default seed
 constexpr int CUCKOO_CAP = 4;               // slots a bucket
 constexpr int MAX_CAP = 64;                 // slots a read: two a lane
+constexpr int MAX_W = 32;                   // windows a sparse-table pass
+constexpr int MM_W = 17;                    // the map's window (MM_W)
 constexpr int SENT = 0x7FFFFFFF;            // a slot that votes nothing
-constexpr int MAP_WARPS = 8;                // reads a block, at most
-constexpr int ROW_THREADS = 256;
+constexpr int MAP_WARPS = 8;                // warps a block (map, bound)
+constexpr int ROW_THREADS = 512;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr size_t SMEM_MAX = 232448;         // 227 KB, a block's opt-in limit
@@ -84,16 +105,27 @@ __host__ __device__ __forceinline__ int positions(int L, int k) {
     return L - k + 1 > 0 ? L - k + 1 : 0;
 }
 
-// Shared bytes of one sequence's scratch: hashes (P), codes (L), marks (P).
-__host__ __device__ __forceinline__ int seq_smem(int L, int k) {
-    const int P = positions(L, k);
-    return align16(4 * P) + align16(L) + align16(P);
+// 2-bit words of a packed row of L codes (16 a word) and its invalid-base
+// bitmask words (32 a word), each with zero words past the row for the
+// funnel shifts of the last positions.
+__host__ __device__ __forceinline__ int n_words(int L) { return L / 16 + 3; }
+__host__ __device__ __forceinline__ int n_bad(int L) { return L / 32 + 2; }
+
+// A warp's shared bytes in the map entry: two code buffers (the read
+// and the next one), the packed words and bitmask, the slot positions;
+// a multiple of 16, so each warp's buffers are 16-byte aligned.
+__host__ __device__ __forceinline__ int warp_smem(int L) {
+    return align16(2 * align16(L) + 4 * n_words(L) + 4 * n_bad(L) +
+                   4 * MAX_CAP);
 }
 
-// A warp's shared bytes in the map entry: the hit slots (start, edge,
-// position), then the sequence's scratch.
-__host__ __device__ __forceinline__ int warp_smem(int L, int k) {
-    return 16 * MAX_CAP + seq_smem(L, k);
+// The complete windows of a row of width L and length len: none when the
+// row is too narrow for a window at all (minimizer_mask's early return).
+__device__ __forceinline__ int n_windows(int L, int len, int k, int w) {
+    const int P = positions(L, k);
+    const long long w_len = (long long)len - k - w + 2;
+    return (L - k - w + 2 <= 0 || w_len <= 0)
+        ? 0 : (int)(w_len < P ? w_len : P);
 }
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -118,76 +150,118 @@ __device__ __forceinline__ uint32_t hash_key(uint32_t l0, uint32_t l1) {
     return fmix32(h);
 }
 
-struct Key {
-    uint32_t l0, l1;
-    bool clean;      // no code >= 4 in the window
+// Bit m of the low 16 bits to bit 2m.
+__device__ __forceinline__ uint32_t spread16(uint32_t x) {
+    x = (x | (x << 8)) & 0x00FF00FFu;
+    x = (x | (x << 4)) & 0x0F0F0F0Fu;
+    x = (x | (x << 2)) & 0x33333333u;
+    return (x | (x << 1)) & 0x55555555u;
+}
+
+// Pack a row of L codes (16-byte aligned, readable up to align16(L)) into
+// its 2-bit words and its invalid-base bitmask, by `size` threads of rank
+// `rank`, a thread a word of 16 codes.  Word j holds bases 16j..16j+15,
+// base 16j+i in bits 31-2i..30-2i (the limb layout of ops/limbs.py); a
+// code >= 4 packs as 0 and sets its bit of bad; codes past the row pack
+// as 0 and are not bad.  Four codes at a time: a byte compare marks the
+// codes >= 4, a byte permute and two shifts gather four 2-bit codes, a
+// multiply gathers four bad bits.  Then the zero words past the row.
+__device__ __forceinline__ void pack_row(const uint8_t* seq, int L,
+                                         uint32_t* words, uint32_t* bad,
+                                         int rank, int size) {
+    const int nw = (L + 15) / 16;
+    for (int j = rank; j < nw; j += size) {
+        const uint4 x = *reinterpret_cast<const uint4*>(seq + 16 * j);
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+        uint32_t word = 0, bits = 0;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            const uint32_t big = __vcmpgtu4(xs[t], 0x03030303u);
+            const uint32_t r = __byte_perm(xs[t] & ~big & 0x03030303u, 0,
+                                           0x0123);
+            const uint32_t u = r | (r >> 6);
+            word |= ((u & 0xFu) | ((u >> 12) & 0xF0u)) << (24 - 8 * t);
+            bits |= (((big & 0x01010101u) * 0x01020408u) >> 24) << (4 * t);
+        }
+        const int n_in = L - 16 * j;            // codes of the row here
+        if (n_in < 16) {
+            word &= INVALID << (32 - 2 * n_in);
+            bits &= (1u << n_in) - 1u;
+        }
+        words[j] = word;
+        reinterpret_cast<uint16_t*>(bad)[j] = (uint16_t)bits;
+    }
+    for (int j = nw + rank; j < n_words(L); j += size) words[j] = 0;
+    for (int j = nw + rank; j < 2 * n_bad(L); j += size)
+        reinterpret_cast<uint16_t*>(bad)[j] = 0;
+}
+
+struct Win {
+    uint32_t l0, l1;   // the k-mer's limbs (ops/limbs.py: base_shift)
+    bool clean;        // no code >= 4 in it
 };
 
-// The k-mer at position p of the codes in seq, 17 <= k <= 32.
-__device__ __forceinline__ Key pack_key(const uint8_t* seq, int p, int k) {
-    Key key{0u, 0u, true};
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-        const uint32_t c = seq[p + j];
-        key.clean = key.clean && c < 4;
-        key.l0 |= (c < 4 ? c : 0u) << (30 - 2 * j);
-    }
-    for (int j = 16; j < k; ++j) {
-        const uint32_t c = seq[p + j];
-        key.clean = key.clean && c < 4;
-        key.l1 |= (c < 4 ? c : 0u) << (62 - 2 * j);
-    }
-    return key;
+// The k-mer at position p of a packed row, 17 <= k <= 32: limb 0 holds
+// bases p..p+15, limb 1 bases p+16..p+k-1 in its top bits.
+__device__ __forceinline__ Win window_at(const uint32_t* words,
+                                         const uint32_t* bad, int p, int k) {
+    const int q = p >> 4, s = 2 * (p & 15);
+    const uint32_t w0 = words[q], w1 = words[q + 1], w2 = words[q + 2];
+    const uint32_t b = __funnelshift_r(bad[p >> 5], bad[(p >> 5) + 1], p & 31);
+    Win r;
+    r.l0 = __funnelshift_l(w1, w0, s);
+    r.l1 = __funnelshift_l(w2, w1, s) & (INVALID << (64 - 2 * k));
+    r.clean = (b & (k == 32 ? INVALID : (1u << k) - 1u)) == 0;
+    return r;
 }
 
-template <bool BLOCK>
-__device__ __forceinline__ void group_sync() {
-    if (BLOCK)
-        __syncthreads();
-    else
-        __syncwarp();
+// The window key (hash << 32) | p of position p and whether it is valid;
+// a window that is not valid, or past the row's P positions, keys as
+// hash 0xFFFFFFFF.
+__device__ __forceinline__ unsigned long long key_at(
+        const uint32_t* words, const uint32_t* bad, int p, int P, int len,
+        int k, bool* valid) {
+    uint32_t h = INVALID;
+    *valid = false;
+    if (p < P) {
+        const Win wd = window_at(words, bad, p, k);
+        *valid = wd.clean && p + k <= len;
+        if (*valid) h = hash_key(wd.l0, wd.l1);
+    }
+    return ((unsigned long long)h << 32) | (uint32_t)p;
 }
 
-// Mark the minimizers of one sequence (its L codes in shared seq, its
-// length len) by a group of `size` threads, this one of rank `rank`:
-// afterwards mark[p] == 3 exactly where minimizer_mask's is_mm holds.
-// km, when given, receives the (P, 2) key limbs.
-template <bool BLOCK>
-__device__ void mark_minimizers(const uint8_t* seq, int L, int len, int k,
-                                int w, uint32_t* h, uint8_t* mark, int rank,
-                                int size, long long* km) {
-    const int P = positions(L, k);
-    for (int p = rank; p < P; p += size) {
-        const Key key = pack_key(seq, p, k);
-        const bool valid = key.clean && p + k <= len;
-        h[p] = valid ? hash_key(key.l0, key.l1) : INVALID;
-        mark[p] = valid;
-        if (km) {
-            km[2 * p] = key.l0;
-            km[2 * p + 1] = key.l1;
-        }
+// The positions that windows 32c..32c+31 (lane i: window 32c + i, those
+// below n_win) elect as their leftmost minimum, w <= MAX_W: bit j of
+// `here` is position 32c + j, of `next` position 32c + 32 + j.  lo and hi
+// are this lane's keys of positions 32c + lane and 32c + 32 + lane.  A
+// sparse table over shuffles: after the loop a holds the minimum of the d
+// keys from this lane's position (d the largest power of two <= w), and
+// the window's is the least of two such spans.  The hi span is right for
+// the lanes the next step reads (below d), the only ones it reads.
+__device__ __forceinline__ void elect(unsigned long long lo,
+                                      unsigned long long hi, int c,
+                                      int n_win, int w, int lane,
+                                      uint32_t* here, uint32_t* next) {
+    unsigned long long a = lo, b = hi;
+    int d = 1;
+    for (; 2 * d <= w; d *= 2) {
+        const int src = (lane + d) & 31;
+        const unsigned long long xa = __shfl_sync(FULL, a, src);
+        const unsigned long long xb = __shfl_sync(FULL, b, src);
+        const unsigned long long va = lane + d < 32 ? xa : xb;
+        a = va < a ? va : a;
+        if (lane + d < 32) b = xb < b ? xb : b;
     }
-    group_sync<BLOCK>();
-    // the read's complete windows; none when the row is too narrow for a
-    // window at all (minimizer_mask's early return)
-    const long long w_len = (long long)len - k - w + 2;
-    const int n_win = (L - k - w + 2 <= 0 || w_len <= 0)
-        ? 0 : (int)(w_len < P ? w_len : P);
-    for (int i = rank; i < n_win; i += size) {
-        int best = i;
-        uint32_t bh = h[i];
-        for (int d = 1; d < w; ++d) {
-            const int j = i + d;
-            const uint32_t v = j < P ? h[j] : INVALID;
-            if (v < bh) {          // strict: the leftmost minimum stays
-                bh = v;
-                best = j;
-            }
-        }
-        // every writer stores the same 3 over a valid mark
-        if (best < P && mark[best]) mark[best] = 3;
-    }
-    group_sync<BLOCK>();
+    const int off = w - d;
+    const int src = (lane + off) & 31;
+    const unsigned long long xa = __shfl_sync(FULL, a, src);
+    const unsigned long long xb = __shfl_sync(FULL, b, src);
+    const unsigned long long va = lane + off < 32 ? xa : xb;
+    const unsigned long long m = va < a ? va : a;
+    const int at = 32 * c + lane < n_win ? (int)(uint32_t)m - 32 * c : -1;
+    *here = __reduce_or_sync(FULL, at >= 0 && at < 32 ? 1u << at : 0u);
+    *next = __reduce_or_sync(FULL, at >= 32 ? 1u << (at - 32) : 0u);
 }
 
 __device__ __forceinline__ uint32_t cuckoo_h(uint32_t q0, uint32_t q1,
@@ -199,48 +273,36 @@ __device__ __forceinline__ uint32_t cuckoo_h(uint32_t q0, uint32_t q1,
     return fmix32(x) & mask;
 }
 
-// The value row index of the key's first matching slot, b1's four before
-// b2's; -1 when it is in neither bucket.
-__device__ __forceinline__ long long probe(const long long* __restrict__ hkeys,
-                                           uint32_t mask, uint32_t salt,
-                                           uint32_t q0, uint32_t q1) {
+struct Record {
+    uint4 s[CUCKOO_CAP];   // (k0, k1, edge + 1 or 0, pos) a slot
+};
+
+__device__ __forceinline__ Record load_record(const uint4* table,
+                                              uint32_t bucket) {
+    const uint4* r = table + (size_t)bucket * CUCKOO_CAP;
+    Record rec;
 #pragma unroll
-    for (int which = 0; which < 2; ++which) {
-        const uint32_t b = cuckoo_h(q0, q1, salt, mask, which);
-        const longlong2* row =
-            reinterpret_cast<const longlong2*>(hkeys + (size_t)b * 2 * CUCKOO_CAP);
-#pragma unroll
-        for (int t = 0; t < CUCKOO_CAP; ++t) {
-            const longlong2 kv = __ldg(row + t);
-            if ((uint32_t)kv.x == q0 && (uint32_t)kv.y == q1)
-                return (long long)b * CUCKOO_CAP + t;
-        }
-    }
-    return -1;
+    for (int t = 0; t < CUCKOO_CAP; ++t) rec.s[t] = __ldg(r + t);
+    return rec;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-    return __reduce_add_sync(FULL, v);
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-    return __reduce_max_sync(FULL, v);
-}
-
-__device__ __forceinline__ long long warp_min(long long v) {
+// The first slot of rec holding (q0, q1): its (edge + 1 or 0, pos) in
+// *val and true; false when none does.
+__device__ __forceinline__ bool match(const Record& rec, uint32_t q0,
+                                      uint32_t q1, uint2* val) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        const long long u = __shfl_xor_sync(FULL, v, o);
-        v = u < v ? u : v;
-    }
-    return v;
+    for (int t = CUCKOO_CAP - 1; t >= 0; --t)
+        if (rec.s[t].x == q0 && rec.s[t].y == q1)
+            *val = make_uint2(rec.s[t].z, rec.s[t].w);
+#pragma unroll
+    for (int t = 0; t < CUCKOO_CAP; ++t)
+        if (rec.s[t].x == q0 && rec.s[t].y == q1) return true;
+    return false;
 }
 
 struct Pool {
-    const long long* pk;      // (nwords,) nibble-packed, sentinel words
-    long long nwords;
+    const uint8_t* codes;     // the graph's seq_data on the card
     const long long* off;     // (n_edges + 1,)
-    long long pad_nibbles;    // 8 * POOL_PAD_W
     int mt, mm;
 };
 
@@ -250,27 +312,46 @@ struct Pool {
 __device__ __forceinline__ void gapless(const Pool& pool, const uint8_t* q,
                                         int L, int len, long long edge,
                                         long long start, int lane,
-                                        long long* bound, bool* feas) {
+                                        int* bound, bool* feas) {
     const long long e = edge > 0 ? edge : 0;
     const long long off = pool.off[e];
     const long long elen = pool.off[e + 1] - off;
-    const long long last = 8 * pool.nwords - 1;
-    int nm = 0, non = 0;
-    for (int j = lane; j < L; j += 32) {
-        const long long tpos = start + j;
-        if (tpos >= 0 && tpos < elen && j < len) {
-            long long g = off + tpos + pool.pad_nibbles;
-            g = g < 0 ? 0 : (g > last ? last : g);
-            const uint32_t nib = (uint32_t)(
-                (unsigned long long)pool.pk[g >> 3] >> (4 * (g & 7))) & 0xFu;
-            ++non;
-            nm += (uint32_t)q[j] == nib;
-        }
-    }
-    nm = warp_sum(nm);
-    non = warp_sum(non);
-    *bound = (long long)nm * pool.mt + (long long)(non - nm) * pool.mm;
+    // the read's on-edge span [lo, hi) of positions j
+    const int lo = (int)(start < 0 ? (-start < L ? -start : L) : 0);
+    const long long tail = elen - start;
+    const int hi = min(len, (int)(tail < L ? (tail > 0 ? tail : 0) : L));
+    const uint8_t* t = pool.codes + off + start;
+    int nm = 0;
+    for (int j = lo + lane; j < hi; j += 32) nm += q[j] == __ldg(t + j);
+    nm = __reduce_add_sync(FULL, nm);
+    const int non = hi > lo ? hi - lo : 0;
+    *bound = nm * pool.mt + (non - nm) * pool.mm;
     *feas = non > 0 && edge >= 0;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+                 ::: "memory");
+}
+
+// Start bringing row b's L codes into buf: cp.async in 4-byte words
+// when every row is 4-byte aligned, else plain loads (done on return).
+__device__ __forceinline__ void fetch_row(uint8_t* buf, const uint8_t* rows,
+                                          long long b, int L, bool words4,
+                                          int lane) {
+    const uint8_t* src = rows + b * L;
+    if (words4) {
+        for (int i = 4 * lane; i < L; i += 128) cp_async4(buf + i, src + i);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    } else {
+        for (int i = lane; i < L; i += 32) buf[i] = src[i];
+    }
 }
 
 struct MapArgs {
@@ -278,123 +359,158 @@ struct MapArgs {
     const int* lengths;       // (B,)
     long long B;
     int L, k, w, cap;
-    const long long* hkeys;   // (NB, 8)
-    const long long* vals;    // (NB * 4, 2)
+    const uint4* table;       // (nb * 4,) slots: bucket records
     uint32_t mask, salt;
-    long long big;
+    int big;
     Pool pool;
-    const long long* thr;     // (B,), verified only
+    const int* thr;           // (B,), or null: thr_all for every read
+    int thr_all;
     int verified;
-    long long* best_edge;
-    long long* best_hits;
-    long long* est_start;
-    long long* bound;         // verified only
+    int* best_edge;
+    int* best_hits;
+    int* est_start;
+    int* bound;               // verified only
     uint8_t* fast;            // verified only
 };
+
+// The cuckoo probe of the minimizer at position p of a packed read: b1's
+// record, b2's only on a miss.  A singleton key sets its edge and signed
+// start (< 0 over the edge head); any other slot leaves them.
+__device__ __forceinline__ void probe(const MapArgs& a, const uint32_t* words,
+                                      const uint32_t* bad, int p, int* edge,
+                                      int* start) {
+    const Win wd = window_at(words, bad, p, a.k);
+    uint2 v;
+    bool found = match(load_record(a.table, cuckoo_h(wd.l0, wd.l1, a.salt,
+                                                     a.mask, 0)),
+                       wd.l0, wd.l1, &v);
+    if (!found)
+        found = match(load_record(a.table, cuckoo_h(wd.l0, wd.l1, a.salt,
+                                                     a.mask, 1)),
+                      wd.l0, wd.l1, &v);
+    if (found && v.x > 0) {            // a singleton: edge + 1
+        *edge = (int)(v.x - 1);
+        *start = (int)v.y - p;
+    }
+}
 
 __global__ void __launch_bounds__(32 * MAP_WARPS)
 map_kernel(MapArgs a, int warps) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int lane = threadIdx.x & 31;
-    const long long b = (long long)blockIdx.x * warps + (threadIdx.x >> 5);
+    const int L = a.L, k = a.k, w = a.w, P = positions(L, k);
+    unsigned char* base = smem + (size_t)(threadIdx.x >> 5) * warp_smem(L);
+    uint32_t* words = reinterpret_cast<uint32_t*>(base + 2 * align16(L));
+    uint32_t* bad = words + n_words(L);
+    int* s_pos = reinterpret_cast<int*>(bad + n_bad(L));
+    const long long stride = (long long)gridDim.x * warps;
+    const bool words4 = (L & 3) == 0 &&
+        (reinterpret_cast<uintptr_t>(a.bases) & 3) == 0;
+
+    long long b = (long long)blockIdx.x * warps + (threadIdx.x >> 5);
     if (b >= a.B) return;              // the whole warp: no block barrier
-    const int L = a.L, k = a.k, P = positions(L, k);
-    unsigned char* base = smem + (size_t)(threadIdx.x >> 5) * warp_smem(L, k);
-    long long* s_start = reinterpret_cast<long long*>(base);
-    int* s_edge = reinterpret_cast<int*>(base + 8 * MAX_CAP);
-    int* s_pos = reinterpret_cast<int*>(base + 12 * MAX_CAP);
-    uint32_t* h = reinterpret_cast<uint32_t*>(base + 16 * MAX_CAP);
-    uint8_t* seq = reinterpret_cast<uint8_t*>(h) + align16(4 * P);
-    uint8_t* mark = seq + align16(L);
-
-    const uint8_t* row = a.bases + b * L;
-    for (int i = lane; i < L; i += 32) seq[i] = row[i];
-    __syncwarp();
-    const int len = a.lengths[b];
-    mark_minimizers<false>(seq, L, len, k, a.w, h, mark, lane, 32, nullptr);
-
-    // the first cap marked positions, ascending
-    int n = 0;
-    for (int p0 = 0; p0 < P && n < a.cap; p0 += 32) {
-        const int p = p0 + lane;
-        const bool f = p < P && mark[p] == 3;
-        const unsigned bal = __ballot_sync(FULL, f);
-        const int r = n + __popc(bal & ((1u << lane) - 1u));
-        if (f && r < a.cap) s_pos[r] = p;
-        n += __popc(bal);
-    }
-    n = n < a.cap ? n : a.cap;
-    __syncwarp();
-
-    for (int s = lane; s < n; s += 32) {
-        const int p = s_pos[s];
-        const Key key = pack_key(seq, p, k);
-        const long long f = probe(a.hkeys, a.mask, a.salt, key.l0, key.l1);
-        int edge = SENT;
-        long long start = a.big;
-        if (f >= 0) {
-            const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(a.vals) + f);
-            if (v.x > 0) {            // a singleton: edge + 1
-                edge = (int)(v.x - 1);
-                start = v.y - p;      // signed: < 0 over the edge head
-            }
+    fetch_row(base, a.bases, b, L, words4, lane);
+    int len_next = a.lengths[b];
+    for (int it = 0; b < a.B; b += stride, ++it) {
+        if (words4) cp_async_wait();
+        __syncwarp();
+        const uint8_t* seq = base + (it & 1) * align16(L);
+        const int len = len_next;
+        if (b + stride < a.B) {        // the next read, while this one runs
+            fetch_row(base + ((it + 1) & 1) * align16(L), a.bases,
+                      b + stride, L, words4, lane);
+            len_next = a.lengths[b + stride];
         }
-        s_edge[s] = edge;
-        s_start[s] = start;
-    }
-    __syncwarp();
 
-    int cnt[2] = {0, 0}, ed[2] = {SENT, SENT};
-    long long mn[2] = {a.big, a.big};
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-        const int s = lane + 32 * u;
-        if (s < n && s_edge[s] != SENT) {
-            ed[u] = s_edge[s];
-            for (int t = 0; t < n; ++t) {
-                if (s_edge[t] == ed[u]) {
-                    ++cnt[u];
-                    mn[u] = s_start[t] < mn[u] ? s_start[t] : mn[u];
+        // pack, then mark and compact to the first cap marked positions
+        pack_row(seq, L, words, bad, lane, 32);
+        __syncwarp();
+        const int n_win = n_windows(L, len, k, w);
+        int n = 0;
+        if (n_win > 0) {
+            const int nchunk = min((P + 31) / 32, (n_win + 31) / 32 + 1);
+            bool v_lo, v_hi;
+            unsigned long long lo = key_at(words, bad, lane, P, len, k, &v_lo);
+            uint32_t carry = 0;
+            for (int c = 0; c < nchunk; ++c) {
+                const unsigned long long hi =
+                    key_at(words, bad, 32 * c + 32 + lane, P, len, k, &v_hi);
+                uint32_t here = 0, next = 0;
+                if (32 * c < n_win) {
+                    if (w == MM_W)         // the map's window, unrolled
+                        elect(lo, hi, c, n_win, MM_W, lane, &here, &next);
+                    else
+                        elect(lo, hi, c, n_win, w, lane, &here, &next);
                 }
+                const uint32_t mk = (carry | here) & __ballot_sync(FULL, v_lo);
+                carry = next;
+                const int r = n + __popc(mk & ((1u << lane) - 1u));
+                if ((mk >> lane & 1u) && r < a.cap) s_pos[r] = 32 * c + lane;
+                n += __popc(mk);
+                lo = hi;
+                v_lo = v_hi;
+            }
+            n = n < a.cap ? n : a.cap;
+        }
+        __syncwarp();
+
+        // probe: a lane a slot; the second set only when n > 32
+        int edge[2] = {SENT, SENT}, start[2] = {a.big, a.big};
+        if (lane < n) probe(a, words, bad, s_pos[lane], &edge[0], &start[0]);
+        if (n > 32 && lane + 32 < n)
+            probe(a, words, bad, s_pos[lane + 32], &edge[1], &start[1]);
+
+        // vote: each slot's count of its edge among the read's hits
+        int cnt[2];
+        cnt[0] = __popc(__match_any_sync(FULL, edge[0]));
+        cnt[1] = 0;
+        if (n > 32) {
+            cnt[1] = __popc(__match_any_sync(FULL, edge[1]));
+            for (int j = 0; j < n - 32; ++j) {     // across the two sets
+                const int ej = __shfl_sync(FULL, edge[1], j);
+                cnt[0] += ej == edge[0];
+                const int c0 = __popc(__ballot_sync(FULL, edge[0] == ej));
+                if (lane == j) cnt[1] += c0;
             }
         }
-    }
-    const int best = warp_max(cnt[0] > cnt[1] ? cnt[0] : cnt[1]);
-    const int tot = warp_sum((ed[0] != SENT) + (ed[1] != SENT));
-    // each edge at the best count holds `best` slots
-    const int n_best = best > 0
-        ? warp_sum((cnt[0] == best) + (cnt[1] == best)) / best : 0;
-    int pick_edge = -1;
-    long long pick_start = a.big;
-    if (n_best == 1) {
-        int e = -1;
-        long long s = a.big;
 #pragma unroll
         for (int u = 0; u < 2; ++u)
-            if (cnt[u] == best) {
-                e = ed[u];
-                s = mn[u];
-            }
-        pick_edge = warp_max(e);
-        pick_start = warp_min(s);
-    }
-    // confidence gate (RATIO_OF_CONFIDENT=0.85, MIN_NUMBER_SINGLETON=2)
-    const bool conf = 100LL * best >= 85LL * tot || tot <= 2;
-    const long long be = conf ? pick_edge : -1;
-    const long long bs = be >= 0 ? pick_start : -1;
-    if (lane == 0) {
-        a.best_edge[b] = be;
-        a.best_hits[b] = best;
-        a.est_start[b] = bs;
-    }
-    if (a.verified) {
-        long long bound;
-        bool feas;
-        gapless(a.pool, seq, L, len, be, bs, lane, &bound, &feas);
-        if (lane == 0) {
-            a.bound[b] = bound;
-            a.fast[b] = feas && bound >= a.thr[b];
+            if (edge[u] == SENT) cnt[u] = 0;
+        const int best = __reduce_max_sync(FULL, max(cnt[0], cnt[1]));
+        const int tot = __reduce_add_sync(FULL, (edge[0] != SENT) +
+                                                (edge[1] != SENT));
+        // each edge at the best count holds `best` slots
+        const int n_best = best > 0
+            ? __reduce_add_sync(FULL, (cnt[0] == best) + (cnt[1] == best)) /
+              best
+            : 0;
+        int pick_edge = -1, pick_start = a.big;
+        if (n_best == 1) {
+            pick_edge = __reduce_max_sync(FULL, max(
+                cnt[0] == best ? edge[0] : -1, cnt[1] == best ? edge[1] : -1));
+            pick_start = __reduce_min_sync(FULL, min(
+                edge[0] == pick_edge ? start[0] : a.big,
+                edge[1] == pick_edge ? start[1] : a.big));
         }
+        // confidence gate (RATIO_OF_CONFIDENT=0.85, MIN_NUMBER_SINGLETON=2)
+        const bool conf = 100 * best >= 85 * tot || tot <= 2;
+        const int be = conf ? pick_edge : -1;
+        const int bs = be >= 0 ? pick_start : -1;
+        if (lane == 0) {
+            a.best_edge[b] = be;
+            a.best_hits[b] = best;
+            a.est_start[b] = bs;
+        }
+        if (a.verified) {
+            int bound;
+            bool feas;
+            gapless(a.pool, seq, L, len, be, bs, lane, &bound, &feas);
+            if (lane == 0) {
+                a.bound[b] = bound;
+                a.fast[b] = feas && bound >= (a.thr ? a.thr[b] : a.thr_all);
+            }
+        }
+        __syncwarp();                  // seq is refilled two reads on
     }
 }
 
@@ -406,7 +522,7 @@ bound_kernel(const uint8_t* __restrict__ bases, const int* __restrict__ lengths,
     const int lane = threadIdx.x & 31;
     const long long b = (long long)blockIdx.x * MAP_WARPS + (threadIdx.x >> 5);
     if (b >= N) return;
-    long long bd;
+    int bd;
     bool fs;
     gapless(pool, bases + b * L, L, lengths[b], edges[b], starts[b], lane,
             &bd, &fs);
@@ -416,26 +532,165 @@ bound_kernel(const uint8_t* __restrict__ bases, const int* __restrict__ lengths,
     }
 }
 
-__global__ void __launch_bounds__(ROW_THREADS)
-rows_kernel(const uint8_t* __restrict__ bases, const int* __restrict__ lengths,
-            int L, int k, int w, long long* km, uint8_t* is_mm) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const long long b = blockIdx.x;
-    const int P = positions(L, k);
-    uint32_t* h = reinterpret_cast<uint32_t*>(smem);
-    uint8_t* seq = smem + align16(4 * P);
-    uint8_t* mark = seq + align16(L);
-    const uint8_t* row = bases + b * L;
+// The rows entry's shared memory: the row's codes, its packed words and
+// bitmask, its window keys, and (marks pass) the marks and valid
+// positions of its chunks.
+__host__ __device__ __forceinline__ int row_chunks(int L, int k) {
+    return (positions(L, k) + 31) / 32;
+}
+
+__host__ __device__ __forceinline__ size_t row_smem(int L, int k,
+                                                   bool marks) {
+    const size_t packed = align16(L) + 4 * (size_t)(n_words(L) + n_bad(L));
+    return marks ? align16((int)packed) + 8 * (size_t)positions(L, k) +
+                   4 * (size_t)(2 * row_chunks(L, k) + 1)
+                 : packed;
+}
+
+// A block stages row b's L codes in shared memory and packs them.
+__device__ __forceinline__ void stage_row(const uint8_t* row, int L,
+                                          uint8_t* seq, uint32_t* words,
+                                          uint32_t* bad) {
     for (int i = threadIdx.x; i < L; i += blockDim.x) seq[i] = row[i];
     __syncthreads();
-    mark_minimizers<true>(seq, L, lengths[b], k, w, h, mark, threadIdx.x,
-                          blockDim.x, km + b * P * 2);
-    for (int p = threadIdx.x; p < P; p += blockDim.x)
-        is_mm[b * P + p] = mark[p] == 3;
+    pack_row(seq, L, words, bad, threadIdx.x, blockDim.x);
+    __syncthreads();
+}
+
+// Marks pass: a block a row.  Each window position's key once into
+// shared memory, then a warp a chunk of 32 windows elects; writes the
+// row's mark bitmask (row_chunks words) and its count of marks.
+__global__ void __launch_bounds__(ROW_THREADS, 2)
+rows_mark_kernel(const uint8_t* __restrict__ bases,
+                 const int* __restrict__ lengths, int L, int k, int w,
+                 uint32_t* marks, int* counts) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const long long b = blockIdx.x;
+    const int P = positions(L, k), nch = row_chunks(L, k);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    uint8_t* seq = smem;
+    uint32_t* words = reinterpret_cast<uint32_t*>(smem + align16(L));
+    uint32_t* bad = words + n_words(L);
+    unsigned long long* keys = reinterpret_cast<unsigned long long*>(
+        smem + align16((int)row_smem(L, k, false)));
+    uint32_t* mk = reinterpret_cast<uint32_t*>(keys + P);   // nch + 1
+    uint32_t* valid = mk + nch + 1;                          // nch
+    __shared__ int total;
+    for (int j = threadIdx.x; j <= nch; j += blockDim.x) mk[j] = 0;
+    if (threadIdx.x == 0) total = 0;
+    stage_row(bases + b * L, L, seq, words, bad);
+    const int len = lengths[b];
+    const int n_win = n_windows(L, len, k, w);
+    for (int c = warp; c < nch; c += nwarps) {
+        bool v;
+        const int p = 32 * c + lane;
+        const unsigned long long key = key_at(words, bad, p, P, len, k, &v);
+        if (p < P) keys[p] = key;
+        const uint32_t vm = __ballot_sync(FULL, v);
+        if (lane == 0) valid[c] = vm;
+    }
+    __syncthreads();
+    for (int c = warp; 32 * c < n_win; c += nwarps) {
+        const int p = 32 * c + lane;
+        const unsigned long long inv = (unsigned long long)INVALID << 32;
+        const unsigned long long lo = p < P ? keys[p] : inv | (uint32_t)p;
+        const unsigned long long hi =
+            p + 32 < P ? keys[p + 32] : inv | (uint32_t)(p + 32);
+        uint32_t here, next;
+        if (w == MM_W)
+            elect(lo, hi, c, n_win, MM_W, lane, &here, &next);
+        else
+            elect(lo, hi, c, n_win, w, lane, &here, &next);
+        if (lane == 0) {
+            atomicOr(mk + c, here);
+            atomicOr(mk + c + 1, next);
+        }
+    }
+    __syncthreads();
+    int cnt = 0;
+    for (int j = threadIdx.x; j < nch; j += blockDim.x) {
+        const uint32_t m = mk[j] & valid[j];
+        marks[b * nch + j] = m;
+        cnt += __popc(m);
+    }
+    cnt = __reduce_add_sync(FULL, cnt);
+    if (lane == 0) atomicAdd(&total, cnt);
+    __syncthreads();
+    if (threadIdx.x == 0) counts[b] = total;
+}
+
+// The exclusive block-wide prefix sum of one int a thread (blockDim.x a
+// multiple of 32, at most 1024); *sum receives the block's total.
+__device__ __forceinline__ int block_scan(int v, int* scratch, int* sum) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, x, o);
+        if (lane >= o) x += y;
+    }
+    if (lane == 31) scratch[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+        int t = lane < nwarps ? scratch[lane] : 0;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(FULL, t, o);
+            if (lane >= o) t += y;
+        }
+        if (lane < nwarps) scratch[lane] = t;
+    }
+    __syncthreads();
+    const int before = (warp > 0 ? scratch[warp - 1] : 0) + x - v;
+    *sum = scratch[nwarps - 1];
+    __syncthreads();
+    return before;
+}
+
+// Write pass: a block a row; the row's offset is the marks of the rows
+// before it, each mark's rank within the row comes from the bitmask, and
+// a mark's row is (l0, l1, segment row, position) as int64.
+__global__ void __launch_bounds__(ROW_THREADS, 2)
+rows_write_kernel(const uint8_t* __restrict__ bases, int L, int k,
+                  long long B, const uint32_t* __restrict__ marks,
+                  const int* __restrict__ counts, longlong2* out,
+                  int* n_out) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int scratch[32];
+    const long long b = blockIdx.x;
+    const int nch = row_chunks(L, k);
+    uint8_t* seq = smem;
+    uint32_t* words = reinterpret_cast<uint32_t*>(smem + align16(L));
+    uint32_t* bad = words + n_words(L);
+    int part = 0, sum;
+    for (long long r = threadIdx.x; r < b; r += blockDim.x) part += counts[r];
+    block_scan(part, scratch, &sum);
+    long long at = sum;                       // marks of the rows before
+    stage_row(bases + b * L, L, seq, words, bad);
+    for (int j0 = 0; j0 < nch; j0 += blockDim.x) {
+        const int j = j0 + threadIdx.x;
+        uint32_t m = j < nch ? marks[b * nch + j] : 0u;
+        int tile;
+        const int rank = block_scan(__popc(m), scratch, &tile);
+        long long o = at + rank;
+        while (m) {
+            const int i = __ffs(m) - 1;
+            m &= m - 1;
+            const int p = 32 * j + i;
+            const Win wd = window_at(words, bad, p, k);
+            out[2 * o] = make_longlong2(wd.l0, wd.l1);
+            out[2 * o + 1] = make_longlong2(b, p);
+            ++o;
+        }
+        at += tile;
+    }
+    if (b == B - 1 && threadIdx.x == 0) *n_out = (int)at;
 }
 
 bool bad_shape(long long B, int L, int k, int w) {
-    return B < 0 || L < 0 || k < 17 || k > 32 || w < 1;
+    return B < 0 || L < 0 || k < 17 || k > 32 || w < 1 || w > MAX_W;
 }
 
 // Opt a kernel in to smem bytes of dynamic shared memory where it needs
@@ -451,34 +706,42 @@ int fit_smem(F kernel, size_t smem) {
 }  // namespace
 
 // The map entry: reads (B, L) uint8 codes and (B,) int32 lengths, the
-// cuckoo tables (nb, 8) and (nb * 4, 2) int64 with their salt, 17 <= k
-// <= 32, w >= 1, cap <= 64 slots a read (L - k + 1 >= cap); verified:
-// the nibble-packed pool (nwords,) and seq_off int64, the thresholds (B,)
-// int64, the scores.  Writes best_edge, best_hits, est_start (B,) int64
-// and, verified, bound (B,) int64 and fast (B,) bool.  nb is a power of
-// two.
+// bucket records (nb, 16) uint32 (64-byte aligned) with their salt, 17 <=
+// k <= 32, 1 <= w <= 32, cap <= 64 slots a read (L - k + 1 >= cap);
+// verified: the pool's uint8 codes and seq_off int64, the thresholds (B,)
+// int32 or null for thr_all, the scores.  Writes best_edge, best_hits,
+// est_start (B,) int32 and, verified, bound (B,) int32 and fast (B,)
+// bool.  nb is a power of two.
 extern "C" int mm_map_batch_launch(
         const void* bases, const void* lengths, long long B, int L, int k,
-        int w, const void* hkeys, long long nb, const void* vals,
-        long long salt, int cap, long long big, int verified,
-        const void* seq_pk, long long nwords, const void* seq_off,
-        long long pad_nibbles, const void* thr, int mt, int mm,
-        void* best_edge, void* best_hits, void* est_start, void* bound,
-        void* fast, void* stream) {
+        int w, const void* table, long long nb, long long salt, int cap,
+        int big, int verified, const void* codes, const void* seq_off,
+        const void* thr, int thr_all, int mt, int mm, void* best_edge,
+        void* best_hits, void* est_start, void* bound, void* fast,
+        void* stream) {
     if (bad_shape(B, L, k, w) || cap < 1 || cap > MAX_CAP ||
             positions(L, k) < cap || nb < 1 || (nb & (nb - 1)) ||
             nb > (1LL << 32))
         return (int)cudaErrorInvalidValue;
     if (B == 0) return 0;
-    const size_t per = (size_t)warp_smem(L, k);
+    const size_t per = (size_t)warp_smem(L);
     int warps = (int)(SMEM_MAX / per);
     if (warps < 1) return (int)cudaErrorInvalidValue;
     if (warps > MAP_WARPS) warps = MAP_WARPS;
     const size_t smem = per * warps;
     int rc = fit_smem(map_kernel, smem);
     if (rc) return rc;
-    const long long blocks = (B + warps - 1) / warps;
-    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    int dev, sms, per_sm;
+    if ((rc = (int)cudaGetDevice(&dev)) ||
+            (rc = (int)cudaDeviceGetAttribute(
+                 &sms, cudaDevAttrMultiProcessorCount, dev)) ||
+            (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, map_kernel, 32 * warps, smem)))
+        return rc;
+    // persistent blocks: as many as are resident at once, or fewer
+    long long blocks = (B + warps - 1) / warps;
+    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    if (blocks > resident) blocks = resident;
     MapArgs a;
     a.bases = static_cast<const uint8_t*>(bases);
     a.lengths = static_cast<const int*>(lengths);
@@ -487,19 +750,19 @@ extern "C" int mm_map_batch_launch(
     a.k = k;
     a.w = w;
     a.cap = cap;
-    a.hkeys = static_cast<const long long*>(hkeys);
-    a.vals = static_cast<const long long*>(vals);
+    a.table = static_cast<const uint4*>(table);
     a.mask = (uint32_t)(nb - 1);
     a.salt = (uint32_t)salt;
     a.big = big;
-    a.pool = Pool{static_cast<const long long*>(seq_pk), nwords,
-                  static_cast<const long long*>(seq_off), pad_nibbles, mt, mm};
-    a.thr = static_cast<const long long*>(thr);
+    a.pool = Pool{static_cast<const uint8_t*>(codes),
+                  static_cast<const long long*>(seq_off), mt, mm};
+    a.thr = static_cast<const int*>(thr);
+    a.thr_all = thr_all;
     a.verified = verified;
-    a.best_edge = static_cast<long long*>(best_edge);
-    a.best_hits = static_cast<long long*>(best_hits);
-    a.est_start = static_cast<long long*>(est_start);
-    a.bound = static_cast<long long*>(bound);
+    a.best_edge = static_cast<int*>(best_edge);
+    a.best_hits = static_cast<int*>(best_hits);
+    a.est_start = static_cast<int*>(est_start);
+    a.bound = static_cast<int*>(bound);
     a.fast = static_cast<uint8_t*>(fast);
     map_kernel<<<(unsigned)blocks, 32 * warps, smem,
                  static_cast<cudaStream_t>(stream)>>>(a, warps);
@@ -507,13 +770,13 @@ extern "C" int mm_map_batch_launch(
 }
 
 // The bound entry: queries (N, L) uint8 codes and (N,) int32 lengths at
-// edges and signed starts (N,) int64, the pool as above.  Writes bound (N,)
-// int64 and feas (N,) bool.
+// edges and signed starts (N,) int64, the pool as above.  Writes bound
+// (N,) int64 and feas (N,) bool.
 extern "C" int mm_gapless_bound_launch(
         const void* bases, const void* lengths, const void* edges,
-        const void* starts, long long N, int L, const void* seq_pk,
-        long long nwords, const void* seq_off, long long pad_nibbles, int mt,
-        int mm, void* bound, void* feas, void* stream) {
+        const void* starts, long long N, int L, const void* codes,
+        const void* seq_off, int mt, int mm, void* bound, void* feas,
+        void* stream) {
     if (N < 0 || L < 0) return (int)cudaErrorInvalidValue;
     if (N == 0) return 0;
     const long long blocks = (N + MAP_WARPS - 1) / MAP_WARPS;
@@ -523,28 +786,36 @@ extern "C" int mm_gapless_bound_launch(
         static_cast<const uint8_t*>(bases), static_cast<const int*>(lengths),
         static_cast<const long long*>(edges),
         static_cast<const long long*>(starts), N, L,
-        Pool{static_cast<const long long*>(seq_pk), nwords,
-             static_cast<const long long*>(seq_off), pad_nibbles, mt, mm},
+        Pool{static_cast<const uint8_t*>(codes),
+             static_cast<const long long*>(seq_off), mt, mm},
         static_cast<long long*>(bound), static_cast<uint8_t*>(feas));
     return (int)cudaGetLastError();
 }
 
 // The rows entry: segment rows (B, L) uint8 codes and (B,) int32 lengths,
-// L >= k.  Writes the key limbs km (B, L - k + 1, 2) int64 and is_mm
-// (B, L - k + 1) bool.
+// L >= k.  Scratch: marks (B, ceil((L - k + 1) / 32)) and counts (B,)
+// int32.  Writes the rows of the marked positions, ascending by (row,
+// position), as (n, 4) uint32 (l0, l1, row, position) into out (room for
+// B * (L - k + 1), 16-byte aligned) and n into n_out; B >= 1.
 extern "C" int mm_minimizer_rows_launch(const void* bases,
                                         const void* lengths, long long B,
-                                        int L, int k, int w, void* km,
-                                        void* is_mm, void* stream) {
-    if (bad_shape(B, L, k, w) || L < k || B > 0x7FFFFFFFLL)
+                                        int L, int k, int w, void* marks,
+                                        void* counts, void* out, void* n_out,
+                                        void* stream) {
+    if (bad_shape(B, L, k, w) || L < k || B < 1 || B > 0x7FFFFFFFLL)
         return (int)cudaErrorInvalidValue;
-    if (B == 0) return 0;
-    const size_t smem = (size_t)seq_smem(L, k);
-    const int rc = fit_smem(rows_kernel, smem);
-    if (rc) return rc;
-    rows_kernel<<<(unsigned)B, ROW_THREADS, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+    const size_t smem_mark = row_smem(L, k, true);
+    const size_t smem_write = row_smem(L, k, false);
+    int rc = fit_smem(rows_mark_kernel, smem_mark);
+    if (rc || (rc = fit_smem(rows_write_kernel, smem_write))) return rc;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    rows_mark_kernel<<<(unsigned)B, ROW_THREADS, smem_mark, s>>>(
         static_cast<const uint8_t*>(bases), static_cast<const int*>(lengths),
-        L, k, w, static_cast<long long*>(km), static_cast<uint8_t*>(is_mm));
+        L, k, w, static_cast<uint32_t*>(marks), static_cast<int*>(counts));
+    if ((rc = (int)cudaGetLastError())) return rc;
+    rows_write_kernel<<<(unsigned)B, ROW_THREADS, smem_write, s>>>(
+        static_cast<const uint8_t*>(bases), L, k, B,
+        static_cast<const uint32_t*>(marks), static_cast<const int*>(counts),
+        static_cast<longlong2*>(out), static_cast<int*>(n_out));
     return (int)cudaGetLastError();
 }

@@ -24,6 +24,8 @@ device with the same mixer, bit for bit.
 
 from __future__ import annotations
 
+import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -190,10 +192,10 @@ def _cuckoo_probe(hkeys: torch.Tensor, vals: torch.Tensor, salt: int,
 
 def _compact_minimizer_rows(mat: torch.Tensor, elen: torch.Tensor,
                             k: int, w: int) -> torch.Tensor:
-    """The minimizer marks (the mm_map kernel's rows entry on a card) +
-    ascending compaction of the marked positions: (n, NL + 2) int64 rows
-    of key limbs, segment row, in-segment position."""
-    km, is_mm = mm_map.minimizer_rows(mat, elen, k, w)
+    """minimizer_mask + ascending compaction of the marked positions:
+    (n, NL + 2) int64 rows of key limbs, segment row, in-segment position
+    (the plain version of the mm_map kernel's rows entry)."""
+    km, _h, is_mm = minimizer_mask(mat, elen, k, w)
     B, P, nl = km.shape
     flat = torch.nonzero(is_mm.reshape(-1)).squeeze(1)
     return torch.cat([km.reshape(-1, nl)[flat], (flat // P)[:, None],
@@ -220,12 +222,19 @@ class EdgeMinimizerIndex:
         return self._hash
 
     def device_tables(self, device: str | torch.device = "cuda"):
-        """(hkeys, vals, salt) with the tables on `device`, cached."""
+        """(hkeys, vals, salt) on `device` in the layout its map takes,
+        made once a device: the plain version's int64 tables on the CPU;
+        on a card the kernel's bucket records (mm_map.bucket_records) and
+        vals None."""
         dev = resolve_device(device)
         if str(dev) not in self._dev:
             hkeys, vals, salt = self.hash_tables()
-            self._dev[str(dev)] = (torch.as_tensor(hkeys).to(dev),
-                                   torch.as_tensor(vals).to(dev), salt)
+            if dev.type == "cuda":
+                self._dev[str(dev)] = (torch.as_tensor(
+                    mm_map.bucket_records(hkeys, vals)).to(dev), None, salt)
+            else:
+                self._dev[str(dev)] = (torch.as_tensor(hkeys),
+                                       torch.as_tensor(vals), salt)
         return self._dev[str(dev)]
 
     SEG = 4096     # content window positions per device row
@@ -269,7 +278,7 @@ class EdgeMinimizerIndex:
         dev = resolve_device(device)
         all_rows = []
         for ce, cs, mat, elen in cls.segment_batches(g, k, w):
-            packed = _compact_minimizer_rows(
+            packed = mm_map.minimizer_rows(
                 torch.as_tensor(mat).to(dev), torch.as_tensor(elen).to(dev),
                 k, w).cpu().numpy()
             if len(packed):
@@ -380,11 +389,50 @@ def _pack_pool_nibbles(seq_data: np.ndarray) -> np.ndarray:
     return np.concatenate([pad, words, pad])
 
 
+_POOL_CACHE: dict = {}   # (ids, device) -> (weakrefs, (pool, seq_off))
+_POOL_LOCK = threading.Lock()
+POOL_STATS = {"builds": 0}   # device pools made (a cache miss each)
+
+
 def _device_pool(seq_data: np.ndarray, seq_off: np.ndarray,
                  device: torch.device):
-    """(nibble-packed pool, seq_off) on `device`."""
-    return (torch.as_tensor(_pack_pool_nibbles(seq_data)).to(device),
-            torch.as_tensor(np.asarray(seq_off, np.int64)).to(device))
+    """(pool, seq_off) of a graph on `device` in the layout its map
+    takes: the nibble-packed int64 words of _pack_pool_nibbles on the
+    CPU, the uint8 codes themselves on a card (also the remainder DP's
+    copy).  Cached per (seq_data, seq_off) array identity, as the JAX
+    package's _device_pool caches its packed pool: the graph modules
+    replace seq_data and never edit it in place.  The bridge maps from
+    worker threads, so the cache takes a lock; it is cleared past 8
+    entries."""
+    key = (id(seq_data), id(seq_off), str(device))
+    with _POOL_LOCK:
+        hit = _POOL_CACHE.get(key)
+        if hit is not None and hit[0][0]() is seq_data \
+                and hit[0][1]() is seq_off:
+            return hit[1]
+        if device.type == "cuda":
+            # on-edge codes (< 16) equal the plain version's nibbles, so
+            # the kernel's bound reads the codes themselves
+            if len(seq_data) and int(seq_data.max()) >= 16:
+                raise ValueError("seq_data holds codes >= 16, which the "
+                                 "nibble-packed pool cannot hold")
+            pool = torch.as_tensor(np.ascontiguousarray(seq_data,
+                                                        np.uint8)).to(device)
+        else:
+            pool = torch.as_tensor(_pack_pool_nibbles(seq_data))
+        dev = (pool, torch.as_tensor(np.asarray(seq_off, np.int64)).to(device))
+        if len(_POOL_CACHE) >= 8:
+            _POOL_CACHE.clear()
+        _POOL_CACHE[key] = ((weakref.ref(seq_data), weakref.ref(seq_off)),
+                            dev)
+        POOL_STATS["builds"] += 1
+        return dev
+
+
+def _dp_codes(pool: torch.Tensor, seq_data: np.ndarray):
+    """The codes the remainder DP reads: on a card the pool is the codes'
+    device copy; on the CPU the host array."""
+    return pool if pool.device.type == "cuda" else seq_data
 
 
 def _on_device(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -476,8 +524,9 @@ def rescore_hits(seq_data: np.ndarray, seq_off: np.ndarray,
     accept[fast] = True
     rest = np.flatnonzero(mapped & ~fast)
     if len(rest):
-        sc = _dp_verify_rest(seq_data, sod, edges_d, starts_d, bases_d,
-                             lens_d, rest, scoring, pad, device=dev)
+        sc = _dp_verify_rest(_dp_codes(sd, seq_data), sod, edges_d,
+                             starts_d, bases_d, lens_d, rest, scoring, pad,
+                             device=dev)
         scores[rest] = sc
         accept[rest] = sc >= thr_all[rest]
     return accept, scores
@@ -554,44 +603,48 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
         return edges, hits, starts
     if min_score is None:
         min_score = dp.MIN_MAP_SCORE
-    thr_all = np.broadcast_to(np.asarray(min_score, np.int64), (N,))
     hkeys, vals, salt = index.device_tables(dev)
     if shipped is None:
         shipped = (_on_device(bases, torch.uint8, dev),
                    _on_device(lengths, torch.int32, dev))
     bases_d, lens_d = shipped[0][:N], shipped[1][:N]
     verified = graph is not None
+    # the kernel writes each batch straight into the (N,) arrays
+    out = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(3)]
     if verified:
         sd, sod = _device_pool(graph.seq_data, graph.seq_off, dev)
         mt, mm = int(dp.SCORING_BWA[0]), int(dp.SCORING_BWA[1])
-        thr_d = torch.as_tensor(np.array(thr_all)).to(dev)
-    outs = []
+        thr_h = np.asarray(min_score, np.int64)
+        thr = int(thr_h) if thr_h.ndim == 0 else torch.as_tensor(
+            np.broadcast_to(thr_h, (N,)).astype(np.int32)).to(dev)
+        out += [torch.empty(N, dtype=torch.int32, device=dev),
+                torch.empty(N, dtype=torch.bool, device=dev)]
     for i in range(0, N, batch_size):
-        rb, lb_ = bases_d[i:i + batch_size], lens_d[i:i + batch_size]
+        sl = slice(i, i + batch_size)
         if verified:
-            out = mm_map.map_batch(rb, lb_, hkeys, vals, salt, index.k,
-                                   index.w, sd, sod,
-                                   thr_d[i:i + batch_size], mt, mm)
-            outs.append((out[0], out[1], out[2], out[4]))
+            mm_map.map_batch(bases_d[sl], lens_d[sl], hkeys, vals, salt,
+                             index.k, index.w, sd, sod,
+                             thr if isinstance(thr, int) else thr[sl], mt,
+                             mm, out=[o[sl] for o in out])
         else:
-            outs.append(mm_map.map_batch(rb, lb_, hkeys, vals, salt,
-                                         index.k, index.w))
-    edges_d = torch.cat([o[0] for o in outs])
-    starts_d = torch.cat([o[2] for o in outs])
-    edges = edges_d.to(torch.int32).cpu().numpy()
-    if with_hits:
-        hits = torch.cat([o[1] for o in outs]).to(torch.int32).cpu().numpy()
-    starts = starts_d.to(torch.int32).cpu().numpy()
+            mm_map.map_batch(bases_d[sl], lens_d[sl], hkeys, vals, salt,
+                             index.k, index.w, out=[o[sl] for o in out])
+    edges_d, hits_d, starts_d = out[:3]
     if verified:
-        fast = torch.cat([o[3] for o in outs]).cpu().numpy()
-        accept = fast & (edges >= 0)
-        rest = np.flatnonzero((edges >= 0) & ~fast)
+        # fast lanes are accepted; the rest of the mapped lanes go to the
+        # DP; the accept and the clamp below stay on the device
+        accept_d = out[4]
+        rest = torch.nonzero((edges_d >= 0) & ~accept_d).squeeze(1)
         if len(rest):
-            sc = _dp_verify_rest(graph.seq_data, sod, edges_d, starts_d,
-                                 bases_d, lens_d, rest, dp.SCORING_BWA,
-                                 device=dev)
-            accept[rest] = sc >= thr_all[rest]
-        edges = np.where(accept, edges, -1)
+            sc = _dp_verify_rest(_dp_codes(sd, graph.seq_data), sod, edges_d,
+                                 starts_d, bases_d, lens_d, rest,
+                                 dp.SCORING_BWA, device=dev)
+            thr_rest = thr if isinstance(thr, int) else \
+                thr[rest].cpu().numpy()
+            accept_d[rest] = torch.as_tensor(sc >= thr_rest).to(dev)
+        edges_d = torch.where(accept_d, edges_d, -1)
     # public starts are BWA-pos style: clamped >= 0 on mapped lanes
-    starts = np.where(edges >= 0, np.maximum(starts, 0), -1).astype(np.int32)
-    return edges.astype(np.int32), hits, starts
+    starts_d = torch.where(edges_d >= 0, torch.clamp(starts_d, min=0), -1)
+    if with_hits:
+        hits = hits_d.cpu().numpy()
+    return edges_d.cpu().numpy(), hits, starts_d.cpu().numpy()

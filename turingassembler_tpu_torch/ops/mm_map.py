@@ -5,22 +5,32 @@ Replaces the jitted JAX device program of the minimizer mapper
 read->edge vote of a batch, minimizer_mask + compaction to MM_CAP slots +
 _cuckoo_probe + _vote_core, with the gapless bound _gapless_bound_dev
 when verified (`_map_batch_verified`, `_map_batch`); the gapless bound
-alone (the bridge's rescore_hits); and minimizer_mask of the index
-build's segment rows (`_compact_minimizer_rows`).  Three entries of one
-source, one launch a call:
-  - map_batch: a warp a read; returns the plain version's (best_edge,
-    best_hits, est_start[, bound, fast]), int64 and bool;
+alone (the bridge's rescore_hits); and the index build's minimizer rows,
+marked and compacted (`_compact_minimizer_rows`).  Three entries of one
+source, one entry a call:
+  - map_batch: a warp a read; returns (best_edge, best_hits,
+    est_start[, bound, fast]);
   - gapless_bound: a warp a query; (bound, feas);
-  - minimizer_rows: a block a segment row; (key limbs (B, P, 2) int64,
-    is_mm (B, P) bool).
+  - minimizer_rows: a block a segment row, a marks pass and a write
+    pass; the (n, 4) rows of the marked positions, ascending.
 csrc/mm_map.cu says how each computes the plain version's integers
 without its row sorts.
 
+The kernel and the plain versions take the tables and the pool in their
+own layouts, which EdgeMinimizerIndex.device_tables and
+minimizers._device_pool give for each device:
+  - tables: the plain version's int64 hkeys (NB, 8) and vals (NB*4, 2);
+    the kernel's bucket records (NB, 16) int32 (bucket_records), vals
+    None;
+  - pool: the plain version's nibble-packed int64 words; the kernel's
+    uint8 codes (the graph's seq_data).
 The plain versions are the tensor functions of mapper/minimizers.py
-(minimizer_mask, _vote_core, _verified_core, _gapless_bound_dev).  On CPU
-tensors the wrapper runs them; on CUDA tensors it launches the kernel or
-raises.  COUNT records every launch with its shape (B, L, entry,
-verified); the bridge maps from its worker threads, so it takes a lock.
+(minimizer_mask, _vote_core, _verified_core, _gapless_bound_dev,
+_compact_minimizer_rows).  On CPU tensors the wrapper runs them; on CUDA
+tensors it launches the kernel or raises.  The kernel returns int32 where
+the plain versions return int64: the values are equal.  COUNT records
+every launch with its shape (B, L, entry, verified); the bridge maps from
+its worker threads, so it takes a lock.
 """
 
 from __future__ import annotations
@@ -29,11 +39,13 @@ import ctypes
 import threading
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from .. import _build
 
 MIN_K, MAX_K = 17, 32         # the keys are two limbs (the cuckoo tables')
+MAX_W = 32                    # the windows of one sparse-table pass
 
 
 @dataclass
@@ -62,13 +74,34 @@ COUNT = LaunchCount()
 # passed as a 32-bit C int and cut the pointer
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "mm_map_batch_launch": [_P, _P, _LL, _I, _I, _I, _P, _LL, _P, _LL, _I,
-                            _LL, _I, _P, _LL, _P, _LL, _P, _I, _I,
+    "mm_map_batch_launch": [_P, _P, _LL, _I, _I, _I, _P, _LL, _LL, _I, _I,
+                            _I, _P, _P, _P, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P],
-    "mm_gapless_bound_launch": [_P, _P, _P, _P, _LL, _I, _P, _LL, _P, _LL,
-                                _I, _I, _P, _P, _P],
-    "mm_minimizer_rows_launch": [_P, _P, _LL, _I, _I, _I, _P, _P, _P],
+    "mm_gapless_bound_launch": [_P, _P, _P, _P, _LL, _I, _P, _P, _I, _I,
+                                _P, _P, _P],
+    "mm_minimizer_rows_launch": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
+                                 _P],
 }
+
+
+def bucket_records(hkeys: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """The kernel's table from the host cuckoo tables: one 64-byte record
+    a bucket, slot t's (k0, k1, edge + 1 or 0, pos) as uint32 in words
+    4t..4t+3.  hkeys (NB, 8) and vals (NB * 4, 2) as build_cuckoo_tables
+    makes them; returns (NB, 16) int32 holding the uint32 bits."""
+    from ..mapper.minimizers import CUCKOO_CAP as SLOTS
+    nb = hkeys.shape[0]
+    if hkeys.shape != (nb, 2 * SLOTS) or vals.shape != (nb * SLOTS, 2):
+        raise ValueError(f"mm_map: hkeys (NB, 8) and vals (NB * 4, 2), got "
+                         f"{hkeys.shape}, {vals.shape}")
+    for name, a in (("hkeys", hkeys), ("vals", vals)):
+        if a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF):
+            raise ValueError(f"mm_map: {name} must hold uint32 values")
+    rec = np.empty((nb, SLOTS, 4), np.uint32)
+    rec[:, :, 0] = hkeys[:, 0::2]
+    rec[:, :, 1] = hkeys[:, 1::2]
+    rec[:, :, 2:] = vals.reshape(nb, SLOTS, 2)
+    return rec.reshape(nb, 4 * SLOTS).view(np.int32)
 
 
 def _launch(entry: str, dev: torch.device, *args) -> None:
@@ -101,14 +134,16 @@ def _check_reads(bases, lengths) -> None:
 
 
 def _check_k(k: int, w: int) -> None:
-    if not MIN_K <= k <= MAX_K or w < 1:
+    if not MIN_K <= k <= MAX_K or not 1 <= w <= MAX_W:
         raise ValueError(f"mm_map: k={k}, w={w}: the kernel takes "
-                         f"{MIN_K} <= k <= {MAX_K} and w >= 1")
+                         f"{MIN_K} <= k <= {MAX_K} and 1 <= w <= {MAX_W}")
 
 
 def _check_pool(dev, seq_pk, seq_off) -> None:
-    _check(dev, seq_pk=(seq_pk, torch.int64, 1),
-           seq_off=(seq_off, torch.int64, 1))
+    """The pool in the layout of dev: nibble-packed int64 words on the
+    CPU, uint8 codes on a card; seq_off int64 with an edge."""
+    dt = torch.uint8 if dev.type == "cuda" else torch.int64
+    _check(dev, seq_pk=(seq_pk, dt, 1), seq_off=(seq_off, torch.int64, 1))
     if seq_off.shape[0] < 2 or seq_pk.shape[0] < 1:
         raise ValueError("mm_map: the pool needs a word and an edge")
 
@@ -121,32 +156,53 @@ def _on_card(bases: torch.Tensor) -> bool:
     return bases.device.type == "cuda"
 
 
+def _check_tables(dev, hkeys, vals) -> int:
+    """The tables in the layout of dev; returns the bucket count NB."""
+    from ..mapper.minimizers import CUCKOO_CAP as SLOTS
+    nb = hkeys.shape[0]
+    if dev.type == "cuda":
+        _check(dev, hkeys=(hkeys, torch.int32, 2))
+        if vals is not None or hkeys.shape[1] != 4 * SLOTS:
+            raise ValueError("mm_map: on a card the tables are the bucket "
+                             "records (NB, 16) int32 and vals None")
+        if hkeys.data_ptr() % 64:
+            raise ValueError("mm_map: the bucket records must be 64-byte "
+                             "aligned")
+    else:
+        _check(dev, hkeys=(hkeys, torch.int64, 2), vals=(vals, torch.int64, 2))
+        if hkeys.shape[1] != 2 * SLOTS or tuple(vals.shape) != (nb * SLOTS,
+                                                                  2):
+            raise ValueError("mm_map: hkeys (NB, 8) and vals (NB * 4, 2), "
+                             f"got {tuple(hkeys.shape)}, {tuple(vals.shape)}")
+    if nb < 1 or nb & (nb - 1):
+        raise ValueError(f"mm_map: the tables need a power of two of "
+                         f"buckets, got {nb}")
+    return nb
+
+
 def map_batch(bases, lengths, hkeys, vals, salt: int, k: int, w: int,
               seq_pk=None, seq_off=None, thr=None, mt: int = 0,
-              mm: int = 0):
+              mm: int = 0, out=None):
     """The vote of a batch of reads, and with a pool (seq_pk, seq_off) the
     gapless bound at the voted offset too (the JAX _map_batch_verified;
     _map_batch without it).
 
-    bases (B, L) uint8 codes, lengths (B,) int32; hkeys (NB, 8) and vals
-    (NB * 4, 2) int64 cuckoo tables of `salt` (NB a power of two); the
-    verified form takes the nibble-packed pool seq_pk and seq_off (int64),
-    thresholds thr (B,) int64 and the match / mismatch scores mt, mm.
-    L - k + 1 must be at least MM_CAP (the plain version's compaction).
-    Returns (best_edge, best_hits, est_start) (B,) int64, then (bound
-    (B,) int64, fast (B,) bool) when verified: _vote_core's and
-    _verified_core's outputs."""
+    bases (B, L) uint8 codes, lengths (B,) int32; hkeys, vals the cuckoo
+    tables of `salt` in the layout of the bases' device (module note);
+    the verified form takes the pool (seq_pk, seq_off int64), the
+    threshold thr (an int, or (B,) int32 / int64) and the match /
+    mismatch scores mt, mm.  L - k + 1 must be at least MM_CAP (the plain
+    version's compaction).  Returns (best_edge, best_hits, est_start)
+    (B,), then (bound (B,), fast (B,) bool) when verified: _vote_core's
+    and _verified_core's values, int64 from the plain versions, int32
+    from the kernel.  out: tensors of those dtypes and shapes (int32 on
+    a card) to write into instead, returned."""
     from ..mapper import minimizers as mz   # the plain versions
     _check_reads(bases, lengths)
     _check_k(k, w)
     dev = bases.device
-    _check(dev, hkeys=(hkeys, torch.int64, 2), vals=(vals, torch.int64, 2))
-    nb = hkeys.shape[0]
-    if nb < 1 or nb & (nb - 1) or hkeys.shape[1] != 2 * mz.CUCKOO_CAP \
-            or tuple(vals.shape) != (nb * mz.CUCKOO_CAP, 2):
-        raise ValueError("mm_map: hkeys (NB, 8) with NB a power of two and "
-                         f"vals (NB * 4, 2), got {tuple(hkeys.shape)}, "
-                         f"{tuple(vals.shape)}")
+    card = _on_card(bases)
+    nb = _check_tables(dev, hkeys, vals)
     B, L = bases.shape
     if L - k + 1 < mz.MM_CAP:
         raise ValueError(f"mm_map: a width of {L} gives {L - k + 1} window "
@@ -155,50 +211,71 @@ def map_batch(bases, lengths, hkeys, vals, salt: int, k: int, w: int,
     verified = seq_pk is not None
     if verified:
         _check_pool(dev, seq_pk, seq_off)
-        _check(dev, thr=(thr, torch.int64, 1))
-        if thr.shape[0] != B:
-            raise ValueError("mm_map: thr (B,) disagrees with bases")
-    if not _on_card(bases):
-        if verified:
-            return mz._verified_core(bases, lengths, hkeys, vals, salt,
-                                     seq_pk, seq_off, thr, k, w, mt, mm)
-        return mz._vote_core(bases, lengths, hkeys, vals, salt, k, w)
-    if hkeys.data_ptr() % 16 or vals.data_ptr() % 16:
-        raise ValueError("mm_map: hkeys and vals must be 16-byte aligned")
-    outs = [torch.empty(B, dtype=torch.int64, device=dev) for _ in range(3)]
-    if verified:
-        outs += [torch.empty(B, dtype=torch.int64, device=dev),
-                 torch.empty(B, dtype=torch.bool, device=dev)]
+        if isinstance(thr, torch.Tensor):
+            if thr.device != dev or thr.dim() != 1 or thr.shape[0] != B \
+                    or thr.dtype not in (torch.int32, torch.int64):
+                raise ValueError("mm_map: thr must be an int or a (B,) "
+                                 f"integer tensor on {dev}")
+        else:
+            thr = int(thr)
+    if not card:
+        res = (mz._verified_core(bases, lengths, hkeys, vals, salt, seq_pk,
+                                 seq_off, thr, k, w, mt, mm) if verified
+               else mz._vote_core(bases, lengths, hkeys, vals, salt, k, w))
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
+    n_out = 5 if verified else 3
+    if out is None:
+        out = tuple(torch.empty(B, dtype=torch.int32 if i < 4 else torch.bool,
+                                device=dev) for i in range(n_out))
+    if len(out) != n_out:
+        raise ValueError(f"mm_map: out holds {len(out)} tensors, the entry "
+                         f"writes {n_out}")
+    for i, o in enumerate(out):
+        _check(dev, out=(o, torch.int32 if i < 4 else torch.bool, 1))
+        if o.shape[0] != B:
+            raise ValueError("mm_map: out (B,) disagrees with bases")
     if B == 0:
-        return tuple(outs)
-    pool = (seq_pk.data_ptr(), seq_pk.shape[0], seq_off.data_ptr(),
-            8 * mz.POOL_PAD_W, thr.data_ptr()) if verified \
-        else (None, 0, None, 0, None)
-    ptrs = [o.data_ptr() for o in outs] + [None] * (5 - len(outs))
+        return tuple(out)
+    thr_ptr, thr_all = None, 0
+    if verified:
+        if isinstance(thr, torch.Tensor):
+            thr = thr.to(torch.int32).contiguous()
+            thr_ptr = thr.data_ptr()
+        else:
+            thr_all = thr
+    pool = (seq_pk.data_ptr(), seq_off.data_ptr()) if verified \
+        else (None, None)
+    ptrs = [o.data_ptr() for o in out] + [None] * (5 - n_out)
     _launch("mm_map_batch_launch", dev, bases.data_ptr(),
-            lengths.data_ptr(), B, L, k, w, hkeys.data_ptr(), nb,
-            vals.data_ptr(), int(salt), mz.MM_CAP, mz.BIG, int(verified),
-            *pool, mt, mm, *ptrs)
+            lengths.data_ptr(), B, L, k, w, hkeys.data_ptr(), nb, int(salt),
+            mz.MM_CAP, mz.BIG, int(verified), *pool, thr_ptr, thr_all, mt,
+            mm, *ptrs)
     COUNT.add(B, L, "map_batch", verified)
-    return tuple(outs)
+    return tuple(out)
 
 
 def gapless_bound(seq_pk, seq_off, edges, starts, bases, lengths, mt: int,
                   mm: int):
     """Score of the gapless alignment of each query at its edge and
     signed start over the on-edge positions (the JAX
-    _gapless_bound_dev).  seq_pk, seq_off int64 (the nibble-packed pool),
-    edges and starts (N,) int64, bases (N, L) uint8, lengths (N,) int32.
-    Returns (bound (N,) int64, feas (N,) bool)."""
+    _gapless_bound_dev).  seq_pk, seq_off: the pool in the layout of the
+    bases' device (module note); edges and starts (N,) int64, bases (N, L)
+    uint8, lengths (N,) int32.  Returns (bound (N,) int64, feas (N,)
+    bool)."""
     from ..mapper import minimizers as mz
     _check_reads(bases, lengths)
     dev = bases.device
+    card = _on_card(bases)
     _check_pool(dev, seq_pk, seq_off)
     _check(dev, edges=(edges, torch.int64, 1), starts=(starts, torch.int64, 1))
     N, L = bases.shape
     if edges.shape[0] != N or starts.shape[0] != N:
         raise ValueError("mm_map: edges and starts (N,) disagree with bases")
-    if not _on_card(bases):
+    if not card:
         return mz._gapless_bound_dev(seq_pk, seq_off, edges, starts, bases,
                                      lengths, mt, mm)
     bound = torch.empty(N, dtype=torch.int64, device=dev)
@@ -207,17 +284,18 @@ def gapless_bound(seq_pk, seq_off, edges, starts, bases, lengths, mt: int,
         return bound, feas
     _launch("mm_gapless_bound_launch", dev, bases.data_ptr(),
             lengths.data_ptr(), edges.data_ptr(), starts.data_ptr(), N, L,
-            seq_pk.data_ptr(), seq_pk.shape[0], seq_off.data_ptr(),
-            8 * mz.POOL_PAD_W, mt, mm, bound.data_ptr(), feas.data_ptr())
+            seq_pk.data_ptr(), seq_off.data_ptr(), mt, mm, bound.data_ptr(),
+            feas.data_ptr())
     COUNT.add(N, L, "gapless_bound", True)
     return bound, feas
 
 
 def minimizer_rows(bases, lengths, k: int, w: int):
-    """Minimizer marks of segment rows (the JAX minimizer_mask as the
-    index build calls it): bases (B, L) uint8 codes with L >= k, lengths
-    (B,) int32.  Returns (kmers (B, P, 2) int64, is_mm (B, P) bool), P =
-    L - k + 1."""
+    """The minimizers of segment rows, compacted (the JAX
+    _compact_minimizer_rows as the index build calls it): bases (B, L)
+    uint8 codes with L >= k, lengths (B,) int32.  Returns (n, 4) int64
+    rows (key limb 0, limb 1, segment row, in-segment position) of the
+    marked positions, ascending by row then position."""
     from ..mapper import minimizers as mz
     _check_reads(bases, lengths)
     _check_k(k, w)
@@ -225,14 +303,17 @@ def minimizer_rows(bases, lengths, k: int, w: int):
     if L < k:
         raise ValueError(f"mm_map: rows of width {L} hold no {k}-mer")
     if not _on_card(bases):
-        km, _h, is_mm = mz.minimizer_mask(bases, lengths, k, w)
-        return km, is_mm
-    P = L - k + 1
-    km = torch.empty((B, P, 2), dtype=torch.int64, device=bases.device)
-    is_mm = torch.empty((B, P), dtype=torch.bool, device=bases.device)
+        return mz._compact_minimizer_rows(bases, lengths, k, w)
+    dev = bases.device
     if B == 0:
-        return km, is_mm
-    _launch("mm_minimizer_rows_launch", bases.device, bases.data_ptr(),
-            lengths.data_ptr(), B, L, k, w, km.data_ptr(), is_mm.data_ptr())
+        return torch.zeros((0, 4), dtype=torch.int64, device=dev)
+    P = L - k + 1
+    marks = torch.empty((B, -(-P // 32)), dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    rows = torch.empty((B * P, 4), dtype=torch.int64, device=dev)
+    n = torch.empty(1, dtype=torch.int32, device=dev)
+    _launch("mm_minimizer_rows_launch", dev, bases.data_ptr(),
+            lengths.data_ptr(), B, L, k, w, marks.data_ptr(),
+            counts.data_ptr(), rows.data_ptr(), n.data_ptr())
     COUNT.add(B, L, "minimizer_rows", False)
-    return km, is_mm
+    return rows[:int(n.item())]
