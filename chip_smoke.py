@@ -24,13 +24,15 @@ before printing a result:
      map kernel (csrc/mm_map.cu) against its plain versions on the card,
      exact: its three entries (map_batch, vote and verified with a
      per-read and a scalar threshold; gapless_bound; minimizer_rows) on
-     testing.mm_map_cases' edge cases, with an index the kernel built ==
-     the CPU's; then phase 5's workload counted and built, its index, and
-     each entry at its own bench shape (the first 65,536 reads, their
-     votes, the index build's first 256 segment rows): kernel, plain and
-     bound ms (and the int64 layout's bound); map_batch's stage
-     split and its two alternatives (key-only and value rows; a
-     nibble-packed pool), scratch copies of the source built beside the
+     testing.mm_map_cases' edge cases and the gapless bound's alignment
+     and pool-end cases (testing.mm_align_cases), with an index the
+     kernel built == the CPU's; then phase 5's workload counted and
+     built, its index, and each entry at its own bench shape (the first
+     65,536 reads, their votes, the index build's first 256 segment
+     rows): kernel, plain and bound ms (and the int64 layout's bound);
+     map_batch's stage split and its alternatives (key-only and value
+     rows; the earlier byte-wise gapless bound) and gapless_bound beside
+     the byte-wise bound, scratch copies of the source built beside the
      phase, held equal and timed in turns; the graph pool's first copy
      and its cached lookup; map_reads of the bench reads, wall beside
      device time
@@ -215,6 +217,7 @@ import glob
 import io
 import json
 import os
+import re
 import resource
 import shutil
 import subprocess
@@ -800,7 +803,25 @@ def mm_variants(variants, src=None):
         if proc.returncode:
             raise AssertionError(f"mm_map variant {name}: nvcc failed:\n{out}")
         libs[name] = ctypes.CDLL(so)
+        log(f"mm_map variant {name}: registers " + ", ".join(
+            f"{k_} {v_}" for k_, v_ in ptxas_registers(out).items()))
     return libs
+
+
+def ptxas_registers(out):
+    """{kernel: registers} from nvcc's -Xptxas -v report, for the map and
+    bound kernels."""
+    regs, kernel = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function properties for \S*?(map_kernel|bound_kernel)",
+                      line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            regs[kernel] = int(m.group(1))
+            kernel = None
+    return regs
 
 
 @contextlib.contextmanager
@@ -834,6 +855,9 @@ MM_STAGES = {
     "probe": ("        // vote: each slot's count of its edge among the "
               "read's hits\n"),
 }
+# the map's bound stage, the vote's cut just before it
+MM_BOUND_STAGE = ("        if (a.verified) {              // the gapless "
+                  "bound at the vote\n")
 MM_STOPS = {"load": "(int)seq[lane] + len",
             "pack": "(int)words[lane & 3] + len",
             "marks": "n + s_pos[lane]",
@@ -872,28 +896,103 @@ __device__ __forceinline__ void probe(const MapArgs& a, const uint32_t* words,
 """
 
 
+# The earlier, byte-wise gapless bound, timed beside the word-wide one: a
+# warp a query in the bound entry, a code a lane a step (its kernel
+# writes int32, as the wrapper takes); the device function, the map's
+# bound stage and the bound entry's kernel
+MM_BYTEWISE_GAPLESS = """\
+__device__ __forceinline__ void gapless_bytes(const Pool& pool,
+                                              const uint8_t* q, int L,
+                                              int len, long long edge,
+                                              long long start, int lane,
+                                              int* bound, bool* feas) {
+    const long long e = edge > 0 ? edge : 0;
+    const long long off = pool.off[e];
+    const long long elen = pool.off[e + 1] - off;
+    const int lo = (int)(start < 0 ? (-start < L ? -start : L) : 0);
+    const long long tail = elen - start;
+    const int hi = min(len, (int)(tail < L ? (tail > 0 ? tail : 0) : L));
+    const uint8_t* t = pool.codes + off + start;
+    int nm = 0;
+    for (int j = lo + lane; j < hi; j += 32) nm += q[j] == __ldg(t + j);
+    nm = __reduce_add_sync(FULL, nm);
+    const int non = hi > lo ? hi - lo : 0;
+    *bound = nm * pool.mt + (non - nm) * pool.mm;
+    *feas = non > 0 && edge >= 0;
+}
+
+"""
+MM_BYTEWISE_MAP_BOUND = """\
+        if (a.verified) {
+            int bound;
+            bool feas;
+            gapless_bytes(a.pool, seq, L, len, be, bs, lane, &bound, &feas);
+            if (lane == 0) {
+                a.bound[b] = bound;
+                a.fast[b] = feas && bound >= (a.thr ? a.thr[b] : a.thr_all);
+            }
+        }
+"""
+MM_BYTEWISE_BOUND_KERNEL = """\
+__global__ void __launch_bounds__(32 * MAP_WARPS)
+bound_kernel(const uint8_t* __restrict__ bases, const int* __restrict__ lengths,
+             const long long* __restrict__ edges,
+             const long long* __restrict__ starts, long long N, int L, int G,
+             Pool pool, int* bound, uint8_t* feas) {
+    const int lane = threadIdx.x & 31;
+    const long long b = (long long)blockIdx.x * MAP_WARPS + (threadIdx.x >> 5);
+    if (b >= N) return;
+    int bd;
+    bool fs;
+    gapless_bytes(pool, bases + b * L, L, lengths[b], edges[b], starts[b],
+                  lane, &bd, &fs);
+    if (lane == 0) {
+        bound[b] = bd;
+        feas[b] = fs;
+    }
+}
+
+"""
+
+
+def _between(src, first, stop):
+    """The text of src from `first` up to `stop` (each found once)."""
+    for a in (first, stop):
+        if src.count(a) != 1:
+            raise AssertionError(f"mm_map variant: anchor found "
+                                 f"{src.count(a)} times: {a!r}")
+    return src[src.index(first):src.index(stop)]
+
+
 def mm_timing_variants():
     """The variants phase 21 times: map_kernel stopped after each stage
     (the stage split); the probe of key-only rows and value rows ("split
-    tables"); the bound read from a nibble-packed uint32 pool ("nibble
-    pool")."""
+    tables"); the earlier byte-wise gapless bound in both entries
+    ("byte-wise bound")."""
     from turingassembler_tpu_torch import _build
     src = (_build.CSRC / "mm_map.cu").read_text()
     v = {}
     for name, anchor in MM_STAGES.items():
         v[name] = [(anchor, anchor + _stop(MM_STOPS[name]))]
-    v["vote"] = [("        if (a.verified) {\n            int bound;",
-                  "        { __syncwarp(); continue; }\n"
-                  "        if (a.verified) {\n            int bound;")]
-    probe = src[src.index("__device__ __forceinline__ void probe("):
-                src.index("__global__ void __launch_bounds__(32 * MAP_WARPS)\n"
-                          "map_kernel")]
+    v["vote"] = [(MM_BOUND_STAGE, "        { __syncwarp(); continue; }\n"
+                  + MM_BOUND_STAGE)]
+    probe = _between(src, "__device__ __forceinline__ void probe(",
+                     "__global__ void __launch_bounds__(32 * MAP_WARPS)\n"
+                     "map_kernel")
     v["split tables"] = [(probe, MM_SPLIT_PROBE)]
-    v["nibble pool"] = [
-        ("nm += q[j] == __ldg(t + j);",
-         "{ const long long g_ = off + start + j + 8 * 32;\n"
-         "        nm += q[j] == ((__ldg(reinterpret_cast<const uint32_t*>("
-         "pool.codes) + (g_ >> 3)) >> (4 * (g_ & 7))) & 0xFu); }")]
+    group = _between(src, "__host__ __device__ __forceinline__ int "
+                     "bound_group(", "// The bound entry: a group of G")
+    v["byte-wise bound"] = [
+        ("__device__ __forceinline__ void cp_async4(",
+         MM_BYTEWISE_GAPLESS + "__device__ __forceinline__ void cp_async4("),
+        (_between(src, MM_BOUND_STAGE,
+                  "        __syncwarp();                  // seq is refilled"),
+         MM_BYTEWISE_MAP_BOUND),
+        (group, "__host__ __device__ __forceinline__ int bound_group(int) "
+                "{ return 32; }\n\n"),
+        (_between(src, "// The bound entry: a group of G",
+                  "// The rows entry's shared memory"),
+         MM_BYTEWISE_BOUND_KERNEL)]
     return mm_variants(v, src)
 
 
@@ -972,21 +1071,40 @@ def on_edge(off, edges, starts, lengths, L):
     return lo, hi, off[e] + lo
 
 
+def covered(off, edges, starts, lengths, L):
+    """The pool positions under the on-edge positions of queries, each
+    once: a bool mask over the pool's codes.  Queries of one edge overlap
+    and unvoted reads share edge 0's first codes, so a position counts
+    once however many queries cover it."""
+    lo, hi, g0 = on_edge(off, edges, starts, lengths, L)
+    n = torch.clamp(hi - lo, min=0)
+    n_codes = int(off[-1])
+    d = torch.zeros(n_codes + 1, dtype=torch.int64, device=off.device)
+    d.index_add_(0, g0[n > 0], torch.ones_like(g0[n > 0]))
+    d.index_add_(0, (g0 + n)[n > 0], -torch.ones_like(g0[n > 0]))
+    return torch.cumsum(d, 0)[:n_codes] > 0
+
+
 def pool_bytes(off, edges, starts, lengths, L):
-    """Pool codes (1 byte each) under the on-edge positions of queries:
-    what the bound must read from the uint8 pool."""
-    lo, hi, _ = on_edge(off, edges, starts, lengths, L)
-    return int(torch.clamp(hi - lo, min=0).sum())
+    """Pool codes (1 byte each) under the on-edge positions of queries,
+    each position once: what the bound must read from the uint8 pool."""
+    return int(covered(off, edges, starts, lengths, L).sum())
 
 
 def pool_words(off, edges, starts, lengths, L):
     """Nibble-packed pool words (8 bytes each, the int64 layout) under the
-    on-edge positions of queries."""
+    on-edge positions of queries, each word once."""
     from turingassembler_tpu_torch.mapper.minimizers import POOL_PAD_W
-    lo, hi, g0 = on_edge(off, edges, starts, lengths, L)
-    g0 = g0 + 8 * POOL_PAD_W
-    g1 = g0 + hi - lo - 1
-    return int(torch.where(hi > lo, (g1 >> 3) - (g0 >> 3) + 1, 0).sum())
+    g = torch.nonzero(covered(off, edges, starts, lengths, L))[:, 0]
+    return int(torch.unique((g + 8 * POOL_PAD_W) >> 3).numel())
+
+
+def off_bytes(edges):
+    """The seq_off entries (8 bytes each) the queries' spans read,
+    off[e] and off[e + 1] of each edge e (edge 0 for an unvoted query),
+    each entry once."""
+    e = torch.clamp(edges.long(), min=0)
+    return 8 * int(torch.unique(torch.cat([e, e + 1])).numel())
 
 
 def n_windows(lengths, L):
@@ -997,13 +1115,14 @@ def n_windows(lengths, L):
 
 def mm_map_bytes(bases, lengths, ptables, off, out, per_read_thr):
     """Least bytes of the verified map of a batch, from this run's data,
-    in the kernel's layout: codes and lengths read once (and a per-read
-    threshold, 4 bytes, where there is one); for each probed minimizer
-    the bucket records it needs (b1's 64 bytes, and b2's where the key is
-    not in b1); the pool codes under each read's on-edge positions and
-    its two seq_off entries; five outputs (17 bytes a read).  Returns
-    (bytes, probes, the int64 layout's bytes: key rows of 64 bytes and value
-    rows of 16, nibble-packed int64 pool words, int64 thresholds, 33
+    in the kernel's layout, each input read once: codes and lengths (and a
+    per-read threshold, 4 bytes, where there is one); the bucket records
+    the probes need (b1's 64 bytes, and b2's where the key is not in b1),
+    each bucket once; the pool codes under the reads' on-edge positions
+    and the seq_off entries of their edges, each once; five outputs (17
+    bytes a read).  Returns (bytes, probes, the int64 layout's bytes: key
+    rows of 64 bytes, each bucket once, and a value row of 16 a found key,
+    each key once, nibble-packed int64 pool words, int64 thresholds, 33
     bytes of outputs)."""
     from turingassembler_tpu_torch.mapper import minimizers as mz
     hkeys, vals, salt = ptables
@@ -1014,15 +1133,19 @@ def mm_map_bytes(bases, lengths, ptables, off, out, per_read_thr):
     sp = torch.sort(pos, dim=1).values[:, :mz.MM_CAP]
     q = torch.gather(km, 1, torch.clamp(sp, max=P - 1)[:, :, None]
                      .expand(-1, -1, 2))[sp < P]
-    r1 = hkeys[mz._cuckoo_h(q[:, 0], q[:, 1], salt, hkeys.shape[0] - 1, 0)]
+    mask = hkeys.shape[0] - 1
+    b1 = mz._cuckoo_h(q[:, 0], q[:, 1], salt, mask, 0)
+    b2 = mz._cuckoo_h(q[:, 0], q[:, 1], salt, mask, 1)
+    r1 = hkeys[b1]
     in_b1 = ((r1[:, 0::2] == q[:, :1]) & (r1[:, 1::2] == q[:, 1:])).any(1)
     found = mz._cuckoo_probe(hkeys, vals, salt, q)[2]
     n_probe = q.shape[0]
-    rows = n_probe + int((~in_b1).sum())
+    rows = int(torch.unique(torch.cat([b1, b2[~in_b1]])).numel())
+    keys = int(torch.unique(q[found], dim=0).shape[0])
     edges, starts = out[0], out[2]
-    nbytes = B * (L + 4 + 4 * per_read_thr + 16 + 17) + 64 * rows \
-        + pool_bytes(off, edges, starts, lengths, L)
-    old = B * (L + 4 + 8 + 16 + 33) + 64 * rows + 16 * int(found.sum()) \
+    spans = pool_bytes(off, edges, starts, lengths, L) + off_bytes(edges)
+    nbytes = B * (L + 4 + 4 * per_read_thr + 17) + 64 * rows + spans
+    old = B * (L + 4 + 8 + 33) + 64 * rows + 16 * keys + off_bytes(edges) \
         + 8 * pool_words(off, edges, starts, lengths, L)
     return nbytes, n_probe, old
 
@@ -1038,15 +1161,19 @@ def phase_mm_kernel_vs_plain():
     versions on the card, exact: (a) on testing.mm_map_cases (Ns, reads
     too short for a window, more than 48 minimizers, ties, overhangs,
     per-read and scalar thresholds, both bound branches, rows too narrow
-    for a window) with an index the kernel built == the CPU's; (b) at the
-    bench batch: phase 5's workload counted and built on the card, its
-    index, the first 65,536 reads (one map_reads batch) through
-    map_batch, their votes through gapless_bound, the index build's first
-    batch of 256 segment rows through minimizer_rows; kernel, plain and
-    bound ms of each; map_batch's stage split and its two alternatives
-    (scratch variants of the source, mm_timing_variants), held equal and
-    timed in turns; the pool's first copy and its cached lookup; and
-    map_reads of all the bench reads, its wall beside its device time.
+    for a window) and testing.mm_align_cases (the bound at widths 1-200
+    and all 16 start alignments, code-4 bases in query and pool, spans
+    that end on the pool's last byte; reads at the pool's end) with an
+    index the kernel built == the CPU's; (b) at the bench batch: phase
+    5's workload counted and built on the card, its index, the first
+    65,536 reads (one map_reads batch) through map_batch, their votes
+    through gapless_bound, the index build's first batch of 256 segment
+    rows through minimizer_rows; kernel, plain and bound ms of each;
+    map_batch's stage split and its alternatives, gapless_bound beside
+    the byte-wise bound (scratch variants of the source,
+    mm_timing_variants), held equal and timed in turns; the
+    pool's first copy and its cached lookup; and map_reads of all the
+    bench reads, its wall beside its device time.
     Returns the kernels line's figures and the workload."""
     import concurrent.futures
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
@@ -1061,19 +1188,20 @@ def mm_kernel_vs_plain(variants):
     from turingassembler_tpu_torch.mapper import minimizers as mz
     from turingassembler_tpu_torch.ops import dp, mm_map
     err = 0
-    # (a) the edge cases
-    g, cases = tt.mm_map_cases(seed=0)
-    idx = mz.EdgeMinimizerIndex.build(g, device="cuda")
-    ref = mz.EdgeMinimizerIndex.build(g, device="cpu")
-    for f in ("keys", "edge", "pos", "count"):
-        if not np.array_equal(getattr(idx, f), getattr(ref, f)):
-            raise AssertionError(f"mm_map: the card's index {f} differs")
-    tables = idx.device_tables("cuda")
-    pool = mz._device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
-    for name, (entry, arrays) in cases.items():
-        err = max(err, hold_mm_entry(name, entry, arrays, tables, pool))
-    log(f"mm_map (a): {len(idx.keys)} index keys of the edge-case world "
-        "(card == CPU); every case equal")
+    # (a) the edge cases, then the bound's alignment and pool-end cases
+    for world, (g, cases) in (("edge-case", tt.mm_map_cases(seed=0)),
+                              ("alignment", tt.mm_align_cases(seed=0))):
+        idx = mz.EdgeMinimizerIndex.build(g, device="cuda")
+        ref = mz.EdgeMinimizerIndex.build(g, device="cpu")
+        for f in ("keys", "edge", "pos", "count"):
+            if not np.array_equal(getattr(idx, f), getattr(ref, f)):
+                raise AssertionError(f"mm_map: the card's index {f} differs")
+        tables = idx.device_tables("cuda")
+        pool = mz._device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
+        for name, (entry, arrays) in cases.items():
+            err = max(err, hold_mm_entry(name, entry, arrays, tables, pool))
+        log(f"mm_map (a): {len(idx.keys)} index keys of the {world} world "
+            "(card == CPU); every case equal")
 
     # (b) the bench batch
     genome, reads, lengths = bench.make_workload(2_000_000, 1_048_576)
@@ -1142,18 +1270,15 @@ def mm_kernel_vs_plain(variants):
     split = (torch.as_tensor(np.concatenate([
         hk.astype(np.uint32).ravel(), vals.astype(np.uint32).ravel()])
         .view(np.int32).reshape(-1, 16)).to("cuda"), None, salt)
-    nib = (torch.as_tensor(pk_host.astype(np.uint32).view(np.int32))
-           .to("cuda").view(torch.uint8), pool[1])
     alt = {"split tables": (bases, lens, *split, MM_K, MM_W, *pool, thr, mt,
                             mm),
-           "nibble pool": (bases, lens, *tables, MM_K, MM_W, *nib, thr, mt,
-                           mm)}
+           "byte-wise bound": args}
     for name, a in alt.items():
         with mm_library(variants[name]):
             err = max(err, hold_mm(f"bench batch, {name} variant",
                                    mm_map.map_batch(*a), out))
     times = {}
-    for turn in range(2):
+    for turn in range(3):
         times.setdefault("kernel", []).append(
             device_ms(lambda: mm_map.map_batch(*args), 30, "map_kernel"))
         for name in stage_of + tuple(alt):
@@ -1167,8 +1292,10 @@ def mm_kernel_vs_plain(variants):
         parts.append(f"{'bound' if name == 'kernel' else name} "
                      f"{best[name] - prev:+.4f}")
         prev = best[name]
+    byte_stage = best["byte-wise bound"] - best["vote"]
     log("mm_map map_batch stage split (device ms from the profiler, each "
-        "the cut's best of 2 turns less the cut before): " + ", ".join(parts)
+        "the cut's best of 3 turns less the cut before): " + ", ".join(parts)
+        + f"; the byte-wise bound stage {byte_stage:+.4f}"
         + "; cuts " + ", ".join(f"{k_} " + "/".join(f"{x:.4f}" for x in v)
                                 for k_, v in times.items()))
     res["map_batch"]["stages_ms"] = {k_: round(v, 4) for k_, v in best.items()}
@@ -1196,13 +1323,36 @@ def mm_kernel_vs_plain(variants):
     # the bound alone on the votes: the bridge's rescore_hits entry
     edges, starts = out[0].long(), out[2].long()
     bargs = (*pool, edges, starts, bases, lens, mt, mm)
+    want = plain_gapless_bound(*bargs)
     err = max(err, hold_mm("bench batch gapless bound",
-                           mm_map.gapless_bound(*bargs),
-                           plain_gapless_bound(*bargs)))
+                           mm_map.gapless_bound(*bargs), want))
+    with mm_library(variants["byte-wise bound"]):
+        err = max(err, hold_mm("bench batch gapless bound, byte-wise bound "
+                               "variant", mm_map.gapless_bound(*bargs), want))
     timed("gapless_bound", lambda: mm_map.gapless_bound(*bargs),
           lambda: mz._gapless_bound_dev(ppool[0], *bargs[1:]),
-          B * (L + 4 + 16 + 16 + 9) + pool_bytes(pool[1], edges, starts,
-                                                 lens, L), 0, "bound_kernel")
+          B * (L + 4 + 16 + 5) + pool_bytes(pool[1], edges, starts, lens, L)
+          + off_bytes(edges), 0, "bound_kernel",
+          f"; {B} queries of {L} codes, {mm_map.POOL_PAD}-byte pool pad")
+    btimes, wtimes = {}, {}
+    for turn in range(3):
+        for name in ("kernel", "byte-wise bound"):
+            with mm_library(variants[name]) if name != "kernel" else \
+                    contextlib.nullcontext():
+                btimes.setdefault(name, []).append(device_ms(
+                    lambda: mm_map.gapless_bound(*bargs), 30,
+                    "bound_kernel"))
+                wtimes.setdefault(name, []).append(cuda_ms(
+                    lambda: mm_map.gapless_bound(*bargs), 30))
+    log("mm_map gapless_bound in turns (device ms from the profiler, 3 "
+        "turns of 30 launches; kernel: bound_group's lanes a query): "
+        + ", ".join(f"{k_} " + "/".join(f"{x:.4f}" for x in v)
+                    for k_, v in btimes.items())
+        + "; with the wrapper (CUDA events) " + ", ".join(
+            f"{k_} " + "/".join(f"{x:.4f}" for x in v)
+            for k_, v in wtimes.items()))
+    res["gapless_bound"]["turns_ms"] = {k_: round(min(v), 4)
+                                        for k_, v in btimes.items()}
     # the index build's first device batch
     _, _, mat, elen = next(mz.EdgeMinimizerIndex.segment_batches(gb))
     rows, rlen = (torch.as_tensor(a).to("cuda") for a in (mat, elen))
@@ -3714,7 +3864,8 @@ def main():
                               for e in ("map_batch", "gapless_bound",
                                         "minimizer_rows")},
         **{f"{e}_{k_}": mm[e][k_] for e in ("gapless_bound", "minimizer_rows")
-           for k_ in ("ms", "plain_ms", "bound_ms", "bound_by")}}]}),
+           for k_ in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                      "bound_by")}}]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

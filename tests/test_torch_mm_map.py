@@ -11,13 +11,16 @@ by funnel shifts, each window's leftmost minimum of the key (hash << 32)
 | position by the warp's sparse-table pass (lanes simulated), the first
 MM_CAP marked positions, the probe of the one-record bucket table
 (mm_map.bucket_records), the match-any count tally, the bound read from
-the uint8 codes, the rows compacted from per-row counts and mark
-bitmasks.  (b) The wrapper on CPU tensors (the plain versions) equals
-them too, and so does map_reads with a scalar and a per-read threshold.
-(c) The wrapper refuses what the kernel does not take, and the entry
-points raise for "cuda" without a GPU.  (d) The CPU path never looks for
-nvcc and counts no launch.  (e) The device pool is cached per array
-identity, and threads get one pool.
+the padded uint8 codes a word at a time (model_bound_words, also on
+testing.mm_align_cases: every start alignment, code-4 bases, windows
+that end on the pool's last byte), the rows compacted from per-row
+counts and mark bitmasks.  (b) The wrapper on CPU tensors (the plain
+versions) equals them too, and so does map_reads with a scalar and a
+per-read threshold.  (c) The wrapper refuses what the kernel does not
+take, and the entry points raise for "cuda" without a GPU.  (d) The CPU
+path never looks for nvcc and counts no launch.  (e) The device pool is
+cached per array identity, and threads get one pool; the card's padded
+layout holds the codes alone for the remainder DP.
 
 Tolerance: exact equality; every output is an integer or a flag.
 """
@@ -250,6 +253,70 @@ def model_bound(codes, off, edge, start, q, n):
     return nm * MT + (non - nm) * MM, non > 0 and edge >= 0
 
 
+def bound_group(L):
+    """csrc/mm_map.cu:bound_group: lanes a query in the bound entry."""
+    g = 1
+    while g < 32 and 64 * g < L:
+        g *= 2
+    return g
+
+
+def _vcmpeq4(a, b):
+    """__vcmpeq4: 0xFF in each byte where a's and b's bytes are equal."""
+    return sum(0xFF << (8 * i) for i in range(4)
+               if (a >> (8 * i)) & 0xFF == (b >> (8 * i)) & 0xFF)
+
+
+def _word_matches(q, t, j, lo, hi):
+    """word_matches: 8 x the equal bytes of query word q (codes j..j+3)
+    and pool word t inside [lo, hi)."""
+    if j + 4 <= lo or j >= hi:
+        return 0
+    m = 0xFFFFFFFF
+    if j < lo:
+        m = (m << (8 * (lo - j))) & 0xFFFFFFFF
+    if j + 4 > hi:
+        m &= 0xFFFFFFFF >> (8 * (j + 4 - hi))
+    return bin(_vcmpeq4(q, t) & m).count("1")
+
+
+def model_bound_words(codes, off, edge, start, q, n, G=32, c=0, fill=0):
+    """gapless() by its lanes, a group of G: lane r takes the span's
+    8-code steps (lo >> 3) + r, + G, ... of [lo, hi); a step's pool
+    codes are three aligned word loads of the padded pool (mm_map.
+    padded_codes: POOL_PAD bytes of 0xF each side, its first code at an
+    address c mod 4 past a word boundary) and two funnel shifts; per-byte
+    compares, the masks at lo and hi, __popc, the group's sum / 8.  The
+    query row's bytes past L are `fill` (the shared buffer's leftovers).
+    Asserts every load stays inside the padded pool."""
+    pad = mm_map.POOL_PAD
+    e = max(int(edge), 0)
+    o, elen = int(off[e]), int(off[e + 1] - off[e])
+    start, L = int(start), len(q)
+    lo = min(-start, L) if start < 0 else 0
+    hi = min(int(n), min(max(elen - start, 0), L))
+    buf = np.concatenate([np.full(pad, 0xF, np.uint8),
+                          np.asarray(codes, np.uint8),
+                          np.full(pad, 0xF, np.uint8)])
+    qrow = np.full(8 * (-(-L // 8)), fill, np.uint8)
+    qrow[:L] = q
+    qw = qrow.view("<u4")
+    bits, end = 0, hi if hi > lo else 0
+    for r in range(G):
+        for j in range(8 * ((lo >> 3) + r), end, 8 * G):
+            p = c + pad + o + start + j      # code j's pool byte, address
+            a = (p & ~3) - c                  # its aligned word, in buf
+            assert 0 <= a and a + 12 <= len(buf), (edge, start, j)
+            w = [int(x) for x in buf[a:a + 12].view("<u4")]
+            sh = 8 * (p & 3)
+            for h in range(2):
+                t = ((w[h + 1] << 32 | w[h]) >> sh) & 0xFFFFFFFF
+                bits += _word_matches(int(qw[j // 4 + h]), t, j + 4 * h,
+                                      lo, hi)
+    nm, non = bits >> 3, max(hi - lo, 0)
+    return nm * MT + (non - nm) * MM, non > 0 and edge >= 0
+
+
 def model_map(bases, lengths, rec, salt, pool=None, thr=None):
     """map_kernel read by read: (best_edge, best_hits, est_start[, bound,
     fast]) and the diagnostics (marked positions, edges at the best count,
@@ -271,8 +338,9 @@ def model_map(bases, lengths, rec, salt, pool=None, thr=None):
                      ("n_marked", int(mark[b].sum())), ("tot", tot),
                      ("n_best", n_best)):
             out[f].append(v)
-        if pool is not None:
-            bound, feas = model_bound(*pool, be, bs, seq, n)
+        if pool is not None:                  # the warp's 32 lanes
+            bound, feas = model_bound_words(*pool, be, bs, seq, n,
+                                            fill=b % 256)
             out["bound"].append(bound)
             out["fast"].append(feas and bound >= thr[b])
     return {f: np.asarray(v) for f, v in out.items()}
@@ -499,12 +567,17 @@ def test_bound_model_and_wrapper_equal_jax(world, name):
                       for e, s, q, n in zip(edges, starts, bases, lengths)])
     _eq(want[0], model[:, 0], "model bound")
     _eq(want[1], model[:, 1], "model feas")
+    words = np.array([model_bound_words(
+        world["codes"], world["off"], e, s, q, n, bound_group(len(q)))
+        for e, s, q, n in zip(edges, starts, bases, lengths)])
+    _eq(want[0], words[:, 0], "word model bound")
+    _eq(want[1], words[:, 1], "word model feas")
     assert model[:, 1].sum() > len(edges) // 4
     assert (model[:, 0] > 20).sum() > 10
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
     got = mm_map.gapless_bound(t(world["pk"]), t(world["off"]), t(edges),
                                t(starts), t(bases), t(lengths), MT, MM)
-    assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
     _eq(want[0], got[0], "wrapper bound")
     _eq(want[1], got[1], "wrapper feas")
 
@@ -541,6 +614,124 @@ def test_bound_from_codes_at_the_pool_ends(world):
     _eq(want[0], got[:, 0], "bound")
     _eq(want[1], got[:, 1], "feas")
     assert (got[:, 0] > 0).sum() > n // 2
+
+
+ALIGN_G, ALIGN_CASES = tt.mm_align_cases(seed=5)
+
+
+@pytest.fixture(scope="module")
+def align_world():
+    g = ALIGN_G
+    return dict(g=g, pk=tm._pack_pool_nibbles(g.seq_data), codes=g.seq_data,
+                off=g.seq_off.astype(np.int64))
+
+
+@pytest.mark.parametrize("L", tt.MM_ALIGN_WIDTHS)
+def test_bound_words_model_equals_jax_at_every_alignment(align_world, L):
+    """The word model (model_bound_words: the kernel's word loads at the
+    pool's real byte alignment, the funnel shift, the per-byte compare,
+    the masks at lo and hi and at the pool's last byte) equals
+    model_bound and JAX _gapless_bound_dev on queries of width L at all
+    16 start alignments against the pool, with code-4 bases in the query
+    and in the pool, and on windows that end on the pool's last byte:
+    for the bound entry's group and the map's 32 lanes, the pool's first
+    byte at each address mod 4, and any bytes past L in the query row.
+    The wrapper on the CPU returns the same int32 bound."""
+    w = align_world
+    codes, off = w["codes"], w["off"]
+    edges, starts, bases, lengths = ALIGN_CASES[f"aligned queries L={L}"][1]
+    want = jax_bound(w, edges, starts, bases, lengths)
+    rows = list(zip(edges, starts, bases, lengths))
+    ref = np.array([model_bound(codes, off, *x) for x in rows])
+    _eq(want[0], ref[:, 0], "model_bound")
+    _eq(want[1], ref[:, 1], "model_bound feas")
+    for G in sorted({bound_group(L), 32}):
+        for c in range(4):
+            got = np.array([model_bound_words(codes, off, *x, G=G, c=c,
+                                              fill=(7 * c + i) % 256)
+                            for i, x in enumerate(rows)])
+            _eq(want[0], got[:, 0], f"word model bound, G={G}, c={c}")
+            _eq(want[1], got[:, 1], f"word model feas, G={G}, c={c}")
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    got = mm_map.gapless_bound(t(w["pk"]), t(off), t(edges), t(starts),
+                               t(bases), t(lengths), MT, MM)
+    assert got[0].dtype == torch.int32
+    _eq(want[0], got[0], "wrapper bound")
+    _eq(want[1], got[1], "wrapper feas")
+    # the cases hold what they are for
+    e = np.maximum(edges, 0)
+    elen = off[e + 1] - off[e]
+    lo = np.where(starts < 0, np.minimum(-starts, L), 0)
+    hi = np.minimum(lengths, np.clip(elen - starts, 0, L))
+    span = hi > lo
+    first = (off[e] + starts + lo)[span & (edges >= 0)]
+    assert len(np.unique(first % 16)) == 16
+    ends_last = span & (off[e] + starts + hi == len(codes)) & (edges >= 0)
+    assert ends_last.sum() >= min(4, L)
+    j = np.arange(L)[None, :]
+    on = (j >= lo[:, None]) & (j < hi[:, None]) & (edges >= 0)[:, None]
+    pool_at = codes[np.clip(off[e][:, None] + starts[:, None] + j, 0,
+                            len(codes) - 1)]
+    assert (on & (pool_at == 4) & (bases == 4)).sum() >= 1
+    if L >= 150:
+        assert (on & (pool_at == 4) & (bases != 4)).sum() >= 1
+        assert (on & (pool_at != 4) & (bases == 4)).sum() >= 1
+
+
+def test_map_at_pool_end_equals_jax(align_world):
+    """Reads on the pool's last edge, ending on the pool's last byte (a
+    code 4), short of it or past it: the model (the word bound with the
+    warp's 32 lanes) and the wrapper on the CPU equal JAX
+    _map_batch_verified, and the voted spans of some end on that byte."""
+    w = align_world
+    g = w["g"]
+    idx = tm.EdgeMinimizerIndex.build(g, device="cpu")
+    hkeys, vals, salt = idx.hash_tables()
+    world = dict(w, hkeys=hkeys, vals=vals, salt=salt)
+    bases, lengths, thr = ALIGN_CASES["reads at the pool's end"][1]
+    _, jver = jax_map(world, bases, lengths, thr)
+    m = model_map(bases, lengths, mm_map.bucket_records(hkeys, vals), salt,
+                  (w["codes"], w["off"]), thr)
+    for i, f in enumerate(("be", "best", "bs", "bound", "fast")):
+        _eq(jver[i], m[f], f"model {f}")
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    hk, vl, sl = idx.device_tables("cpu")
+    ver = mm_map.map_batch(t(bases), t(lengths), hk, vl, sl, K, W,
+                           t(w["pk"]), t(w["off"]), t(thr), MT, MM)
+    for i in range(5):
+        _eq(jver[i], ver[i], f"wrapper verified {i}")
+    last = g.n_e - 1
+    ends = (m["be"] == last) & (m["bs"] + lengths >= g.edge_len()[last])
+    assert ends.sum() >= 8 and (m["be"] == last).sum() >= 48
+
+
+def test_padded_pool_holds_the_codes_alone(world):
+    """The card's pool layout, built on the CPU: padded_codes is a view of
+    the codes alone with POOL_PAD bytes of 0xF before and after it in its
+    storage; the pad check takes it and refuses a pool without the pad on
+    either side; the remainder DP reads the same scores from the view as
+    from the host codes (it sees the unpadded length)."""
+    g, pad = world["g"], mm_map.POOL_PAD
+    n = len(g.seq_data)
+    codes = mm_map.padded_codes(g.seq_data, "cpu")
+    assert codes.dtype == torch.uint8 and codes.shape == (n,)
+    np.testing.assert_array_equal(codes.numpy(), g.seq_data)
+    full = torch.empty(0, dtype=torch.uint8).set_(codes.untyped_storage())
+    assert full.shape == (n + 2 * pad,) and codes.storage_offset() == pad
+    assert (full[:pad] == 0xF).all() and (full[-pad:] == 0xF).all()
+    mm_map.check_pool_pad(codes)
+    for bad in (torch.as_tensor(g.seq_data), full[pad - 1:pad - 1 + n],
+                full[pad + 1:pad + 1 + n]):
+        with pytest.raises(ValueError, match="pad"):
+            mm_map.check_pool_pad(bad)
+    edges, starts, bases, lengths = world["cases"]["queries"][1]
+    rest = np.flatnonzero(edges >= 0)
+    args = (g.seq_off, edges, starts, bases, lengths, rest,
+            tm.dp.SCORING_BWA)
+    want = tm._dp_verify_rest(g.seq_data, *args, device="cpu")
+    got = tm._dp_verify_rest(codes, *args, device="cpu")
+    _eq(want, got, "remainder DP on the padded view")
+    assert len(rest) > 100 and (want > 0).sum() > 20
 
 
 def _edge_rows(seed=31):

@@ -41,9 +41,27 @@
 //     then costs a second dependent read, and that kernel was 2% slower.
 //   - pool.  The graph's uint8 codes (seq_data), the copy the remainder
 //     DP reads, cached on the card per graph (mapper/minimizers.py:
-//     _device_pool).  Only on-edge positions count, and there a code
-//     (< 16) equals the plain version's nibble.  A nibble-packed uint32
-//     pool (phase 21's "nibble pool" variant) was 2% slower.
+//     _device_pool) with 16 bytes of pad on both sides, so a word
+//     load at any alignment stays inside the allocation.  Only on-edge
+//     positions count, and there a code (< 16) equals the plain version's
+//     nibble.  A nibble-packed uint32 pool was 2% slower (phase 21's timing).
+//   - bound.  A lane compares eight codes a step: three aligned pool
+//     words and two funnel shifts bring the window to the query's
+//     alignment, a per-byte __vcmpeq4 and __popc count the matches,
+//     masks cut the span's first and last words.  The bound entry runs
+//     a group of lanes a query (bound_group), its first lane making the
+//     query's dependent loads and handing the span to the group.  In the map,
+//     where the warp's 32 lanes take a read of up to 256 codes in one
+//     trip of pool loads, the bound is two dependent trips after the
+//     vote (the edge's span, then its codes); the map's 48 registers
+//     leave 5 blocks an SM, and every way tried to hide those trips
+//     (the span loaded during the vote, the compare put off until the
+//     next read is packed) cost registers or time (PERF.md).  The map's
+//     stage gained nothing from the word compares: timed in turns it
+//     was no faster than the byte loop it replaced (a code a lane a
+//     step), since its time is those two trips, not the compares.  The
+//     word form serves the bound entry, where it halved the time; do
+//     not tune the map's stage on the belief that it helped there.
 //   - marks.  A read's codes are packed once into 2-bit words and an
 //     invalid-base bitmask, a thread 16 codes, four at a time (a byte
 //     compare, a byte permute, a multiply); a window position's two
@@ -148,14 +166,6 @@ __device__ __forceinline__ uint32_t hash_key(uint32_t l0, uint32_t l1) {
     const uint32_t x1 = rotl32(l1 * 0xCC9E2D51u, 15) * 0x1B873593u;
     h = rotl32(h ^ x1, 13) * 5u + 0xE6546B64u;
     return fmix32(h);
-}
-
-// Bit m of the low 16 bits to bit 2m.
-__device__ __forceinline__ uint32_t spread16(uint32_t x) {
-    x = (x | (x << 8)) & 0x00FF00FFu;
-    x = (x | (x << 4)) & 0x0F0F0F0Fu;
-    x = (x | (x << 2)) & 0x33333333u;
-    return (x | (x << 1)) & 0x55555555u;
 }
 
 // Pack a row of L codes (16-byte aligned, readable up to align16(L)) into
@@ -301,32 +311,82 @@ __device__ __forceinline__ bool match(const Record& rec, uint32_t q0,
 }
 
 struct Pool {
-    const uint8_t* codes;     // the graph's seq_data on the card
+    // the graph's seq_data on the card, readable 16 bytes before its
+    // first code and after its last (ops/mm_map.py: POOL_PAD)
+    const uint8_t* codes;
     const long long* off;     // (n_edges + 1,)
     int mt, mm;
 };
 
-// Gapless score of the query q (L codes, length len) at the signed
-// offset start on edge max(edge, 0), over the on-edge positions only, by
-// one warp: (bound, feasible).  q may be shared or global memory.
-__device__ __forceinline__ void gapless(const Pool& pool, const uint8_t* q,
-                                        int L, int len, long long edge,
-                                        long long start, int lane,
-                                        int* bound, bool* feas) {
-    const long long e = edge > 0 ? edge : 0;
-    const long long off = pool.off[e];
-    const long long elen = pool.off[e + 1] - off;
-    // the read's on-edge span [lo, hi) of positions j
-    const int lo = (int)(start < 0 ? (-start < L ? -start : L) : 0);
+// The on-edge span [lo, hi) of the positions j of a query of width L
+// and length len at the signed offset start on an edge of elen codes.
+__device__ __forceinline__ void on_edge(int L, int len, long long start,
+                                        long long elen, int* lo, int* hi) {
+    *lo = (int)(start < 0 ? (-start < L ? -start : L) : 0);
     const long long tail = elen - start;
-    const int hi = min(len, (int)(tail < L ? (tail > 0 ? tail : 0) : L));
-    const uint8_t* t = pool.codes + off + start;
-    int nm = 0;
-    for (int j = lo + lane; j < hi; j += 32) nm += q[j] == __ldg(t + j);
-    nm = __reduce_add_sync(FULL, nm);
+    *hi = min(len, (int)(tail < L ? (tail > 0 ? tail : 0) : L));
+}
+
+// The query's codes j..j+3 as one word (byte i = code j + i), 0 from
+// j = L on.  SHARED: q is a shared row, 16-byte aligned and readable to
+// align16(L).  Else a global row: a word load when rows are 4-byte
+// aligned (`words`), bytes below L otherwise.
+template <bool SHARED>
+__device__ __forceinline__ uint32_t query_word(const uint8_t* q, int j,
+                                               int L, bool words) {
+    if (SHARED) return *reinterpret_cast<const uint32_t*>(q + j);
+    if (j >= L) return 0;
+    if (words) return __ldg(reinterpret_cast<const uint32_t*>(q + j));
+    uint32_t x = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        if (j + i < L) x |= (uint32_t)__ldg(q + j + i) << (8 * i);
+    return x;
+}
+
+// 8 x the matches of query word q (codes j..j + 3) against the pool's
+// word t, over the positions of [lo, hi) only: __vcmpeq4 marks each
+// equal byte 0xFF (codes, not bases: code 4 matches code 4), masks cut
+// the bytes outside the span, __popc counts.
+__device__ __forceinline__ int word_matches(uint32_t q, uint32_t t, int j,
+                                            int lo, int hi) {
+    if (j + 4 <= lo || j >= hi) return 0;
+    uint32_t m = FULL;
+    if (j < lo) m <<= 8 * (lo - j);
+    if (j + 4 > hi) m &= FULL >> (8 * (j + 4 - hi));
+    return __popc(__vcmpeq4(q, t) & m);
+}
+
+// Gapless score of a query over its on-edge span [lo, hi), the pool
+// code under position j at codes[at + j], by the G lanes of a group
+// (rank r, mask gm): lane r compares the span's 8-code steps (lo >> 3)
+// + r, + G, ..., all its loads of a step in one trip.  The pool's 8
+// codes at any byte alignment are three aligned word loads and two
+// funnel shifts by their byte offset; for a step that holds a code of
+// a span that is not empty the loads reach at most 10 bytes before the
+// pool's first code and 11 after its last, inside the pool's pad.  An
+// empty span loads nothing.
+template <bool SHARED>
+__device__ __forceinline__ int gapless(const Pool& pool, const uint8_t* q,
+                                       int L, bool words, long long at,
+                                       int lo, int hi, int r, int G,
+                                       unsigned gm) {
+    int bits = 0;
+    const int end = hi > lo ? hi : 0;
+    for (int j = 8 * ((lo >> 3) + r); j < end; j += 8 * G) {
+        const uintptr_t p = reinterpret_cast<uintptr_t>(pool.codes + at + j);
+        const uint32_t* w =
+            reinterpret_cast<const uint32_t*>(p & ~(uintptr_t)3);
+        const uint32_t w0 = __ldg(w), w1 = __ldg(w + 1), w2 = __ldg(w + 2);
+        const unsigned sh = 8 * (unsigned)(p & 3);
+        bits += word_matches(query_word<SHARED>(q, j, L, words),
+                             __funnelshift_r(w0, w1, sh), j, lo, hi) +
+                word_matches(query_word<SHARED>(q, j + 4, L, words),
+                             __funnelshift_r(w1, w2, sh), j + 4, lo, hi);
+    }
+    const int nm = __reduce_add_sync(gm, bits) >> 3;
     const int non = hi > lo ? hi - lo : 0;
-    *bound = nm * pool.mt + (non - nm) * pool.mm;
-    *feas = non > 0 && edge >= 0;
+    return nm * pool.mt + (non - nm) * pool.mm;
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -501,34 +561,67 @@ map_kernel(MapArgs a, int warps) {
             a.best_hits[b] = best;
             a.est_start[b] = bs;
         }
-        if (a.verified) {
-            int bound;
-            bool feas;
-            gapless(a.pool, seq, L, len, be, bs, lane, &bound, &feas);
+        if (a.verified) {              // the gapless bound at the vote
+            const long long off = a.pool.off[be > 0 ? be : 0];
+            int lo, hi;
+            on_edge(L, len, bs, a.pool.off[(be > 0 ? be : 0) + 1] - off, &lo,
+                    &hi);
+            const int bound = gapless<true>(a.pool, seq, L, true, off + bs,
+                                            lo, hi, lane, 32, FULL);
             if (lane == 0) {
                 a.bound[b] = bound;
-                a.fast[b] = feas && bound >= (a.thr ? a.thr[b] : a.thr_all);
+                a.fast[b] = hi > lo && be >= 0 &&
+                            bound >= (a.thr ? a.thr[b] : a.thr_all);
             }
         }
         __syncwarp();                  // seq is refilled two reads on
     }
 }
 
+// Lanes a query in the bound entry: a power of two, at most 8 steps of
+// 8 codes a lane (4 lanes at 152 codes: 5 steps, 8 queries a warp).
+__host__ __device__ __forceinline__ int bound_group(int L) {
+    int g = 1;
+    while (g < 32 && 64 * g < L) g *= 2;
+    return g;
+}
+
+// The bound entry: a group of G lanes a query.  The group's first lane
+// loads the query's edge, start and length and then its edge's span in
+// the pool, and hands the on-edge span to the group by shuffles, so a
+// warp has 32 / G queries' dependent loads in flight.
 __global__ void __launch_bounds__(32 * MAP_WARPS)
 bound_kernel(const uint8_t* __restrict__ bases, const int* __restrict__ lengths,
              const long long* __restrict__ edges,
-             const long long* __restrict__ starts, long long N, int L,
-             Pool pool, long long* bound, uint8_t* feas) {
-    const int lane = threadIdx.x & 31;
-    const long long b = (long long)blockIdx.x * MAP_WARPS + (threadIdx.x >> 5);
-    if (b >= N) return;
-    int bd;
-    bool fs;
-    gapless(pool, bases + b * L, L, lengths[b], edges[b], starts[b], lane,
-            &bd, &fs);
-    if (lane == 0) {
+             const long long* __restrict__ starts, long long N, int L, int G,
+             Pool pool, int* bound, uint8_t* feas) {
+    const int lane = threadIdx.x & 31, r = lane & (G - 1);
+    const long long b0 = ((long long)blockIdx.x * MAP_WARPS +
+                          (threadIdx.x >> 5)) * (32 / G);
+    if (b0 >= N) return;               // the whole warp: no block barrier
+    const long long b = b0 + lane / G;
+    const unsigned gm = G == 32 ? FULL : ((1u << G) - 1u) << (lane & ~(G - 1));
+    long long at = 0, edge = -1;
+    int lo = 0, hi = 0;
+    if (r == 0 && b < N) {
+        edge = edges[b];
+        const long long start = starts[b];
+        const int len = lengths[b];
+        const long long off = pool.off[edge > 0 ? edge : 0];
+        on_edge(L, len, start, pool.off[(edge > 0 ? edge : 0) + 1] - off,
+                &lo, &hi);
+        at = off + start;
+    }
+    lo = __shfl_sync(FULL, lo, 0, G);
+    hi = __shfl_sync(FULL, hi, 0, G);
+    at = __shfl_sync(FULL, at, 0, G);
+    const bool words = (L & 3) == 0 &&
+        (reinterpret_cast<uintptr_t>(bases) & 3) == 0;
+    const int bd = gapless<false>(pool, bases + (b < N ? b : 0) * L, L,
+                                  words, at, lo, hi, r, G, gm);
+    if (r == 0 && b < N) {
         bound[b] = bd;
-        feas[b] = fs;
+        feas[b] = hi > lo && edge >= 0;
     }
 }
 
@@ -771,7 +864,7 @@ extern "C" int mm_map_batch_launch(
 
 // The bound entry: queries (N, L) uint8 codes and (N,) int32 lengths at
 // edges and signed starts (N,) int64, the pool as above.  Writes bound
-// (N,) int64 and feas (N,) bool.
+// (N,) int32 and feas (N,) bool.
 extern "C" int mm_gapless_bound_launch(
         const void* bases, const void* lengths, const void* edges,
         const void* starts, long long N, int L, const void* codes,
@@ -779,16 +872,18 @@ extern "C" int mm_gapless_bound_launch(
         void* stream) {
     if (N < 0 || L < 0) return (int)cudaErrorInvalidValue;
     if (N == 0) return 0;
-    const long long blocks = (N + MAP_WARPS - 1) / MAP_WARPS;
+    const int G = bound_group(L);
+    const long long per_block = (long long)MAP_WARPS * (32 / G);
+    const long long blocks = (N + per_block - 1) / per_block;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     bound_kernel<<<(unsigned)blocks, 32 * MAP_WARPS, 0,
                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(bases), static_cast<const int*>(lengths),
         static_cast<const long long*>(edges),
-        static_cast<const long long*>(starts), N, L,
+        static_cast<const long long*>(starts), N, L, G,
         Pool{static_cast<const uint8_t*>(codes),
              static_cast<const long long*>(seq_off), mt, mm},
-        static_cast<long long*>(bound), static_cast<uint8_t*>(feas));
+        static_cast<int*>(bound), static_cast<uint8_t*>(feas));
     return (int)cudaGetLastError();
 }
 

@@ -398,8 +398,9 @@ def _device_pool(seq_data: np.ndarray, seq_off: np.ndarray,
                  device: torch.device):
     """(pool, seq_off) of a graph on `device` in the layout its map
     takes: the nibble-packed int64 words of _pack_pool_nibbles on the
-    CPU, the uint8 codes themselves on a card (also the remainder DP's
-    copy).  Cached per (seq_data, seq_off) array identity, as the JAX
+    CPU, the uint8 codes themselves on a card (mm_map.padded_codes: a
+    view of the codes alone, the remainder DP's copy too, in a buffer
+    padded for the kernel).  Cached per (seq_data, seq_off) array identity, as the JAX
     package's _device_pool caches its packed pool: the graph modules
     replace seq_data and never edit it in place.  The bridge maps from
     worker threads, so the cache takes a lock; it is cleared past 8
@@ -412,12 +413,12 @@ def _device_pool(seq_data: np.ndarray, seq_off: np.ndarray,
             return hit[1]
         if device.type == "cuda":
             # on-edge codes (< 16) equal the plain version's nibbles, so
-            # the kernel's bound reads the codes themselves
+            # the kernel's bound reads the codes themselves, with a pad
+            # for its word loads
             if len(seq_data) and int(seq_data.max()) >= 16:
                 raise ValueError("seq_data holds codes >= 16, which the "
                                  "nibble-packed pool cannot hold")
-            pool = torch.as_tensor(np.ascontiguousarray(seq_data,
-                                                        np.uint8)).to(device)
+            pool = mm_map.padded_codes(seq_data, device)
         else:
             pool = torch.as_tensor(_pack_pool_nibbles(seq_data))
         dev = (pool, torch.as_tensor(np.asarray(seq_off, np.int64)).to(device))

@@ -10,7 +10,7 @@ marked and compacted (`_compact_minimizer_rows`).  Three entries of one
 source, one entry a call:
   - map_batch: a warp a read; returns (best_edge, best_hits,
     est_start[, bound, fast]);
-  - gapless_bound: a warp a query; (bound, feas);
+  - gapless_bound: a group of lanes a query; (bound int32, feas);
   - minimizer_rows: a block a segment row, a marks pass and a write
     pass; the (n, 4) rows of the marked positions, ascending.
 csrc/mm_map.cu says how each computes the plain version's integers
@@ -23,14 +23,15 @@ minimizers._device_pool give for each device:
     the kernel's bucket records (NB, 16) int32 (bucket_records), vals
     None;
   - pool: the plain version's nibble-packed int64 words; the kernel's
-    uint8 codes (the graph's seq_data).
+    uint8 codes (the graph's seq_data) with POOL_PAD bytes before and
+    after them in their storage (padded_codes).
 The plain versions are the tensor functions of mapper/minimizers.py
 (minimizer_mask, _vote_core, _verified_core, _gapless_bound_dev,
 _compact_minimizer_rows).  On CPU tensors the wrapper runs them; on CUDA
-tensors it launches the kernel or raises.  The kernel returns int32 where
-the plain versions return int64: the values are equal.  COUNT records
-every launch with its shape (B, L, entry, verified); the bridge maps from
-its worker threads, so it takes a lock.
+tensors it launches the kernel or raises.  map_batch's kernel returns
+int32 where its plain versions return int64: the values are equal.
+COUNT records every launch with its shape (B, L, entry, verified); the
+bridge maps from its worker threads, so it takes a lock.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from .. import _build
 
 MIN_K, MAX_K = 17, 32         # the keys are two limbs (the cuckoo tables')
 MAX_W = 32                    # the windows of one sparse-table pass
+POOL_PAD = 16                 # bytes of the card's pool before and after
 
 
 @dataclass
@@ -139,13 +141,40 @@ def _check_k(k: int, w: int) -> None:
                          f"{MIN_K} <= k <= {MAX_K} and 1 <= w <= {MAX_W}")
 
 
+def padded_codes(seq_data: np.ndarray, device) -> torch.Tensor:
+    """The card's pool: the graph's uint8 codes on `device`, a view of
+    len(seq_data) codes into a buffer with POOL_PAD bytes (0xF) before
+    and after them.  The kernel's word loads reach into the pad; the
+    view, as the remainder DP reads it, holds the codes alone."""
+    n = len(seq_data)
+    buf = torch.full((n + 2 * POOL_PAD,), 0xF, dtype=torch.uint8,
+                     device=device)
+    codes = buf[POOL_PAD:POOL_PAD + n]
+    codes.copy_(torch.as_tensor(np.ascontiguousarray(seq_data, np.uint8)))
+    return codes
+
+
+def check_pool_pad(codes: torch.Tensor) -> None:
+    """codes has POOL_PAD readable bytes before and after it in its
+    storage (padded_codes), which the kernel's word loads need."""
+    at = codes.storage_offset() * codes.element_size()
+    after = codes.untyped_storage().nbytes() - at - codes.nbytes
+    if at < POOL_PAD or after < POOL_PAD:
+        raise ValueError(f"mm_map: the card's pool needs {POOL_PAD} bytes "
+                         f"of pad before and after its codes, got {at} and "
+                         f"{after} (use padded_codes)")
+
+
 def _check_pool(dev, seq_pk, seq_off) -> None:
     """The pool in the layout of dev: nibble-packed int64 words on the
-    CPU, uint8 codes on a card; seq_off int64 with an edge."""
+    CPU, uint8 codes with their pad on a card; seq_off int64 with an
+    edge."""
     dt = torch.uint8 if dev.type == "cuda" else torch.int64
     _check(dev, seq_pk=(seq_pk, dt, 1), seq_off=(seq_off, torch.int64, 1))
     if seq_off.shape[0] < 2 or seq_pk.shape[0] < 1:
         raise ValueError("mm_map: the pool needs a word and an edge")
+    if dev.type == "cuda":
+        check_pool_pad(seq_pk)
 
 
 def _on_card(bases: torch.Tensor) -> bool:
@@ -264,8 +293,8 @@ def gapless_bound(seq_pk, seq_off, edges, starts, bases, lengths, mt: int,
     signed start over the on-edge positions (the JAX
     _gapless_bound_dev).  seq_pk, seq_off: the pool in the layout of the
     bases' device (module note); edges and starts (N,) int64, bases (N, L)
-    uint8, lengths (N,) int32.  Returns (bound (N,) int64, feas (N,)
-    bool)."""
+    uint8, lengths (N,) int32.  Returns (bound (N,) int32, feas (N,)
+    bool), as the JAX function does."""
     from ..mapper import minimizers as mz
     _check_reads(bases, lengths)
     dev = bases.device
@@ -276,9 +305,10 @@ def gapless_bound(seq_pk, seq_off, edges, starts, bases, lengths, mt: int,
     if edges.shape[0] != N or starts.shape[0] != N:
         raise ValueError("mm_map: edges and starts (N,) disagree with bases")
     if not card:
-        return mz._gapless_bound_dev(seq_pk, seq_off, edges, starts, bases,
-                                     lengths, mt, mm)
-    bound = torch.empty(N, dtype=torch.int64, device=dev)
+        bound, feas = mz._gapless_bound_dev(seq_pk, seq_off, edges, starts,
+                                            bases, lengths, mt, mm)
+        return bound.to(torch.int32), feas
+    bound = torch.empty(N, dtype=torch.int32, device=dev)
     feas = torch.empty(N, dtype=torch.bool, device=dev)
     if N == 0:
         return bound, feas

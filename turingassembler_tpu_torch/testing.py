@@ -20,7 +20,9 @@ flanks and the read pairs of one of them, for the bridge's path
 scoring.  make_212_genome (a copy of tests/test_resolve_big.py's) makes
 the two sequences through one short repeat of the 2-1-2 resolvers.
 mm_world, mm_reads, mm_bound_queries, mm_segment_rows and mm_map_cases
-make the minimizer map kernel's edge cases (ops/mm_map.py)."""
+make the minimizer map kernel's edge cases (ops/mm_map.py);
+mm_align_world, mm_align_queries, mm_pool_end_reads and mm_align_cases
+its gapless bound's alignment and pool-end cases."""
 
 from __future__ import annotations
 
@@ -719,6 +721,93 @@ def mm_bound_queries(g, N: int, L: int, seed: int):
     bases[sub] = rng.integers(0, 5, int(sub.sum()))
     bases[np.arange(L)[None, :] >= lengths[:, None]] = 255
     return edges, starts, bases, lengths
+
+
+MM_ALIGN_WIDTHS = (1, 3, 4, 150, 151, 152, 153, 200)
+
+
+def mm_align_world(seed: int = 0):
+    """mm_world with code-4 bases in its pool: every 97th code and the
+    pool's last one."""
+    g = mm_world(seed)
+    g.seq_data = g.seq_data.copy()
+    g.seq_data[::97] = 4
+    g.seq_data[-1] = 4
+    return g
+
+
+def mm_align_queries(g, L: int, seed: int):
+    """Queries of width L for the gapless bound's word loads, at all 16
+    start alignments against the pool in each of five places: inside edge
+    0, over the heads of edges 0 and 1, over the last edge's tail (the
+    on-edge span ends on the pool's last byte), and unmapped.  Lengths L
+    or up to 3 less (at least 1); codes copied from the pool under the
+    query, with 2% substitutions by codes 0-4 and a code 2 over every
+    pool code 4 in every fifth query, random elsewhere, 255 past the
+    length.  Returns (edges, starts, bases, lengths) as mm_bound_queries
+    does."""
+    rng = np.random.default_rng(seed)
+    elen, off = g.edge_len(), g.seq_off
+    last = g.n_e - 1
+    a = np.arange(16)
+    inside = 16 * rng.integers(0, (elen[0] - L - 16) // 16, 16) + \
+        (a - off[0]) % 16
+    edges = np.concatenate([np.zeros(16), np.zeros(16), np.ones(16),
+                            np.full(16, last), np.full(16, -1)]
+                           ).astype(np.int64)
+    starts = np.concatenate([inside, -a, -a, elen[last] - L + a, a]
+                            ).astype(np.int64)
+    N = len(edges)
+    lengths = (L - rng.integers(0, min(4, L), N)).astype(np.int32)
+    lengths[::3] = L
+    e = np.maximum(edges, 0)
+    j = np.arange(L)[None, :]
+    tpos = starts[:, None] + j
+    on = (tpos >= 0) & (tpos < elen[e][:, None])
+    src = np.clip(off[e][:, None] + tpos, 0, len(g.seq_data) - 1)
+    bases = np.where(on, g.seq_data[src], rng.integers(0, 4, (N, L))
+                     ).astype(np.uint8)
+    sub = rng.random((N, L)) < 0.02
+    bases[sub] = rng.integers(0, 5, int(sub.sum()))
+    # every fifth query holds a code 2 where the pool holds a code 4
+    bases[on & (g.seq_data[src] == 4) & (np.arange(N) % 5 == 1)[:, None]] = 2
+    bases[j >= lengths[:, None]] = 255
+    return edges, starts, bases, lengths
+
+
+def mm_pool_end_reads(g, seed: int, L: int = 152):
+    """Reads of width L copied from the end of g's last edge (the pool's
+    last codes, 1% substitutions): ending on its last code or up to 8
+    codes before it, or running up to 15 codes past it (random codes
+    there); 4 each.  Returns (bases, lengths, thr) as mm_reads does."""
+    rng = np.random.default_rng(seed)
+    last = g.n_e - 1
+    elen = int(g.edge_len()[last])
+    st = elen - L + np.repeat(np.arange(-8, 16), 4)
+    B = len(st)
+    j = np.arange(L)[None, :]
+    tpos = st[:, None] + j
+    on = (tpos >= 0) & (tpos < elen)
+    src = np.clip(g.seq_off[last] + tpos, 0, len(g.seq_data) - 1)
+    reads = np.where(on, g.seq_data[src], rng.integers(0, 4, (B, L))
+                     ).astype(np.uint8)
+    sub = rng.random((B, L)) < 0.01
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    thr = rng.integers(0, L + 1, B).astype(np.int64)
+    return reads, np.full(B, L, np.int32), thr
+
+
+def mm_align_cases(seed: int = 0):
+    """The bound's alignment and last-byte cases on mm_align_world:
+    (graph, cases) as mm_map_cases gives them, a "bound" case for each
+    width of MM_ALIGN_WIDTHS (mm_align_queries) and a "map" case of reads
+    at the pool's end (mm_pool_end_reads)."""
+    g = mm_align_world(seed)
+    cases = {f"aligned queries L={L}": ("bound", mm_align_queries(
+        g, L, seed + i)) for i, L in enumerate(MM_ALIGN_WIDTHS)}
+    cases["reads at the pool's end"] = ("map", mm_pool_end_reads(g,
+                                                                 seed + 99))
+    return g, cases
 
 
 def mm_segment_rows(g, B: int, L: int, seed: int, k: int = 17,
