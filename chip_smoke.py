@@ -36,6 +36,17 @@ before printing a result:
      phase, held equal and timed in turns; the graph pool's first copy
      and its cached lookup; map_reads of the bench reads, wall beside
      device time
+ 23. kmer_sort kernels vs plain (run here, after phase 21, on its
+     workload: the profiler sees the card early in the process), exact:
+     the count's kernels (csrc/kmer_sort.cu) against their plain
+     versions: sort_count (int64 and int32 rows), merge_runs and
+     lex_order on testing.kmer_sort_cases, int64 limbs outside
+     [0, 2^32) refused; extract_keys and sort_count
+     of a 131,072-read record of phase 5's workload at k1 = 46, 31 and 64
+     (nl 3, 2, 4), sort_count of the full flush (110,100,480 rows),
+     merge_runs of its halves' tables, lex_order of the level-0 build's
+     fingerprints, each with wrapper, device (profiler), plain and bound
+     ms (sort_count beside torch.unique)
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
      150 bp, k=45; the bench twin's make_workload) through the bench
      twin's stages, count -> level-0 build -> minimizer index ->
@@ -173,7 +184,9 @@ before printing a result:
      archive verified on 512 barcodes and 32 content-exact, and
      1,000,000 reads counted on the card in memory and under a device
      budget of a fifth of their unique (k+1)-mers: host and disk runs
-     counted, tables equal
+     counted, tables equal; then the same reads in memory in flush
+     windows of a fifth of their rows, each window's table merged into
+     the running one (merge_runs): the same table
  18. the bench twin as users run it: `python -m
      turingassembler_tpu_torch.bench` in a subprocess at its defaults
      (phase 5's workload; best of 5 count + build passes and of 3 map
@@ -198,9 +211,17 @@ before printing a result:
      phases 5, 9, 10, 11, 13, 16, 18 and 19 launched it at (their mm_map
      counts are set to 0 just before each and read just after), on a
      synthetic world's reads, queries or segment rows of that shape
+ 24. the kmer_sort kernels vs plain once more, at every shape that
+     phases 4-11, 13 and 16-19 launched their four entries at (each
+     phase's kmer_sort count is set to 0 just before it and read just
+     after; the ranks and the bench twin report theirs), on synthetic
+     rows or reads of that shape.  Before it the script requires
+     extract_keys and sort_count launches in each count path (phases 5,
+     7, 9, 16, 17, 18) and merge_runs in phase 17
  20. the `kernels` JSON line (nw_align, devhash, devhash_count_reads,
-     mm_map), the nvidia-smi line, and last the result line {"ok": true,
-     "device": {...}}
+     mm_map, kmer_extract_keys, kmer_sort_count, kmer_merge_runs,
+     kmer_lex_order), the nvidia-smi line, and last the result line
+     {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
 result.  Kernels build at first use into build/kernels/, the host
@@ -1408,6 +1429,338 @@ def phase_mm_hold_path_shapes(recorded):
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the kmer_sort kernels (the count's device program)
+# ---------------------------------------------------------------------------
+
+KS_K1 = 46                  # the bench's (k+1)-mers
+KS_RECORD = 131_072         # reads a count record (megasort.COUNT_CHUNK)
+KS_ENTRIES = ("extract_keys", "sort_count", "merge_runs", "lex_order")
+# the jitted JAX device code each entry replaces
+KS_REPLACES = {
+    "extract_keys": "turingassembler_tpu/kmer/megasort.py:73",
+    "sort_count": "turingassembler_tpu/kmer/megasort.py:165",
+    "merge_runs": "turingassembler_tpu/kmer/megasort.py:225",
+    "lex_order": "turingassembler_tpu/graph/device_build.py:89"}
+# the phases that drive a path; the kernels line counts their launches
+KS_PATH_PHASES = (
+    "phase_slice_parity", "phase_full_width", "phase_levels_parity",
+    "phase_levels_full_width", "phase_scaffold_parity",
+    "phase_scaffold_full_width", "phase_path_scoring",
+    "phase_barcode_levels", "phase_multi_process", "phase_ecoli",
+    "phase_spill", "phase_bench_twin", "phase_graft_twin")
+# the count paths, each of which must launch extract_keys and sort_count
+KS_COUNT_PHASES = ("phase_full_width", "phase_levels_full_width",
+                   "phase_scaffold_full_width", "phase_ecoli", "phase_spill",
+                   "phase_bench_twin")
+# kmer_sort launches a phase made in its subprocesses (phase 13's card
+# ranks, phase 18's bench twin): (by entry, shapes), added by main()
+KS_REMOTE = []
+
+
+def ks_remote(by_entry, shapes):
+    KS_REMOTE.append((dict(by_entry), [tuple(sh) for sh in shapes]))
+
+
+def hold_ks(what, got, want) -> int:
+    """Largest |difference| of kmer_sort outputs and their plain versions
+    (limbs as unsigned 32-bit values, the card's int32 rows included);
+    raises unless the shapes agree and it is 0."""
+    from turingassembler_tpu_torch.ops.kmer_sort import as_limbs
+    err = 0
+    for g_, w_ in zip(got, want):
+        g_, w_ = as_limbs(g_), as_limbs(w_)
+        if g_.shape != w_.shape:
+            raise AssertionError(f"kmer_sort {what}: shape {tuple(g_.shape)}"
+                                 f" != the plain version's {tuple(w_.shape)}")
+        if g_.numel():
+            err = max(err, int((g_.long() - w_.long()).abs().max()))
+    if err:
+        raise AssertionError(f"kmer_sort {what}: max |diff| {err}")
+    return err
+
+
+def ks_rows(n, nl, seed):
+    """n limb rows (int64 on the card) drawn from n / 3 random keys, every
+    bit of every limb random."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_keys = max(1, n // 3)
+    pool = torch.randint(0, 1 << 32, (n_keys, nl), dtype=torch.int64,
+                         device="cuda", generator=gen)
+    return pool[torch.randint(0, n_keys, (n,), device="cuda", generator=gen)]
+
+
+def ks_reads(B, L, seed):
+    """B random reads of width L on the card: code-4 bases, a tenth of them
+    truncated (255 past their length)."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    b[rng.random((B, L)) < 0.002] = 4
+    ln = np.full(B, L, np.int32)
+    short = rng.random(B) < 0.1
+    ln[short] = rng.integers(0, L + 1, int(short.sum()))
+    b[np.arange(L)[None, :] >= ln[:, None]] = 255
+    return put(b, ln)
+
+
+def device_ms_all(fn, reps):
+    """Device time a call of fn spends in all its kernels and memsets
+    (torch.profiler over reps calls), without the host's time; None when
+    the profiler saw no device time (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    t = sum(e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "Memcpy" not in e.key)
+    return t / 1e3 / reps if t else None
+
+
+def ks_timing(what, fn, plain, nbytes, ops, reps=5, library=None):
+    """An entry's figures at one shape: wrapper ms (CUDA events around the
+    call, its host syncs included), device ms (profiler), plain ms, the
+    library call's ms, and the bound."""
+    bound, by = bound_of(nbytes, ops)
+    t = {"ms": cuda_ms(fn, reps), "device_ms": device_ms_all(fn, reps),
+         "plain_ms": cuda_ms(plain, 2), "bound_ms": bound, "bound_by": by,
+         "library_ms": cuda_ms(library, 2) if library else None}
+    dev = "not measured" if t["device_ms"] is None \
+        else f"{t['device_ms']:.4f} ms"
+    log(f"kmer_sort {what}: wrapper {t['ms']:.4f} ms, device "
+        f"{dev}, plain {t['plain_ms']:.4f} ms, bound "
+        f"{bound:.5f} ms ({by}: {nbytes} bytes, {ops} operations)"
+        + (f", library {t['library_ms']:.4f} ms" if library else ""))
+    return t
+
+
+def log2_ceil(n):
+    return max(1, (int(n) - 1).bit_length())
+
+
+def phase_ks_kernel_vs_plain(workload):
+    """Phase 23 (run after phase 21, before phase 5, on its workload): the
+    kmer_sort kernels (csrc/kmer_sort.cu) against their plain versions on
+    the card, exact: (a) sort_count (int64 rows and their int32 bit
+    patterns), merge_runs (the halves with their weights) and lex_order
+    on testing.kmer_sort_cases; (b) on phase 5's workload (1,048,576
+    reads of 150 bp): extract_keys on the first 131,072-read record at
+    k1 = 46, 31 and 64 (nl 3, 2, 4) and sort_count of each record's
+    rows; the full flush, all eight records' 110,100,480 rows, through
+    sort_count; merge_runs of the two halves' tables; lex_order of the
+    level-0 build's fingerprints of the bench table; each with wrapper,
+    device, plain and bound ms (sort_count beside torch.unique).
+    Returns the kernels line's figures."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.graph import device_build
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    from turingassembler_tpu_torch.ops.devhash import to_i32
+    err, n_gates = 0, 0
+
+    def hold(what, got, want):
+        nonlocal err, n_gates
+        err = max(err, hold_ks(what, got, want))
+        n_gates += 1
+
+    # (a) the edge cases
+    for name, (keys, w) in tt.kmer_sort_cases().items():
+        t, wt = put(keys, w)
+        h = len(keys) // 2
+        hold(f"sort_count on {name!r}", ks.sort_count(t),
+             ks.plain_sort_count(t))
+        hold(f"sort_count of int32 rows on {name!r}",
+             ks.sort_count(to_i32(t)), ks.plain_sort_count(t))
+        hold(f"merge_runs on {name!r}",
+             ks.merge_runs(t[:h], wt[:h], t[h:], wt[h:]),
+             ks.plain_merge_runs(t[:h], wt[:h], t[h:], wt[h:]))
+        hold(f"lex_order on {name!r}", [ks.lex_order(t)],
+             [ks.plain_lex_order(t)])
+    log(f"kmer_sort (a) testing.kmer_sort_cases: {n_gates} gates, max |diff| "
+        f"{err}")
+    # an int64 limb outside [0, 2^32) would sort by its low word: refused
+    for v in (1 << 32, -1):
+        wide, = put(np.array([[5, 1], [3, v], [5, 0]], np.int64))
+        try:
+            ks.lex_order(wide)
+        except ValueError:
+            continue
+        raise AssertionError(f"kmer_sort: lex_order took the limb {v}")
+    log("kmer_sort (a) int64 limbs 2^32 and -1 refused")
+
+    # (b) the bench: a record at three widths, the full flush, a merge, the
+    # level-0 build's fingerprints
+    res = {}
+    bases, lens = put(*workload[1:])
+    rec = (bases[:KS_RECORD], lens[:KS_RECORD])
+    n_rows = {}
+    for k1 in (KS_K1, 31, 64):
+        got = ks.extract_keys(*rec, k1)
+        n_rows[k1] = got.shape[0]
+        want = ks.plain_extract_keys(*rec, k1)
+        hold(f"extract_keys of a bench record at k1={k1}", [got], [want])
+        hold(f"sort_count of a bench record at k1={k1}",
+             ks.sort_count(got), ks.plain_sort_count(want))
+        log(f"kmer_sort (b) bench record (131,072 x {rec[0].shape[1]}), "
+            f"k1={k1} (nl {got.shape[1]}): {got.shape[0]} rows == plain, "
+            "sorted and counted == plain")
+    B, L = rec[0].shape
+    res["extract_keys"] = ks_timing(
+        f"extract_keys ({B} x {L}, k1={KS_K1}, {n_rows[KS_K1]} rows)",
+        lambda: ks.extract_keys(*rec, KS_K1),
+        lambda: ks.plain_extract_keys(*rec, KS_K1),
+        B * L + 4 * B + 4 * 3 * n_rows[KS_K1], 8 * 3 * B * (L - KS_K1 + 1))
+    rows = torch.cat([ks.extract_keys(bases[i:i + KS_RECORD],
+                                      lens[i:i + KS_RECORD], KS_K1)
+                      for i in range(0, bases.shape[0], KS_RECORD)])
+    del bases, lens, rec, got, want
+    n = rows.shape[0]
+    u, c = ks.sort_count(rows)
+    hold(f"sort_count of the full flush ({n} rows)", (u, c),
+         ks.plain_sort_count(rows))
+    torch.cuda.empty_cache()
+    n_u = u.shape[0]
+    res["sort_count"] = ks_timing(
+        f"sort_count (the full flush: {n} x 3 int32 rows, {n_u} unique)",
+        lambda: ks.sort_count(rows),
+        lambda: ks.plain_sort_count(rows),
+        4 * 3 * n + (8 * 3 + 4) * n_u, 3 * n * log2_ceil(n), reps=3,
+        library=lambda: torch.unique(rows, dim=0, return_counts=True))
+    torch.cuda.empty_cache()
+    half = n // 2
+    ta = ks.sort_count(rows[:half])
+    tb = ks.sort_count(rows[half:])
+    del rows
+    torch.cuda.empty_cache()
+    m = ks.merge_runs(*ta, *tb)
+    hold("merge_runs of the halves' tables", m, ks.plain_merge_runs(*ta, *tb))
+    hold("merge_runs of the halves' tables == the full flush's table", m,
+         (u, c))
+    na, nb = ta[0].shape[0], tb[0].shape[0]
+    res["merge_runs"] = ks_timing(
+        f"merge_runs (the halves' tables: {na} + {nb} rows, {n_u} unique)",
+        lambda: ks.merge_runs(*ta, *tb),
+        lambda: ks.plain_merge_runs(*ta, *tb),
+        (8 * 3 + 4) * (na + nb) + (8 * 3 + 4) * n_u, 3 * (na + nb))
+    del ta, tb, m
+    captured = []
+    kernel_lex_order = ks.lex_order
+
+    def grab(keys):
+        captured.append(keys.clone())
+        return kernel_lex_order(keys)
+
+    ks.lex_order = grab
+    try:
+        device_build.build_graph_on_device(u, c, n_u, KS_K1 - 1,
+                                           device="cuda")
+    finally:
+        ks.lex_order = kernel_lex_order
+    fp = captured[0]
+    hold(f"lex_order of the level-0 build's fingerprints {tuple(fp.shape)}",
+         [ks.lex_order(fp)], [ks.plain_lex_order(fp)])
+    nf = fp.shape[0]
+    res["lex_order"] = ks_timing(
+        f"lex_order (the level-0 build's fingerprints, {nf} x 2 int64)",
+        lambda: ks.lex_order(fp), lambda: ks.plain_lex_order(fp),
+        8 * 2 * nf + 8 * nf, 2 * nf * log2_ceil(nf))
+    del u, c, fp, captured
+    torch.cuda.empty_cache()
+
+    log(f"kmer_sort (b) the bench shapes: all {n_gates} gates max |diff| "
+        f"{err}")
+    ks_count_split(*workload[1:])
+    res["max_abs_err"] = err
+    return res
+
+
+# kernel-name pieces of one count's device work, by part (the rest is
+# "other": casts, copies, the tensor code around the kernels)
+KS_PARTS = (("ship", ("Memcpy HtoD",)),
+            ("extraction", ("extract_kernel", "scan_ll_kernel")),
+            ("window concat", ("CatArrayBatchedCopy",)),
+            ("sort load", ("load_hist_kernel",)),
+            ("sort passes", ("tile_count_kernel", "group_scan_kernel",
+                             "tile_scan_kernel", "scatter_kernel")),
+            ("run-length", ("runs_kernel", "run_counts_kernel")))
+
+
+def ks_count_split(reads, lengths):
+    """One count of phase 5's reads from host arrays, as the bench twin
+    counts them (count_reads_device: the reads shipped, eight records
+    extracted, one flush sorted and run-length counted), under the
+    profiler: its wall and its device time by part (KS_PARTS)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from turingassembler_tpu_torch.kmer.megasort import count_reads_device
+    count_reads_device(reads, lengths, KS_K1 - 1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        count_reads_device(reads, lengths, KS_K1 - 1, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    parts = dict.fromkeys([p_ for p_, _ in KS_PARTS] + ["other"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        part = next((p_ for p_, keys in KS_PARTS
+                     if any(k_ in e.key for k_ in keys)), "other")
+        parts[part] += e.self_device_time_total / 1e3
+    busy = sum(parts.values())
+    if not busy:
+        log(f"kmer_sort count split: wall {wall * 1e3:.3f} ms; device time "
+            "not measured (the profiler saw no device time)")
+        return
+    log(f"kmer_sort count split (count_reads_device of {len(reads)} reads "
+        f"from host arrays, k1={KS_K1}): wall {wall * 1e3:.3f} ms, device "
+        f"{busy:.3f} ms: " + ", ".join(f"{p_} {ms:.3f}"
+                                     for p_, ms in parts.items()))
+
+
+def phase_ks_hold_path_shapes(recorded):
+    """Phase 24: the kmer_sort kernels against their plain versions once
+    more, at every shape the paths launched them at (`recorded`, as
+    kmer_sort.COUNT records them), on synthetic rows or reads of that
+    shape.  Returns the largest |difference| (0)."""
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    from turingassembler_tpu_torch.ops.devhash import to_i32
+    err = 0
+    shapes = sorted(set(recorded))
+    for i, sh in enumerate(shapes):
+        entry, seed = sh[0], 1_000 + i
+        if entry == "extract_keys":
+            _, B, L, k1 = sh
+            b, ln = ks_reads(B, L, seed)
+            got, want = [ks.extract_keys(b, ln, k1)], \
+                [ks.plain_extract_keys(b, ln, k1)]
+        elif entry == "sort_count":
+            _, n, nl = sh
+            r = ks_rows(n, nl, seed)
+            got, want = ks.sort_count(to_i32(r)), ks.plain_sort_count(r)
+        elif entry == "merge_runs":
+            _, na, nb, nl = sh
+            ka, kb = ks_rows(na, nl, seed), ks_rows(nb, nl, seed + 1)
+            ca = torch.randint(1, 1000, (na,), dtype=torch.int32,
+                               device="cuda")
+            cb = torch.randint(1, 1000, (nb,), dtype=torch.int32,
+                               device="cuda")
+            got, want = ks.merge_runs(ka, ca, kb, cb), \
+                ks.plain_merge_runs(ka, ca, kb, cb)
+        else:
+            _, n, nl = sh
+            r = ks_rows(n, nl, seed)
+            got, want = [ks.lex_order(r)], [ks.plain_lex_order(r)]
+        err = max(err, hold_ks(f"{entry} at {sh[1:]}", got, want))
+        del got, want
+        torch.cuda.empty_cache()
+    log(f"kmer_sort: {len(shapes)} shapes of the paths held, max |diff| "
+        f"{err}")
+    return err
+
+
+# ---------------------------------------------------------------------------
 # levels: FASTQ files -> level 0, 1, 2 graph files (pipeline.assembly_basic)
 # ---------------------------------------------------------------------------
 
@@ -2510,9 +2863,10 @@ def aux_single(spec):
 
 
 def rank_worker(spec):
-    from turingassembler_tpu_torch.ops import mm_map, nw_align
+    from turingassembler_tpu_torch.ops import kmer_sort, mm_map, nw_align
     nw_align.COUNT.reset()
     mm_map.COUNT.reset()
+    kmer_sort.COUNT.reset()
     t0 = time.perf_counter()
     res = {"cli": rank_cli, "stripes": rank_stripes,
            "aux_single": aux_single,
@@ -2521,7 +2875,9 @@ def rank_worker(spec):
                launches=nw_align.COUNT.launches, pairs=nw_align.COUNT.pairs,
                shapes=nw_align.COUNT.shapes,
                mm_launches=mm_map.COUNT.launches,
-               mm_shapes=mm_map.COUNT.shapes)
+               mm_shapes=mm_map.COUNT.shapes,
+               ks_by_entry=kmer_sort.COUNT.by_entry,
+               ks_shapes=kmer_sort.COUNT.shapes)
     print(json.dumps(res), flush=True)
 
 
@@ -2591,6 +2947,7 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
         shapes += label(rep["shapes"])
         mm[0] += rep["mm_launches"]
         mm[1] += [tuple(sh) for sh in rep["mm_shapes"]]
+        ks_remote(rep["ks_by_entry"], rep["ks_shapes"])
     card, cpu = (dir_files(outs[d]) for d in ("cuda", "cpu"))
     if sorted(card) != sorted(cpu):
         raise AssertionError("dist assembly3: card and CPU ranks wrote "
@@ -2683,6 +3040,7 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
         shapes += label(rep["shapes"])
         mm[0] += rep["mm_launches"]
         mm[1] += [tuple(sh) for sh in rep["mm_shapes"]]
+        ks_remote(rep["ks_by_entry"], rep["ks_shapes"])
     log(f"multi-process (b) stripes at 2 Mbp ({n_pairs} pairs in "
         f"{n_batches} archive batches, {DIST_RANKS} ranks on cuda:0): "
         f"{t_b:.3f} s; " + "; ".join(
@@ -2776,9 +3134,9 @@ CARD = "cuda"              # the device phase 14 runs on
 
 def table_of(counter):
     """A counter's live set, sorted, host arrays, whatever overflowed."""
-    from turingassembler_tpu_torch.ops import limbs as lb
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
     keys, counts = counter.live(counter.C)
-    order = lb.lex_order(keys)
+    order = ks.lex_order(keys)
     return (keys[order].cpu().numpy().astype(np.uint32),
             counts[order].cpu().numpy().astype(np.int64))
 
@@ -3551,15 +3909,23 @@ def phase_spill():
     """The spill twin on the card: 1,000,000 pairs sorted under 32 MB
     (at least 4 spilled runs), the archive verified; 1,000,000 reads
     counted in memory and under a device budget, which must leave host
-    and disk runs and the same table."""
+    and disk runs and the same table.  Then the same reads counted in
+    memory in flush windows of a fifth of their rows, each window's table
+    merged into the running one on the card (merge_runs, the path of a
+    count of more than 2^28 rows): the same table again."""
+    from turingassembler_tpu_torch.kmer.megasort import count_kedges_megasort
     from turingassembler_tpu_torch.tools import spill_scale
     with tempfile.TemporaryDirectory() as d:
         report = os.path.join(d, "report.json")
+        lib = os.path.join(d, "lib")
         with contextlib.redirect_stdout(sys.stderr):
-            rc = spill_scale.main(SPILL_ARGS + [
-                "--out", os.path.join(d, "lib"), "--report", report])
+            rc = spill_scale.main(SPILL_ARGS + ["--out", lib, "--report",
+                                                report])
         with open(report) as fp:
             rep = json.load(fp)
+        reads = spill_scale.first_reads(
+            [os.path.join(lib, n) for n in ("R1.fq", "R2.fq")],
+            int(SPILL_ARGS[SPILL_ARGS.index("--count-pairs") + 1]))
     srt, ab = rep["sort"], rep["count_ab"]
     log(f"spill: {rep['n_pairs']} pairs (simulation {rep['sim_s']:.3f} s); "
         f"sort_read under {srt['budget_mb']} MB spilled {srt['runs']} runs, "
@@ -3577,6 +3943,27 @@ def phase_spill():
     # count left at least 2 host runs and 1 disk run and the tables agree
     if rc != 0 or srt["runs"] < 4:
         raise AssertionError(f"spill: exit {rc}, {srt['runs']} sort runs")
+    lengths = np.full(len(reads), spill_scale.READ_LEN, np.int32)
+    windows = len(reads) * (spill_scale.READ_LEN - spill_scale.K) // 5
+
+    def batches():
+        for lo in range(0, len(reads), spill_scale.COUNT_BATCH):
+            hi = lo + spill_scale.COUNT_BATCH
+            yield reads[lo:hi], lengths[lo:hi]
+
+    t0 = time.perf_counter()
+    whole = count_kedges_megasort(batches(), spill_scale.K, device="cuda")
+    t1 = time.perf_counter()
+    merged = count_kedges_megasort(batches(), spill_scale.K,
+                                   max_lanes=windows, device="cuda")
+    t2 = time.perf_counter()
+    if not all(np.array_equal(a, b) for a, b in zip(whole, merged)):
+        raise AssertionError("spill: the count in flush windows != the "
+                             "count in one")
+    log(f"spill: {len(reads)} reads counted in one flush window "
+        f"{t1 - t0:.3f} s and in windows of {windows} rows, each merged "
+        f"into the running table, {t2 - t1:.3f} s: tables equal "
+        f"({len(whole[0])} unique)")
 
 
 # bench.py's keys, then the twin's own; bench.py's weather keys on a card
@@ -3640,6 +4027,16 @@ def phase_bench_twin(phase5_reads_per_s):
         raise AssertionError("bench twin: no `mm_map shapes:` line with a "
                              "map_batch launch")
     log(f"bench twin: mm_map {len(mm[0])} launches (index builds and maps)")
+    ks = [json.loads(ln[len("kmer_sort shapes: "):])
+          for ln in proc.stderr.splitlines()
+          if ln.startswith("kmer_sort shapes: ")]
+    if len(ks) != 1 or not any(sh[0] == "sort_count" for sh in ks[0]):
+        raise AssertionError("bench twin: no `kmer_sort shapes:` line with a "
+                             "sort_count launch")
+    ks_remote({e: sum(1 for sh in ks[0] if sh[0] == e) for e in KS_ENTRIES},
+              ks[0])
+    log(f"bench twin: kmer_sort {len(ks[0])} launches (counts and level-0 "
+        "builds)")
     builds = [int(ln.rsplit(":", 1)[1]) for ln in proc.stderr.splitlines()
               if ln.startswith("pool builds in the timed map passes:")]
     log(f"bench twin: the graph's pool made {builds} times in the timed map "
@@ -3746,12 +4143,24 @@ def main():
     build_kernels()
 
     walls, rss = {}, {}
+    from turingassembler_tpu_torch.ops import kmer_sort
+    # each phase's kmer_sort launches, by entry, and their shapes: the
+    # count is set to 0 just before a phase and read just after
+    ks_count = {}
 
     def phase(fn, *args):
+        kmer_sort.COUNT.reset()
+        KS_REMOTE.clear()
         t0 = time.perf_counter()
         res = fn(*args)
         walls[fn.__name__] = time.perf_counter() - t0
         rss[fn.__name__] = peak_rss_gib()
+        by = dict(kmer_sort.COUNT.by_entry)
+        shs = list(kmer_sort.COUNT.shapes)
+        for b, sub in KS_REMOTE:
+            by = {e: by[e] + b.get(e, 0) for e in KS_ENTRIES}
+            shs += sub
+        ks_count[fn.__name__] = (by, shs)
         return res
 
     from turingassembler_tpu_torch.ops import mm_map
@@ -3778,6 +4187,7 @@ def main():
     nw = phase(phase_kernel_vs_plain)
     phase(phase_slice_parity)
     mm, workload = phase(phase_mm_kernel_vs_plain)
+    ks = phase(phase_ks_kernel_vs_plain, workload)
     launches, shapes, bench, reads_per_s = path(phase_full_width, workload)
     del workload
     phase(phase_levels_parity)
@@ -3818,11 +4228,32 @@ def main():
             mm_count["launches"] != len(mm_count["shapes"]):
         raise AssertionError("mm_map: the paths launched the kernel "
                              f"{mm_count['launches']} times")
+    ks_launches = {e: sum(ks_count[p][0][e] for p in KS_PATH_PHASES)
+                   for e in KS_ENTRIES}
+    ks_shapes = [sh for p in KS_PATH_PHASES for sh in ks_count[p][1]]
+    log("kmer_sort on the paths: " + ", ".join(
+        f"{e} {n_}" for e, n_ in ks_launches.items()) + "; by phase: "
+        + "; ".join(f"{p[6:]} " + ", ".join(
+            f"{e} {ks_count[p][0][e]}" for e in KS_ENTRIES if ks_count[p][0][e])
+            for p in KS_PATH_PHASES))
+    for p in KS_COUNT_PHASES:
+        if not (ks_count[p][0]["extract_keys"] and ks_count[p][0]["sort_count"]):
+            raise AssertionError(f"kmer_sort: the count of {p} launched no "
+                                 "extract_keys or no sort_count")
+    if not ks_count["phase_spill"][0]["merge_runs"]:
+        raise AssertionError("kmer_sort: the spill count launched no "
+                             "merge_runs")
+    if sum(ks_launches.values()) != len(ks_shapes) or \
+            min(ks_launches.values()) < 1:
+        raise AssertionError(f"kmer_sort: launches {ks_launches}, "
+                             f"{len(ks_shapes)} shapes")
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
                             phase(phase_hold_path_shapes, shapes))
     mm["max_abs_err"] = max(mm["max_abs_err"], phase(
         phase_mm_hold_path_shapes, mm_count["shapes"] + mm_count["refs"]))
+    ks["max_abs_err"] = max(ks["max_abs_err"], phase(
+        phase_ks_hold_path_shapes, ks_shapes))
     log("phase seconds (set-up included): " + ", ".join(
         f"{k_[6:]} {v:.1f}" for k_, v in walls.items()))
     # cli.main tunes malloc (no mmap, no trim) from phase 7 on
@@ -3865,7 +4296,11 @@ def main():
                                         "minimizer_rows")},
         **{f"{e}_{k_}": mm[e][k_] for e in ("gapless_bound", "minimizer_rows")
            for k_ in ("ms", "kernel_ms", "plain_ms", "bound_ms",
-                      "bound_by")}}]}),
+                      "bound_by")}}] + [{
+        "name": f"kmer_{e}", "route": "cuda",
+        "source": "turingassembler_tpu_torch/csrc/kmer_sort.cu",
+        "replaces": KS_REPLACES[e], "launches": ks_launches[e],
+        "max_abs_err": ks["max_abs_err"], **ks[e]} for e in KS_ENTRIES]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,13 @@ Every NW launch of the map passes, warm one included, goes to stderr on
 a line of its own: `nw shapes: [[B, Lq, Lt], ...]`; every launch of the
 minimizer map kernel in the process (the index build's and the map's,
 csrc/mm_map.cu) on the next: `mm_map shapes: [[B, L, entry, verified],
-...]`; before them `pool builds in the timed map passes: N`, the graph
-pools made for the map after the warm map (0: the warm map made the
-graph's pool, and every timed pass found it cached).
+...]`; every launch of the count's kernels in the process (extraction,
+sorts and run passes of csrc/kmer_sort.cu, in the counts and the level-0
+builds) on the next: `kmer_sort shapes: [[entry, ...shape], ...]`
+(ops/kmer_sort.py:LaunchCount); before them `pool builds in the timed
+map passes: N`, the graph pools made for the map after the warm map (0:
+the warm map made the graph's pool, and every timed pass found it
+cached).
 
 Baselines (upstream publishes no throughput; bench.py's estimates for
 the upstream C pipeline, not a measurement of any device): count +
@@ -210,7 +214,7 @@ def main(argv=None) -> int:
     from .device import resolve_device
     from .kmer.megasort import COUNT_CHUNK
     from .mapper.minimizers import POOL_STATS, EdgeMinimizerIndex
-    from .ops import mm_map, nw_align
+    from .ops import kmer_sort, mm_map, nw_align
     from .ops.hostmem import tune_host_malloc
 
     dev = resolve_device(args.device)
@@ -295,6 +299,7 @@ def main(argv=None) -> int:
         f"{POOL_STATS['builds'] - builds0}")
     log("nw shapes: " + json.dumps(nw_align.COUNT.shapes))
     log("mm_map shapes: " + json.dumps(mm_map.COUNT.shapes))
+    log("kmer_sort shapes: " + json.dumps(kmer_sort.COUNT.shapes))
 
     longest, mapped = check_outputs(genome, g_asm, e, s)
     log(f"checks: longest unitig {longest} of {genome_size} bp, "

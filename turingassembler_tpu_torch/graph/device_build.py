@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import kmer_sort as ks
 from ..ops import kmers as km
 from ..ops import limbs as lb
 from .structs import AsmGraph
@@ -68,7 +69,7 @@ def _front(uniq: torch.Tensor, k: int):
     # dense node ids in ascending (fpA, fpB) order
     fpA, fpB = _fingerprints(torch.cat([cpre, csuf]))
     fp = torch.stack([fpA, fpB], dim=1)
-    order = lb.lex_order(fp)
+    order = ks.lex_order(fp)
     seg = torch.cumsum(lb.run_starts(fp[order]), 0) - 1
     node = torch.empty(D, dtype=torch.int64, device=dev)
     node[order] = seg

@@ -3,10 +3,12 @@ turingassembler_tpu/kmer/megasort.py).
 
 Reads go to the device once as a (N, L) uint8 code tensor (255 padding)
 plus int32 lengths.  Each chunk of reads becomes the canonical limb rows
-of its valid windows (ops/kmers.py); every `flush_lanes` rows the window
-is sorted lexicographically (stable LSD passes, one `torch.sort` per
-limb) and run-length counted, and the unique run is merged into the
-running table (concat + re-sort, counts summed).
+of its valid windows; every `flush_lanes` rows the window is sorted
+lexicographically and run-length counted, and the unique run is merged
+into the running table (concat + re-sort, counts summed).  The three
+steps are ops/kmer_sort.py's entries: the kernels of csrc/kmer_sort.cu
+on a card (a radix sort), their plain tensor versions on the CPU (stable
+LSD passes, one `torch.sort` per limb).
 
 Invalid windows are dropped before the sort (the JAX package keeps them
 as all-ones sentinel rows), so no key can be confused with a sentinel
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import kmers as km
+from ..ops import kmer_sort as ks
 from ..ops import limbs as lb
 from ..ops.sortops import np_external_merge_runs
 
@@ -41,33 +43,21 @@ from ..ops.sortops import np_external_merge_runs
 def _extract_chunk(bases: torch.Tensor, lengths: torch.Tensor,
                    k1: int) -> torch.Tensor:
     """One read chunk -> limb rows (n_valid, nl) of its valid canonical
-    (k1)-mer windows, in ascending (read, window) order."""
-    canon, _, valid = km.extract_canonical_kmers(bases, lengths, k1)
-    return canon[valid]
+    (k1)-mer windows, in ascending (read, window) order (ops/kmer_sort.py:
+    int64 limbs on the CPU, their int32 bit patterns on a card)."""
+    return ks.extract_keys(bases, lengths, k1)
 
 
 def _sort_count(keys: torch.Tensor):
     """Sort limb rows and run-length count the unique keys.
     Returns (uniq (n, nl) int64 ascending, counts (n,) int32)."""
-    s = keys[lb.lex_order(keys)]
-    starts = torch.nonzero(lb.run_starts(s)).squeeze(1)
-    ends = torch.cat([starts[1:], starts.new_tensor([s.shape[0]])])
-    return s[starts], (ends - starts).to(torch.int32)
+    return ks.sort_count(keys)
 
 
 def _merge_unique_runs(ka, ca, kb, cb):
     """Merge two sorted unique (keys, counts) runs; keys present in both
     get the sum of their counts."""
-    keys = torch.cat([ka, kb])
-    w = torch.cat([ca, cb])
-    perm = lb.lex_order(keys)
-    s, sw = keys[perm], w[perm]
-    new = lb.run_starts(s)
-    seg = torch.cumsum(new, 0) - 1
-    uniq = s[new]
-    counts = torch.zeros(uniq.shape[0], dtype=torch.int32, device=s.device)
-    counts.index_add_(0, seg, sw)
-    return uniq, counts
+    return ks.merge_runs(ka, ca, kb, cb)
 
 
 def _filter_min_count_device(keys, counts, min_count: int):

@@ -54,6 +54,7 @@ import torch
 
 from .. import _build
 from ..device import resolve_device
+from . import kmer_sort as ks
 from . import kmers as km
 from . import limbs as lb
 
@@ -359,7 +360,7 @@ class DeviceHashCounter:
             out_cap_log2 = max(self.C.bit_length() - 3, 10)
         keys, counts = self.live(1 << out_cap_log2)
         if sort:
-            order = lb.lex_order(keys)
+            order = ks.lex_order(keys)
             keys, counts = keys[order], counts[order]
         return (keys.cpu().numpy().astype(np.uint32),
                 counts.cpu().numpy().astype(np.int64))

@@ -120,10 +120,11 @@ def canonicalize(limbs: torch.Tensor, k: int):
     return torch.where(is_rc[..., None], rc, limbs), is_rc
 
 
-def lex_order(keys: torch.Tensor) -> torch.Tensor:
+def plain_lex_order(keys: torch.Tensor) -> torch.Tensor:
     """Permutation sorting rows (M, nl) lexicographically, column 0
     primary: stable LSD passes, one torch.sort per column, last first.
-    Rows with equal keys keep their input order."""
+    Rows with equal keys keep their input order.  The plain version of
+    ops/kmer_sort.py:lex_order, which the callers use."""
     perm = torch.argsort(keys[:, -1], stable=True)
     for l in range(keys.shape[1] - 2, -1, -1):
         perm = perm[torch.argsort(keys[perm, l], stable=True)]

@@ -23,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from . import kmer_sort as ks
 from . import limbs as lb
 
 SENTINEL = lb.M32
@@ -33,7 +34,7 @@ def sort_by_limbs(limbs: torch.Tensor, *vals: torch.Tensor):
     Returns (sorted_limbs, sorted_vals...).  The sort is stable (the JAX
     one is not; equal keys carry equal values wherever the engines call
     it)."""
-    perm = lb.lex_order(limbs)
+    perm = ks.lex_order(limbs)
     return (limbs[perm],) + tuple(v[perm] for v in vals)
 
 

@@ -857,3 +857,52 @@ def mm_map_cases(seed: int = 0):
         "narrow rows": ("rows", mm_segment_rows(g, 4, 30, seed + 8)),
     }
     return g, cases
+
+
+def kmer_sort_cases(seed: int = 0):
+    """Edge cases of the count's sort (ops/kmer_sort.py): name -> (keys (n,
+    nl) int64 limbs in [0, 2^32), weights (n,) int32).  Rows of k1-mers
+    have their unused low bits 0; the fingerprint sort's use every bit of
+    every limb ("all ones, nl=2").  Cases: all rows
+    equal; keys that differ only in the last used bit (k1 = 46, 64); a
+    row count that is no multiple of a 4,096-row tile; ties with a
+    payload; all-ones rows (a real key, not padding) among their
+    neighbours at nl = 2 and nl = 4; one row."""
+    rng = np.random.default_rng(seed)
+    M32 = 0xFFFFFFFF
+
+    def pool_rows(n, nl, n_keys, k1=None):
+        keys = rng.integers(0, 1 << 32, (n_keys, nl), dtype=np.int64)
+        if k1 is not None:
+            used = 2 * k1 - 32 * (nl - 1)
+            keys[:, -1] &= ((1 << used) - 1) << (32 - used)
+        return keys[rng.integers(0, n_keys, n)]
+
+    def weights(n):
+        return rng.integers(1, 1000, n).astype(np.int32)
+
+    def last_bit(k1, n):
+        nl = (k1 + 15) // 16
+        low = 32 - (2 * k1 - 32 * (nl - 1))      # the lowest used bit
+        base = pool_rows(1, nl, 1, k1)[0]
+        keys = np.repeat(base[None], n, axis=0)
+        keys[:, -1] &= ~(1 << low)
+        keys[rng.random(n) < 0.5, -1] |= 1 << low
+        return keys
+
+    ones = pool_rows(9_000, 2, 40)
+    ones[rng.random(9_000) < 0.3] = M32
+    ones[rng.random(9_000) < 0.1, 1] = M32 - 1
+    ones4 = pool_rows(3_000, 4, 30, 64)
+    ones4[rng.random(3_000) < 0.4] = M32
+    cases = {
+        "all equal": np.repeat(pool_rows(1, 3, 1, 46), 5_000, axis=0),
+        "last used bit, k1=46": last_bit(46, 6_000),
+        "last used bit, k1=64": last_bit(64, 6_000),
+        "ragged tile": pool_rows(2 * 4096 + 123, 3, 3_000, 46),
+        "ties with a payload": pool_rows(12_345, 2, 700, 31),
+        "all ones, nl=2": ones,
+        "all ones, nl=4": ones4,
+        "one row": pool_rows(1, 3, 1, 46),
+    }
+    return {name: (keys, weights(len(keys))) for name, keys in cases.items()}
