@@ -1453,12 +1453,14 @@ KS_COUNT_PHASES = ("phase_full_width", "phase_levels_full_width",
                    "phase_scaffold_full_width", "phase_ecoli", "phase_spill",
                    "phase_bench_twin")
 # kmer_sort launches a phase made in its subprocesses (phase 13's card
-# ranks, phase 18's bench twin): (by entry, shapes), added by main()
+# ranks, phase 18's bench twin): (by entry, shapes, sort_count's routes),
+# added by main()
 KS_REMOTE = []
 
 
-def ks_remote(by_entry, shapes):
-    KS_REMOTE.append((dict(by_entry), [tuple(sh) for sh in shapes]))
+def ks_remote(by_entry, shapes, routes):
+    KS_REMOTE.append((dict(by_entry), [tuple(sh) for sh in shapes],
+                      dict(routes)))
 
 
 def hold_ks(what, got, want) -> int:
@@ -1502,10 +1504,10 @@ def ks_reads(B, L, seed):
     return put(b, ln)
 
 
-def device_ms_all(fn, reps):
-    """Device time a call of fn spends in all its kernels and memsets
-    (torch.profiler over reps calls), without the host's time; None when
-    the profiler saw no device time (not measured)."""
+def device_ms_by_kernel(fn, reps=3):
+    """Device ms a call of fn spends in each kernel, memset and copy
+    (torch.profiler over reps calls, without the host's time), and its
+    launches a call: {profiler key: (ms, launches)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1514,9 +1516,17 @@ def device_ms_all(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    t = sum(e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "Memcpy" not in e.key)
-    return t / 1e3 / reps if t else None
+    return {e.key: (e.self_device_time_total / 1e3 / reps, e.count // reps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
+def device_ms_all(fn, reps):
+    """Device time a call of fn spends in all its kernels and memsets;
+    None when the profiler saw no device time (not measured)."""
+    t = sum(ms_ for k_, (ms_, _) in device_ms_by_kernel(fn, reps).items()
+            if "Memcpy" not in k_)
+    return t if t else None
 
 
 def ks_timing(what, fn, plain, nbytes, ops, reps=5, library=None):
@@ -1540,6 +1550,32 @@ def log2_ceil(n):
     return max(1, (int(n) - 1).bit_length())
 
 
+# the sort_count route each kmer_sort case is named for, on the card
+# (ops/kmer_sort.py:LaunchCount.routes of its call)
+KS_CASE_ROUTES = {
+    "one prefix over the capacity":
+        lambda r: r["over_capacity"] == 1 and r["partition_passes"] >= 1,
+    "all equal, large":
+        lambda r: r == {"partition_passes": 0, "bucket_groups": 0,
+                        "over_capacity": 1},
+    "canonical-skewed prefixes":
+        lambda r: r["over_capacity"] == 0 and r["bucket_groups"] > 1}
+
+
+def ks_routes_of(fn):
+    """fn's result and the sort_count routes its calls took."""
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    before = dict(ks.COUNT.routes)
+    out = fn()
+    return out, {r: ks.COUNT.routes[r] - before[r] for r in ks.ROUTES}
+
+
+def kernel_name(key):
+    """A profiler key's kernel name: 'bucket_kernel<3>', 'Memcpy DtoH'."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0] \
+        .replace("void ", "").strip()
+
+
 def phase_ks_kernel_vs_plain(workload):
     """Phase 23 (run after phase 21, before phase 5, on its workload): the
     kmer_sort kernels (csrc/kmer_sort.cu) against their plain versions on
@@ -1552,6 +1588,11 @@ def phase_ks_kernel_vs_plain(workload):
     sort_count; merge_runs of the two halves' tables; lex_order of the
     level-0 build's fingerprints of the bench table; each with wrapper,
     device, plain and bound ms (sort_count beside torch.unique).
+    sort_count's routes are logged for every case (KS_CASE_ROUTES: each
+    route case must reach its route) and for the flush (at most
+    MAX_PARTITION partition passes); the flush's sort_count is timed in
+    turns with the LSD form (the full LSD sort and the run pass, as
+    lex_order and merge_runs sort), and split by kernel.
     Returns the kernels line's figures."""
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph import device_build
@@ -1564,12 +1605,18 @@ def phase_ks_kernel_vs_plain(workload):
         err = max(err, hold_ks(what, got, want))
         n_gates += 1
 
-    # (a) the edge cases
+    # (a) the edge cases; each route case reaches its route
     for name, (keys, w) in tt.kmer_sort_cases().items():
         t, wt = put(keys, w)
         h = len(keys) // 2
-        hold(f"sort_count on {name!r}", ks.sort_count(t),
-             ks.plain_sort_count(t))
+        got, routes = ks_routes_of(lambda: ks.sort_count(t))
+        hold(f"sort_count on {name!r}", got, ks.plain_sort_count(t))
+        log(f"kmer_sort (a) sort_count on {name!r} ({len(keys)} x "
+            f"{keys.shape[1]}): routes " + ", ".join(
+                f"{r} {n_}" for r, n_ in routes.items()))
+        if name in KS_CASE_ROUTES and not KS_CASE_ROUTES[name](routes):
+            raise AssertionError(f"kmer_sort: {name!r} took the routes "
+                                 f"{routes}")
         hold(f"sort_count of int32 rows on {name!r}",
              ks.sort_count(to_i32(t)), ks.plain_sort_count(t))
         hold(f"merge_runs on {name!r}",
@@ -1616,17 +1663,42 @@ def phase_ks_kernel_vs_plain(workload):
                       for i in range(0, bases.shape[0], KS_RECORD)])
     del bases, lens, rec, got, want
     n = rows.shape[0]
-    u, c = ks.sort_count(rows)
+    (u, c), routes = ks_routes_of(lambda: ks.sort_count(rows))
     hold(f"sort_count of the full flush ({n} rows)", (u, c),
          ks.plain_sort_count(rows))
+    log("kmer_sort (b) sort_count of the full flush: routes " + ", ".join(
+        f"{r} {n_}" for r, n_ in routes.items()))
+    if routes["partition_passes"] > ks.MAX_PARTITION:
+        raise AssertionError(f"kmer_sort: the flush took {routes}")
     torch.cuda.empty_cache()
     n_u = u.shape[0]
+    # the LSD form (a full LSD sort, the run pass), as lex_order and
+    # merge_runs sort, in turns with sort_count: device ms
+    new = lambda: ks.sort_count(rows)                       # noqa: E731
+    old = lambda: ks._runs(*ks._radix((rows,), ks.digit_plan(3), 0))  # noqa
+    hold("the LSD form of sort_count on the full flush", old(), (u, c))
+    turns = [(name, device_ms_all(fn, 3)) for name, fn in
+             (("sort_count", new), ("LSD form", old), ("LSD form", old),
+              ("sort_count", new))]
+    log("kmer_sort (b) sort_count of the full flush in turns, device ms: "
+        + ", ".join(f"{name_} {'not measured' if ms_ is None else f'{ms_:.4f}'}"
+                    for name_, ms_ in turns))
+    split = device_ms_by_kernel(new)
+    log("kmer_sort (b) sort_count of the full flush by kernel, device ms "
+        "(launches): " + ", ".join(
+            f"{kernel_name(k_)} {ms_:.4f} ({n_})"
+            for k_, (ms_, n_) in sorted(split.items(),
+                                        key=lambda kv: -kv[1][0])))
+    torch.cuda.empty_cache()
     res["sort_count"] = ks_timing(
         f"sort_count (the full flush: {n} x 3 int32 rows, {n_u} unique)",
         lambda: ks.sort_count(rows),
         lambda: ks.plain_sort_count(rows),
         4 * 3 * n + (8 * 3 + 4) * n_u, 3 * n * log2_ceil(n), reps=3,
         library=lambda: torch.unique(rows, dim=0, return_counts=True))
+    res["sort_count"]["turns_device_ms"] = [ms_ for _, ms_ in turns]
+    res["sort_count"]["lsd_form_device_ms"] = [
+        ms_ for name_, ms_ in turns if name_ == "LSD form"]
     torch.cuda.empty_cache()
     half = n // 2
     ta = ks.sort_count(rows[:half])
@@ -1678,12 +1750,16 @@ def phase_ks_kernel_vs_plain(workload):
 # kernel-name pieces of one count's device work, by part (the rest is
 # "other": casts, copies, the tensor code around the kernels)
 KS_PARTS = (("ship", ("Memcpy HtoD",)),
-            ("extraction", ("extract_kernel", "scan_ll_kernel")),
+            ("extraction", ("extract_kernel",)),
             ("window concat", ("CatArrayBatchedCopy",)),
             ("sort load", ("load_hist_kernel",)),
-            ("sort passes", ("tile_count_kernel", "group_scan_kernel",
-                             "tile_scan_kernel", "scatter_kernel")),
-            ("run-length", ("runs_kernel", "run_counts_kernel")))
+            ("partition", ("tile_count_kernel", "group_scan_kernel",
+                           "tile_scan_kernel", "scatter_kernel")),
+            ("bounds and groups", ("bounds_kernel", "groups_kernel")),
+            ("bucket", ("bucket_kernel",)),
+            ("compaction", ("scan_ll_kernel", "compact_kernel")),
+            ("run-length (over capacity)", ("runs_kernel",
+                                            "run_counts_kernel")))
 
 
 def ks_count_split(reads, lengths):
@@ -2877,7 +2953,8 @@ def rank_worker(spec):
                mm_launches=mm_map.COUNT.launches,
                mm_shapes=mm_map.COUNT.shapes,
                ks_by_entry=kmer_sort.COUNT.by_entry,
-               ks_shapes=kmer_sort.COUNT.shapes)
+               ks_shapes=kmer_sort.COUNT.shapes,
+               ks_routes=kmer_sort.COUNT.routes)
     print(json.dumps(res), flush=True)
 
 
@@ -2947,7 +3024,7 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
         shapes += label(rep["shapes"])
         mm[0] += rep["mm_launches"]
         mm[1] += [tuple(sh) for sh in rep["mm_shapes"]]
-        ks_remote(rep["ks_by_entry"], rep["ks_shapes"])
+        ks_remote(rep["ks_by_entry"], rep["ks_shapes"], rep["ks_routes"])
     card, cpu = (dir_files(outs[d]) for d in ("cuda", "cpu"))
     if sorted(card) != sorted(cpu):
         raise AssertionError("dist assembly3: card and CPU ranks wrote "
@@ -3040,7 +3117,7 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
         shapes += label(rep["shapes"])
         mm[0] += rep["mm_launches"]
         mm[1] += [tuple(sh) for sh in rep["mm_shapes"]]
-        ks_remote(rep["ks_by_entry"], rep["ks_shapes"])
+        ks_remote(rep["ks_by_entry"], rep["ks_shapes"], rep["ks_routes"])
     log(f"multi-process (b) stripes at 2 Mbp ({n_pairs} pairs in "
         f"{n_batches} archive batches, {DIST_RANKS} ranks on cuda:0): "
         f"{t_b:.3f} s; " + "; ".join(
@@ -4033,8 +4110,13 @@ def phase_bench_twin(phase5_reads_per_s):
     if len(ks) != 1 or not any(sh[0] == "sort_count" for sh in ks[0]):
         raise AssertionError("bench twin: no `kmer_sort shapes:` line with a "
                              "sort_count launch")
+    routes = [json.loads(ln[len("kmer_sort routes: "):])
+              for ln in proc.stderr.splitlines()
+              if ln.startswith("kmer_sort routes: ")]
+    if len(routes) != 1:
+        raise AssertionError("bench twin: no `kmer_sort routes:` line")
     ks_remote({e: sum(1 for sh in ks[0] if sh[0] == e) for e in KS_ENTRIES},
-              ks[0])
+              ks[0], routes[0])
     log(f"bench twin: kmer_sort {len(ks[0])} launches (counts and level-0 "
         "builds)")
     builds = [int(ln.rsplit(":", 1)[1]) for ln in proc.stderr.splitlines()
@@ -4157,10 +4239,12 @@ def main():
         rss[fn.__name__] = peak_rss_gib()
         by = dict(kmer_sort.COUNT.by_entry)
         shs = list(kmer_sort.COUNT.shapes)
-        for b, sub in KS_REMOTE:
+        routes = dict(kmer_sort.COUNT.routes)
+        for b, sub, rt in KS_REMOTE:
             by = {e: by[e] + b.get(e, 0) for e in KS_ENTRIES}
             shs += sub
-        ks_count[fn.__name__] = (by, shs)
+            routes = {r: routes[r] + rt.get(r, 0) for r in routes}
+        ks_count[fn.__name__] = (by, shs, routes)
         return res
 
     from turingassembler_tpu_torch.ops import mm_map
@@ -4231,6 +4315,10 @@ def main():
     ks_launches = {e: sum(ks_count[p][0][e] for p in KS_PATH_PHASES)
                    for e in KS_ENTRIES}
     ks_shapes = [sh for p in KS_PATH_PHASES for sh in ks_count[p][1]]
+    ks_routes = {r: sum(ks_count[p][2][r] for p in KS_PATH_PHASES)
+                 for r in kmer_sort.ROUTES}
+    log("kmer_sort sort_count routes on the paths: " + ", ".join(
+        f"{r} {n_}" for r, n_ in ks_routes.items()))
     log("kmer_sort on the paths: " + ", ".join(
         f"{e} {n_}" for e, n_ in ks_launches.items()) + "; by phase: "
         + "; ".join(f"{p[6:]} " + ", ".join(
@@ -4300,7 +4388,9 @@ def main():
         "name": f"kmer_{e}", "route": "cuda",
         "source": "turingassembler_tpu_torch/csrc/kmer_sort.cu",
         "replaces": KS_REPLACES[e], "launches": ks_launches[e],
-        "max_abs_err": ks["max_abs_err"], **ks[e]} for e in KS_ENTRIES]}),
+        "max_abs_err": ks["max_abs_err"], **ks[e],
+        **({"over_capacity_buckets": ks_routes["over_capacity"]}
+           if e == "sort_count" else {})} for e in KS_ENTRIES]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

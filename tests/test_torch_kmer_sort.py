@@ -18,9 +18,26 @@ against those by chip_smoke.py.  Here:
     lex_order keeps ties in input order;
   - no CPU call reaches the kernel build, and a tensor off the CPU never
     reaches a plain version (meta tensors, the build stubbed to raise),
-    through the entries or the callers of lex_order.
-Tolerance: exact equality everywhere (integers).
+    through the entries or the callers of lex_order;
+  - a tensor-code model of the card's sort_count route (the load's live
+    digits, sort_plan, the partition passes, the bucket bounds,
+    bucket_groups, the bucket kernel's distinct rows, their places by
+    counting or by passes, their counts, the LSD route of a bucket over
+    capacity, compaction) == JAX _sort_count on
+    kmer_sort_cases and on extracted reads at k = 15, 31, 45, 63, at the
+    kernel's block capacity and at a tiny one (both routes run);
+    sort_plan for k1 in 2..64 at n below and above each digit threshold;
+    bucket_groups' groups within capacity and one 256-bucket block;
+  - a numpy model of the card's extraction (each read packed once into
+    2-bit words with their reverse complements, a window's limbs by
+    funnel shifts, validity from the invalid-base words) == JAX
+    _extract_chunk on reads with code-4 bases, lengths under k1 and L no
+    multiple of 16.
+Mirror any edit of csrc/kmer_sort.cu's extraction or bucket route in the
+models here.  Tolerance: exact equality everywhere (integers).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -281,3 +298,317 @@ def test_off_cpu_tensors_go_to_the_kernel(monkeypatch):
     with pytest.raises(ValueError, match="nl <= 4"):
         ks.sort_count(torch.zeros((3, ks.MAX_NL + 1), dtype=torch.int64,
                                   device=meta))
+
+
+# ---------------------------------------------------------------------------
+# the card's sort_count route, modelled in tensor code
+# ---------------------------------------------------------------------------
+
+def _digit(rows, plan, p):
+    limb, shift, width = plan[p]
+    return (rows[:, limb] >> shift) & ((1 << width) - 1)
+
+
+def _live(rows, plan):
+    """load_hist_kernel's histogram read as the host reads it: whether
+    each digit takes two values or more."""
+    return [len(torch.unique(_digit(rows, plan, p))) > 1
+            for p in range(len(plan))]
+
+
+def _lsd_order(rows, plan, passes):
+    """Stable passes by each digit, least significant first (the LSD pass
+    kernels, and bucket_kernel's passes over its list of row indices):
+    the permutation."""
+    order = torch.arange(len(rows))
+    for p in passes:
+        order = order[torch.argsort(_digit(rows[order], plan, p),
+                                    stable=True)]
+    return order
+
+
+def _lsd(rows, plan, passes):
+    return rows[_lsd_order(rows, plan, passes)]
+
+
+# distinct rows of a group the bucket kernel places by counting
+# (csrc/kmer_sort.cu:RANK_SORT)
+RANK_SORT = 512
+
+
+def _rank_order(rows):
+    """Each distinct row's place: the number of rows before it."""
+    lt = torch.zeros((len(rows), len(rows)), dtype=torch.bool)
+    eq = torch.ones_like(lt)
+    for limb in range(rows.shape[1]):
+        a, b = rows[:, limb][:, None], rows[:, limb][None, :]
+        lt |= eq & (a < b)
+        eq &= a == b
+    order = torch.empty(len(rows), dtype=torch.int64)
+    order[lt.sum(dim=0)] = torch.arange(len(rows))
+    return order
+
+
+def _distinct(rows):
+    """bucket_kernel's hash table: each distinct row once, with its count,
+    listed as first seen (the kernel's list order is any)."""
+    uq, inv, cnt = torch.unique(rows, dim=0, return_inverse=True,
+                                return_counts=True)
+    first = torch.full((len(uq),), len(rows)).scatter_reduce(
+        0, inv, torch.arange(len(rows)), "amin")
+    o = torch.argsort(first)
+    return uq[o], cnt[o].to(torch.int32)
+
+
+def _model_runs(s):
+    if len(s) == 0:
+        return s, torch.zeros(0, dtype=torch.int32)
+    new = torch.ones(len(s), dtype=torch.bool)
+    new[1:] = (s[1:] != s[:-1]).any(dim=1)
+    starts = torch.nonzero(new).squeeze(1)
+    ends = torch.cat([starts[1:], starts.new_tensor([len(s)])])
+    return s[starts], (ends - starts).to(torch.int32)
+
+
+def model_sort_count(keys, cap):
+    """ops/kmer_sort.py:sort_count on a card, in tensor code, with a block
+    capacity cap: (uniq, counts, routes)."""
+    rows = torch.as_tensor(np.asarray(keys, dtype=np.int64))
+    n, nl = rows.shape
+    plan = ks.digit_plan(nl)
+    part, rest = ks.sort_plan(_live(rows, plan), n, cap)
+    rows = _lsd(rows, plan, part)                     # the partition passes
+    if part:                                          # bounds_kernel
+        prefix = torch.zeros(n, dtype=torch.int64)
+        for p in reversed(part):
+            prefix = prefix * ks.RADIX + _digit(rows, plan, p)
+        starts = torch.searchsorted(
+            prefix, torch.arange(ks.RADIX ** len(part) + 1))
+        gs = ks.bucket_groups(starts.numpy(), cap)
+    else:
+        gs = np.array([0, n])
+    routes = dict.fromkeys(ks.ROUTES, 0)
+    routes["partition_passes"] = len(part)
+    uniq, counts = [], []
+    for g in range(len(gs) - 1):
+        seg = rows[gs[g]:gs[g + 1]]
+        if len(seg) == 0:                             # no runs
+            routes["bucket_groups"] += 1
+            continue
+        if len(seg) <= cap:                           # bucket_kernel
+            passes = list(rest)
+            if part and _digit(seg[:1], plan, rest[-1]).item() == \
+                    _digit(seg[-1:], plan, rest[-1]).item():
+                passes = passes[:-1]          # one bucket: the last pass goes
+            dist, c = _distinct(seg)
+            o = _rank_order(dist) if len(dist) <= RANK_SORT \
+                else _lsd_order(dist, plan, passes)
+            u, c = dist[o], c[o]
+            routes["bucket_groups"] += 1
+        else:                                 # over capacity: the LSD route
+            live = _live(seg, plan)
+            u, c = _model_runs(
+                _lsd(seg, plan, [p for p in range(len(plan)) if live[p]]))
+            routes["over_capacity"] += 1
+        uniq.append(u)
+        counts.append(c)
+    if not uniq:
+        return (torch.zeros((0, nl), dtype=torch.int64),
+                torch.zeros(0, dtype=torch.int32), routes)
+    return torch.cat(uniq), torch.cat(counts), routes   # compaction
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case_table(name):
+    keys, _ = CASES[name]
+    nl = keys.shape[1]
+    cols = tuple(jnp.asarray(keys[:, l].astype(np.uint32)) for l in range(nl))
+    return _jax_sort_count(cols, jnp.int32(len(keys)), 16 * nl)
+
+
+TINY_CAP = 256
+
+
+@pytest.mark.parametrize("cap", ["kernel", "tiny"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_sort_count_model_on_cases_equals_jax(name, cap):
+    keys, _ = CASES[name]
+    nl = keys.shape[1]
+    c = ks.BUCKET_CAPACITY[nl] if cap == "kernel" else TINY_CAP
+    u, cnt, routes = model_sort_count(keys, c)
+    uj, cj = _jax_case_table(name)
+    np.testing.assert_array_equal(u.numpy(), uj)
+    np.testing.assert_array_equal(cnt.numpy(), cj)
+    assert routes["partition_passes"] <= ks.MAX_PARTITION
+    # each case reaches the route it is named for at the kernel's capacity
+    if cap == "kernel" and name == "one prefix over the capacity":
+        assert routes["over_capacity"] == 1 and routes["partition_passes"]
+    if cap == "kernel" and name == "all equal, large":
+        assert routes == {"partition_passes": 0, "bucket_groups": 0,
+                          "over_capacity": 1}
+    if cap == "kernel" and name == "canonical-skewed prefixes":
+        assert routes["over_capacity"] == 0 and routes["bucket_groups"] > 1
+    # at the tiny capacity these take both routes (tiers of frequent keys)
+    if cap == "tiny" and name in ("all ones, nl=2", "all ones, nl=4",
+                                  "one prefix over the capacity"):
+        assert routes["bucket_groups"] and routes["over_capacity"]
+
+
+@pytest.mark.parametrize("cap", ["kernel", "tiny"])
+@pytest.mark.parametrize("k", (15, 31, 45, 63))
+def test_sort_count_model_on_reads_equals_jax(k, cap):
+    k1 = k + 1
+    reads, lengths = _record(k, seed=200 + k)
+    rows_j, cols, n_valid = _jax_rows(reads, lengths, k1)
+    # a record's 5,000 rows: 64 a block puts the all-T read's rows over
+    c = ks.BUCKET_CAPACITY[tl.n_limbs(k1)] if cap == "kernel" else 64
+    u, cnt, routes = model_sort_count(rows_j.astype(np.int64), c)
+    uj, cj = _jax_sort_count(cols, n_valid, k1)
+    np.testing.assert_array_equal(u.numpy(), uj)
+    np.testing.assert_array_equal(cnt.numpy(), cj)
+    if cap == "tiny":        # the all-T read's 150 - k all-A rows: over
+        assert routes["over_capacity"] and routes["bucket_groups"]
+
+
+@pytest.mark.parametrize("k1", list(range(2, 65)))
+def test_sort_plan(k1):
+    nl = tl.n_limbs(k1)
+    plan = ks.digit_plan(nl)
+    cap = ks.BUCKET_CAPACITY[nl]
+    rows = np.random.default_rng(k1).integers(0, 1 << 32, (512, nl))
+    last = 2 * k1 - 32 * (nl - 1)
+    rows[:, -1] &= ((1 << last) - 1) << (32 - last)
+    live = _live(torch.as_tensor(rows), plan)
+    msd = [p for p in range(len(plan) - 1, -1, -1) if live[p]]
+    one = cap // 4 * ks.RADIX                 # the mean bucket at one digit
+    for n, d in ((1, 0), (cap, 0), (cap + 1, 1), (one, 1), (one + 1, 2),
+                 (ks.MAX_ROWS, 2)):
+        part, rest = ks.sort_plan(live, n, cap)
+        d = min(d, len(msd))
+        assert part == sorted(msd[:d]), (n, part)
+        below = [p for p in range(len(plan)) if live[p] and p not in part]
+        assert rest == below + part[:1]
+        # the partition digits are the top live digits: every live digit
+        # outside them is less significant
+        assert all(p < min(part) for p in below) if part else True
+    # no live digit (all rows equal): nothing to partition or sort
+    assert ks.sort_plan([False] * len(plan), 10 ** 6, cap) == ([], [])
+
+
+@pytest.mark.parametrize("d", (1, 2))
+def test_bucket_groups(d):
+    rng = np.random.default_rng(d)
+    cap = 1024
+    nb = ks.RADIX ** d
+    size = rng.poisson(3 if d == 2 else 300, nb)
+    size[rng.integers(0, nb, 20)] = rng.integers(cap // 2, 3 * cap, 20)
+    size[rng.integers(0, nb, 200)] = 0
+    starts = np.concatenate([[0], np.cumsum(size)])
+    gs = ks.bucket_groups(starts, cap)
+    assert gs[0] == 0 and gs[-1] == starts[-1] and (np.diff(gs) >= 0).all()
+    assert np.isin(gs, starts).all()             # whole buckets
+    for a, b in zip(gs[:-1], gs[1:]):
+        if a == b:                               # empty: no rows to place
+            continue
+        first = np.searchsorted(starts, a, side="right") - 1
+        last = np.searchsorted(starts, b, side="left") - 1
+        while size[first] == 0:                  # empty buckets lead
+            first += 1
+        # one 256-bucket block of the prefix, and within capacity unless a
+        # bucket alone
+        assert first // ks.RADIX == last // ks.RADIX
+        assert b - a <= cap or first == last, (a, b)
+    # few groups are empty (a block's first bucket empty beside a big one)
+    assert (np.diff(gs) == 0).sum() < len(gs) // 10
+
+
+# ---------------------------------------------------------------------------
+# the card's extraction, modelled in numpy
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def _rev2(x):
+    out = np.zeros_like(x)
+    for i in range(16):
+        out |= ((x >> (2 * i)) & 3) << (30 - 2 * i)
+    return out
+
+
+def _funnel_l(lo, hi, sh):
+    """__funnelshift_l: the top 32 bits of (hi:lo) << sh, 0 <= sh < 32."""
+    return ((hi << sh) | (lo >> (32 - sh))) & M32
+
+
+def _funnel_r(lo, hi, sh):
+    """__funnelshift_r: the low 32 bits of (hi:lo) >> sh."""
+    return ((lo >> sh) | (hi << (32 - sh))) & M32
+
+
+def model_extract(reads, lengths, k1):
+    """extract_kernel's rows in numpy: (n, nl) int64 limbs in (read,
+    window) order."""
+    B, L = reads.shape
+    nl = tl.n_limbs(k1)
+    MW = L // 32 + 2
+    PW = 2 * MW + 1
+    P = L - k1 + 1
+    c = reads.astype(np.int64)
+    # word j + 1 of a read: bases 16 j .. 16 j + 15, j = -1 .. 2 MW - 1
+    bases = np.zeros((B, 16 * PW), np.int64)
+    bases[:, 16:16 + L] = np.where(c < 4, c, 0)
+    fw = (bases.reshape(B, PW, 16) << (30 - 2 * np.arange(16))).sum(axis=2)
+    rc = _rev2(~fw & M32)
+    bad = np.zeros((B, 32 * MW), np.int64)
+    bad[:, :L] = c >= 4
+    badw = (bad.reshape(B, MW, 32) << np.arange(32)).sum(axis=2)
+    p = np.arange(P)
+    ok = p[None, :] + k1 <= lengths[:, None]
+    for off in range(0, k1, 32):
+        q = p + off
+        bits = _funnel_r(badw[:, q >> 5], badw[:, (q >> 5) + 1], q & 31)
+        ok &= bits & ((1 << min(32, k1 - off)) - 1) == 0
+    used = 2 * k1 - 32 * (nl - 1)
+    last = (M32 << (32 - used)) & M32
+    fl, rl = [], []
+    for limb in range(nl):
+        qf = p + 16 * limb + 16
+        fl.append(_funnel_l(fw[:, (qf >> 4) + 1], fw[:, qf >> 4],
+                            2 * (qf & 15)))
+        qr = p + k1 - 16 * limb
+        rl.append(_funnel_r(rc[:, qr >> 4], rc[:, (qr >> 4) + 1],
+                            2 * (qr & 15)))
+    fl[-1] &= last
+    rl[-1] &= last
+    lt = np.zeros((B, P), bool)
+    eq = np.ones((B, P), bool)
+    for limb in range(nl):
+        lt |= eq & (rl[limb] < fl[limb])
+        eq &= rl[limb] == fl[limb]
+    canon = np.stack([np.where(lt, r, f) for f, r in zip(fl, rl)], axis=2)
+    return canon[ok]
+
+
+def _odd_record(L, k1, seed, n=40):
+    """Random reads of width L (no multiple of 16) with code-4 bases, reads
+    shorter than k1, truncated reads (255 past their length)."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    reads[rng.random(reads.shape) < 0.01] = 4
+    lengths = np.full(n, L, np.int32)
+    lengths[:8] = rng.integers(0, k1, 8)                   # under k1
+    lengths[8:16] = rng.integers(k1, L + 1, 8)
+    reads[np.arange(L)[None, :] >= lengths[:, None]] = 255
+    reads[16, :] = 3                                       # all T
+    return reads, lengths
+
+
+@pytest.mark.parametrize("L", (77, 150))
+@pytest.mark.parametrize("k1", (2, 16, 17, 31, 32, 46, 63, 64))
+def test_extraction_model_equals_jax(k1, L):
+    reads, lengths = _odd_record(L, k1, seed=k1 * 1000 + L)
+    rows_j, _, n_valid = _jax_rows(reads, lengths, k1)
+    rows = model_extract(reads, lengths, k1)
+    assert rows.shape == (int(n_valid), tl.n_limbs(k1))
+    np.testing.assert_array_equal(rows, rows_j.astype(np.int64))

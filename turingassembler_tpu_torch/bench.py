@@ -22,7 +22,8 @@ csrc/mm_map.cu) on the next: `mm_map shapes: [[B, L, entry, verified],
 ...]`; every launch of the count's kernels in the process (extraction,
 sorts and run passes of csrc/kmer_sort.cu, in the counts and the level-0
 builds) on the next: `kmer_sort shapes: [[entry, ...shape], ...]`
-(ops/kmer_sort.py:LaunchCount); before them `pool builds in the timed
+(ops/kmer_sort.py:LaunchCount), and sort_count's routes on the one after
+(`kmer_sort routes: {...}`); before them `pool builds in the timed
 map passes: N`, the graph pools made for the map after the warm map (0:
 the warm map made the graph's pool, and every timed pass found it
 cached).
@@ -300,6 +301,7 @@ def main(argv=None) -> int:
     log("nw shapes: " + json.dumps(nw_align.COUNT.shapes))
     log("mm_map shapes: " + json.dumps(mm_map.COUNT.shapes))
     log("kmer_sort shapes: " + json.dumps(kmer_sort.COUNT.shapes))
+    log("kmer_sort routes: " + json.dumps(kmer_sort.COUNT.routes))
 
     longest, mapped = check_outputs(genome, g_asm, e, s)
     log(f"checks: longest unitig {longest} of {genome_size} bp, "

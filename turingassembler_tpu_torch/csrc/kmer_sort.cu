@@ -1,64 +1,116 @@
 // The k-mer count's device program for Hopper: canonical (k+1)-mer
-// extraction, a stable LSD radix sort of limb rows, and the run-length
-// count (with a segmented sum of a payload for the merge of two runs).
+// extraction, the sort-and-count of limb rows, a stable LSD radix sort of
+// limb rows, and the run-length count (with a segmented sum of a payload
+// for the merge of two runs).
 //
 // Replaces jitted JAX device code (XLA, not Pallas):
 //   - turingassembler_tpu/kmer/megasort.py:73 _extract_chunk (+
 //     ops/kmers.py:64 extract_canonical_kmers): entry ks_extract_launch;
 //   - megasort.py:165 _sort_count (lax.sort with num_keys, then the
-//     run-length pass): ks_load_launch + ks_sort_passes_launch +
-//     ks_runs_count_launch + ks_runs_write_launch;
-//   - megasort.py:225 _merge_unique_runs: the same, with the counts as an
-//     int32 payload that the run pass sums (any number of equal rows, where
-//     the JAX function sums at most two);
+//     run-length pass): ks_load_launch, then a prefix partition
+//     (ks_sort_passes_launch on the partition digits, ks_bounds_launch)
+//     and a bucket sort-and-count (ks_bucket_launch, ks_compact_*);
+//   - megasort.py:225 _merge_unique_runs: the LSD sort with the counts as
+//     an int32 payload that the run pass sums (any number of equal rows,
+//     where the JAX function sums at most two);
 //   - the stable lexicographic permutation (JAX lax.sort with num_keys,
-//     the port's ops/limbs.py:plain_lex_order): the same sort with the row
+//     the port's ops/limbs.py:plain_lex_order): the LSD sort with the row
 //     index as its payload.
 //
-// Extraction.  A block stages a group of reads in shared memory as, for
-// each position q, the 32-bit packing of bases q..q+15 and a bit mask of
-// the codes >= 4 (copied from csrc/devhash.cu:count_reads_kernel).  A
-// thread a window takes its forward limbs as packed words at q = p + 16 l,
-// its reverse-complement limbs as the complemented, group-reversed words
-// at q = p + k1 - 16 - 16 l, and keeps the smaller (ties keep the forward
-// form).  Rows come out in (read, window) order with no atomics: a count
-// pass writes each block's valid windows, one block scans them, and the
-// write pass places each valid window at its block's offset plus its rank
-// in a block scan.  Rows are nl uint32 limbs, row-major.
+// What bounds each kernel on an H100, and what the design does about it
+// (bytes at 3.35 TB/s unless said otherwise):
 //
-// Sort.  Keys as nl separate uint32 arrays (SoA) in two ping-pong buffers,
-// with an optional 32-bit payload beside them.  The load kernel reads the
-// caller's row-major rows (int32 or int64 limbs, one or two segments),
-// writes the SoA copy and counts every digit of every pass at once (as
-// CUB's onesweep does up front); the host reads that histogram and skips a
-// pass whose digit has one non-empty bucket.  Digits are the four bytes of
-// each limb (ops/kmer_sort.py:digit_plan); the skip drops a digit that is
-// 0 in every row, so a k1-mer's rows take ceil(2 k1 / 8) passes: 12 at
-// k1 = 46.  Eleven-bit digits would take 9, but a 4,096-key tile
-// then spreads over 2,048 buckets, about two keys a bucket, so the scatter
-// writes 4-byte pieces and the (tile, digit) table grows eightfold.  A
-// pass: a tile count kernel (256-bucket histogram of a 4,096-key tile,
-// tile-major), a two-level scan of the (tile, digit) counts (group sums,
-// one block across groups, then each group's tiles), and the scatter: a
-// warp ranks its 16 x 32 keys in order with __match_any_sync and per-warp
-// counters, the block adds the warps' prefixes, and the tile is reordered
-// by digit in shared memory so that each digit's keys go out as one
-// contiguous run.  Every step keeps the input order among equal digits,
-// so the sort is stable and the permutation is the torch.argsort chain's.
-// No key pads a tile: the tail tile counts its rows.
+// Extraction (extract_kernel, one launch).  Bound: the reads' bytes in
+// and the rows out.  A block takes R reads (about 4,096 windows, 16 a
+// thread) and loads their contiguous R x L bytes as 16-byte chunks into
+// shared memory.  Each read is packed once into 2-bit words (L / 16 + 5
+// a read, base 0 in the top bits, a zero word before and after), with
+// the reverse complement of every word beside it and the invalid-base
+// mask (codes >= 4) as 16-bit halves.  A window's forward limb l is a
+// funnel shift of two neighbouring forward words at p + 16 l, its
+// reverse-complement limb a funnel shift of two reverse-complement words
+// at p + k1 - 16 - 16 l; the smaller wins (ties keep the forward form).
+// A warp takes a contiguous run of windows, 32 at a time, and ranks the
+// valid ones by ballots, so the block's rows keep (read, window) order
+// with no block scan a chunk.  The block's offset in the output comes
+// from a decoupled look-back over blocks in ticket order (a 64-bit
+// status word a block: its count and a flag, aggregate or inclusive
+// prefix), so one launch does what a count pass, a scan and a write pass
+// did.  Rows are staged in shared memory and written as one contiguous
+// range of out, 16-byte stores between 4-byte head and tail words.
+//
+// Sort-and-count (sort_count).  As a function it reads the rows once and
+// writes the unique rows and counts once (bench flush: 110 M rows, 2 M
+// unique, about 55 copies a row).  A full LSD sort moves 32 bytes a row a
+// pass, 12 passes at k1 = 46, and never needs the rows fully sorted.
+// Here:
+//   1. load_hist_kernel: row-major rows to SoA uint32 limbs, with each
+//      limb's OR of row ^ row 0, which tells the live digits (one host
+//      sync; no histogram, whose atomics contend on the few-valued
+//      digits);
+//   2. the host plans (ops/kmer_sort.py:sort_plan): the partition digits
+//      are the most significant live digits, as many as keep the mean
+//      bucket under a quarter of a block's capacity (none when the rows
+//      fit one block, two at the bench: 65,536 buckets of 1,680 rows);
+//   3. the LSD pass kernels below on those digits only (a stable sort on
+//      the top digits groups the rows by their prefix, ascending; the
+//      digit totals from the tile counts); bounds_kernel, each bucket's
+//      first row by binary search (27 reads a bucket at 110 M rows, where
+//      a scan would read a limb of every row);
+//      groups_kernel, the buckets' groups (bucket_groups): a bucket, or a
+//      run of small ones inside one 256-bucket block of the prefix, at
+//      most cap rows, and the groups over cap;
+//   4. bucket_kernel: persistent blocks, a group at a time, the next
+//      group's rows prefetched into L2.  The group's rows in shared
+//      memory; equal rows counted once by a hash table of row indices;
+//      the distinct rows placed, up to RANK_SORT of them by counting the
+//      rows before each (broadcast reads, no barrier), more by stable LSD
+//      passes over 16-bit indices (the live digits below the prefix, then
+//      the group's low prefix digit); each distinct row, ascending, a run
+//      at the group's first row of a scratch.  Block passes over every
+//      row (11 at the bench) were bound by conflicted shared-memory
+//      gathers and barriers; counting equal rows first leaves about 100
+//      distinct rows a group;
+//   5. compaction: one block scans the groups' run counts (one host sync
+//      for the total, with the groups over cap), then a warp a group
+//      copies its runs to uniq (int64 limbs) and counts.
+// A bucket over the block's capacity (poly-A, high-copy repeats, all
+// rows equal) takes the LSD route on its own segment: load (from the
+// SoA), the passes whose digit takes two values there, the run pass,
+// its runs copied into the scratch; the wrapper counts such buckets.
+// Rows equal in every digit cost no pass.  What bounds it now: the two
+// partition passes (28 bytes a row each) and the load; the bucket kernel
+// reads each row once.
+//
+// Bucket capacity: a row takes its nl uint32 limbs, a uint16 count, a
+// uint16 list entry and two uint16 hash slots, (4 nl + 8) bytes, beside
+// 17,664 bytes of histograms, in 232,448 bytes: 16,384 rows at nl = 1
+// (the uint16 / register limit, 32 rows a thread of 512), 13,408 at
+// nl = 2, 10,720 at nl = 3, 8,928 at nl = 4 (bucket_capacity;
+// ops/kmer_sort.py:BUCKET_CAPACITY holds the same).
+//
+// LSD sort (merge_runs, lex_order, a bucket over capacity).  Keys as nl
+// separate uint32 arrays (SoA) in two ping-pong buffers, with an optional
+// 32-bit payload beside them.  The load kernel counts every digit of
+// every pass at once (as CUB's onesweep does up front); the host skips a
+// pass whose digit takes one value (the load's XOR words).  Digits are
+// the four bytes of each limb (ops/kmer_sort.py:digit_plan).  A pass: a tile count
+// kernel (256-bucket histogram of a 4,096-key tile, tile-major), a
+// two-level scan of the (tile, digit) counts (group sums, one block
+// across groups, then each group's tiles), and the scatter: a warp ranks
+// its 16 x 32 keys in order with __match_any_sync and per-warp counters,
+// the block adds the warps' prefixes, and the tile is reordered by digit
+// in shared memory so that each digit's keys go out as one contiguous
+// run.  Every step keeps the input order among equal digits, so the sort
+// is stable and the permutation is the torch.argsort chain's.  No key
+// pads a tile: the tail tile counts its rows.  Eleven-bit digits would
+// spread a 4,096-key tile over 2,048 buckets (scattered 4-byte writes).
 //
 // Runs.  A tile pass marks run starts (a row differs from the one before)
 // and sums the payload (1 a row without one), one block scans the tiles'
 // counts and sums, and a write pass puts each run's key (int64 limbs, the
 // callers' format) and the payload's exclusive prefix at its start; a
 // last pass takes the count as the difference of neighbouring prefixes.
-//
-// What bounds it on an H100: bytes, at 3.35 TB/s.  As a function the
-// count reads the rows once and writes the unique rows and counts once;
-// this design moves the keys twice a pass (read and scatter) plus a digit
-// limb once more, 12 passes at k1 = 46.  Onesweep's decoupled look-back
-// (one read of the digit limb less a pass, no tile count kernel) and a
-// merge-path merge in place of concat + re-sort are for later.
 //
 // Offsets: element indices are 64-bit where they address an array (a
 // window of 2^28 rows of 4 limbs is 4 GiB); the wrapper refuses n >=
@@ -106,36 +158,40 @@ __device__ __forceinline__ T warp_inclusive_scan(T x) {
     return x;
 }
 
-// Exclusive prefix of v over the block (THREADS threads, all of which call
-// it); *total gets the block's sum.  sh holds WARPS values.
-template <typename T>
+// Exclusive prefix of v over the block (NW warps, all of whose threads
+// call it); *total gets the block's sum.  sh holds NW values.
+template <typename T, int NW = WARPS>
 __device__ T block_exclusive_scan(T v, T* total, T* sh) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const T x = warp_inclusive_scan<T>(v);
     if (lane == 31) sh[warp] = x;
     __syncthreads();
     if (warp == 0) {
-        T s = lane < WARPS ? sh[lane] : T(0);
+        T s = lane < NW ? sh[lane] : T(0);
         s = warp_inclusive_scan<T>(s);
-        if (lane < WARPS) sh[lane] = s;
+        if (lane < NW) sh[lane] = s;
     }
     __syncthreads();
     const T before = warp ? sh[warp - 1] : T(0);
-    *total = sh[WARPS - 1];
+    *total = sh[NW - 1];
     __syncthreads();                      // sh is reused by the next call
     return before + x - v;
 }
 
 // ---------------------------------------------------------------------------
-// One block: exclusive scan in place of gridDim.x arrays of len int64 each
-// (array b at a + b * len); total[b] gets array b's sum.
+// One block an array: out = the exclusive scan of in (gridDim.x arrays of
+// len int64 each, array b at in + b * len and out + b * len; in may be
+// out), total[b] = array b's sum.  len_dev, when not null, holds len.
 // ---------------------------------------------------------------------------
 constexpr int SCAN_PER = 8;
 
 __global__ void __launch_bounds__(THREADS)
-scan_ll_kernel(long long* a, long long len, long long* total) {
+scan_ll_kernel(const long long* in, long long* out, long long len,
+               const long long* __restrict__ len_dev, long long* total) {
     __shared__ long long sh[WARPS];
-    long long* x = a + (size_t)blockIdx.x * len;
+    if (len_dev) len = *len_dev;
+    const long long* x = in + (size_t)blockIdx.x * len;
+    long long* y = out + (size_t)blockIdx.x * len;
     long long carry = 0;
     for (long long c0 = 0; c0 < len; c0 += (long long)THREADS * SCAN_PER) {
         const long long first = c0 + (long long)threadIdx.x * SCAN_PER;
@@ -149,7 +205,7 @@ scan_ll_kernel(long long* a, long long len, long long* total) {
         long long run = carry + block_exclusive_scan<long long>(s, &tot, sh);
 #pragma unroll
         for (int j = 0; j < SCAN_PER; ++j) {
-            if (first + j < len) x[first + j] = run;
+            if (first + j < len) y[first + j] = run;
             run += v[j];
         }
         carry += tot;
@@ -161,148 +217,300 @@ scan_ll_kernel(long long* a, long long len, long long* total) {
 // Extraction
 // ---------------------------------------------------------------------------
 
+constexpr int EX_WINDOWS = 4096;           // windows a block aims at
+constexpr size_t EX_SMEM = 100 * 1024;     // a block's share: two an SM
+constexpr size_t EX_STATIC = 256;          // the kernel's static shared bytes
+constexpr unsigned long long ST_AGG = 1, ST_PREFIX = 2;   // status flags
+
 // Reverse the sixteen 2-bit groups of x (ops/limbs.py:_rev2bits_in_u32).
 __device__ __forceinline__ uint32_t rev2(uint32_t x) {
     x = __brev(x);
     return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
 }
 
-// Shared words a read: its invalid-base mask, then its packed positions
-// -16 .. L-1 (the write pass only).
-__host__ __device__ __forceinline__ int mask_words(int L) { return L / 32 + 2; }
-__host__ __device__ __forceinline__ int packed_words(int L) { return L + 16; }
+__device__ __forceinline__ unsigned long long ld_acquire(
+        const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
 
-// WRITE false: block_rows[blockIdx.x] = the block's valid windows.  WRITE
-// true: block_rows holds their exclusive scan; the rows go to out.
-template <int NL, bool WRITE>
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
+}
+
+// A read's 32-bit invalid-base words (bit i of word w: base 32 w + i is a
+// code >= 4) and its packed words, forward and reverse complement each:
+// word j + 1 holds bases 16 j .. 16 j + 15, j = -1 .. 2 MW - 1.
+__host__ __device__ __forceinline__ int mask_words(int L) { return L / 32 + 2; }
+__host__ __device__ __forceinline__ int packed_words(int L) {
+    return 2 * mask_words(L) + 1;
+}
+// bytes of a block's reads in shared memory: whole 16-byte chunks from the
+// aligned address at or below the first byte
+__host__ __device__ __forceinline__ long long raw_bytes(long long R, int L) {
+    return ((R * L + 31) / 16 + 1) * 16;
+}
+
+// Window p of the block's read r: p + k1 within the read's length and no
+// invalid base in [p, p + k1).
+__device__ __forceinline__ bool window_ok(int r, int p, int k1, int MW,
+                                          const int* lens,
+                                          const uint32_t* bad) {
+    if (p + k1 > lens[r]) return false;
+    const uint32_t* bw = bad + r * MW;
+    for (int off = 0; off < k1; off += 32) {
+        const int q = p + off;
+        const uint32_t bits =
+            __funnelshift_r(bw[q >> 5], bw[(q >> 5) + 1], q & 31);
+        const int nb = min(32, k1 - off);
+        if (bits & (nb == 32 ? ~0u : (1u << nb) - 1u)) return false;
+    }
+    return true;
+}
+
+// A block a ticket (taken in launch order, so a block's predecessors have
+// all started): reads [t R, t R + R).  status: (gridDim.x,) 64-bit words,
+// zeroed; ticket: one zeroed word.  total gets the number of rows.
+// Rounds of 32 windows a warp takes, at most, of a block of R reads.
+__host__ __device__ __forceinline__ int ex_rounds(int R, int P) {
+    return (R * P + WARPS * 32 - 1) / (WARPS * 32);
+}
+
+template <int NL>
 __global__ void __launch_bounds__(THREADS)
 extract_kernel(const uint8_t* __restrict__ bases,     // (B, L)
                const int* __restrict__ lengths,       // (B,)
-               long long B, int L, int k1, int reads_per_block,
-               long long* __restrict__ block_rows,
-               uint32_t* __restrict__ out) {          // (n, NL)
-    extern __shared__ uint32_t smem[];
-    __shared__ int scan_sh[WARPS];
-    const int P = L - k1 + 1;
-    const int MW = mask_words(L), LW = packed_words(L);
-    uint32_t* bad = smem;                                  // (R, MW)
-    uint32_t* packed = smem + reads_per_block * MW;        // (R, LW)
-    const long long b0 = (long long)blockIdx.x * reads_per_block;
-    const int nr = (int)min((long long)reads_per_block, B - b0);
-    const uint8_t* rows = bases + b0 * L;
-    if (WRITE) {
-        // packed[r][16 + q]: bases q .. q+15 of read r, base q in the top
-        // two bits; codes >= 4 and positions outside [0, L) pack as 0
-        for (int i = threadIdx.x; i < nr * LW; i += blockDim.x) {
-            const int r = i / LW, q = i - r * LW - 16;
-            const uint8_t* row = rows + (long long)r * L;
-            uint32_t w = 0;
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-                const int pos = q + j;
-                const uint32_t c = (pos >= 0 && pos < L) ? row[pos] : 0u;
-                w |= (c < 4 ? c : 0u) << (30 - 2 * j);
-            }
-            packed[i] = w;
+               long long B, int L, int k1, int R, int SR,
+               unsigned long long* status, unsigned* ticket,
+               long long* total, uint32_t* __restrict__ out) {   // (n, NL)
+    extern __shared__ __align__(16) uint8_t ex_smem[];
+    __shared__ int wsum[WARPS];
+    __shared__ long long s_off;
+    __shared__ unsigned s_ticket;
+    const int P = L - k1 + 1, MW = mask_words(L), PW = packed_words(L);
+    uint8_t* raw = ex_smem;
+    int* lens = reinterpret_cast<int*>(ex_smem + raw_bytes(R, L));
+    uint32_t* bad = reinterpret_cast<uint32_t*>(lens + R);   // (R, MW)
+    uint32_t* fw = bad + R * MW;                              // (R, PW)
+    uint32_t* rcw = fw + R * PW;                              // (R, PW)
+    uint32_t* ballots = rcw + R * PW;            // (WARPS, ex_rounds(R, P))
+    uint32_t* stage = ballots + WARPS * ex_rounds(R, P);      // (SR, NL)
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid == 0) s_ticket = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const long long t = s_ticket;
+    const long long b0 = t * R;
+    const int nr = (int)min((long long)R, B - b0);
+
+    // the block's nr * L bytes, 16-byte chunks where whole, else bytes
+    const uint8_t* first = bases + b0 * L;
+    const int lead = (int)(reinterpret_cast<uintptr_t>(first) & 15);
+    const long long end = lead + (long long)nr * L;      // from the chunk base
+    for (long long c = tid; c < (end + 15) / 16; c += THREADS) {
+        const long long lo = 16 * c;
+        if (lo >= lead && lo + 16 <= end) {
+            *reinterpret_cast<uint4*>(raw + lo) =
+                __ldg(reinterpret_cast<const uint4*>(first + (lo - lead)));
+        } else {
+            for (int j = 0; j < 16; ++j)
+                if (lo + j >= lead && lo + j < end)
+                    raw[lo + j] = first[lo + j - lead];
         }
     }
-    // bad[r][w]: bit j set when base 32 w + j of read r is a code >= 4.  A
-    // warp's 32 iterations share r and w (blockDim and MW * 32 are
-    // multiples of 32), so every lane takes part in the ballot
-    for (int i = threadIdx.x; i < nr * MW * 32; i += blockDim.x) {
-        const int r = i / (MW * 32), q = i - r * MW * 32;
-        const bool is_bad = q < L && rows[(long long)r * L + q] >= 4;
-        const uint32_t bits = __ballot_sync(FULL, is_bad);
-        if ((threadIdx.x & 31) == 0) bad[r * MW + q / 32] = bits;
+    for (int r = tid; r < nr; r += THREADS) lens[r] = lengths[b0 + r];
+    __syncthreads();
+
+    // pack each read once: base q of read r is rb[r * L + q]
+    const uint8_t* rb = raw + lead;
+    for (int i = tid; i < nr * PW; i += THREADS) {
+        const int r = i / PW, j = i - r * PW - 1;
+        uint32_t w = 0, m = 0;
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+            const int q = 16 * j + x;
+            const uint32_t c = (q >= 0 && q < L) ? rb[r * L + q] : 0u;
+            w |= (c < 4 ? c : 0u) << (30 - 2 * x);
+            m |= (uint32_t)(c >= 4) << x;
+        }
+        fw[i] = w;
+        rcw[i] = rev2(~w);
+        if (j >= 0) reinterpret_cast<uint16_t*>(bad + r * MW)[j] = (uint16_t)m;
     }
     __syncthreads();
+
+    // a warp a contiguous run of the block's windows, 32 at a time (the
+    // lane's window w = r P + p advanced by 32 a round); each round's
+    // ballot of valid windows kept for the row pass
+    const int nw = nr * P;
+    const int per_warp = (nw + WARPS * 32 - 1) / (WARPS * 32) * 32;
+    const int w0 = warp * per_warp, w1 = min(nw, w0 + per_warp);
+    uint32_t* wb = ballots + warp * ex_rounds(R, P);
+    const int r_start = (w0 + lane) / P, p_start = w0 + lane - r_start * P;
+    int cnt = 0;
+    for (int base = w0, k = 0, r = r_start, p = p_start; base < w1;
+         base += 32, ++k) {
+        const bool ok = base + lane < w1 && window_ok(r, p, k1, MW, lens, bad);
+        const unsigned b = __ballot_sync(FULL, ok);
+        if (lane == 0) wb[k] = b;
+        cnt += __popc(b);
+        for (p += 32; p >= P; p -= P) ++r;
+    }
+    if (lane == 0) wsum[warp] = cnt;
+    __syncthreads();
+    int wbase = 0, agg = 0;
+    for (int k = 0; k < WARPS; ++k) {
+        wbase += k < warp ? wsum[k] : 0;
+        agg += wsum[k];
+    }
+
+    // decoupled look-back: the rows of the blocks with smaller tickets
+    if (warp == 0) {
+        long long excl = 0;
+        if (t == 0) {
+            if (lane == 0)
+                st_release(&status[0],
+                           ((unsigned long long)agg << 2) | ST_PREFIX);
+        } else {
+            if (lane == 0)
+                st_release(&status[t], ((unsigned long long)agg << 2) | ST_AGG);
+            for (long long k = t - 1;; k -= 32) {
+                const long long idx = k - lane;        // lane 0 the nearest
+                unsigned long long s = idx >= 0 ? ld_acquire(&status[idx])
+                                                : ST_PREFIX;
+                while (__any_sync(FULL, (s & 3) == 0))
+                    if ((s & 3) == 0) s = ld_acquire(&status[idx]);
+                const unsigned pre = __ballot_sync(FULL, (s & 3) == ST_PREFIX);
+                const int stop = pre ? __ffs(pre) - 1 : 31;
+                long long v = lane <= stop ? (long long)(s >> 2) : 0;
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+                excl += v;
+                if (pre) break;
+            }
+            if (lane == 0)
+                st_release(&status[t], ((unsigned long long)(excl + agg) << 2) |
+                                           ST_PREFIX);
+        }
+        if (lane == 0) {
+            s_off = excl;
+            if (t == gridDim.x - 1) *total = excl + agg;
+        }
+    }
+    __syncthreads();
+    const long long off = s_off;
+
+    // the rows, staged SR at a time (one round unless the reads are long)
     const int used = 2 * k1 - 32 * (NL - 1);        // bits of the last limb
     const uint32_t last = used == 32 ? ~0u : ~0u << (32 - used);
-    long long base = WRITE ? block_rows[blockIdx.x] : 0;
-    const int nwin = nr * P;
-    for (int c0 = 0; c0 < nwin; c0 += THREADS) {    // every thread, every chunk
-        const int i = c0 + threadIdx.x;
-        const int r = i / P, p = i - r * P;
-        bool ok = i < nwin && p + k1 <= lengths[b0 + min(r, nr - 1)];
-        if (ok) {
-            const uint32_t* bw = bad + r * MW;
-            for (int off = 0; off < k1; off += 32) {
-                const int q = p + off;
-                const uint32_t bits =
-                    __funnelshift_r(bw[q >> 5], bw[(q >> 5) + 1], q & 31);
-                const int nb = min(32, k1 - off);
-                ok = ok && !(bits & (nb == 32 ? ~0u : (1u << nb) - 1u));
-            }
-        }
-        int n_chunk;
-        const int rank = block_exclusive_scan<int>(ok ? 1 : 0, &n_chunk,
-                                                   scan_sh);
-        if (WRITE && ok) {
-            const uint32_t* pr = packed + r * LW + 16;
-            uint32_t fw[NL], rc[NL];
+    const unsigned lt = lanemask_lt();
+    for (int c0 = 0; c0 < agg; c0 += SR) {
+        const int c1 = min(agg, c0 + SR);
+        int rank = wbase;
+        for (int base = w0, k = 0, r = r_start, p = p_start; base < w1;
+             base += 32, ++k, p += 32) {
+            for (; p >= P; p -= P) ++r;
+            const unsigned b = wb[k];
+            const int my = rank + __popc(b & lt);
+            rank += __popc(b);
+            if (!((b >> lane) & 1u) || my < c0 || my >= c1) continue;
+            const uint32_t* f = fw + r * PW;
+            const uint32_t* rc = rcw + r * PW;
+            uint32_t fl[NL], rl[NL];
 #pragma unroll
             for (int l = 0; l < NL; ++l) {
-                fw[l] = pr[p + 16 * l];
-                rc[l] = rev2(~pr[p + k1 - 16 - 16 * l]);
+                const int qf = p + 16 * l + 16;         // q + 16, q = p + 16 l
+                fl[l] = __funnelshift_l(f[(qf >> 4) + 1], f[qf >> 4],
+                                        2 * (qf & 15));
+                const int qr = p + k1 - 16 * l;         // q + 16, q = p + k1 - 16 - 16 l
+                rl[l] = __funnelshift_r(rc[qr >> 4], rc[(qr >> 4) + 1],
+                                        2 * (qr & 15));
             }
-            fw[NL - 1] &= last;
-            rc[NL - 1] &= last;
-            bool lt = false, eq = true;       // ops/limbs.py:lex_lt(rc, fw)
+            fl[NL - 1] &= last;
+            rl[NL - 1] &= last;
+            bool lt_ = false, eq = true;      // ops/limbs.py:lex_lt(rc, fw)
 #pragma unroll
             for (int l = 0; l < NL; ++l) {
-                lt = lt || (eq && rc[l] < fw[l]);
-                eq = eq && rc[l] == fw[l];
+                lt_ = lt_ || (eq && rl[l] < fl[l]);
+                eq = eq && rl[l] == fl[l];
             }
-            uint32_t* dst = out + (size_t)(base + rank) * NL;
+            uint32_t* dst = stage + (size_t)(my - c0) * NL;
 #pragma unroll
-            for (int l = 0; l < NL; ++l) dst[l] = lt ? rc[l] : fw[l];
+            for (int l = 0; l < NL; ++l) dst[l] = lt_ ? rl[l] : fl[l];
         }
-        base += n_chunk;
+        __syncthreads();
+        // words [(off + c0) NL, (off + c1) NL) of out: 4-byte words up to a
+        // 16-byte boundary, 16-byte stores, 4-byte words after
+        const long long g0 = (off + c0) * NL;
+        const int words = (c1 - c0) * NL;
+        const int head = min(words, (int)((4 - (g0 & 3)) & 3));
+        const int quads = (words - head) / 4;
+        for (int i = tid; i < head; i += THREADS) out[g0 + i] = stage[i];
+        uint4* o4 = reinterpret_cast<uint4*>(out + g0 + head);
+        for (int i = tid; i < quads; i += THREADS) {
+            const uint32_t* s = stage + head + 4 * i;
+            o4[i] = make_uint4(s[0], s[1], s[2], s[3]);
+        }
+        for (int i = head + 4 * quads + tid; i < words; i += THREADS)
+            out[g0 + i] = stage[i];
+        __syncthreads();
     }
-    if (!WRITE && threadIdx.x == 0) block_rows[blockIdx.x] = base;
 }
 
-// reads a block: about one window a thread, within the default shared
-// memory
-int reads_per_block(int L, int k1) {
-    const size_t per_read =
-        (size_t)(mask_words(L) + packed_words(L)) * sizeof(uint32_t);
-    const int P = L - k1 + 1;
-    int R = THREADS / P > 1 ? THREADS / P : 1;
-    const int fit = (int)(SMEM_DEFAULT / per_read);
-    if (R > fit) R = fit > 1 ? fit : 1;
-    return R;
+// A block's reads R and staging rows SR for reads of width L, and its
+// dynamic shared bytes; false when one read does not fit.
+bool ex_plan(int L, int k1, int nl, int* R_out, int* SR_out, size_t* smem) {
+    const long long P = L - k1 + 1, MW = mask_words(L), PW = packed_words(L);
+    auto bytes = [&](long long R, long long SR) {
+        return (size_t)(raw_bytes(R, L) +
+                        4 * (R + R * MW + 2 * R * PW +
+                             WARPS * (long long)ex_rounds((int)R, (int)P) +
+                             SR * nl));
+    };
+    long long R = EX_WINDOWS / P > 1 ? EX_WINDOWS / P : 1;
+    while (R > 1 && bytes(R, R * P) > EX_SMEM) R = R * 7 / 8 < R - 1 ? R * 7 / 8 : R - 1;
+    long long SR = R * P;
+    const size_t room = SMEM_MAX - EX_STATIC;
+    if (bytes(R, SR) > room) {
+        if (bytes(R, 0) + 4 * 32 * (size_t)nl > room) return false;
+        SR = (long long)((room - bytes(R, 0)) / (4 * (size_t)nl));
+    }
+    *R_out = (int)R;
+    *SR_out = (int)SR;
+    *smem = bytes(R, SR);
+    return true;
 }
 
 template <int NL>
 struct Extract {
     static int run(const void* bases, const void* lengths, long long B,
-                   int L, int k1, void* block_rows, void* total, void* out,
+                   int L, int k1, void* scratch, void* total, void* out,
                    cudaStream_t st) {
-        const int R = reads_per_block(L, k1);
-        // the count pass holds only the masks, within the default
-        const size_t smem_c = (size_t)R * mask_words(L) * sizeof(uint32_t);
-        const size_t smem_w =
-            (size_t)R * (mask_words(L) + packed_words(L)) * sizeof(uint32_t);
-        if (smem_w > SMEM_MAX) return (int)cudaErrorInvalidValue;
-        if (smem_w > SMEM_DEFAULT) {
-            const cudaError_t e = cudaFuncSetAttribute(
-                extract_kernel<NL, true>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_w);
-            if (e != cudaSuccess) return (int)e;
-        }
+        int R, SR;
+        size_t smem;
+        if (!ex_plan(L, k1, NL, &R, &SR, &smem))
+            return (int)cudaErrorInvalidValue;
         const long long blocks = (B + R - 1) / R;
         if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-        const uint8_t* b = static_cast<const uint8_t*>(bases);
-        const int* l = static_cast<const int*>(lengths);
-        long long* br = static_cast<long long*>(block_rows);
-        uint32_t* o = static_cast<uint32_t*>(out);
-        extract_kernel<NL, false><<<(unsigned)blocks, THREADS, smem_c, st>>>(
-            b, l, B, L, k1, R, br, o);
-        scan_ll_kernel<<<1, THREADS, 0, st>>>(br, blocks,
-                                              static_cast<long long*>(total));
-        extract_kernel<NL, true><<<(unsigned)blocks, THREADS, smem_w, st>>>(
-            b, l, B, L, k1, R, br, o);
+        if (smem > SMEM_DEFAULT) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                extract_kernel<NL>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return (int)e;
+        }
+        // status words, then the ticket
+        unsigned long long* status = static_cast<unsigned long long*>(scratch);
+        const cudaError_t e = cudaMemsetAsync(
+            status, 0, (size_t)(blocks + 1) * sizeof(unsigned long long), st);
+        if (e != cudaSuccess) return (int)e;
+        extract_kernel<NL><<<(unsigned)blocks, THREADS, smem, st>>>(
+            static_cast<const uint8_t*>(bases),
+            static_cast<const int*>(lengths), B, L, k1, R, SR, status,
+            reinterpret_cast<unsigned*>(status + blocks),
+            static_cast<long long*>(total), static_cast<uint32_t*>(out));
         return 0;
     }
 };
@@ -311,19 +519,23 @@ struct Extract {
 // Sort: load + histogram of every pass
 // ---------------------------------------------------------------------------
 
-// Limb l of row i of the caller's row-major rows: rows [0, na) from a,
-// the rest from b; 8-byte limbs (int64 values in [0, 2^32)) when wide,
-// their high words OR-ed into *high.
+// Limb l of row i of the caller's rows: row-major (stride 0), rows [0, na)
+// from a, the rest from b, 8-byte limbs (int64 values in [0, 2^32)) when
+// wide, their high words OR-ed into *high; or SoA uint32 (stride > 0):
+// limb l of row i at a[l * stride + i].
 struct Rows {
     const void* a;
     const void* b;
     long long na;
     int wide;
+    long long stride;
 };
 
 template <int NL>
 __device__ __forceinline__ uint32_t row_limb(const Rows& src, long long i,
                                              int l, uint32_t* high) {
+    if (src.stride)
+        return static_cast<const uint32_t*>(src.a)[l * src.stride + i];
     const void* p = i < src.na ? src.a : src.b;
     const long long r = i < src.na ? i : i - src.na;
     if (!src.wide) return static_cast<const uint32_t*>(p)[r * NL + l];
@@ -334,20 +546,30 @@ __device__ __forceinline__ uint32_t row_limb(const Rows& src, long long i,
 }
 
 // pay_mode: 0 none, 1 the caller's int32 values (rows [0, na) from pa, the
-// rest from pb), 2 the row index.  hist[plan.n * RADIX] becomes 1 when an
-// int64 limb is outside [0, 2^32): the sort would read only its low word.
+// rest from pb), 2 the row index.  hist: the plan's (plan.n, RADIX) digit
+// counts; then a flag, 1 when an int64 limb is outside [0, 2^32) (the
+// sort would read only its low word); then NL words, the OR over the
+// rows of row ^ row 0, limb by limb: a digit takes two values or more
+// where its bits there are not all 0.
 template <int NL>
 __global__ void __launch_bounds__(THREADS)
 load_hist_kernel(Rows src, long long n, const int* __restrict__ pa,
                  const int* __restrict__ pb, int pay_mode, Plan plan,
                  uint32_t* __restrict__ keys,          // (NL, n)
                  uint32_t* __restrict__ pay,           // (n,)
-                 uint32_t* __restrict__ hist) {    // (plan.n, RADIX) + 1
+                 uint32_t* __restrict__ hist) {
     __shared__ uint32_t h[MAX_PASSES * RADIX];
+    __shared__ uint32_t dx_sh[MAX_NL];
     for (int i = threadIdx.x; i < plan.n * RADIX; i += blockDim.x) h[i] = 0;
+    if (threadIdx.x < NL) dx_sh[threadIdx.x] = 0;
+    uint32_t high = 0, ref[NL], dx[NL];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        ref[l] = row_limb<NL>(src, 0, l, &high);
+        dx[l] = 0;
+    }
     __syncthreads();
     const long long step = (long long)gridDim.x * blockDim.x;
-    uint32_t high = 0;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < n; i += step) {
         uint32_t key[NL];
@@ -355,6 +577,7 @@ load_hist_kernel(Rows src, long long n, const int* __restrict__ pa,
         for (int l = 0; l < NL; ++l) {
             key[l] = row_limb<NL>(src, i, l, &high);
             keys[(size_t)l * n + i] = key[l];
+            dx[l] |= key[l] ^ ref[l];
         }
         if (pay_mode == 1)
             pay[i] = (uint32_t)(i < src.na ? pa[i] : pb[i - src.na]);
@@ -368,8 +591,13 @@ load_hist_kernel(Rows src, long long n, const int* __restrict__ pa,
             atomicAdd(&h[p * RADIX + d], 1u);
         }
     }
+#pragma unroll
+    for (int l = 0; l < NL; ++l)
+        if (dx[l]) atomicOr(&dx_sh[l], dx[l]);
     if (__syncthreads_or(high != 0) && threadIdx.x == 0)
         hist[plan.n * RADIX] = 1u;
+    if (threadIdx.x < NL && dx_sh[threadIdx.x])
+        atomicOr(&hist[plan.n * RADIX + 1 + threadIdx.x], dx_sh[threadIdx.x]);
     for (int i = threadIdx.x; i < plan.n * RADIX; i += blockDim.x)
         if (h[i]) atomicAdd(&hist[i], h[i]);
 }
@@ -428,14 +656,20 @@ constexpr int SCAN_BATCH = 16;   // independent loads in flight a thread
 
 // One block, a thread a digit: gsum[g][d] becomes the offset of group g's
 // first key of digit d: the digit's start (the exclusive scan of the
-// pass's histogram) plus the keys of that digit in groups before g.
+// pass's histogram, or without one of the groups' sums) plus the keys of
+// that digit in groups before g.
 __global__ void __launch_bounds__(THREADS)
 group_scan_kernel(const uint32_t* __restrict__ hist, uint32_t* gsum,
                   long long groups) {
     __shared__ uint32_t sh[WARPS];
     const int d = threadIdx.x;
+    uint32_t total = 0;
+    if (hist)
+        total = hist[d];
+    else
+        for (long long g = 0; g < groups; ++g) total += gsum[g * RADIX + d];
     uint32_t tot;
-    uint32_t run = block_exclusive_scan<uint32_t>(hist[d], &tot, sh);
+    uint32_t run = block_exclusive_scan<uint32_t>(total, &tot, sh);
     for (long long g0 = 0; g0 < groups; g0 += SCAN_BATCH) {
         uint32_t c[SCAN_BATCH];
 #pragma unroll
@@ -550,6 +784,417 @@ scatter_kernel(const uint32_t* __restrict__ kin, uint32_t* __restrict__ kout,
         for (int i = tid; i < cnt; i += THREADS)
             dst[gofs[xdig[i]] + i] = xbuf[i];
         __syncthreads();
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Sort-and-count: bucket bounds, the bucket kernel, compaction
+// ---------------------------------------------------------------------------
+
+constexpr int BT = 512;                    // threads of the bucket kernel
+constexpr int BWARPS = BT / 32;
+constexpr int BJ = 32;                     // rows a thread, at most
+constexpr int BUCKET_MAX = BT * BJ;        // 16,384: uint16 row indices
+constexpr size_t BUCKET_FIXED = (BWARPS * RADIX + RADIX + 64) * 4;
+constexpr uint16_t EMPTY16 = 0xFFFFu;
+static_assert(BT == 2 * RADIX, "two threads a digit in the bucket scan");
+
+// Rows a block of the bucket kernel holds (a multiple of 32): a row takes
+// its nl limbs, its count, its place in the list and two hash slots.
+int bucket_capacity(int nl) {
+    long long c = (long long)(SMEM_MAX - BUCKET_FIXED) / (4 * nl + 8);
+    c = c / 32 * 32;
+    return (int)(c < BUCKET_MAX ? c : BUCKET_MAX);
+}
+
+size_t bucket_smem(int nl, int cap) {
+    return BUCKET_FIXED + (size_t)cap * (4 * nl + 8);
+}
+
+// The prefix of row i: its d partition digits, the most significant first.
+struct Prefix {
+    int d;
+    int limb[2];
+    int shift[2];
+};
+
+__device__ __forceinline__ long long prefix_of(const uint32_t* keys,
+                                               long long n, const Prefix& pf,
+                                               long long i) {
+    long long v = 0;
+    for (int j = 0; j < pf.d; ++j)
+        v = (v << 8) | ((keys[(size_t)pf.limb[j] * n + i] >> pf.shift[j]) & 0xFFu);
+    return v;
+}
+
+// Rows grouped by prefix, ascending: starts[q] = the first row whose
+// prefix is >= q, for q = 0 .. 256^d (starts[256^d] = n).  A thread a
+// bucket, by binary search.
+__global__ void __launch_bounds__(THREADS)
+bounds_kernel(const uint32_t* __restrict__ keys, long long n, Prefix pf,
+              int* __restrict__ starts) {
+    const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (q > (1LL << (8 * pf.d))) return;
+    long long lo = 0, hi = n;
+    while (lo < hi) {
+        const long long mid = (lo + hi) / 2;
+        if (prefix_of(keys, n, pf, mid) < q)
+            lo = mid + 1;
+        else
+            hi = mid;
+    }
+    starts[q] = (int)lo;
+}
+
+template <int NL>
+__device__ __forceinline__ uint32_t row_hash(const uint32_t* ks, int cap,
+                                             int i) {
+    uint32_t h = 0x9E3779B9u;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        h = (h ^ ks[(size_t)l * cap + i]) * 0x85EBCA6Bu;
+        h ^= h >> 15;
+    }
+    h *= 0xC2B2AE35u;
+    return h ^ (h >> 16);
+}
+
+template <int NL>
+__device__ __forceinline__ bool same_row(const uint32_t* ks, int cap, int a,
+                                         int b) {
+    bool eq = true;
+#pragma unroll
+    for (int l = 0; l < NL; ++l)
+        eq = eq && ks[(size_t)l * cap + a] == ks[(size_t)l * cap + b];
+    return eq;
+}
+
+constexpr int RANK_SORT = BT;              // distinct rows ranked by counting
+
+// Row a precedes row b (limb 0 first).
+template <int NL>
+__device__ __forceinline__ bool row_less(const uint32_t* ks, int cap, int a,
+                                         const uint32_t* kb) {
+    bool lt = false, eq = true;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        const uint32_t v = ks[(size_t)l * cap + a];
+        lt = lt || (eq && v < kb[l]);
+        eq = eq && v == kb[l];
+    }
+    return lt;
+}
+
+// Persistent blocks, a group at a time (g, g + gridDim.x, ...): rows
+// [gstart[g], gstart[g + 1]) of keys (NL, n) into shared memory (the next
+// group's rows prefetched into L2 meanwhile); equal rows counted once by
+// a hash table of row indices (2 m slots, linear probing), the distinct
+// rows listed; the list sorted by plan's digits (least significant
+// first), a stable LSD pass a digit over 16-bit indices; each distinct
+// row, ascending, a run: its key at the group's first row of run_keys
+// (NL, n) and its count in run_counts (n,), their number in gruns[g].
+// Up to RANK_SORT distinct rows (the count's groups: about 100, each row
+// about 50 times) are placed by counting, a thread a row: at that size
+// the passes' barriers cost more than their work.
+// local_last: the last digit is the group's low prefix digit, ascending
+// over its rows, so the pass is skipped when the first and last rows
+// share it.  A group over cap rows is the host's (the LSD route): left
+// as it is.
+template <int NL>
+__global__ void __launch_bounds__(BT, 1)
+bucket_kernel(const uint32_t* __restrict__ keys, long long n,
+              const int* __restrict__ gstart,
+              const long long* __restrict__ info, int cap, Plan plan,
+              int local_last, uint32_t* __restrict__ run_keys,
+              int* __restrict__ run_counts, long long* __restrict__ gruns) {
+    const long long G = info[0];
+    extern __shared__ __align__(16) uint32_t bsmem[];
+    __shared__ int s_u;
+    uint32_t* ks = bsmem;                                 // (NL, cap)
+    uint32_t* whist = ks + (size_t)NL * cap;              // (BWARPS, RADIX)
+    uint32_t* tstart = whist + BWARPS * RADIX;            // (RADIX,)
+    uint32_t* sh = tstart + RADIX;                        // 64
+    uint16_t* cnt = reinterpret_cast<uint16_t*>(sh + 64); // (cap,) by row
+    // the list ping-pong: (cap,) and (2 cap,), the second the hash table
+    // while equal rows are counted
+    uint16_t* lst[2] = {cnt + cap, cnt + 2 * cap};
+    uint16_t* table = lst[1];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned lt = lanemask_lt();
+    for (long long g = blockIdx.x; g < G; g += gridDim.x) {
+        const long long r0 = gstart[g];
+        const int m = (int)(gstart[g + 1] - r0);
+        if (g + gridDim.x < G) {
+            const long long q0 = gstart[g + gridDim.x];
+            const long long mq = gstart[g + gridDim.x + 1] - q0;
+            if (mq <= cap)
+                for (int l = 0; l < NL; ++l)
+                    for (long long i = 32LL * tid; i < mq; i += 32LL * BT)
+                        asm volatile("prefetch.global.L2 [%0];" ::"l"(
+                            keys + (size_t)l * n + q0 + i));
+        }
+        if (m > cap || m == 0) {
+            if (tid == 0) gruns[g] = 0;
+            continue;
+        }
+        for (int l = 0; l < NL; ++l) {
+#pragma unroll 8
+            for (int i = tid; i < m; i += BT)
+                ks[(size_t)l * cap + i] = keys[(size_t)l * n + r0 + i];
+        }
+        for (int i = tid; i < m; i += BT)
+            reinterpret_cast<uint32_t*>(table)[i] = 0xFFFFFFFFu;   // 2 m slots
+        for (int i = tid; i < (m + 1) / 2; i += BT)
+            reinterpret_cast<uint32_t*>(cnt)[i] = 0u;
+        if (tid == 0) s_u = 0;
+        __syncthreads();
+        for (int i0 = 0; i0 < m; i0 += BT) {   // every thread, every round
+            const int i = i0 + tid;
+            const uint32_t slots = 2u * (uint32_t)m;
+            uint32_t slot = i < m ? __umulhi(row_hash<NL>(ks, cap, i), slots)
+                                  : 0u;
+            int rep = -1;
+            for (; i < m;) {
+                uint16_t v = reinterpret_cast<volatile uint16_t*>(table)[slot];
+                if (v == EMPTY16) {
+                    v = atomicCAS(reinterpret_cast<unsigned short*>(table) + slot,
+                                  (unsigned short)EMPTY16, (unsigned short)i);
+                    if (v == EMPTY16) {
+                        rep = i;
+                        break;
+                    }
+                }
+                if (same_row<NL>(ks, cap, v, i)) {
+                    rep = v;
+                    break;
+                }
+                if (++slot == slots) slot = 0;
+            }
+            if (rep >= 0)
+                atomicAdd(reinterpret_cast<uint32_t*>(cnt) + (rep >> 1),
+                          1u << (16 * (rep & 1)));
+            // the warp's new distinct rows appended with one atomic
+            const unsigned fresh = __ballot_sync(FULL, rep == i);
+            int at = 0;
+            if (lane == 0 && fresh) at = atomicAdd(&s_u, __popc(fresh));
+            at = __shfl_sync(FULL, at, 0);
+            if (rep == i) lst[0][at + __popc(fresh & lt)] = (uint16_t)i;
+        }
+        __syncthreads();
+        const int u = s_u;                     // distinct rows
+        const int J = (u + BT - 1) / BT;       // list entries a thread, <= BJ
+        const int wbase = warp * 32 * J;       // warp w: [wbase, wbase + 32 J)
+        int in = 0;
+        if (u <= RANK_SORT) {
+            // few distinct rows: a thread a row, its place the number of
+            // rows before it (every thread reads the same row at a time)
+            if (tid < u) {
+                const int i = lst[0][tid];
+                uint32_t ki[NL];
+#pragma unroll
+                for (int l = 0; l < NL; ++l) ki[l] = ks[(size_t)l * cap + i];
+                int before = 0;
+#pragma unroll 4
+                for (int j = 0; j < u; ++j)
+                    before += row_less<NL>(ks, cap, lst[0][j], ki);
+                lst[1][before] = (uint16_t)i;
+            }
+            __syncthreads();
+            in = 1;
+        }
+        for (int p = 0; p < plan.n && u > RANK_SORT; ++p) {
+            const uint32_t* dl = ks + (size_t)plan.limb[p] * cap;
+            const int shift = plan.shift[p];
+            const uint32_t dmask = (1u << plan.bits[p]) - 1u;
+            if (local_last && p == plan.n - 1 &&
+                ((dl[0] >> shift) & dmask) == ((dl[m - 1] >> shift) & dmask))
+                break;                         // one bucket: already in order
+            for (int i = tid; i < BWARPS * RADIX / 4; i += BT)
+                reinterpret_cast<uint4*>(whist)[i] = make_uint4(0, 0, 0, 0);
+            __syncthreads();
+            // digit | rank << 9 of each of the thread's entries, in (warp,
+            // j, lane) order, as scatter_kernel ranks a tile: the digits
+            // first (independent loads), then the ranks (a chain through
+            // the warp's counters)
+            uint32_t dr[BJ];
+#pragma unroll
+            for (int j = 0; j < BJ; ++j) {
+                if (j >= J) break;
+                const int pos = wbase + j * 32 + lane;
+                dr[j] = pos < u ? (dl[lst[in][pos]] >> shift) & dmask
+                                : (uint32_t)RADIX;
+            }
+#pragma unroll
+            for (int j = 0; j < BJ; ++j) {
+                if (j >= J) break;
+                const uint32_t d = dr[j];
+                const unsigned peers = __match_any_sync(FULL, d);
+                const int leader = __ffs(peers) - 1;
+                uint32_t old = 0;
+                if (lane == leader && d < RADIX) {
+                    old = whist[warp * RADIX + d];
+                    whist[warp * RADIX + d] = old + __popc(peers);
+                }
+                __syncwarp();
+                const uint32_t rank = __shfl_sync(FULL, old, leader) +
+                                      __popc(peers & lt);
+                dr[j] = d | (rank << 9);
+            }
+            __syncthreads();
+            {   // digit d's warp prefixes: thread d takes warps 0-7, thread
+                // d + 256 warps 8-15; then the digits' starts, added in
+                const int d = tid & (RADIX - 1), h = tid / RADIX;
+                uint32_t c[BWARPS / 2], s = 0;
+#pragma unroll
+                for (int k = 0; k < BWARPS / 2; ++k)
+                    c[k] = whist[(h * BWARPS / 2 + k) * RADIX + d];
+#pragma unroll
+                for (int k = 0; k < BWARPS / 2; ++k) {
+                    whist[(h * BWARPS / 2 + k) * RADIX + d] = s;
+                    s += c[k];
+                }
+                if (!h) tstart[d] = s;              // the first half's sum
+                __syncthreads();
+                const uint32_t first = h ? tstart[d] : 0u;
+                uint32_t tot;
+                const uint32_t st = block_exclusive_scan<uint32_t, BWARPS>(
+                    h ? first + s : 0u, &tot, sh);
+                if (h) tstart[d] = st;
+                __syncthreads();
+                const uint32_t add = tstart[d] + (h ? first : 0u);
+#pragma unroll
+                for (int k = 0; k < BWARPS / 2; ++k)
+                    whist[(h * BWARPS / 2 + k) * RADIX + d] += add;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int j = 0; j < BJ; ++j) {
+                if (j >= J) break;
+                const uint32_t d = dr[j] & 511u;
+                if (d < RADIX)
+                    lst[1 - in][whist[warp * RADIX + d] + (dr[j] >> 9)] =
+                        lst[in][wbase + j * 32 + lane];
+            }
+            __syncthreads();
+            in = 1 - in;
+        }
+        const uint16_t* o = lst[in];
+        for (int r = tid; r < u; r += BT) {
+            const int i = o[r];
+#pragma unroll
+            for (int l = 0; l < NL; ++l)
+                run_keys[(size_t)l * n + r0 + r] = ks[(size_t)l * cap + i];
+            run_counts[r0 + r] = cnt[i];
+        }
+        if (tid == 0) gruns[g] = u;
+        __syncthreads();                       // shared memory is reused
+    }
+}
+
+template <int NL>
+struct Bucket {
+    static int run(const uint32_t* keys, long long n, const int* gstart,
+                   const long long* info, int cap, const Plan& plan,
+                   int local_last, uint32_t* run_keys, int* run_counts,
+                   long long* gruns, cudaStream_t st) {
+        if (cap < 1 || cap > bucket_capacity(NL))
+            return (int)cudaErrorInvalidValue;
+        const size_t smem = bucket_smem(NL, cap);
+        cudaError_t e = cudaFuncSetAttribute(
+            bucket_kernel<NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        int dev, sms, per_sm;
+        if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+            (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, bucket_kernel<NL>, BT, smem)) != cudaSuccess)
+            return (int)e;
+        if (sms * per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+        bucket_kernel<NL><<<(unsigned)(sms * per_sm), BT, smem, st>>>(
+            keys, n, gstart, info, cap, plan, local_last, run_keys,
+            run_counts, gruns);
+        return 0;
+    }
+};
+
+// Groups of buckets (ops/kmer_sort.py:bucket_groups on the card): starts
+// (nb + 1,) the buckets' first rows (null: one bucket, [0, n)).  With
+// T = cap / 2, a bucket over T rows is a group alone; the others group
+// while their first rows fall in one T-row window and one 256-bucket
+// block.  gstart (G + 1,) gets each group's first row, then n; info
+// (int64): [G, the groups over cap rows, (the scan's total), then (g, r0,
+// r1) for each group over cap].  One block, GT threads, a run of
+// buckets a thread.  A group may be empty (the bucket kernel writes 0
+// runs).
+constexpr int GT = 1024;
+
+__global__ void __launch_bounds__(GT)
+groups_kernel(const int* __restrict__ starts, long long nb, long long n,
+              int cap, int* __restrict__ gstart, long long* __restrict__ info) {
+    __shared__ int sh[GT / 32];
+    const long long t = cap / 2 > 1 ? cap / 2 : 1;
+    const long long per = (nb + GT - 1) / GT;
+    const long long b0 = threadIdx.x * per, b1 = min(nb, b0 + per);
+    auto first = [&](long long b) -> long long {
+        return starts ? starts[b] : (b ? n : 0);
+    };
+    auto cut = [&](long long b) -> bool {
+        const long long s0 = first(b), s1 = first(b + 1);
+        if (b % RADIX == 0 || s1 - s0 > t) return true;
+        const long long sp = first(b - 1);
+        return s0 - sp > t || s0 / t != sp / t;
+    };
+    int mine = 0;
+    for (long long b = b0; b < b1; ++b) mine += cut(b);
+    int G;
+    int k = block_exclusive_scan<int, GT / 32>(mine, &G, sh);
+    if (threadIdx.x == 0) {
+        info[0] = G;
+        info[1] = 0;
+        gstart[G] = (int)n;
+    }
+    __syncthreads();
+    for (long long b = b0; b < b1; ++b) {
+        if (!cut(b)) continue;
+        const long long s0 = first(b), s1 = first(b + 1);
+        gstart[k] = (int)s0;
+        if (s1 - s0 > cap) {             // a bucket alone, over capacity
+            const long long j = atomicAdd(
+                reinterpret_cast<unsigned long long*>(info + 1), 1ULL);
+            info[3 + 3 * j] = k;
+            info[4 + 3 * j] = s0;
+            info[5 + 3 * j] = s1;
+        }
+        ++k;
+    }
+}
+
+// A warp a group (warp-stride over info[0] groups): its runs from the
+// scratch to uniq (n_u, nl) int64 and counts (n_u,) at its offset (goff;
+// info[2] the total).
+__global__ void __launch_bounds__(THREADS)
+compact_kernel(const uint32_t* __restrict__ run_keys,
+               const int* __restrict__ run_counts, long long n, int nl,
+               const int* __restrict__ gstart,
+               const long long* __restrict__ goff,
+               const long long* __restrict__ info,
+               long long* __restrict__ uniq, int* __restrict__ counts) {
+    const long long G = info[0];
+    const int lane = threadIdx.x & 31;
+    const long long warps = (long long)gridDim.x * WARPS;
+    for (long long g = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+         g < G; g += warps) {
+        const long long off = goff[g];
+        const long long cnt = (g + 1 < G ? goff[g + 1] : info[2]) - off;
+        const long long r0 = gstart[g];
+        for (long long j = lane; j < cnt; j += 32) {
+            for (int l = 0; l < nl; ++l)
+                uniq[(off + j) * nl + l] =
+                    (long long)run_keys[(size_t)l * n + r0 + j];
+            counts[off + j] = run_counts[r0 + j];
+        }
     }
 }
 
@@ -694,42 +1339,50 @@ bool bad_rows(long long n, int nl) {
 
 // Extraction: bases (B, L) uint8 codes (>= 4 invalid or padding), lengths
 // (B,) int32; the canonical k1-mer of every valid window into out (n, nl)
-// uint32, nl = ceil(k1 / 16), in (read, window) order.  block_rows: B + 1
-// int64 of scratch; total (1,) int64 gets n.  out holds B * (L - k1 + 1)
-// rows, the most there can be.
+// uint32, nl = ceil(k1 / 16), in (read, window) order.  scratch: B + 1
+// int64 (the blocks' status words and the ticket); total (1,) int64 gets
+// n.  out holds B * (L - k1 + 1) rows, the most there can be, and is
+// 16-byte aligned.
 extern "C" int ks_extract_launch(const void* bases, const void* lengths,
                                  long long B, int L, int k1,
-                                 void* block_rows, void* total, void* out,
+                                 void* scratch, void* total, void* out,
                                  void* stream) {
-    if (k1 < 1 || k1 > 16 * MAX_NL || B < 0) return (int)cudaErrorInvalidValue;
+    if (k1 < 1 || k1 > 16 * MAX_NL || B < 0 ||
+        (reinterpret_cast<uintptr_t>(out) & 15))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (B == 0 || L < k1)
         return (int)cudaMemsetAsync(total, 0, sizeof(long long), st);
     return dispatch<Extract>((k1 + 15) / 16, bases, lengths, B, L, k1,
-                             block_rows, total, out, st);
+                             scratch, total, out, st);
 }
 
-// Load: the caller's rows (n, nl) row-major, int32 (wide 0) or int64
-// limbs (wide 1), rows [0, na) at ka and the rest at kb, into keys (nl, n)
-// uint32; the payload (pay_mode 1: pa / pb split as the rows; 2: the row
-// index) into pay (n,); hist (npass * 256 + 1) uint32: the digit counts
-// of every pass of the plan (npass (limb, shift, bits) triples in host
-// memory), then 1 when an int64 limb is outside [0, 2^32), else 0.
+// Load: the caller's rows (n, nl) into keys (nl, n) uint32: row-major
+// (stride 0), int32 (wide 0) or int64 limbs (wide 1), rows [0, na) at ka
+// and the rest at kb; or SoA uint32 (stride > 0, limb l of row i at
+// ka[l * stride + i]).  The payload (pay_mode 1: pa / pb split as the
+// rows; 2: the row index) into pay (n,); hist (npass * 256 + 1 + nl)
+// uint32: the digit counts of every pass of the plan (npass (limb, shift,
+// bits) triples in host memory; none when npass is 0), then 1 when an
+// int64 limb is outside [0, 2^32), else 0, then for each limb the OR over
+// the rows of the limb XOR row 0's.
 extern "C" int ks_load_launch(const void* ka, const void* kb, long long na,
-                              long long n, int nl, int wide, const void* pa,
+                              long long n, int nl, int wide,
+                              long long stride, const void* pa,
                               const void* pb, int pay_mode,
                               const int* plan_host, int npass, void* keys,
                               void* pay, void* hist, void* stream) {
     Plan plan;
     if (bad_rows(n, nl) || na < 0 || na > n || pay_mode < 0 || pay_mode > 2 ||
+        stride < 0 || (stride && (wide || stride < n)) ||
         !read_plan(plan_host, npass, nl, &plan))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const cudaError_t e = cudaMemsetAsync(
-        hist, 0, ((size_t)npass * RADIX + 1) * sizeof(uint32_t), st);
+        hist, 0, ((size_t)npass * RADIX + 1 + nl) * sizeof(uint32_t), st);
     if (e != cudaSuccess) return (int)e;
     if (n == 0) return 0;
-    Rows src{ka, kb, na, wide};
+    Rows src{ka, kb, na, wide, stride};
     return dispatch<Load>(nl, src, n, static_cast<const int*>(pa),
                           static_cast<const int*>(pb), pay_mode, plan,
                           static_cast<uint32_t*>(keys),
@@ -746,7 +1399,8 @@ extern "C" long long ks_sort_scratch_words(long long n) {
 // The passes of the plan whose run_host flag is set, in plan order (least
 // significant digit first), ping-ponging keys0 (nl, n) <-> keys1 and, when
 // pay0 is not null, pay0 (n,) <-> pay1.  hist: the load's (npass, 256)
-// counts; scratch: ks_sort_scratch_words(n) words.  After an even number
+// counts, or null (each pass's digit totals then come from its tile
+// counts); scratch: ks_sort_scratch_words(n) words.  After an even number
 // of passes the result is in keys0 / pay0, else in keys1 / pay1.
 extern "C" int ks_sort_passes_launch(void* keys0, void* keys1, void* pay0,
                                      void* pay1, long long n, int nl,
@@ -778,8 +1432,8 @@ extern "C" int ks_sort_passes_launch(void* keys0, void* keys1, void* pay0,
         if (e != cudaSuccess) return (int)e;
         tile_count_kernel<<<(unsigned)ntiles, THREADS, 0, st>>>(
             k[in] + (size_t)dl * n, n, shift, dmask, tpg, counts, gsum);
-        group_scan_kernel<<<1, THREADS, 0, st>>>(h + (size_t)p * RADIX, gsum,
-                                                 groups);
+        group_scan_kernel<<<1, THREADS, 0, st>>>(
+            h ? h + (size_t)p * RADIX : nullptr, gsum, groups);
         tile_scan_kernel<<<(unsigned)groups, THREADS, 0, st>>>(
             counts, gsum, ntiles, tpg);
         if (v[0])
@@ -797,6 +1451,99 @@ extern "C" int ks_sort_passes_launch(void* keys0, void* keys1, void* pay0,
     return 0;
 }
 
+// Rows a block of the bucket kernel holds at nl limbs.
+extern "C" int ks_bucket_capacity(int nl) {
+    return nl >= 1 && nl <= MAX_NL ? bucket_capacity(nl) : 0;
+}
+
+// Bucket bounds of keys (nl, n) grouped by prefix: d (1 or 2) partition
+// digits, (limb, shift) pairs in host memory, the most significant first;
+// starts (256^d + 1,) int32.
+extern "C" int ks_bounds_launch(const void* keys, long long n, int nl,
+                                const int* part_host, int d, void* starts,
+                                void* stream) {
+    if (bad_rows(n, nl) || d < 1 || d > 2) return (int)cudaErrorInvalidValue;
+    Prefix pf{d, {0, 0}, {0, 0}};
+    for (int j = 0; j < d; ++j) {
+        pf.limb[j] = part_host[2 * j];
+        pf.shift[j] = part_host[2 * j + 1];
+        if (pf.limb[j] < 0 || pf.limb[j] >= nl || pf.shift[j] < 0 ||
+            pf.shift[j] > 24)
+            return (int)cudaErrorInvalidValue;
+    }
+    const long long blocks = ((1LL << (8 * d)) + THREADS) / THREADS;
+    bounds_kernel<<<(unsigned)blocks, THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(keys), n, pf, static_cast<int*>(starts));
+    return (int)cudaGetLastError();
+}
+
+// The groups of the buckets (starts (nb + 1,) int32, or null: one
+// bucket of n rows) for a block capacity cap: gstart (nb + 2,) int32,
+// info (3 + 3 nb,) int64, as groups_kernel fills them.
+extern "C" int ks_groups_launch(const void* starts, long long nb,
+                                long long n, int cap, void* gstart,
+                                void* info, void* stream) {
+    if (nb < 1 || n < 0 || n >= 0x7FFFFFFFLL || cap < 1)
+        return (int)cudaErrorInvalidValue;
+    groups_kernel<<<1, GT, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(starts), nb, n, cap,
+        static_cast<int*>(gstart), static_cast<long long*>(info));
+    return (int)cudaGetLastError();
+}
+
+// The bucket kernel over the groups (gstart (G + 1,) int32 row offsets
+// into keys (nl, n), G = info[0]); plan: npass (limb, shift, bits)
+// triples, least significant first; cap <= ks_bucket_capacity(nl);
+// run_keys (nl, n) uint32, run_counts (n,) int32, gruns (G,) int64 (0 for
+// a group over cap rows, which it skips).
+extern "C" int ks_bucket_launch(const void* keys, long long n, int nl,
+                                const void* gstart, const void* info,
+                                int cap, const int* plan_host, int npass,
+                                int local_last, void* run_keys,
+                                void* run_counts, void* gruns, void* stream) {
+    Plan plan;
+    if (bad_rows(n, nl) || !read_plan(plan_host, npass, nl, &plan))
+        return (int)cudaErrorInvalidValue;
+    return dispatch<Bucket>(nl, static_cast<const uint32_t*>(keys), n,
+                            static_cast<const int*>(gstart),
+                            static_cast<const long long*>(info), cap, plan,
+                            local_last, static_cast<uint32_t*>(run_keys),
+                            static_cast<int*>(run_counts),
+                            static_cast<long long*>(gruns),
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Compaction, first step: goff (G,) int64 the exclusive scan of gruns
+// (G,) (G = info[0]); info[2] gets the sum (the unique rows).
+extern "C" int ks_compact_count_launch(const void* gruns, void* info,
+                                       void* goff, void* stream) {
+    long long* inf = static_cast<long long*>(info);
+    scan_ll_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(gruns), static_cast<long long*>(goff),
+        0, inf, inf + 2);
+    return (int)cudaGetLastError();
+}
+
+// Compaction, second step (after the first): each group's runs to uniq
+// (n_u, nl) int64 and counts (n_u,) int32.
+extern "C" int ks_compact_write_launch(const void* run_keys,
+                                       const void* run_counts, long long n,
+                                       int nl, const void* gstart,
+                                       const void* goff, const void* info,
+                                       void* uniq, void* counts,
+                                       void* stream) {
+    if (bad_rows(n, nl)) return (int)cudaErrorInvalidValue;
+    compact_kernel<<<132 * 8, THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(run_keys),
+        static_cast<const int*>(run_counts), n, nl,
+        static_cast<const int*>(gstart), static_cast<const long long*>(goff),
+        static_cast<const long long*>(info), static_cast<long long*>(uniq),
+        static_cast<int*>(counts));
+    return (int)cudaGetLastError();
+}
+
 // Runs, first step: sorted keys (nl, n) uint32 and an optional int32
 // payload (null: 1 a row); tiles (2, ceil(n / 4096)) int64 of scratch;
 // totals (2,) int64 get the number of runs and the payload's total.
@@ -811,8 +1558,8 @@ extern "C" int ks_runs_count_launch(const void* keys, const void* pay,
     runs_kernel<false><<<(unsigned)ntiles, THREADS, 0, st>>>(
         static_cast<const uint32_t*>(keys), static_cast<const int*>(pay), n,
         nl, ntiles, static_cast<long long*>(tiles), nullptr, nullptr);
-    scan_ll_kernel<<<2, THREADS, 0, st>>>(static_cast<long long*>(tiles),
-                                          ntiles,
+    long long* t = static_cast<long long*>(tiles);
+    scan_ll_kernel<<<2, THREADS, 0, st>>>(t, t, ntiles, nullptr,
                                           static_cast<long long*>(totals));
     return (int)cudaGetLastError();
 }

@@ -55,6 +55,7 @@ import torch
 from .. import _build
 from ..device import resolve_device
 from . import kmer_sort as ks
+from .kmer_sort import to_i32
 from . import kmers as km
 from . import limbs as lb
 
@@ -139,11 +140,6 @@ def _check_table(table: torch.Tensor, nl: int, ovf: torch.Tensor) -> None:
                          f"{tuple(table.shape)}")
     if table.data_ptr() % 32:
         raise ValueError("devhash: the table must be 32-byte aligned")
-
-
-def to_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 tensors of the same bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def to_u32(x: torch.Tensor) -> torch.Tensor:

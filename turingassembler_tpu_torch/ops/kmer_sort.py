@@ -10,11 +10,14 @@ Replaces the jitted JAX device code of the sort-based count
     keys (`_merge_unique_runs`; here any number of equal rows);
   - lex_order: the stable lexicographic permutation of limb rows (JAX
     `lax.sort` with `num_keys`; plain: ops/limbs.py:plain_lex_order).
-csrc/kmer_sort.cu says how: extraction by a count pass, a scan and a
-write pass; a stable LSD radix sort of SoA uint32 limbs in 8-bit digits
-(digit_plan), a pass skipped where its digit has one bucket (so a
-k1-mer's always-0 low bits cost no pass); a run pass that writes the
-unique rows and counts.
+csrc/kmer_sort.cu says how: extraction in one launch (each read packed
+once into 2-bit words, a window's limbs by funnel shifts, the block's
+offset by a decoupled look-back); sort_count as a prefix partition (the
+LSD passes on the top live digits, sort_plan) plus a bucket sort-and-count
+in shared memory (bucket_groups), a bucket over the block's capacity
+taking the LSD route on its own segment; merge_runs and lex_order as a
+stable LSD radix sort of SoA uint32 limbs in 8-bit digits (digit_plan), a
+pass skipped where its digit has one bucket, and a run pass.
 
 On CPU tensors each entry runs its plain version (the tensor code of
 kmer/megasort.py and ops/limbs.py:plain_lex_order); on CUDA tensors it
@@ -25,8 +28,10 @@ window the count gathers; sort_count and merge_runs take either);
 sort_count and merge_runs give (uniq (n, nl) int64 ascending, counts (n,)
 int32) on both; lex_order an int64 permutation.  int64 limbs must lie
 in [0, 2^32): the card raises on any other value.  COUNT records every
-launch with its shape; each entry syncs with the host once or twice (the
-rows or runs it made, the histogram that decides the passes).
+launch with its shape, and sort_count's routes; each entry syncs with
+the host once or twice (the rows or runs it made; the live digits that
+decide the passes), sort_count twice more for each bucket over
+capacity.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -48,16 +54,24 @@ MAX_NL = 4                # the kernels' widest row (k1 <= 64)
 MAX_ROWS = (1 << 31) - 1  # rows a sort takes (32-bit digit offsets)
 TILE = 4096               # keys a block of the sort and run passes
 ENTRIES = ("extract_keys", "sort_count", "merge_runs", "lex_order")
+# rows a block of the bucket kernel holds, by nl (csrc/kmer_sort.cu:
+# bucket_capacity; sort_count checks it against the built kernel)
+BUCKET_CAPACITY = {1: 16384, 2: 13408, 3: 10720, 4: 8928}
+MAX_PARTITION = 2         # partition digits at most (65,536 buckets)
+ROUTES = ("partition_passes", "bucket_groups", "over_capacity")
 
 
 @dataclass
 class LaunchCount:
     """Launches of each entry and each launch's shape (CUDA path only):
     ("extract_keys", B, L, k1), ("sort_count", n, nl),
-    ("merge_runs", na, nb, nl), ("lex_order", n, nl).  Safe to add to
-    from several threads."""
+    ("merge_runs", na, nb, nl), ("lex_order", n, nl); and sort_count's
+    routes: the partition passes it ran, the groups of buckets its bucket
+    kernel took, the buckets over capacity that took the LSD route.  Safe
+    to add to from several threads."""
     by_entry: dict = field(default_factory=lambda: dict.fromkeys(ENTRIES, 0))
     shapes: list = field(default_factory=list)
+    routes: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
     lock: threading.Lock = field(default_factory=threading.Lock,
                                  repr=False, compare=False)
 
@@ -69,11 +83,17 @@ class LaunchCount:
         with self.lock:
             self.by_entry = dict.fromkeys(ENTRIES, 0)
             self.shapes = []
+            self.routes = dict.fromkeys(ROUTES, 0)
 
     def add(self, entry: str, *shape: int) -> None:
         with self.lock:
             self.by_entry[entry] += 1
             self.shapes.append((entry, *shape))
+
+    def add_routes(self, **counts: int) -> None:
+        with self.lock:
+            for route, n in counts.items():
+                self.routes[route] += n
 
 
 COUNT = LaunchCount()
@@ -83,9 +103,14 @@ COUNT = LaunchCount()
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "ks_extract_launch": [_P, _P, _LL, _I, _I, _P, _P, _P],
-    "ks_load_launch": [_P, _P, _LL, _LL, _I, _I, _P, _P, _I, _P, _I, _P, _P,
-                       _P],
+    "ks_load_launch": [_P, _P, _LL, _LL, _I, _I, _LL, _P, _P, _I, _P, _I,
+                       _P, _P, _P],
     "ks_sort_passes_launch": [_P, _P, _P, _P, _LL, _I, _P, _P, _I, _P, _P],
+    "ks_bounds_launch": [_P, _LL, _I, _P, _I, _P],
+    "ks_groups_launch": [_P, _LL, _LL, _I, _P, _P],
+    "ks_bucket_launch": [_P, _LL, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "ks_compact_count_launch": [_P, _P, _P],
+    "ks_compact_write_launch": [_P, _P, _LL, _I, _P, _P, _P, _P, _P],
     "ks_runs_count_launch": [_P, _P, _LL, _I, _P, _P],
     "ks_runs_write_launch": [_P, _P, _LL, _I, _P, _P, _LL, _P, _P, _P],
 }
@@ -113,6 +138,12 @@ def _scratch_words(n: int) -> int:
     return fn(n)
 
 
+def _built_capacity(nl: int) -> int:
+    fn = _build.load("kmer_sort").ks_bucket_capacity
+    fn.argtypes, fn.restype = [_I], _I
+    return fn(nl)
+
+
 def _ints(values) -> ctypes.Array:
     """A host int array for a C entry (the plan, the pass flags)."""
     return (ctypes.c_int * max(len(values), 1))(*values)
@@ -133,6 +164,55 @@ def digit_plan(nl: int) -> List[Tuple[int, int, int]]:
             for shift in range(0, 32, RADIX_BITS)]
 
 
+def sort_plan(live, n: int, cap: int):
+    """sort_count's plan on the card.  live: for each digit of
+    digit_plan(nl) (least significant first), whether it takes two values
+    or more in the rows (the load's XOR words); n rows; cap a block's
+    capacity.  Returns (part, rest), indices into digit_plan(nl), least
+    significant first:
+      - part, the partition digits: the most significant live digits, none
+        when the rows fit one block (n <= cap), else as many as keep the
+        mean bucket n / 256^d under a quarter of the capacity, at most
+        MAX_PARTITION.  A stable LSD sort on them groups the rows by their
+        prefix, ascending, since the digits above them are the same in
+        every row;
+      - rest, the bucket kernel's digits: every live digit below the
+        partition, then the partition's least significant digit (a group
+        of buckets shares the digits above it, so this one orders its
+        buckets)."""
+    msd = [p for p in range(len(live) - 1, -1, -1) if live[p]]
+    d = 0
+    if n > cap and msd:
+        d = 1
+        while d < min(MAX_PARTITION, len(msd)) \
+                and n > (cap / 4) * RADIX ** d:
+            d += 1
+    part = sorted(msd[:d])
+    rest = [p for p in range(len(live)) if live[p] and p not in part]
+    return part, rest + part[:1]
+
+
+def bucket_groups(starts, cap: int) -> np.ndarray:
+    """The bucket kernel's groups, as csrc/kmer_sort.cu:groups_kernel
+    forms them on the card: starts (256^d + 1,) the first row of each
+    bucket of the partitioned rows (ascending, starts[-1] = n).  Returns
+    the groups' first rows and n, (G + 1,) int64 (a group may be empty).
+    With T = cap // 2, a bucket of more than T rows is a group alone (over
+    cap rows: the LSD route); smaller ones group while their first rows
+    fall in one T-row window and one 256-bucket block of the prefix, so a
+    group holds at most 2 T <= cap rows and its buckets differ only in the
+    partition's least significant digit."""
+    starts = np.asarray(starts, dtype=np.int64)
+    t = max(cap // 2, 1)
+    size = np.diff(starts)
+    big = size > t
+    win = starts[:-1] // t
+    cut = np.empty(len(size), dtype=bool)
+    cut[1:] = big[1:] | big[:-1] | (win[1:] != win[:-1])
+    cut[::RADIX] = True
+    return np.append(starts[:-1][cut], starts[-1])
+
+
 # ---------------------------------------------------------------------------
 # plain versions (tensor code, any device; the CPU path)
 # ---------------------------------------------------------------------------
@@ -141,6 +221,12 @@ def as_limbs(x: torch.Tensor) -> torch.Tensor:
     """Rows of int64 limbs, or int32 bit patterns of limbs (a card's
     extract_keys), as int64 values in [0, 2^32)."""
     return x.long() & lb.M32 if x.dtype == torch.int32 else x
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors of the same bits (the
+    card's row format)."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def plain_extract_keys(bases: torch.Tensor, lengths: torch.Tensor,
@@ -219,56 +305,84 @@ def extract_keys(bases: torch.Tensor, lengths: torch.Tensor,
     bases = bases.contiguous()
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((B * (L - k1 + 1), nl), dtype=torch.int32, device=dev)
-    block_rows = torch.empty(B + 1, dtype=torch.int64, device=dev)
+    # the blocks' look-back status words and the block ticket
+    scratch = torch.empty(B + 1, dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
     _launch("ks_extract_launch", dev, bases.data_ptr(), lengths.data_ptr(),
-            B, L, k1, block_rows.data_ptr(), total.data_ptr(),
-            out.data_ptr())
+            B, L, k1, scratch.data_ptr(), total.data_ptr(), out.data_ptr())
     COUNT.add("extract_keys", B, L, k1)
     return out[:int(total.item())]
 
 
-def _radix(rows: Tuple[torch.Tensor, ...], plan, pay_mode: int,
-           pays: Tuple[torch.Tensor, ...] = ()):
-    """Load rows (one or two (n_i, nl) segments of one dtype) and sort them
-    by the plan's passes on the card.  pay_mode 0: no payload, 1: pays
-    (int32, split as the rows), 2: the row index.  Returns the sorted SoA
-    keys (nl, n) int32 and the payload (n,) int32 or None.  Raises when
-    an int64 limb lies outside [0, 2^32)."""
-    a = rows[0]
-    b = rows[1] if len(rows) > 1 else rows[0]
-    dev, nl = a.device, a.shape[1]
-    na = a.shape[0]
-    n = na + (rows[1].shape[0] if len(rows) > 1 else 0)
+def _load(rows: Tuple[torch.Tensor, ...], plan, pay_mode: int,
+          pays: Tuple[torch.Tensor, ...] = (), soa=None, counts=True):
+    """Load rows on the card as SoA uint32 limbs: one or two (n_i, nl)
+    segments of one dtype, or soa = (keys (nl, N) int32 SoA, r0, n): its
+    rows r0 .. r0 + n.  pay_mode 0: no payload, 1: pays (int32, split as
+    the rows), 2: the row index.  Returns (keys (2, nl, n) int32, the rows
+    in keys[0]; pay (2, n) int32 or None; the histogram of every digit of
+    the plan, or None without counts; for each digit of the plan, whether
+    it takes two values or more).  Raises when an int64 limb lies outside
+    [0, 2^32)."""
+    if soa is not None:
+        src, r0, n = soa
+        a = b = src[:, r0:]
+        dev, nl, na, stride = src.device, src.shape[0], n, src.shape[1]
+    else:
+        a = rows[0]
+        b = rows[1] if len(rows) > 1 else rows[0]
+        dev, nl, na, stride = a.device, a.shape[1], a.shape[0], 0
+        n = na + (rows[1].shape[0] if len(rows) > 1 else 0)
     keys = torch.empty((2, nl, n), dtype=torch.int32, device=dev)
     pay = torch.empty((2, n), dtype=torch.int32, device=dev) \
         if pay_mode else None
-    # the digit counts of every pass, then a flag: an int64 limb had high
-    # bits
-    hist = torch.empty(len(plan) * RADIX + 1, dtype=torch.int32, device=dev)
-    flat = _ints([v for step in plan for v in step])
+    # the digit counts of every pass (with counts), a flag (an int64 limb
+    # had high bits), each limb's OR of row ^ row 0
+    npass = len(plan) if counts else 0
+    hist = torch.empty(npass * RADIX + 1 + nl, dtype=torch.int32, device=dev)
     pa = pays[0] if pays else None
     pb = pays[1] if len(pays) > 1 else pa
     _launch("ks_load_launch", dev, a.data_ptr(), b.data_ptr(), na, n, nl,
-            int(a.dtype == torch.int64),
+            int(a.dtype == torch.int64), stride,
             pa.data_ptr() if pa is not None else None,
-            pb.data_ptr() if pb is not None else None, pay_mode, flat,
-            len(plan), keys[0].data_ptr(),
+            pb.data_ptr() if pb is not None else None, pay_mode,
+            _ints([v for step in plan for v in step]), npass,
+            keys[0].data_ptr(),
             pay[0].data_ptr() if pay is not None else None, hist.data_ptr())
-    # a pass runs when its digit takes two buckets or more
-    *run, wide = torch.cat([(hist[:-1].view(len(plan), RADIX) != 0)
-                            .sum(dim=1) > 1, hist[-1:] != 0]).tolist()
+    wide, *diff = hist[npass * RADIX:].tolist()
     if wide:
         raise ValueError("kmer_sort: int64 limbs must lie in [0, 2^32)")
+    live = [(diff[limb] >> shift) & ((1 << width) - 1) != 0
+            for limb, shift, width in plan]
+    return keys, pay, (hist if counts else None), live
+
+
+def _passes(keys: torch.Tensor, pay, plan, run, hist):
+    """The LSD passes of the plan whose run flag is set, on _load's
+    buffers (hist None: each pass totals its digits from its tile counts):
+    the sorted SoA keys (nl, n) int32 and the payload (n,) or None."""
+    nl, n = keys.shape[1:]
+    dev = keys.device
     scratch = torch.empty(_scratch_words(n), dtype=torch.int32, device=dev)
     _launch("ks_sort_passes_launch", dev, keys[0].data_ptr(),
             keys[1].data_ptr(),
             pay[0].data_ptr() if pay is not None else None,
-            pay[1].data_ptr() if pay is not None else None, n, nl, flat,
-            _ints([int(r) for r in run]), len(plan), hist.data_ptr(),
+            pay[1].data_ptr() if pay is not None else None, n, nl,
+            _ints([v for step in plan for v in step]),
+            _ints([int(r) for r in run]), len(plan),
+            hist.data_ptr() if hist is not None else None,
             scratch.data_ptr())
-    out = sum(run) % 2
+    out = sum(map(bool, run)) % 2
     return keys[out], (pay[out] if pay is not None else None)
+
+
+def _radix(rows: Tuple[torch.Tensor, ...], plan, pay_mode: int,
+           pays: Tuple[torch.Tensor, ...] = (), soa=None):
+    """Load rows (as _load takes them) and sort them by the plan's passes
+    on the card, a pass whose digit takes one value skipped.  Returns the
+    sorted SoA keys (nl, n) int32 and the payload (n,) int32 or None."""
+    keys, pay, hist, live = _load(rows, plan, pay_mode, pays, soa)
+    return _passes(keys, pay, plan, live, hist)
 
 
 def _runs(keys: torch.Tensor, pay: torch.Tensor | None):
@@ -296,18 +410,74 @@ def _runs(keys: torch.Tensor, pay: torch.Tensor | None):
 def sort_count(keys: torch.Tensor):
     """Sort limb rows (n, nl) (int64 limbs, or their int32 bit patterns on
     a card) and run-length count them: (uniq (n_u, nl) int64 ascending,
-    counts (n_u,) int32)."""
+    counts (n_u,) int32).  On a card: load, partition (sort_plan),
+    bucket bounds and groups (bucket_groups), the bucket kernel, the LSD
+    route for each bucket over capacity, compaction; two host syncs (the
+    live digits, the unique rows) and two more for each bucket over
+    capacity."""
     if keys.device.type == "cpu":
         return plain_sort_count(keys)
     keys = _check_rows("keys", keys)
     n, nl = keys.shape
+    dev = keys.device
     if n == 0:
-        return (torch.empty((0, nl), dtype=torch.int64, device=keys.device),
-                torch.empty(0, dtype=torch.int32, device=keys.device))
-    s, _ = _radix((keys,), digit_plan(nl), 0)
-    out = _runs(s, None)
+        return (torch.empty((0, nl), dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev))
+    cap = BUCKET_CAPACITY[nl]
+    if _built_capacity(nl) != cap:
+        raise RuntimeError(f"kmer_sort: the kernel's bucket capacity at "
+                           f"nl={nl} is {_built_capacity(nl)}, not {cap}")
+    plan = digit_plan(nl)
+    buf, _, _, live = _load((keys,), plan, 0, counts=False)
+    part, rest = sort_plan(live, n, cap)
+    src, run_keys = buf[len(part) % 2], buf[1 - len(part) % 2]
+    nb, starts = 1, None                 # no partition: one bucket
+    if part:
+        _passes(buf, None, plan, [p in part for p in range(len(plan))], None)
+        nb = RADIX ** len(part)
+        starts = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+        _launch("ks_bounds_launch", dev, src.data_ptr(), n, nl,
+                _ints([v for p in reversed(part) for v in plan[p][:2]]),
+                len(part), starts.data_ptr())
+    # the groups (bucket_groups), formed on the card: info = [G, groups
+    # over capacity, unique rows, (g, r0, r1) of each group over capacity]
+    gstart = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+    info = torch.empty(3 + 3 * nb, dtype=torch.int64, device=dev)
+    _launch("ks_groups_launch", dev,
+            starts.data_ptr() if starts is not None else None, nb, n, cap,
+            gstart.data_ptr(), info.data_ptr())
+    run_counts = torch.empty(n, dtype=torch.int32, device=dev)
+    gruns = torch.empty(nb, dtype=torch.int64, device=dev)
+    goff = torch.empty(nb, dtype=torch.int64, device=dev)
+    _launch("ks_bucket_launch", dev, src.data_ptr(), n, nl,
+            gstart.data_ptr(), info.data_ptr(), cap,
+            _ints([v for p in rest for v in plan[p]]), len(rest),
+            int(bool(part)), run_keys.data_ptr(), run_counts.data_ptr(),
+            gruns.data_ptr())
+    _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
+            info.data_ptr(), goff.data_ptr())
+    G, n_over, n_u = info[:3].tolist()
+    if n_over:
+        over = info[3:3 + 3 * n_over].view(n_over, 3).tolist()
+        for g, r0, r1 in over:
+            # no partition digit: no live digit, every row equal, in order
+            u, c = _runs(*_radix((), plan, 0, soa=(src, r0, r1 - r0))) \
+                if part else _runs(src, None)
+            run_keys[:, r0:r0 + u.shape[0]] = to_i32(u).t()
+            run_counts[r0:r0 + u.shape[0]] = c
+            gruns[g] = u.shape[0]
+        _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
+                info.data_ptr(), goff.data_ptr())
+        n_u = int(info[2].item())
+    uniq = torch.empty((n_u, nl), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_u, dtype=torch.int32, device=dev)
+    _launch("ks_compact_write_launch", dev, run_keys.data_ptr(),
+            run_counts.data_ptr(), n, nl, gstart.data_ptr(), goff.data_ptr(),
+            info.data_ptr(), uniq.data_ptr(), counts.data_ptr())
     COUNT.add("sort_count", n, nl)
-    return out
+    COUNT.add_routes(partition_passes=len(part), bucket_groups=G - n_over,
+                     over_capacity=n_over)
+    return uniq, counts
 
 
 def merge_runs(ka, ca, kb, cb):

@@ -867,7 +867,13 @@ def kmer_sort_cases(seed: int = 0):
     equal; keys that differ only in the last used bit (k1 = 46, 64); a
     row count that is no multiple of a 4,096-row tile; ties with a
     payload; all-ones rows (a real key, not padding) among their
-    neighbours at nl = 2 and nl = 4; one row."""
+    neighbours at nl = 2 and nl = 4; one row.  And for sort_count's routes
+    on a card (csrc/kmer_sort.cu): 40,000 rows of 300 keys sharing their
+    top 16 bits among 20,000 others (one bucket over the block's
+    capacity: the LSD route); 200,000 equal rows (no live digit, no
+    pass); 300,000 rows of 100,000 canonical 46-mers, whose prefixes skew
+    to A (a bucket of A-first rows about 7x one of T-first rows); 40,000
+    one-limb rows (a partition at nl = 1)."""
     rng = np.random.default_rng(seed)
     M32 = 0xFFFFFFFF
 
@@ -890,6 +896,33 @@ def kmer_sort_cases(seed: int = 0):
         keys[rng.random(n) < 0.5, -1] |= 1 << low
         return keys
 
+    def canonical_rows(n, n_keys, k1):
+        """n rows drawn from n_keys random k1-mers, each in its canonical
+        form: the smaller of its limbs and its reverse complement's."""
+        nl = (k1 + 15) // 16
+        codes = rng.integers(0, 4, (n_keys, k1), dtype=np.int64)
+
+        def pack(c):
+            c = np.pad(c, ((0, 0), (0, 16 * nl - k1))).reshape(-1, nl, 16)
+            return (c << (30 - 2 * np.arange(16))).sum(axis=2)
+
+        fw, rc = pack(codes), pack(3 - codes[:, ::-1])
+        lt = np.zeros(n_keys, bool)
+        eq = np.ones(n_keys, bool)
+        for limb in range(nl):
+            lt |= eq & (rc[:, limb] < fw[:, limb])
+            eq &= rc[:, limb] == fw[:, limb]
+        keys = np.where(lt[:, None], rc, fw)
+        return keys[rng.integers(0, n_keys, n)]
+
+    def one_prefix_over(n_over, n_tails, n_rest):
+        tails = pool_rows(n_tails, 3, n_tails, 46)
+        tails[:, 0] = (tails[:, 0] & 0xFFFF) \
+            | (int(rng.integers(0, 1 << 16)) << 16)
+        keys = np.concatenate([tails[rng.integers(0, n_tails, n_over)],
+                               pool_rows(n_rest, 3, n_rest, 46)])
+        return keys[rng.permutation(len(keys))]
+
     ones = pool_rows(9_000, 2, 40)
     ones[rng.random(9_000) < 0.3] = M32
     ones[rng.random(9_000) < 0.1, 1] = M32 - 1
@@ -904,5 +937,10 @@ def kmer_sort_cases(seed: int = 0):
         "all ones, nl=2": ones,
         "all ones, nl=4": ones4,
         "one row": pool_rows(1, 3, 1, 46),
+        "one prefix over the capacity": one_prefix_over(40_000, 300, 20_000),
+        "all equal, large": np.repeat(pool_rows(1, 3, 1, 46), 200_000,
+                                      axis=0),
+        "canonical-skewed prefixes": canonical_rows(300_000, 100_000, 46),
+        "one limb, k1=16": pool_rows(40_000, 1, 10_000, 16),
     }
     return {name: (keys, weights(len(keys))) for name, keys in cases.items()}
