@@ -39,14 +39,18 @@ before printing a result:
  23. kmer_sort kernels vs plain (run here, after phase 21, on its
      workload: the profiler sees the card early in the process), exact:
      the count's kernels (csrc/kmer_sort.cu) against their plain
-     versions: sort_count (int64 and int32 rows), merge_runs and
-     lex_order on testing.kmer_sort_cases, int64 limbs outside
-     [0, 2^32) refused; extract_keys and sort_count
-     of a 131,072-read record of phase 5's workload at k1 = 46, 31 and 64
-     (nl 3, 2, 4), sort_count of the full flush (110,100,480 rows),
-     merge_runs of its halves' tables, lex_order of the level-0 build's
-     fingerprints, each with wrapper, device (profiler), plain and bound
-     ms (sort_count beside torch.unique)
+     versions: sort_count (int64 and int32 rows), merge_runs (the raw
+     halves, the LSD route unless both are ascending; their sorted
+     tables, the merge path) and lex_order (int64 and int32 rows) on
+     testing.kmer_sort_cases, each route case at its route, int64 limbs
+     outside [0, 2^32) refused; extract_keys and sort_count of a
+     131,072-read record of phase 5's workload at k1 = 46, 31 and 64 (nl
+     3, 2, 4), sort_count of the full flush (110,100,480 rows),
+     merge_runs of its halves' tables (the merge path), lex_order of the
+     level-0 build's fingerprints, each with wrapper, device (profiler),
+     plain and bound ms (sort_count beside torch.unique, lex_order beside
+     torch.sort of the rows packed into int64; sort_count, merge_runs and
+     lex_order each in turns with the LSD form and by kernel)
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
      150 bp, k=45; the bench twin's make_workload) through the bench
      twin's stages, count -> level-0 build -> minimizer index ->
@@ -215,9 +219,11 @@ before printing a result:
      phases 4-11, 13 and 16-19 launched their four entries at (each
      phase's kmer_sort count is set to 0 just before it and read just
      after; the ranks and the bench twin report theirs), on synthetic
-     rows or reads of that shape.  Before it the script requires
-     extract_keys and sort_count launches in each count path (phases 5,
-     7, 9, 16, 17, 18) and merge_runs in phase 17
+     rows or reads of that shape (merge_runs on random rows, the LSD
+     route, and on the same rows sorted, the merge path).  Before it the
+     script requires extract_keys and sort_count launches in each count
+     path (phases 5, 7, 9, 16, 17, 18), merge_runs in phase 17, and every
+     merge of the paths on the merge path
  20. the `kernels` JSON line (nw_align, devhash, devhash_count_reads,
      mm_map, kmer_extract_keys, kmer_sort_count, kmer_merge_runs,
      kmer_lex_order), the nvidia-smi line, and last the result line
@@ -288,21 +294,28 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
     """Device time a call of fn spends in the kernels whose names hold
     `kernel`, from torch.profiler over reps calls: the kernels alone,
-    without the host's time to enqueue them."""
+    without the host's time to enqueue them.  The profiler at times sees
+    fewer launches than were made (CUPTI drops them); it is asked again
+    up to `tries` times, and past that the call is timed with CUDA events
+    (the wrapper's host time included), which the log says."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                   # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if kernel in e.key]
-    if sum(e.count for e in ev) < reps:
-        raise AssertionError(f"the profiler saw no {kernel} launch a call")
-    return sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if kernel in e.key]
+        seen = sum(e.count for e in ev)
+        if seen >= reps:
+            return sum(e.self_device_time_total for e in ev) / 1e3 / reps
+    log(f"device_ms: the profiler saw {seen} of {reps} {kernel} launches "
+        f"{tries} times; CUDA events instead (the wrapper included)")
+    return cuda_ms(fn, reps)
 
 
 def random_pairs(rng, B, Lq, Lt):
@@ -1460,7 +1473,7 @@ KS_REMOTE = []
 
 def ks_remote(by_entry, shapes, routes):
     KS_REMOTE.append((dict(by_entry), [tuple(sh) for sh in shapes],
-                      dict(routes)))
+                      {e: dict(r) for e, r in routes.items()}))
 
 
 def hold_ks(what, got, want) -> int:
@@ -1551,7 +1564,7 @@ def log2_ceil(n):
 
 
 # the sort_count route each kmer_sort case is named for, on the card
-# (ops/kmer_sort.py:LaunchCount.routes of its call)
+# (ops/kmer_sort.py:LaunchCount.routes["sort_count"] of its call)
 KS_CASE_ROUTES = {
     "one prefix over the capacity":
         lambda r: r["over_capacity"] == 1 and r["partition_passes"] >= 1,
@@ -1560,14 +1573,70 @@ KS_CASE_ROUTES = {
                         "over_capacity": 1},
     "canonical-skewed prefixes":
         lambda r: r["over_capacity"] == 0 and r["bucket_groups"] > 1}
+# and the lex_order route (LaunchCount.routes["lex_order"])
+LEX_CASE_ROUTES = {
+    "few values, large":
+        lambda r: r == {"partition_passes": 2, "warp_buckets": 0,
+                        "block_buckets": 0, "over_capacity": 3},
+    "one prefix over the capacity":
+        lambda r: r["over_capacity"] == 1 and r["warp_buckets"] > 0,
+    "all equal, large": lambda r: not any(r.values()),
+    "all ones, nl=2":
+        lambda r: r["block_buckets"] > 0 and r["over_capacity"] == 0,
+    "canonical-skewed prefixes":
+        lambda r: r["over_capacity"] == r["block_buckets"] == 0
+        and r["warp_buckets"] > 1}
 
 
 def ks_routes_of(fn):
-    """fn's result and the sort_count routes its calls took."""
+    """fn's result and the routes its calls took, by entry."""
     from turingassembler_tpu_torch.ops import kmer_sort as ks
-    before = dict(ks.COUNT.routes)
+    before = {e: dict(r) for e, r in ks.COUNT.routes.items()}
     out = fn()
-    return out, {r: ks.COUNT.routes[r] - before[r] for r in ks.ROUTES}
+    return out, {e: {r: ks.COUNT.routes[e][r] - n_ for r, n_ in rs.items()}
+                 for e, rs in before.items()}
+
+
+def ks_merge_route(what, fn, want):
+    """fn's merge_runs result; raises unless its one call took route want
+    ("merge_path" or "lsd")."""
+    out, routes = ks_routes_of(fn)
+    got = routes["merge_runs"]
+    if got != {r: int(r == want) for r in got}:
+        raise AssertionError(f"kmer_sort: merge_runs {what} took {got}, "
+                             f"not {want}")
+    return out
+
+
+def ascending(rows):
+    """Every row of (n, nl) limbs at or above the one before it."""
+    from turingassembler_tpu_torch.ops import limbs as lb
+    from turingassembler_tpu_torch.ops.kmer_sort import as_limbs
+    rows = as_limbs(rows)
+    return len(rows) < 2 or not bool(lb.lex_lt(rows[1:], rows[:-1]).any())
+
+
+def lex_library(fp):
+    """One PyTorch call that computes lex_order at nl = 2: each row packed
+    into an int64 whose signed order is the rows' order, stably sorted."""
+    return lambda: torch.sort(((fp[:, 0] - 2 ** 31) << 32) | fp[:, 1],
+                              stable=True).indices
+
+
+def turns_and_split(what, new, old):
+    """new and old (the LSD form) in turns, device ms (profiler), then
+    new's device ms by kernel; returns the turns' (name, ms)."""
+    turns = [(name, device_ms_all(fn, 3)) for name, fn in
+             (("new", new), ("LSD form", old), ("LSD form", old),
+              ("new", new))]
+    log(f"kmer_sort (b) {what} in turns, device ms: " + ", ".join(
+        f"{name_} {'not measured' if ms_ is None else f'{ms_:.4f}'}"
+        for name_, ms_ in turns))
+    split = device_ms_by_kernel(new)
+    log(f"kmer_sort (b) {what} by kernel, device ms (launches): " + ", ".join(
+        f"{kernel_name(k_)} {ms_:.4f} ({n_})"
+        for k_, (ms_, n_) in sorted(split.items(), key=lambda kv: -kv[1][0])))
+    return turns
 
 
 def kernel_name(key):
@@ -1579,20 +1648,24 @@ def kernel_name(key):
 def phase_ks_kernel_vs_plain(workload):
     """Phase 23 (run after phase 21, before phase 5, on its workload): the
     kmer_sort kernels (csrc/kmer_sort.cu) against their plain versions on
-    the card, exact: (a) sort_count (int64 rows and their int32 bit
-    patterns), merge_runs (the halves with their weights) and lex_order
-    on testing.kmer_sort_cases; (b) on phase 5's workload (1,048,576
-    reads of 150 bp): extract_keys on the first 131,072-read record at
-    k1 = 46, 31 and 64 (nl 3, 2, 4) and sort_count of each record's
-    rows; the full flush, all eight records' 110,100,480 rows, through
-    sort_count; merge_runs of the two halves' tables; lex_order of the
-    level-0 build's fingerprints of the bench table; each with wrapper,
-    device, plain and bound ms (sort_count beside torch.unique).
-    sort_count's routes are logged for every case (KS_CASE_ROUTES: each
-    route case must reach its route) and for the flush (at most
-    MAX_PARTITION partition passes); the flush's sort_count is timed in
-    turns with the LSD form (the full LSD sort and the run pass, as
-    lex_order and merge_runs sort), and split by kernel.
+    the card, exact: (a) on testing.kmer_sort_cases, sort_count (int64
+    rows and their int32 bit patterns), merge_runs of the raw halves with
+    their weights (the LSD route unless both halves are ascending) and of
+    the halves' sorted tables (plain_sort_count: the merge path), and
+    lex_order (int64 rows and int32 bit patterns); (b) on phase 5's
+    workload (1,048,576 reads of 150 bp): extract_keys on the first
+    131,072-read record at k1 = 46, 31 and 64 (nl 3, 2, 4) and sort_count
+    of each record's rows; the full flush, all eight records' 110,100,480
+    rows, through sort_count; merge_runs of the two halves' tables (the
+    merge path); lex_order of the level-0 build's fingerprints of the
+    bench table; each with wrapper, device, plain and bound ms
+    (sort_count beside torch.unique, lex_order beside torch.sort of the
+    rows packed into int64).  The routes are logged for every case and
+    gated (KS_CASE_ROUTES, LEX_CASE_ROUTES, merge_runs' by the halves'
+    order) and for the flush (at most MAX_PARTITION partition passes);
+    sort_count of the flush, merge_runs of the tables and lex_order of the
+    fingerprints are each timed in turns with the LSD form (a full LSD
+    sort and the run pass, _radix + _runs) and split by kernel.
     Returns the kernels line's figures."""
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph import device_build
@@ -1610,6 +1683,7 @@ def phase_ks_kernel_vs_plain(workload):
         t, wt = put(keys, w)
         h = len(keys) // 2
         got, routes = ks_routes_of(lambda: ks.sort_count(t))
+        routes = routes["sort_count"]
         hold(f"sort_count on {name!r}", got, ks.plain_sort_count(t))
         log(f"kmer_sort (a) sort_count on {name!r} ({len(keys)} x "
             f"{keys.shape[1]}): routes " + ", ".join(
@@ -1619,10 +1693,29 @@ def phase_ks_kernel_vs_plain(workload):
                                  f"{routes}")
         hold(f"sort_count of int32 rows on {name!r}",
              ks.sort_count(to_i32(t)), ks.plain_sort_count(t))
-        hold(f"merge_runs on {name!r}",
-             ks.merge_runs(t[:h], wt[:h], t[h:], wt[h:]),
+        # the raw halves: the LSD route unless both are ascending
+        raw = "merge_path" if ascending(t[:h]) and ascending(t[h:]) \
+            else "lsd"
+        hold(f"merge_runs of the raw halves on {name!r} ({raw})",
+             ks_merge_route(f"of the raw halves on {name!r}",
+                            lambda: ks.merge_runs(t[:h], wt[:h], t[h:],
+                                                  wt[h:]), raw),
              ks.plain_merge_runs(t[:h], wt[:h], t[h:], wt[h:]))
-        hold(f"lex_order on {name!r}", [ks.lex_order(t)],
+        ta, tb = ks.plain_sort_count(t[:h]), ks.plain_sort_count(t[h:])
+        hold(f"merge_runs of the halves' tables on {name!r}",
+             ks_merge_route(f"of the halves' tables on {name!r}",
+                            lambda: ks.merge_runs(*ta, *tb), "merge_path"),
+             ks.plain_merge_runs(*ta, *tb))
+        got, routes = ks_routes_of(lambda: ks.lex_order(t))
+        routes = routes["lex_order"]
+        hold(f"lex_order on {name!r}", [got], [ks.plain_lex_order(t)])
+        log(f"kmer_sort (a) lex_order on {name!r}: routes " + ", ".join(
+            f"{r} {n_}" for r, n_ in routes.items()) + f"; merge_runs of "
+            f"the raw halves: {raw}")
+        if name in LEX_CASE_ROUTES and not LEX_CASE_ROUTES[name](routes):
+            raise AssertionError(f"kmer_sort: lex_order on {name!r} took "
+                                 f"the routes {routes}")
+        hold(f"lex_order of int32 rows on {name!r}", [ks.lex_order(to_i32(t))],
              [ks.plain_lex_order(t)])
     log(f"kmer_sort (a) testing.kmer_sort_cases: {n_gates} gates, max |diff| "
         f"{err}")
@@ -1664,6 +1757,7 @@ def phase_ks_kernel_vs_plain(workload):
     del bases, lens, rec, got, want
     n = rows.shape[0]
     (u, c), routes = ks_routes_of(lambda: ks.sort_count(rows))
+    routes = routes["sort_count"]
     hold(f"sort_count of the full flush ({n} rows)", (u, c),
          ks.plain_sort_count(rows))
     log("kmer_sort (b) sort_count of the full flush: routes " + ", ".join(
@@ -1705,16 +1799,25 @@ def phase_ks_kernel_vs_plain(workload):
     tb = ks.sort_count(rows[half:])
     del rows
     torch.cuda.empty_cache()
-    m = ks.merge_runs(*ta, *tb)
+    m = ks_merge_route("of the halves' tables",
+                       lambda: ks.merge_runs(*ta, *tb), "merge_path")
     hold("merge_runs of the halves' tables", m, ks.plain_merge_runs(*ta, *tb))
     hold("merge_runs of the halves' tables == the full flush's table", m,
          (u, c))
     na, nb = ta[0].shape[0], tb[0].shape[0]
+    new = lambda: ks.merge_runs(*ta, *tb)                   # noqa: E731
+    old = lambda: ks._runs(*ks._radix(                      # noqa: E731
+        (ta[0], tb[0]), ks.digit_plan(3), 1, (ta[1], tb[1])))
+    hold("the LSD form of merge_runs on the halves' tables", old(), m)
+    turns = turns_and_split(f"merge_runs of the halves' tables ({na} + "
+                            f"{nb} rows)", new, old)
     res["merge_runs"] = ks_timing(
         f"merge_runs (the halves' tables: {na} + {nb} rows, {n_u} unique)",
-        lambda: ks.merge_runs(*ta, *tb),
-        lambda: ks.plain_merge_runs(*ta, *tb),
+        new, lambda: ks.plain_merge_runs(*ta, *tb),
         (8 * 3 + 4) * (na + nb) + (8 * 3 + 4) * n_u, 3 * (na + nb))
+    res["merge_runs"]["turns_device_ms"] = [ms_ for _, ms_ in turns]
+    res["merge_runs"]["lsd_form_device_ms"] = [
+        ms_ for name_, ms_ in turns if name_ == "LSD form"]
     del ta, tb, m
     captured = []
     kernel_lex_order = ks.lex_order
@@ -1730,13 +1833,33 @@ def phase_ks_kernel_vs_plain(workload):
     finally:
         ks.lex_order = kernel_lex_order
     fp = captured[0]
+    got, routes = ks_routes_of(lambda: ks.lex_order(fp))
+    routes = routes["lex_order"]
+    want = ks.plain_lex_order(fp)
     hold(f"lex_order of the level-0 build's fingerprints {tuple(fp.shape)}",
-         [ks.lex_order(fp)], [ks.plain_lex_order(fp)])
+         [got], [want])
+    log("kmer_sort (b) lex_order of the fingerprints: routes " + ", ".join(
+        f"{r} {n_}" for r, n_ in routes.items()))
+    if routes["partition_passes"] != 2 or not routes["warp_buckets"]:
+        raise AssertionError(f"kmer_sort: the fingerprints took {routes}")
+    library = lex_library(fp)
+    hold("torch.sort of the packed fingerprints (the library call)",
+         [library()], [want])
     nf = fp.shape[0]
+    new = lambda: ks.lex_order(fp)                          # noqa: E731
+    old = lambda: ks._radix((fp,), ks.digit_plan(2), 2)[1]  # noqa: E731
+    hold("the LSD form of lex_order on the fingerprints", [old()], [want])
+    del got, want
+    turns = turns_and_split(f"lex_order of the fingerprints ({nf} x 2)",
+                            new, old)
     res["lex_order"] = ks_timing(
         f"lex_order (the level-0 build's fingerprints, {nf} x 2 int64)",
-        lambda: ks.lex_order(fp), lambda: ks.plain_lex_order(fp),
-        8 * 2 * nf + 8 * nf, 2 * nf * log2_ceil(nf))
+        new, lambda: ks.plain_lex_order(fp),
+        8 * 2 * nf + 8 * nf, 2 * nf * log2_ceil(nf), library=library)
+    res["lex_order"]["routes"] = routes
+    res["lex_order"]["turns_device_ms"] = [ms_ for _, ms_ in turns]
+    res["lex_order"]["lsd_form_device_ms"] = [
+        ms_ for name_, ms_ in turns if name_ == "LSD form"]
     del u, c, fp, captured
     torch.cuda.empty_cache()
 
@@ -1799,7 +1922,8 @@ def phase_ks_hold_path_shapes(recorded):
     """Phase 24: the kmer_sort kernels against their plain versions once
     more, at every shape the paths launched them at (`recorded`, as
     kmer_sort.COUNT records them), on synthetic rows or reads of that
-    shape.  Returns the largest |difference| (0)."""
+    shape (merge_runs twice: random rows, the LSD route, and the same rows
+    sorted, the merge path).  Returns the largest |difference| (0)."""
     from turingassembler_tpu_torch.ops import kmer_sort as ks
     from turingassembler_tpu_torch.ops.devhash import to_i32
     err = 0
@@ -1816,14 +1940,27 @@ def phase_ks_hold_path_shapes(recorded):
             r = ks_rows(n, nl, seed)
             got, want = ks.sort_count(to_i32(r)), ks.plain_sort_count(r)
         elif entry == "merge_runs":
+            # random rows (the LSD route) and the same rows sorted, as
+            # tables are (the merge path)
             _, na, nb, nl = sh
             ka, kb = ks_rows(na, nl, seed), ks_rows(nb, nl, seed + 1)
             ca = torch.randint(1, 1000, (na,), dtype=torch.int32,
                                device="cuda")
             cb = torch.randint(1, 1000, (nb,), dtype=torch.int32,
                                device="cuda")
-            got, want = ks.merge_runs(ka, ca, kb, cb), \
-                ks.plain_merge_runs(ka, ca, kb, cb)
+            raw = "merge_path" if ascending(ka) and ascending(kb) else "lsd"
+            err = max(err, hold_ks(f"{entry} of random rows at {sh[1:]}",
+                                   ks_merge_route(
+                                       f"of random rows at {sh[1:]}",
+                                       lambda: ks.merge_runs(ka, ca, kb, cb),
+                                       raw),
+                                   ks.plain_merge_runs(ka, ca, kb, cb)))
+            oa, ob = ks.plain_lex_order(ka), ks.plain_lex_order(kb)
+            ka, ca, kb, cb = ka[oa], ca[oa], kb[ob], cb[ob]
+            got = ks_merge_route(f"of sorted rows at {sh[1:]}",
+                                 lambda: ks.merge_runs(ka, ca, kb, cb),
+                                 "merge_path")
+            want = ks.plain_merge_runs(ka, ca, kb, cb)
         else:
             _, n, nl = sh
             r = ks_rows(n, nl, seed)
@@ -4239,11 +4376,13 @@ def main():
         rss[fn.__name__] = peak_rss_gib()
         by = dict(kmer_sort.COUNT.by_entry)
         shs = list(kmer_sort.COUNT.shapes)
-        routes = dict(kmer_sort.COUNT.routes)
+        routes = {e: dict(r) for e, r in kmer_sort.COUNT.routes.items()}
         for b, sub, rt in KS_REMOTE:
             by = {e: by[e] + b.get(e, 0) for e in KS_ENTRIES}
             shs += sub
-            routes = {r: routes[r] + rt.get(r, 0) for r in routes}
+            routes = {e: {r: n_ + rt.get(e, {}).get(r, 0)
+                          for r, n_ in rs.items()}
+                      for e, rs in routes.items()}
         ks_count[fn.__name__] = (by, shs, routes)
         return res
 
@@ -4315,10 +4454,11 @@ def main():
     ks_launches = {e: sum(ks_count[p][0][e] for p in KS_PATH_PHASES)
                    for e in KS_ENTRIES}
     ks_shapes = [sh for p in KS_PATH_PHASES for sh in ks_count[p][1]]
-    ks_routes = {r: sum(ks_count[p][2][r] for p in KS_PATH_PHASES)
-                 for r in kmer_sort.ROUTES}
-    log("kmer_sort sort_count routes on the paths: " + ", ".join(
-        f"{r} {n_}" for r, n_ in ks_routes.items()))
+    ks_routes = {e: {r: sum(ks_count[p][2][e][r] for p in KS_PATH_PHASES)
+                     for r in rs} for e, rs in kmer_sort.ROUTES.items()}
+    log("kmer_sort routes on the paths: " + "; ".join(
+        f"{e} " + ", ".join(f"{r} {n_}" for r, n_ in rs.items())
+        for e, rs in ks_routes.items()))
     log("kmer_sort on the paths: " + ", ".join(
         f"{e} {n_}" for e, n_ in ks_launches.items()) + "; by phase: "
         + "; ".join(f"{p[6:]} " + ", ".join(
@@ -4331,6 +4471,11 @@ def main():
     if not ks_count["phase_spill"][0]["merge_runs"]:
         raise AssertionError("kmer_sort: the spill count launched no "
                              "merge_runs")
+    # every merge of the paths merges two tables, ascending: the merge path
+    if ks_routes["merge_runs"]["lsd"] or ks_routes["merge_runs"][
+            "merge_path"] != ks_launches["merge_runs"]:
+        raise AssertionError("kmer_sort: merge_runs on the paths took "
+                             f"{ks_routes['merge_runs']}")
     if sum(ks_launches.values()) != len(ks_shapes) or \
             min(ks_launches.values()) < 1:
         raise AssertionError(f"kmer_sort: launches {ks_launches}, "
@@ -4389,8 +4534,10 @@ def main():
         "source": "turingassembler_tpu_torch/csrc/kmer_sort.cu",
         "replaces": KS_REPLACES[e], "launches": ks_launches[e],
         "max_abs_err": ks["max_abs_err"], **ks[e],
-        **({"over_capacity_buckets": ks_routes["over_capacity"]}
-           if e == "sort_count" else {})} for e in KS_ENTRIES]}),
+        **({"over_capacity_buckets": ks_routes[e]["over_capacity"]}
+           if e == "sort_count" else {}),
+        **({"routes_on_paths": ks_routes[e]} if e in ks_routes else {})}
+        for e in KS_ENTRIES]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,13 +32,31 @@ against those by chip_smoke.py.  Here:
     2-bit words with their reverse complements, a window's limbs by
     funnel shifts, validity from the invalid-base words) == JAX
     _extract_chunk on reads with code-4 bases, lengths under k1 and L no
-    multiple of 16.
-Mirror any edit of csrc/kmer_sort.cu's extraction or bucket route in the
-models here.  Tolerance: exact equality everywhere (integers).
+    multiple of 16;
+  - a tensor-code model of the card's lex_order route (the live digits,
+    lex_plan, the partition passes carrying the index, the bounds, each
+    bucket ranked by counting by a warp, on packed 64-bit keys when the
+    digits below the partition fit, or by a block, counting or LSD
+    passes, the LSD route over capacity) == JAX lax.sort((cols...,
+    iota), num_keys=nl) on kmer_sort_cases and a small level-0 build's
+    fingerprints, at the kernel's sizes and at tiny ones (every route
+    runs); lex_plan for k1 in 2..64;
+  - a tensor-code model of the card's merge_runs merge path (the tile
+    borders' splits, each tile merged with ka's rows first on ties, runs
+    marked across tile borders, the counts' prefix at each run, the order
+    check) == JAX _merge_unique_runs on two halves' tables and == numpy
+    on ascending inputs with runs longer than a tile of 64 rows, an empty
+    side, one input below the other; the order check picks the LSD route
+    for a descent inside a tile or at a tile border, the merge path for
+    ascending inputs with or without equal rows.
+Mirror any edit of csrc/kmer_sort.cu's extraction, bucket, lex or merge
+route in the models here.  Tolerance: exact equality everywhere
+(integers).
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -387,7 +405,7 @@ def model_sort_count(keys, cap):
         gs = ks.bucket_groups(starts.numpy(), cap)
     else:
         gs = np.array([0, n])
-    routes = dict.fromkeys(ks.ROUTES, 0)
+    routes = dict.fromkeys(ks.ROUTES["sort_count"], 0)
     routes["partition_passes"] = len(part)
     uniq, counts = [], []
     for g in range(len(gs) - 1):
@@ -612,3 +630,417 @@ def test_extraction_model_equals_jax(k1, L):
     rows = model_extract(reads, lengths, k1)
     assert rows.shape == (int(n_valid), tl.n_limbs(k1))
     np.testing.assert_array_equal(rows, rows_j.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# the card's lex_order route, modelled in tensor code
+# ---------------------------------------------------------------------------
+
+def _rank_buckets(rows, first, m):
+    """Buckets of m rows each, starting at the rows first (k,): each
+    bucket's order by counting, as lex_warp_kernel's warp_rank and
+    lex_block_kernel's counting place a row (the rows with a smaller key
+    and the equal rows before it): (k, m) positions in the bucket."""
+    pos = torch.arange(m)
+    out = []
+    step = max(1, (1 << 22) // (m * m))
+    for c0 in range(0, len(first), step):
+        seg = rows[first[c0:c0 + step, None] + pos]             # (k, m, nl)
+        lt = torch.zeros((len(seg), m, m), dtype=torch.bool)    # [., j, i]
+        eq = torch.ones_like(lt)
+        for limb in range(rows.shape[1]):
+            a, b = seg[:, :, limb][:, :, None], seg[:, :, limb][:, None, :]
+            lt |= eq & (a < b)
+            eq &= a == b
+        before = (lt | (eq & (pos[:, None] < pos[None, :]))).sum(dim=1)
+        order = torch.empty_like(before)
+        order.scatter_(1, before, pos.expand(len(seg), m))
+        out.append(order)
+    return torch.cat(out)
+
+
+# digits below the partition, at most, that lex_warp_kernel packs into one
+# 64-bit word (csrc/kmer_sort.cu:LEX_PACKED)
+LEX_PACKED = 7
+
+
+def _packed_keys(rows, plan, rest, pos):
+    """lex_warp_kernel's packed_key: the digits of rest, most significant
+    first, in 8-bit slots, then the row's position in its bucket, as the
+    64-bit word's (high, low) 32-bit halves."""
+    slots = [_digit(rows, plan, p) for p in reversed(rest)] + [pos]
+    slots = [torch.zeros_like(pos)] * (8 - len(slots)) + slots
+    hi, lo = torch.zeros_like(pos), torch.zeros_like(pos)
+    for k in range(4):
+        hi = hi * 256 + slots[k]
+        lo = lo * 256 + slots[4 + k]
+    return torch.stack([hi, lo], dim=1)
+
+
+def model_lex_order(keys, cap, warp=ks.LEX_WARP):
+    """ops/kmer_sort.py:lex_order on a card, in tensor code, with a block
+    capacity cap and buckets of up to warp rows ranked by a warp (on
+    packed_key words when the digits below the partition are few enough):
+    (permutation, routes)."""
+    rows = torch.as_tensor(np.asarray(keys, dtype=np.int64))
+    n, nl = rows.shape
+    plan = ks.digit_plan(nl)
+    routes = dict.fromkeys(ks.ROUTES["lex_order"], 0)
+    live = _live(rows, plan)
+    if not any(live):                           # every row equal
+        return torch.arange(n), routes
+    part, rest = ks.lex_plan(live, n)
+    order = _lsd_order(rows, plan, part)        # the passes carry the index
+    rows = rows[order]
+    if part:                                    # bounds_kernel
+        prefix = torch.zeros(n, dtype=torch.int64)
+        for p in reversed(part):
+            prefix = prefix * ks.RADIX + _digit(rows, plan, p)
+        starts = torch.searchsorted(
+            prefix, torch.arange(ks.RADIX ** len(part) + 1))
+    else:
+        starts = torch.tensor([0, n])
+    routes["partition_passes"] = len(part)
+    first, size = starts[:-1], starts[1:] - starts[:-1]
+    out = torch.empty(n, dtype=torch.int64)
+    warp_rows = rows
+    if len(rest) <= LEX_PACKED:                 # one compare a pair
+        pos = torch.arange(n) - torch.repeat_interleave(first, size)
+        warp_rows = _packed_keys(rows, plan, rest, pos)
+    for m in torch.unique(size[(size > 0) & (size <= warp)]).tolist():
+        f = first[size == m]                    # lex_warp_kernel
+        o = _rank_buckets(warp_rows, f, m)
+        out[f[:, None] + torch.arange(m)] = order[f[:, None] + o]
+        routes["warp_buckets"] += len(f)
+    for s, m in zip(first[size > warp].tolist(), size[size > warp].tolist()):
+        seg = rows[s:s + m]
+        if m <= cap:                            # lex_block_kernel
+            o = _rank_buckets(seg, torch.tensor([0]), m)[0] \
+                if m <= RANK_SORT else _lsd_order(seg, plan, rest)
+            routes["block_buckets"] += 1
+        else:                                   # over capacity: the LSD route
+            seg_live = _live(seg, plan)
+            o = _lsd_order(seg, plan,
+                           [p for p in range(len(plan)) if seg_live[p]])
+            routes["over_capacity"] += 1
+        out[s:s + m] = order[s:s + m][o]
+    return out, routes
+
+
+def _jax_lex(keys):
+    """JAX lax.sort((cols..., iota), num_keys=nl), stable: the
+    permutation."""
+    nl = keys.shape[1]
+    cols = tuple(jnp.asarray(keys[:, l].astype(np.uint32)) for l in range(nl))
+    out = jax.lax.sort(cols + (jnp.arange(len(keys), dtype=jnp.int32),),
+                       num_keys=nl)
+    return np.asarray(out[-1]).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case_lex(name):
+    return _jax_lex(CASES[name][0])
+
+
+# a capacity and a warp size at which small inputs take every route
+TINY_LEX = (600, 32)
+
+
+@pytest.mark.parametrize("cap", ["kernel", "tiny"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_lex_order_model_on_cases_equals_jax(name, cap):
+    keys, _ = CASES[name]
+    nl = keys.shape[1]
+    c, warp = (ks.LEX_CAPACITY[nl], ks.LEX_WARP) if cap == "kernel" \
+        else TINY_LEX
+    perm, routes = model_lex_order(keys, c, warp)
+    np.testing.assert_array_equal(perm.numpy(), _jax_case_lex(name))
+    assert routes["partition_passes"] <= ks.MAX_PARTITION
+    # each case reaches the route it is named for at the kernel's sizes
+    if cap == "kernel" and name == "few values, large":
+        assert routes == {"partition_passes": 2, "warp_buckets": 0,
+                          "block_buckets": 0, "over_capacity": 3}
+    if cap == "kernel" and name == "one prefix over the capacity":
+        assert routes["over_capacity"] == 1 and routes["warp_buckets"]
+    if cap == "kernel" and name == "all equal, large":
+        assert not any(routes.values())
+    if cap == "kernel" and name == "canonical-skewed prefixes":
+        assert routes["over_capacity"] == routes["block_buckets"] == 0 \
+            and routes["warp_buckets"] > 1
+    if cap == "kernel" and name == "all ones, nl=2":   # 2,700 all-ones rows
+        assert routes["block_buckets"] and not routes["over_capacity"]
+    # at the tiny sizes these take every route
+    if cap == "tiny" and name == "all ones, nl=2":
+        assert routes["block_buckets"] and routes["over_capacity"]
+    if cap == "tiny" and name == "ties with a payload":
+        assert routes["warp_buckets"] and routes["block_buckets"]
+
+
+def test_lex_order_model_on_build_fingerprints(monkeypatch):
+    """The fingerprints of a small level-0 build (the main path's
+    lex_order) through the model at the kernel's sizes and the tiny ones
+    == JAX lax.sort == the port's lex_order on the CPU."""
+    from turingassembler_tpu_torch.graph import device_build
+    g = jt.random_genome(20_000, seed=4)
+    reads, lengths = jt.sim_reads(g, coverage=10, read_len=150, seed=5,
+                                  pad_to=L)
+    u, c, n = tms.count_reads_device(reads, lengths, 45, device="cpu")
+    captured = []
+    kernel = ks.lex_order
+
+    def grab(keys):
+        captured.append(keys.clone())
+        return kernel(keys)
+
+    monkeypatch.setattr(ks, "lex_order", grab)
+    device_build.build_graph_on_device(u, c, n, 45, device="cpu")
+    fp = captured[0].numpy()
+    assert fp.shape[1] == 2 and len(fp) > ks.LEX_MEAN * ks.RADIX
+    want = _jax_lex(fp)
+    np.testing.assert_array_equal(kernel(captured[0]).numpy(), want)
+    for c_, warp in ((ks.LEX_CAPACITY[2], ks.LEX_WARP), TINY_LEX):
+        perm, routes = model_lex_order(fp, c_, warp)
+        np.testing.assert_array_equal(perm.numpy(), want)
+        assert routes["partition_passes"] == 2 and routes["warp_buckets"]
+
+
+@pytest.mark.parametrize("k1", list(range(2, 65)))
+def test_lex_plan(k1):
+    nl = tl.n_limbs(k1)
+    plan = ks.digit_plan(nl)
+    rows = np.random.default_rng(k1).integers(0, 1 << 32, (512, nl))
+    last = 2 * k1 - 32 * (nl - 1)
+    rows[:, -1] &= ((1 << last) - 1) << (32 - last)
+    live = _live(torch.as_tensor(rows), plan)
+    msd = [p for p in range(len(plan) - 1, -1, -1) if live[p]]
+    one = ks.LEX_MEAN * ks.RADIX            # the mean bucket at one digit
+    for n, d in ((1, 0), (ks.LEX_MEAN, 0), (ks.LEX_MEAN + 1, 1), (one, 1),
+                 (one + 1, 2), (3_999_906, 2), (ks.MAX_ROWS, 2)):
+        part, rest = ks.lex_plan(live, n)
+        d = min(d, len(msd))
+        assert part == sorted(msd[:d]), (n, part)
+        # the rest: every live digit below the partition
+        assert rest == [p for p in range(len(plan)) if live[p]
+                        and p not in part]
+        assert all(p < min(part) for p in rest) if part else True
+        if d:                                # the mean bucket is small
+            assert n <= ks.LEX_MEAN * ks.RADIX ** d or d == ks.MAX_PARTITION \
+                or d == len(msd)
+    # the level-0 build's 4 M fingerprints: buckets of about 61 rows
+    assert 3_999_906 / ks.RADIX ** 2 < 64
+    assert ks.lex_plan([False] * len(plan), 10 ** 6) == ([], [])
+
+
+# ---------------------------------------------------------------------------
+# the card's merge_runs merge path, modelled in tensor code
+# ---------------------------------------------------------------------------
+
+def _le(x, y):
+    """x <= y row by row, limb 0 first."""
+    lt = torch.zeros(len(x), dtype=torch.bool)
+    eq = torch.ones(len(x), dtype=torch.bool)
+    for limb in range(x.shape[1]):
+        lt |= eq & (x[:, limb] < y[:, limb])
+        eq &= x[:, limb] == y[:, limb]
+    return lt | eq
+
+
+def _merge_splits(ka, kb, tile, n_tiles):
+    """merge_split_kernel: a binary search on each tile border's diagonal
+    for the rows of ka among the merged rows before it (ties: ka's
+    first)."""
+    na, nb = len(ka), len(kb)
+    d = (torch.arange(n_tiles + 1) * tile).clamp(max=na + nb)
+    lo, hi = (d - nb).clamp(min=0), d.clamp(max=na)
+    while (lo < hi).any():
+        go = lo < hi
+        mid = (lo + hi) // 2
+        le = _le(ka[mid.clamp(max=max(na - 1, 0))] if na else
+                 torch.zeros((len(d), ka.shape[1]), dtype=torch.int64),
+                 kb[(d - 1 - mid).clamp(0, max(nb - 1, 0))] if nb else
+                 torch.zeros((len(d), ka.shape[1]), dtype=torch.int64))
+        lo = torch.where(go & le, mid + 1, lo)
+        hi = torch.where(go & ~le, mid, hi)
+    return lo, d - lo
+
+
+def _before(x, y, strict):
+    """For each row of y: the rows of x below it (strict) or at most it."""
+    lt = torch.zeros((len(x), len(y)), dtype=torch.bool)
+    eq = torch.ones_like(lt)
+    for limb in range(x.shape[1]):
+        a, b = x[:, limb][:, None], y[:, limb][None, :]
+        lt |= eq & (a < b)
+        eq &= a == b
+    return (lt if strict else lt | eq).sum(dim=0)
+
+
+def model_merge_path(ka, ca, kb, cb, tile):
+    """ops/kmer_sort.py:merge_runs' merge path on a card, in tensor code
+    (merge_split_kernel, merge_kernel's count and write passes,
+    run_counts_kernel), tile merged rows a tile: (uniq, counts, in_order).
+    in_order False is the kernel's order flag (an input row below the one
+    before it, within a tile's slice or at its border, or a tile whose
+    slices would be negative): the wrapper then takes the LSD route."""
+    ka = torch.as_tensor(np.asarray(ka, dtype=np.int64))
+    kb = torch.as_tensor(np.asarray(kb, dtype=np.int64))
+    ca = torch.as_tensor(np.asarray(ca)).long()
+    cb = torch.as_tensor(np.asarray(cb)).long()
+    n, nl = len(ka) + len(kb), ka.shape[1]
+    n_tiles = -(-n // tile)
+    a, b = _merge_splits(ka, kb, tile, n_tiles)
+    in_order, tiles = True, []
+    for t in range(n_tiles):
+        a0, a1, b0, b1 = a[t].item(), a[t + 1].item(), b[t].item(), \
+            b[t + 1].item()
+        if a1 < a0 or b1 < b0:
+            in_order = False
+            continue
+        for x, lo, hi in ((ka, a0, a1), (kb, b0, b1)):   # the order check
+            seg = x[max(lo - 1, 0):hi]
+            if len(seg) > 1 and not _le(seg[:-1], seg[1:]).all():
+                in_order = False
+        A, B = ka[a0:a1], kb[b0:b1]
+        # the tile's merged rows: a row's place is its index plus the
+        # other input's rows before it, ka's first on ties
+        pa = torch.arange(len(A)) + _before(B, A, strict=True)
+        pb = torch.arange(len(B)) + _before(A, B, strict=False)
+        rows = torch.empty((len(A) + len(B), nl), dtype=torch.int64)
+        w = torch.empty(len(A) + len(B), dtype=torch.int64)
+        rows[pa], rows[pb], w[pa], w[pb] = A, B, ca[a0:a1], cb[b0:b1]
+        # heads: rows that differ from the merged row before them, the
+        # first against the larger of ka's and kb's rows before the tile
+        prev = [x[i - 1:i] for x, i in ((ka, a0), (kb, b0)) if i > 0]
+        if len(prev) == 2:
+            prev = [prev[1] if _le(prev[0], prev[1]).item() else prev[0]]
+        head = torch.ones(len(rows), dtype=torch.bool)
+        head[1:] = (rows[1:] != rows[:-1]).any(dim=1)
+        if prev:
+            head[0] = (rows[0] != prev[0][0]).any()
+        tiles.append((rows, w, head))
+    if not in_order:
+        return None, None, False
+    # the scan of the tiles' run counts and count sums; the write pass puts
+    # each run's key and the counts' prefix before it (S) at its place
+    sums = torch.tensor([int(w.sum()) for _, w, _ in tiles])
+    base = torch.cumsum(sums, 0) - sums
+    uniq = torch.cat([rows[head] for rows, _, head in tiles])
+    S = torch.cat([(torch.cumsum(w, 0) - w + base[t])[head]
+                   for t, (_, w, head) in enumerate(tiles)])
+    counts = torch.cat([S[1:], sums.sum().reshape(1)]) - S
+    return uniq, counts.to(torch.int32), True
+
+
+def _np_merge(ka, ca, kb, cb):
+    keys = np.concatenate([ka, kb])
+    w = np.concatenate([ca, cb]).astype(np.int64)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    sums = np.zeros(len(uniq), np.int64)
+    np.add.at(sums, inv.reshape(-1), w)
+    return uniq, sums
+
+
+@pytest.mark.parametrize("k", KS)
+def test_merge_path_model_equals_jax(k):
+    """Two halves' tables (JAX _sort_count), merged by the model at a tile
+    of 64 rows and at the kernel's == JAX _merge_unique_runs."""
+    k1 = k + 1
+    reads, lengths = _record(k, seed=300 + k)
+    half = len(reads) // 2
+    tabs = []
+    for sl in (slice(0, half), slice(half, None)):
+        _, cols, nv = _jax_rows(reads[sl], lengths[sl], k1)
+        tabs += list(_jax_sort_count(cols, nv, k1))
+    um, cm, nm = jms._merge_unique_runs(
+        *(jnp.asarray(x.astype(np.uint32) if x.ndim == 2 else x)
+          for x in tabs), len(tabs[0]) + len(tabs[2]))
+    nm = int(nm)
+    for tile in (64, ks.MERGE_TILE):
+        u, c, in_order = model_merge_path(*tabs, tile)
+        assert in_order
+        np.testing.assert_array_equal(u.numpy(),
+                                      np.asarray(um)[:nm].astype(np.int64))
+        np.testing.assert_array_equal(c.numpy(), np.asarray(cm)[:nm])
+
+
+def _merge_inputs(name, seed=9):
+    """Ascending inputs (non-decreasing) with long runs of equal rows:
+    12 keys over 2,501 rows."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 1 << 32, (12, 3), dtype=np.int64)
+    base = base[_np_lexsort(base)]
+    ka = base[np.sort(rng.integers(0, 12, 1_500))]
+    kb = base[np.sort(rng.integers(0, 12, 1_001))]
+    ca = rng.integers(1, 1000, len(ka)).astype(np.int32)
+    cb = rng.integers(1, 1000, len(kb)).astype(np.int32)
+    lo_a, lo_b = ka[:, 0] < base[6, 0], kb[:, 0] < base[6, 0]
+    return {"long runs": (ka, ca, kb, cb),
+            "one key, all rows": (ka[:1].repeat(700, 0), ca[:700],
+                                  kb[:1].repeat(300, 0), cb[:300]),
+            "empty a": (ka[:0], ca[:0], kb, cb),
+            "empty b": (ka, ca, kb[:0], cb[:0]),
+            "a below b": (ka[lo_a], ca[lo_a], kb[~lo_b], cb[~lo_b]),
+            "b below a": (ka[~lo_a], ca[~lo_a], kb[lo_b], cb[lo_b]),
+            "one row each": (ka[:1], ca[:1], kb[-1:], cb[-1:])}[name]
+
+
+MERGE_CASES = ("long runs", "one key, all rows", "empty a", "empty b",
+               "a below b", "b below a", "one row each")
+
+
+@pytest.mark.parametrize("tile", (64, ks.MERGE_TILE))
+@pytest.mark.parametrize("name", MERGE_CASES)
+def test_merge_path_model_against_numpy(name, tile):
+    ka, ca, kb, cb = _merge_inputs(name)
+    uniq, sums = _np_merge(ka, ca, kb, cb)
+    u, c, in_order = model_merge_path(ka, ca, kb, cb, tile)
+    assert in_order
+    np.testing.assert_array_equal(u.numpy(), uniq)
+    np.testing.assert_array_equal(c.numpy(), sums)
+    # the wrapper on the CPU (the plain version) agrees
+    u, c = _port(ks.merge_runs(*(torch.as_tensor(x)
+                                 for x in (ka, ca, kb, cb))))
+    np.testing.assert_array_equal(u, uniq)
+    np.testing.assert_array_equal(c, sums)
+    if name == "long runs" and tile == 64:     # runs span several tiles
+        assert ((len(ka) + len(kb)) / len(uniq)) > 3 * tile
+
+
+def _route_inputs(name):
+    """One-limb inputs for the route choice: ka = 0 .. 199, kb = 1,000 ..
+    1,149 (ka below kb, so ka's slices are cut at multiples of the tile
+    of 64 rows)."""
+    ka = np.arange(200, dtype=np.int64)[:, None]
+    kb = 1_000 + np.arange(150, dtype=np.int64)[:, None]
+    if name == "ascending with equal rows":
+        ka, kb = ka // 7, np.sort(np.concatenate([kb[:75], kb[:75]]), axis=0)
+    elif name == "a descent at a tile border":
+        ka[[63, 64]] = ka[[64, 63]]         # tile 0's last, tile 1's first
+    elif name == "a descent inside a tile":
+        kb[[10, 11]] = kb[[11, 10]]
+    elif name == "interleaved, a descent in b":
+        ka, kb = 2 * ka, 2 * np.arange(150, dtype=np.int64)[:, None] + 1
+        kb[149] = 0
+    ones = np.ones(max(len(ka), len(kb)), np.int32)
+    return ka, ones[:len(ka)], kb, ones[:len(kb)]
+
+
+@pytest.mark.parametrize("name", ("ascending", "ascending with equal rows",
+                                  "a descent at a tile border",
+                                  "a descent inside a tile",
+                                  "interleaved, a descent in b"))
+def test_merge_route_choice(name):
+    """The count step's order flag picks the route: the merge path for
+    ascending inputs (equal rows too), the LSD route for any row below the
+    one before it in its own input, a tile border's included."""
+    ka, ca, kb, cb = _route_inputs(name)
+    a, _ = _merge_splits(torch.as_tensor(ka), torch.as_tensor(kb), 64,
+                         -(-(len(ka) + len(kb)) // 64))
+    if name == "a descent at a tile border":   # tile 1's slice of ka: 64..
+        assert 64 in a.tolist()
+    u, c, in_order = model_merge_path(ka, ca, kb, cb, 64)
+    assert in_order == name.startswith("ascending")
+    if in_order:
+        uniq, sums = _np_merge(ka, ca, kb, cb)
+        np.testing.assert_array_equal(u.numpy(), uniq)
+        np.testing.assert_array_equal(c.numpy(), sums)

@@ -22,8 +22,9 @@ csrc/mm_map.cu) on the next: `mm_map shapes: [[B, L, entry, verified],
 ...]`; every launch of the count's kernels in the process (extraction,
 sorts and run passes of csrc/kmer_sort.cu, in the counts and the level-0
 builds) on the next: `kmer_sort shapes: [[entry, ...shape], ...]`
-(ops/kmer_sort.py:LaunchCount), and sort_count's routes on the one after
-(`kmer_sort routes: {...}`); before them `pool builds in the timed
+(ops/kmer_sort.py:LaunchCount), and the routes of sort_count, lex_order
+and merge_runs on the one after (`kmer_sort routes: {entry: {...}}`);
+before them `pool builds in the timed
 map passes: N`, the graph pools made for the map after the warm map (0:
 the warm map made the graph's pool, and every timed pass found it
 cached).

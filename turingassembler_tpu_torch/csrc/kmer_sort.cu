@@ -1,7 +1,8 @@
 // The k-mer count's device program for Hopper: canonical (k+1)-mer
-// extraction, the sort-and-count of limb rows, a stable LSD radix sort of
-// limb rows, and the run-length count (with a segmented sum of a payload
-// for the merge of two runs).
+// extraction, the sort-and-count of limb rows, the stable lexicographic
+// permutation, the merge of two runs, and beneath them a stable LSD radix
+// sort of limb rows with a run-length count (a segmented sum of a
+// payload).
 //
 // Replaces jitted JAX device code (XLA, not Pallas):
 //   - turingassembler_tpu/kmer/megasort.py:73 _extract_chunk (+
@@ -10,12 +11,15 @@
 //     run-length pass): ks_load_launch, then a prefix partition
 //     (ks_sort_passes_launch on the partition digits, ks_bounds_launch)
 //     and a bucket sort-and-count (ks_bucket_launch, ks_compact_*);
-//   - megasort.py:225 _merge_unique_runs: the LSD sort with the counts as
-//     an int32 payload that the run pass sums (any number of equal rows,
-//     where the JAX function sums at most two);
+//   - megasort.py:225 _merge_unique_runs: a merge path over the two
+//     ascending inputs (ks_merge_count_launch, ks_merge_write_launch),
+//     the counts of equal rows summed (any number, where the JAX function
+//     sums at most two); inputs out of order take the LSD sort with the
+//     counts as payload and the run pass;
 //   - the stable lexicographic permutation (JAX lax.sort with num_keys,
-//     the port's ops/limbs.py:plain_lex_order): the LSD sort with the row
-//     index as its payload.
+//     graph/device_build.py:89; the port's ops/limbs.py:plain_lex_order):
+//     the prefix partition with the row index as payload, then the
+//     buckets ranked (ks_lex_buckets_launch).
 //
 // What bounds each kernel on an H100, and what the design does about it
 // (bytes at 3.35 TB/s unless said otherwise):
@@ -89,12 +93,79 @@
 // nl = 2, 10,720 at nl = 3, 8,928 at nl = 4 (bucket_capacity;
 // ops/kmer_sort.py:BUCKET_CAPACITY holds the same).
 //
-// LSD sort (merge_runs, lex_order, a bucket over capacity).  Keys as nl
-// separate uint32 arrays (SoA) in two ping-pong buffers, with an optional
-// 32-bit payload beside them.  The load kernel counts every digit of
-// every pass at once (as CUB's onesweep does up front); the host skips a
-// pass whose digit takes one value (the load's XOR words).  Digits are
-// the four bytes of each limb (ops/kmer_sort.py:digit_plan).  A pass: a tile count
+// lex_order (the level-0 build's 4 M fingerprints; devhash.finalize,
+// sortops.sort_by_limbs).  As a function it reads the rows once and
+// writes an int64 permutation.  A sort keeps every row, so the buckets
+// must be small where sort_count's hold thousands of rows:
+//   1. load_hist_kernel with the row index as payload (the live digits;
+//      one host sync);
+//   2. the host plans (ops/kmer_sort.py:lex_plan): the partition digits
+//      are the most significant live digits, as many as bring the mean
+//      bucket to 128 rows or fewer (two at the build: 65,536 buckets of
+//      61 rows), none at n <= 128;
+//   3. the LSD pass kernels on those digits, carrying the index (stable:
+//      a bucket's rows stay in index order), bounds_kernel;
+//   4. lex_warp_kernel, a warp a bucket: up to LEX_WARP (256) rows into
+//      the warp's shared memory, each placed by counting the rows before
+//      it (a smaller key, or an equal key and a smaller position), its
+//      index written to the permutation at the bucket's first row plus
+//      its place.  With at most seven live digits below the partition
+//      (nl <= 2) a row's key is one 64-bit word, those digits and its
+//      position (packed_key): one compare a pair, where the limb-wise
+//      compare of nl limbs is bound by its instructions (61 rows: 3,721
+//      pairs a bucket);
+//   5. a larger bucket (skew, few-valued rows) is listed by the warp:
+//      lex_block_kernel takes those up to the block's capacity (rows in
+//      shared memory: up to RANK_SORT placed by counting, more by the
+//      stable in-block LSD passes over 16-bit positions, block_lsd_pass);
+//      the host (one sync) sends each over capacity through the LSD route
+//      with the index as payload, on its own segment.
+// No compaction: a sort keeps n rows, so a bucket's first row is its
+// place.  Capacity: a row takes its nl limbs and two uint16 list entries,
+// (4 nl + 4) bytes: 16,384 rows at nl = 1, 2, 13,408 at nl = 3, 10,720 at
+// nl = 4 (lex_capacity; ops/kmer_sort.py:LEX_CAPACITY).  What bounds it
+// now: the two partition passes (12 bytes a row in and out, each) and
+// the warp kernel's counting.
+//
+// merge_runs (the count's flush windows: a running table and a window's
+// table, both ascending).  As a function it reads both inputs once and
+// writes the runs once; sorting their concatenation again moved 11-12
+// LSD passes of data.  A merge path instead:
+//   1. merge_split_kernel: a tile of 2,048 merged rows (MTILE) starts at
+//      a diagonal of the (a, b) grid; a warp a tile border finds how many
+//      of a's rows lie before it (a 32-way search on the limbs, compared
+//      as unsigned; equal rows take a's first);
+//   2. merge_kernel, count pass: a block a tile loads its two slices into
+//      shared memory, a thread merges 8 rows (its own split by a binary
+//      search in the tile), marks the rows that differ from the merged row
+//      before them (the tile's first against the larger of a's and b's
+//      rows before the tile) and sums the counts; the tile's runs and
+//      count sum go out, and the order check: a row below the one before
+//      it in its own input (within a slice or at its border), or a tile
+//      whose slices would be negative, flags the inputs out of order; a
+//      high int64 word flags bad limbs;
+//   3. one block scans the tiles' runs and sums (scan_ll_kernel); the host
+//      reads the runs and the flags (one sync);
+//   4. merge_kernel, write pass (inputs in order): the tile merged again,
+//      each run's key (int64 limbs) and the counts' exclusive prefix at
+//      its place, staged in shared memory and written as contiguous
+//      ranges; run_counts_kernel takes a run's count as the difference of
+//      neighbouring prefixes, so a run may span any number of tiles (a
+//      count pass and a write pass, each re-merging, rather than a
+//      decoupled look-back whose status would carry the open run's sum:
+//      the order check then ends before anything is written, an input out
+//      of order costs one pass, and the run pass's prefix scheme is
+//      reused; each input is read twice).
+// Inputs out of order (raw rows) take the LSD route below; the wrapper
+// records which.
+//
+// LSD sort (merge_runs' inputs out of order, a bucket over capacity of
+// sort_count or lex_order, the partition passes).  Keys as nl separate
+// uint32 arrays (SoA) in two ping-pong buffers, with an optional 32-bit
+// payload beside them.  The load kernel counts every digit of every pass
+// at once (as CUB's onesweep does up front); the host skips a pass whose
+// digit takes one value (the load's XOR words).  Digits are the four
+// bytes of each limb (ops/kmer_sort.py:digit_plan).  A pass: a tile count
 // kernel (256-bucket histogram of a 4,096-key tile, tile-major), a
 // two-level scan of the (tile, digit) counts (group sums, one block
 // across groups, then each group's tiles), and the scatter: a warp ranks
@@ -885,6 +956,87 @@ __device__ __forceinline__ bool row_less(const uint32_t* ks, int cap, int a,
     return lt;
 }
 
+// One stable LSD pass of a block of BT threads over u <= BUCKET_MAX
+// entries of the list lin (16-bit row indices into rows in shared memory,
+// whose digit's limb is dl): lout gets them ordered by the digit (dl[i] >>
+// shift) & dmask, equal digits in list order.  As scatter_kernel ranks a
+// tile: warp w takes entries [w 32 J, (w + 1) 32 J), J = ceil(u / BT) a
+// thread, their digits first (independent loads), then their ranks (a
+// chain through the warp's counters).  whist (BWARPS, RADIX), tstart
+// (RADIX,) and sh (BWARPS,) are shared scratch.  Every thread calls it.
+__device__ void block_lsd_pass(const uint32_t* dl, int shift, uint32_t dmask,
+                               const uint16_t* lin, uint16_t* lout, int u,
+                               uint32_t* whist, uint32_t* tstart,
+                               uint32_t* sh) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned lt = lanemask_lt();
+    const int J = (u + BT - 1) / BT;           // list entries a thread, <= BJ
+    const int wbase = warp * 32 * J;           // warp w: [wbase, wbase + 32 J)
+    for (int i = tid; i < BWARPS * RADIX / 4; i += BT)
+        reinterpret_cast<uint4*>(whist)[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    // digit | rank << 9 of each of the thread's entries
+    uint32_t dr[BJ];
+#pragma unroll
+    for (int j = 0; j < BJ; ++j) {
+        if (j >= J) break;
+        const int pos = wbase + j * 32 + lane;
+        dr[j] = pos < u ? (dl[lin[pos]] >> shift) & dmask : (uint32_t)RADIX;
+    }
+#pragma unroll
+    for (int j = 0; j < BJ; ++j) {
+        if (j >= J) break;
+        const uint32_t d = dr[j];
+        const unsigned peers = __match_any_sync(FULL, d);
+        const int leader = __ffs(peers) - 1;
+        uint32_t old = 0;
+        if (lane == leader && d < RADIX) {
+            old = whist[warp * RADIX + d];
+            whist[warp * RADIX + d] = old + __popc(peers);
+        }
+        __syncwarp();
+        const uint32_t rank = __shfl_sync(FULL, old, leader) +
+                              __popc(peers & lt);
+        dr[j] = d | (rank << 9);
+    }
+    __syncthreads();
+    {   // digit d's warp prefixes: thread d takes warps 0-7, thread d + 256
+        // warps 8-15; then the digits' starts, added in
+        const int d = tid & (RADIX - 1), h = tid / RADIX;
+        uint32_t c[BWARPS / 2], s = 0;
+#pragma unroll
+        for (int k = 0; k < BWARPS / 2; ++k)
+            c[k] = whist[(h * BWARPS / 2 + k) * RADIX + d];
+#pragma unroll
+        for (int k = 0; k < BWARPS / 2; ++k) {
+            whist[(h * BWARPS / 2 + k) * RADIX + d] = s;
+            s += c[k];
+        }
+        if (!h) tstart[d] = s;              // the first half's sum
+        __syncthreads();
+        const uint32_t first = h ? tstart[d] : 0u;
+        uint32_t tot;
+        const uint32_t st = block_exclusive_scan<uint32_t, BWARPS>(
+            h ? first + s : 0u, &tot, sh);
+        if (h) tstart[d] = st;
+        __syncthreads();
+        const uint32_t add = tstart[d] + (h ? first : 0u);
+#pragma unroll
+        for (int k = 0; k < BWARPS / 2; ++k)
+            whist[(h * BWARPS / 2 + k) * RADIX + d] += add;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BJ; ++j) {
+        if (j >= J) break;
+        const uint32_t d = dr[j] & 511u;
+        if (d < RADIX)
+            lout[whist[warp * RADIX + d] + (dr[j] >> 9)] =
+                lin[wbase + j * 32 + lane];
+    }
+    __syncthreads();
+}
+
 // Persistent blocks, a group at a time (g, g + gridDim.x, ...): rows
 // [gstart[g], gstart[g + 1]) of keys (NL, n) into shared memory (the next
 // group's rows prefetched into L2 meanwhile); equal rows counted once by
@@ -919,7 +1071,7 @@ bucket_kernel(const uint32_t* __restrict__ keys, long long n,
     // while equal rows are counted
     uint16_t* lst[2] = {cnt + cap, cnt + 2 * cap};
     uint16_t* table = lst[1];
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int tid = threadIdx.x, lane = tid & 31;
     const unsigned lt = lanemask_lt();
     for (long long g = blockIdx.x; g < G; g += gridDim.x) {
         const long long r0 = gstart[g];
@@ -982,8 +1134,6 @@ bucket_kernel(const uint32_t* __restrict__ keys, long long n,
         }
         __syncthreads();
         const int u = s_u;                     // distinct rows
-        const int J = (u + BT - 1) / BT;       // list entries a thread, <= BJ
-        const int wbase = warp * 32 * J;       // warp w: [wbase, wbase + 32 J)
         int in = 0;
         if (u <= RANK_SORT) {
             // few distinct rows: a thread a row, its place the number of
@@ -1009,73 +1159,8 @@ bucket_kernel(const uint32_t* __restrict__ keys, long long n,
             if (local_last && p == plan.n - 1 &&
                 ((dl[0] >> shift) & dmask) == ((dl[m - 1] >> shift) & dmask))
                 break;                         // one bucket: already in order
-            for (int i = tid; i < BWARPS * RADIX / 4; i += BT)
-                reinterpret_cast<uint4*>(whist)[i] = make_uint4(0, 0, 0, 0);
-            __syncthreads();
-            // digit | rank << 9 of each of the thread's entries, in (warp,
-            // j, lane) order, as scatter_kernel ranks a tile: the digits
-            // first (independent loads), then the ranks (a chain through
-            // the warp's counters)
-            uint32_t dr[BJ];
-#pragma unroll
-            for (int j = 0; j < BJ; ++j) {
-                if (j >= J) break;
-                const int pos = wbase + j * 32 + lane;
-                dr[j] = pos < u ? (dl[lst[in][pos]] >> shift) & dmask
-                                : (uint32_t)RADIX;
-            }
-#pragma unroll
-            for (int j = 0; j < BJ; ++j) {
-                if (j >= J) break;
-                const uint32_t d = dr[j];
-                const unsigned peers = __match_any_sync(FULL, d);
-                const int leader = __ffs(peers) - 1;
-                uint32_t old = 0;
-                if (lane == leader && d < RADIX) {
-                    old = whist[warp * RADIX + d];
-                    whist[warp * RADIX + d] = old + __popc(peers);
-                }
-                __syncwarp();
-                const uint32_t rank = __shfl_sync(FULL, old, leader) +
-                                      __popc(peers & lt);
-                dr[j] = d | (rank << 9);
-            }
-            __syncthreads();
-            {   // digit d's warp prefixes: thread d takes warps 0-7, thread
-                // d + 256 warps 8-15; then the digits' starts, added in
-                const int d = tid & (RADIX - 1), h = tid / RADIX;
-                uint32_t c[BWARPS / 2], s = 0;
-#pragma unroll
-                for (int k = 0; k < BWARPS / 2; ++k)
-                    c[k] = whist[(h * BWARPS / 2 + k) * RADIX + d];
-#pragma unroll
-                for (int k = 0; k < BWARPS / 2; ++k) {
-                    whist[(h * BWARPS / 2 + k) * RADIX + d] = s;
-                    s += c[k];
-                }
-                if (!h) tstart[d] = s;              // the first half's sum
-                __syncthreads();
-                const uint32_t first = h ? tstart[d] : 0u;
-                uint32_t tot;
-                const uint32_t st = block_exclusive_scan<uint32_t, BWARPS>(
-                    h ? first + s : 0u, &tot, sh);
-                if (h) tstart[d] = st;
-                __syncthreads();
-                const uint32_t add = tstart[d] + (h ? first : 0u);
-#pragma unroll
-                for (int k = 0; k < BWARPS / 2; ++k)
-                    whist[(h * BWARPS / 2 + k) * RADIX + d] += add;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int j = 0; j < BJ; ++j) {
-                if (j >= J) break;
-                const uint32_t d = dr[j] & 511u;
-                if (d < RADIX)
-                    lst[1 - in][whist[warp * RADIX + d] + (dr[j] >> 9)] =
-                        lst[in][wbase + j * 32 + lane];
-            }
-            __syncthreads();
+            block_lsd_pass(dl, shift, dmask, lst[in], lst[1 - in], u, whist,
+                           tstart, sh);
             in = 1 - in;
         }
         const uint16_t* o = lst[in];
@@ -1119,6 +1204,614 @@ struct Bucket {
     }
 };
 
+// ---------------------------------------------------------------------------
+// lex_order: the buckets of the partitioned rows, every row kept
+// ---------------------------------------------------------------------------
+
+constexpr int LEX_WARP = 256;              // rows a warp ranks: a bucket at most
+constexpr int LEX_Q = LEX_WARP / 32;       // rows a lane
+
+// Rows a block of lex_block_kernel holds (a multiple of 32): a row takes
+// its nl limbs and two 16-bit list entries (its index stays in device
+// memory: the permutation reads it once, at the end).
+int lex_capacity(int nl) {
+    long long c = (long long)(SMEM_MAX - BUCKET_FIXED) / (4 * nl + 4);
+    c = c / 32 * 32;
+    return (int)(c < BUCKET_MAX ? c : BUCKET_MAX);
+}
+
+size_t lex_smem(int nl, int cap) {
+    return BUCKET_FIXED + (size_t)cap * (4 * nl + 4);
+}
+
+// Bucket b's first row: starts[b], or without a partition one bucket [0, n).
+__device__ __forceinline__ long long bucket_first(const int* starts,
+                                                  long long b, long long n) {
+    return starts ? starts[b] : (b ? n : 0);
+}
+
+// A warp's rows wk (NL, LEX_WARP) in shared memory, m of them, lane + 32 q
+// the lane's q-th: before[q] = the rows that precede it, those with a
+// smaller key and the equal ones of smaller index (every lane reads the
+// same row at a time).
+template <int NL, int Q>
+__device__ __forceinline__ void warp_rank(const uint32_t* wk, int m, int lane,
+                                          int* before) {
+    uint32_t ki[Q][NL];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+        const int i = min(lane + 32 * q, m - 1);     // past m: unused
+#pragma unroll
+        for (int l = 0; l < NL; ++l) ki[q][l] = wk[l * LEX_WARP + i];
+        before[q] = 0;
+    }
+    for (int j = 0; j < m; ++j) {
+        uint32_t kj[NL];
+#pragma unroll
+        for (int l = 0; l < NL; ++l) kj[l] = wk[l * LEX_WARP + j];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            bool lt = false, eq = true;
+#pragma unroll
+            for (int l = 0; l < NL; ++l) {
+                lt = lt || (eq && kj[l] < ki[q][l]);
+                eq = eq && kj[l] == ki[q][l];
+            }
+            before[q] += lt || (eq && j < lane + 32 * q);
+        }
+    }
+}
+
+// The same with each row's key one 64-bit word wp (its digits below the
+// partition, then its position: packed_key), unique: one compare a pair.
+template <int Q>
+__device__ __forceinline__ void warp_rank_packed(
+        const unsigned long long* wp, int m, int lane, int* before) {
+    unsigned long long ki[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+        ki[q] = wp[min(lane + 32 * q, m - 1)];
+        before[q] = 0;
+    }
+    for (int j = 0; j < m; ++j) {
+        const unsigned long long kj = wp[j];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) before[q] += kj < ki[q];
+    }
+}
+
+constexpr int LEX_PACKED = 7;      // digits below the partition, at most,
+                                   // for packed_key (8 bits a digit, 8 of
+                                   // position)
+
+// Row k's digits of plan (least significant first) in 8-bit slots, the
+// most significant first, then its position in its bucket (< LEX_WARP):
+// a bucket's rows share every other digit, so this orders them as their
+// keys do, ties by position (the index order of the stable partition).
+template <int NL>
+__device__ __forceinline__ unsigned long long packed_key(const uint32_t* k,
+                                                         const Plan& plan,
+                                                         int pos) {
+    unsigned long long v = 0;
+    for (int p = plan.n - 1; p >= 0; --p) {
+        uint32_t limb = 0;
+#pragma unroll
+        for (int l = 0; l < NL; ++l) limb = l == plan.limb[p] ? k[l] : limb;
+        v = (v << 8) | ((limb >> plan.shift[p]) & ((1u << plan.bits[p]) - 1u));
+    }
+    return (v << 8) | (unsigned)pos;
+}
+
+// A warp a bucket (warp-stride over nb) of keys (NL, n) partitioned by
+// their prefix, each bucket's rows in index order (stable passes), pay
+// (n,) their indices, plan the live digits below the partition.  A
+// bucket of m <= LEX_WARP rows: its rows into the warp's slice of shared
+// memory, as packed_key words when plan has at most LEX_PACKED digits
+// (warp_rank_packed), else as limbs (warp_rank); each placed by counting:
+// out[s + place] = pay[s + i].  A larger bucket is listed as (first row,
+// end) in big (<= cap rows: lex_block_kernel's) or over (more: the
+// host's LSD route); info[0], info[1] count them, info[2] the non-empty
+// buckets ranked here.
+template <int NL>
+__global__ void __launch_bounds__(THREADS)
+lex_warp_kernel(const uint32_t* __restrict__ keys, long long n,
+                const uint32_t* __restrict__ pay,
+                const int* __restrict__ starts, long long nb, int cap,
+                Plan plan, long long* __restrict__ out, long long* info,
+                long long* __restrict__ big, long long* __restrict__ over) {
+    constexpr int WORDS = (NL > 2 ? NL : 2) * LEX_WARP;
+    __shared__ __align__(8) uint32_t wks[WARPS][WORDS];
+    __shared__ int s_ranked;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (threadIdx.x == 0) s_ranked = 0;
+    __syncthreads();
+    uint32_t* wk = wks[warp];
+    unsigned long long* wp = reinterpret_cast<unsigned long long*>(wk);
+    const bool packed = plan.n <= LEX_PACKED;
+    int ranked = 0;
+    const long long warps = (long long)gridDim.x * WARPS;
+    for (long long b = (long long)blockIdx.x * WARPS + warp; b < nb;
+         b += warps) {
+        const long long s = bucket_first(starts, b, n);
+        const int m = (int)(bucket_first(starts, b + 1, n) - s);
+        if (m == 0) continue;
+        if (m > LEX_WARP) {
+            if (lane == 0) {
+                const int side = m > cap;
+                const unsigned long long j = atomicAdd(
+                    reinterpret_cast<unsigned long long*>(info + side), 1ULL);
+                long long* list = side ? over : big;
+                list[2 * j] = s;
+                list[2 * j + 1] = s + m;
+            }
+            continue;
+        }
+        ++ranked;
+        int before[LEX_Q];
+        if (packed) {
+            for (int i = lane; i < m; i += 32) {
+                uint32_t k[NL];
+#pragma unroll
+                for (int l = 0; l < NL; ++l) k[l] = keys[(size_t)l * n + s + i];
+                wp[i] = packed_key<NL>(k, plan, i);
+            }
+            __syncwarp();
+            switch ((m + 31) >> 5) {
+                case 1: warp_rank_packed<1>(wp, m, lane, before); break;
+                case 2: warp_rank_packed<2>(wp, m, lane, before); break;
+                case 3: warp_rank_packed<3>(wp, m, lane, before); break;
+                case 4: warp_rank_packed<4>(wp, m, lane, before); break;
+                case 5: warp_rank_packed<5>(wp, m, lane, before); break;
+                case 6: warp_rank_packed<6>(wp, m, lane, before); break;
+                case 7: warp_rank_packed<7>(wp, m, lane, before); break;
+                default: warp_rank_packed<8>(wp, m, lane, before); break;
+            }
+        } else {
+#pragma unroll
+        for (int l = 0; l < NL; ++l)
+            for (int i = lane; i < m; i += 32)
+                wk[l * LEX_WARP + i] = keys[(size_t)l * n + s + i];
+        __syncwarp();
+        switch ((m + 31) >> 5) {
+            case 1: warp_rank<NL, 1>(wk, m, lane, before); break;
+            case 2: warp_rank<NL, 2>(wk, m, lane, before); break;
+            case 3: warp_rank<NL, 3>(wk, m, lane, before); break;
+            case 4: warp_rank<NL, 4>(wk, m, lane, before); break;
+            case 5: warp_rank<NL, 5>(wk, m, lane, before); break;
+            case 6: warp_rank<NL, 6>(wk, m, lane, before); break;
+            case 7: warp_rank<NL, 7>(wk, m, lane, before); break;
+            default: warp_rank<NL, 8>(wk, m, lane, before); break;
+        }
+        }
+#pragma unroll
+        for (int q = 0; q < LEX_Q; ++q) {
+            const int i = lane + 32 * q;
+            if (i < m) out[s + before[q]] = (long long)pay[s + i];
+        }
+        __syncwarp();                          // the slice is reused
+    }
+    static_assert(LEX_Q == 8, "warp_rank's cases");
+    if (lane == 0 && ranked) atomicAdd(&s_ranked, ranked);
+    __syncthreads();
+    if (threadIdx.x == 0 && s_ranked)
+        atomicAdd(reinterpret_cast<unsigned long long*>(info + 2),
+                  (unsigned long long)s_ranked);
+}
+
+// Row j precedes row i (key ki): a smaller key, or an equal one and j < i.
+template <int NL>
+__device__ __forceinline__ bool precedes(const uint32_t* ks, int cap, int j,
+                                         const uint32_t* ki, int i) {
+    bool lt = false, eq = true;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        const uint32_t v = ks[(size_t)l * cap + j];
+        lt = lt || (eq && v < ki[l]);
+        eq = eq && v == ki[l];
+    }
+    return lt || (eq && j < i);
+}
+
+// The buckets lex_warp_kernel listed in big (info[0] of them, each of
+// LEX_WARP < m <= cap rows): persistent blocks, a bucket at a time.  Its
+// rows into shared memory, in index order; up to RANK_SORT of them placed
+// by counting (a thread a row), more by stable LSD passes over 16-bit
+// positions (block_lsd_pass) on plan's digits, the live digits below the
+// partition (the bucket's rows share the others); out[s + k] = pay[s + the
+// k-th position].
+template <int NL>
+__global__ void __launch_bounds__(BT, 1)
+lex_block_kernel(const uint32_t* __restrict__ keys, long long n,
+                 const uint32_t* __restrict__ pay,
+                 const long long* __restrict__ info,
+                 const long long* __restrict__ big, int cap, Plan plan,
+                 long long* __restrict__ out) {
+    extern __shared__ __align__(16) uint32_t bsmem[];
+    uint32_t* ks = bsmem;                                 // (NL, cap)
+    uint32_t* whist = ks + (size_t)NL * cap;              // (BWARPS, RADIX)
+    uint32_t* tstart = whist + BWARPS * RADIX;            // (RADIX,)
+    uint32_t* sh = tstart + RADIX;                        // 64
+    uint16_t* lst[2] = {reinterpret_cast<uint16_t*>(sh + 64),
+                        reinterpret_cast<uint16_t*>(sh + 64) + cap};
+    const int tid = threadIdx.x;
+    const long long nbig = info[0];
+    for (long long e = blockIdx.x; e < nbig; e += gridDim.x) {
+        const long long s = big[2 * e];
+        const int m = (int)(big[2 * e + 1] - s);
+        for (int l = 0; l < NL; ++l) {
+#pragma unroll 8
+            for (int i = tid; i < m; i += BT)
+                ks[(size_t)l * cap + i] = keys[(size_t)l * n + s + i];
+        }
+        for (int i = tid; i < m; i += BT) lst[0][i] = (uint16_t)i;
+        __syncthreads();
+        int in = 0;
+        if (m <= RANK_SORT) {
+            if (tid < m) {
+                uint32_t ki[NL];
+#pragma unroll
+                for (int l = 0; l < NL; ++l) ki[l] = ks[(size_t)l * cap + tid];
+                int before = 0;
+#pragma unroll 4
+                for (int j = 0; j < m; ++j)
+                    before += precedes<NL>(ks, cap, j, ki, tid);
+                lst[1][before] = (uint16_t)tid;
+            }
+            __syncthreads();
+            in = 1;
+        } else {
+            for (int p = 0; p < plan.n; ++p) {
+                block_lsd_pass(ks + (size_t)plan.limb[p] * cap, plan.shift[p],
+                               (1u << plan.bits[p]) - 1u, lst[in], lst[1 - in],
+                               m, whist, tstart, sh);
+                in = 1 - in;
+            }
+        }
+        for (int k = tid; k < m; k += BT)
+            out[s + k] = (long long)pay[s + lst[in][k]];
+        __syncthreads();                       // shared memory is reused
+    }
+}
+
+template <int NL>
+struct LexBuckets {
+    static int run(const uint32_t* keys, long long n, const uint32_t* pay,
+                   const int* starts, long long nb, int cap, const Plan& plan,
+                   long long* out, long long* info, long long* big,
+                   long long* over, cudaStream_t st) {
+        if (cap <= LEX_WARP || cap > lex_capacity(NL))
+            return (int)cudaErrorInvalidValue;
+        cudaError_t e = cudaMemsetAsync(info, 0, 3 * sizeof(long long), st);
+        if (e != cudaSuccess) return (int)e;
+        long long blocks = (nb + WARPS - 1) / WARPS;
+        if (blocks > 132 * 64) blocks = 132 * 64;
+        lex_warp_kernel<NL><<<(unsigned)blocks, THREADS, 0, st>>>(
+            keys, n, pay, starts, nb, cap, plan, out, info, big, over);
+        const size_t smem = lex_smem(NL, cap);
+        e = cudaFuncSetAttribute(lex_block_kernel<NL>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        int dev, sms, per_sm;
+        if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+            (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, lex_block_kernel<NL>, BT, smem)) != cudaSuccess)
+            return (int)e;
+        if (sms * per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+        lex_block_kernel<NL><<<(unsigned)(sms * per_sm), BT, smem, st>>>(
+            keys, n, pay, info, big, cap, plan, out);
+        return 0;
+    }
+};
+
+// ---------------------------------------------------------------------------
+// merge_runs: a merge path over two ascending inputs
+// ---------------------------------------------------------------------------
+
+constexpr int M_ITEMS = 8;                 // merged rows a thread
+constexpr int MTILE = THREADS * M_ITEMS;   // 2,048 merged rows a tile
+// flags of a merge: a row below the one before it in its own input (the
+// merge path does not apply), an int64 limb outside [0, 2^32)
+constexpr unsigned long long MF_DESCENT = 1, MF_WIDE = 2;
+
+// The two inputs: rows (na, NL) at a and (nb, NL) at b, uint32 limbs or
+// int64 limbs (wide) whose high words must be 0; their int32 counts.
+struct Pair {
+    const void* a;
+    const void* b;
+    const int* ca;
+    const int* cb;
+    long long na, nb;
+    int wide;
+};
+
+// Row i of input side (0: a, 1: b) into k, high words OR-ed into *high.
+template <int NL>
+__device__ __forceinline__ void pair_row(const Pair& P, int side, long long i,
+                                         uint32_t* k, uint32_t* high) {
+    const void* p = side ? P.b : P.a;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        if (P.wide) {
+            const unsigned long long v =
+                static_cast<const unsigned long long*>(p)[i * NL + l];
+            *high |= (uint32_t)(v >> 32);
+            k[l] = (uint32_t)v;
+        } else {
+            k[l] = static_cast<const uint32_t*>(p)[i * NL + l];
+        }
+    }
+}
+
+// x <= y, limb 0 first, as unsigned.
+template <int NL>
+__device__ __forceinline__ bool row_le(const uint32_t* x, const uint32_t* y) {
+    bool lt = false, eq = true;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        lt = lt || (eq && x[l] < y[l]);
+        eq = eq && x[l] == y[l];
+    }
+    return lt || eq;
+}
+
+// Rows i, j of a tile's shared rows mk (NL, MTILE): mk[i] <= mk[j].
+template <int NL>
+__device__ __forceinline__ bool tile_le(const uint32_t* mk, int i, int j) {
+    uint32_t x[NL], y[NL];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        x[l] = mk[l * MTILE + i];
+        y[l] = mk[l * MTILE + j];
+    }
+    return row_le<NL>(x, y);
+}
+
+template <int NL>
+__device__ __forceinline__ bool tile_eq(const uint32_t* mk, int i,
+                                        const uint32_t* y) {
+    bool eq = true;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) eq = eq && mk[l * MTILE + i] == y[l];
+    return eq;
+}
+
+// splits[t] = the rows of a among the first min(t MTILE, na + nb) merged
+// rows, equal rows taking a's first: the first i in [lo, hi) with a[i] >
+// b[d - 1 - i] (true below it, false from it on, for inputs in order).  A
+// warp a tile border, a 32-way search: each round every lane tests one of
+// 32 points of [lo, hi) and the ballot keeps the part where the test
+// turns (a binary search's 21 dependent loads at 2 M rows in 5 rounds).
+template <int NL>
+__global__ void __launch_bounds__(THREADS)
+merge_split_kernel(Pair P, long long ntiles, long long* __restrict__ splits) {
+    const long long t = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (t > ntiles) return;                   // the whole warp
+    const long long d = min((long long)MTILE * t, P.na + P.nb);
+    long long lo = max(0LL, d - P.nb), hi = min(d, P.na);
+    uint32_t high = 0, x[NL], y[NL];
+    while (lo < hi) {
+        const long long mid = lo + (hi - lo) * lane / 32;
+        pair_row<NL>(P, 0, mid, x, &high);
+        pair_row<NL>(P, 1, d - 1 - mid, y, &high);
+        const int c = __popc(__ballot_sync(FULL, row_le<NL>(x, y)));
+        const long long last = __shfl_sync(FULL, mid, c ? c - 1 : 0);
+        const long long first_false = __shfl_sync(FULL, mid, c < 32 ? c : 31);
+        if (c == 32) {
+            lo = last + 1;
+        } else {
+            if (c) lo = last + 1;
+            hi = first_false;
+        }
+    }
+    if (lane == 0) splits[t] = lo;
+}
+
+// A block a tile of MTILE merged rows: a's rows [splits[t], splits[t + 1])
+// and b's the rest of the tile's diagonal range, into shared memory; a
+// thread merges M_ITEMS consecutive rows (its own split by a binary search
+// in the tile) and marks the rows that differ from the merged row before
+// them (across the tile's border too: the larger of a's and b's rows
+// before the tile).  WRITE false: the tile's runs and count sum into
+// tiles (2, ntiles), and the order check: a row below the one before it
+// in its own input (within the tile or at its border), or a tile whose
+// slices would be negative (the splits of an input out of order), sets
+// MF_DESCENT, a high int64 word MF_WIDE.  WRITE true (after the scan of
+// tiles, on inputs in order): each run's key at its place in uniq (n_u,
+// NL) int64 and the exclusive prefix of the counts before it in S, staged
+// in shared memory and written as contiguous ranges.
+template <int NL, bool WRITE>
+__global__ void __launch_bounds__(THREADS)
+merge_kernel(Pair P, long long ntiles, const long long* __restrict__ splits,
+             long long* tiles, unsigned long long* flags,
+             long long* __restrict__ uniq, long long* __restrict__ S) {
+    extern __shared__ __align__(16) uint32_t msm[];
+    __shared__ long long scan_sh[WARPS];
+    __shared__ uint32_t pv[NL];
+    __shared__ int s_prev;
+    uint32_t* mk = msm;                                     // (NL, MTILE)
+    int* mc = reinterpret_cast<int*>(mk + NL * MTILE);      // (MTILE,)
+    long long* hS = reinterpret_cast<long long*>(mc + MTILE);   // WRITE
+    uint16_t* hsrc = reinterpret_cast<uint16_t*>(hS + MTILE);   // WRITE
+    const int tid = threadIdx.x;
+    const long long t = blockIdx.x;
+    const long long d0 = t * MTILE, d1 = min(P.na + P.nb, d0 + MTILE);
+    const int cnt = (int)(d1 - d0);
+    const long long a0 = splits[t], a1 = splits[t + 1];
+    const long long b0 = d0 - a0, b1 = d1 - a1;
+    if (a1 < a0 || b1 < b0) {                 // an input out of order
+        if (tid == 0) atomicOr(flags, MF_DESCENT);
+        return;
+    }
+    const int la = (int)(a1 - a0), lb = (int)(b1 - b0);
+    uint32_t high = 0;
+#pragma unroll 4
+    for (int i = tid; i < cnt; i += THREADS) {
+        const int side = i >= la;
+        const long long r = side ? b0 + (i - la) : a0 + i;
+        uint32_t k[NL];
+        pair_row<NL>(P, side, r, k, &high);
+#pragma unroll
+        for (int l = 0; l < NL; ++l) mk[l * MTILE + i] = k[l];
+        mc[i] = side ? P.cb[r] : P.ca[r];
+    }
+    if (tid == 0) {
+        uint32_t x[NL], y[NL];
+        int have = 0;
+        if (a0 > 0) {
+            pair_row<NL>(P, 0, a0 - 1, x, &high);
+            have = 1;
+        }
+        if (b0 > 0) {
+            pair_row<NL>(P, 1, b0 - 1, y, &high);
+            if (!have || row_le<NL>(x, y))
+#pragma unroll
+                for (int l = 0; l < NL; ++l) x[l] = y[l];
+            have = 1;
+        }
+#pragma unroll
+        for (int l = 0; l < NL; ++l) pv[l] = have ? x[l] : 0u;
+        s_prev = have;
+    }
+    __syncthreads();
+    if (!WRITE) {
+        bool bad = false;
+        for (int i = tid; i < cnt; i += THREADS) {
+            const int side = i >= la;
+            uint32_t prev[NL], cur[NL];
+            if (i > (side ? la : 0)) {
+#pragma unroll
+                for (int l = 0; l < NL; ++l) prev[l] = mk[l * MTILE + i - 1];
+            } else {
+                const long long r = side ? b0 : a0;     // the slice's first
+                if (r == 0) continue;
+                pair_row<NL>(P, side, r - 1, prev, &high);
+            }
+#pragma unroll
+            for (int l = 0; l < NL; ++l) cur[l] = mk[l * MTILE + i];
+            bad = bad || !row_le<NL>(prev, cur);
+        }
+        if (__syncthreads_or(bad) && tid == 0) atomicOr(flags, MF_DESCENT);
+        if (__syncthreads_or(high != 0) && tid == 0) atomicOr(flags, MF_WIDE);
+    }
+    // the thread's rows k0 .. k0 + M_ITEMS - 1 of the tile
+    const int k0 = tid * M_ITEMS;
+    int src[M_ITEMS];
+    unsigned heads = 0;
+    int nh = 0;
+    long long w = 0;
+    if (k0 < cnt) {
+        int lo = max(0, k0 - lb), hi = min(k0, la);
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (tile_le<NL>(mk, mid, la + k0 - 1 - mid))
+                lo = mid + 1;
+            else
+                hi = mid;
+        }
+        int ai = lo, bi = k0 - lo;
+        // the merged row before the thread's first: -1 none, -2 pv
+        int prev;
+        if (k0 == 0)
+            prev = s_prev ? -2 : -1;
+        else if (ai > 0 && bi > 0)
+            prev = tile_le<NL>(mk, ai - 1, la + bi - 1) ? la + bi - 1 : ai - 1;
+        else
+            prev = ai > 0 ? ai - 1 : la + bi - 1;
+#pragma unroll
+        for (int j = 0; j < M_ITEMS; ++j) {
+            src[j] = 0;
+            if (k0 + j >= cnt) continue;
+            const bool take_a =
+                bi >= lb || (ai < la && tile_le<NL>(mk, ai, la + bi));
+            const int p = take_a ? ai++ : la + bi++;
+            src[j] = p;
+            bool head;
+            if (prev == -1) {
+                head = true;
+            } else if (prev == -2) {
+                head = !tile_eq<NL>(mk, p, pv);
+            } else {
+                uint32_t y[NL];
+#pragma unroll
+                for (int l = 0; l < NL; ++l) y[l] = mk[l * MTILE + prev];
+                head = !tile_eq<NL>(mk, p, y);
+            }
+            heads |= (unsigned)head << j;
+            nh += head;
+            w += mc[p];
+            prev = p;
+        }
+    }
+    long long tot_h, tot_w;
+    const long long eh = block_exclusive_scan<long long>(nh, &tot_h, scan_sh);
+    const long long ew = block_exclusive_scan<long long>(w, &tot_w, scan_sh);
+    if (!WRITE) {
+        if (tid == 0) {
+            tiles[t] = tot_h;
+            tiles[ntiles + t] = tot_w;
+        }
+        return;
+    }
+    long long sw = tiles[ntiles + t] + ew;
+    int r = (int)eh;
+#pragma unroll
+    for (int j = 0; j < M_ITEMS; ++j) {
+        if (k0 + j >= cnt) break;
+        if ((heads >> j) & 1u) {
+            hsrc[r] = (uint16_t)src[j];
+            hS[r] = sw;
+            ++r;
+        }
+        sw += mc[src[j]];
+    }
+    __syncthreads();
+    const long long r0 = tiles[t];
+    const int nr = (int)tot_h;
+    for (int q = tid; q < nr * NL; q += THREADS) {
+        const int rr = q / NL, l = q - rr * NL;
+        uniq[r0 * NL + q] = (long long)mk[l * MTILE + hsrc[rr]];
+    }
+    for (int rr = tid; rr < nr; rr += THREADS) S[r0 + rr] = hS[rr];
+}
+
+size_t merge_smem(int nl, bool write) {
+    return (size_t)MTILE * (4 * nl + 4 + (write ? 8 + 2 : 0));
+}
+
+template <int NL, bool WRITE>
+int merge_attr() {
+    const size_t smem = merge_smem(NL, WRITE);
+    if (smem <= SMEM_DEFAULT) return 0;
+    return (int)cudaFuncSetAttribute(merge_kernel<NL, WRITE>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+}
+
+// The count step: splits (ntiles + 1,), tiles (2, ntiles) scanned, meta
+// (3,) int64: the runs, the counts' total, the flags (zeroed by the
+// caller).
+template <int NL>
+struct MergeCount {
+    static int run(const Pair& P, long long ntiles, long long* splits,
+                   long long* tiles, long long* meta, cudaStream_t st) {
+        const int e = merge_attr<NL, false>();
+        if (e) return e;
+        merge_split_kernel<NL><<<(unsigned)((ntiles + WARPS) / WARPS),
+                                 THREADS, 0, st>>>(P, ntiles, splits);
+        merge_kernel<NL, false><<<(unsigned)ntiles, THREADS,
+                                  merge_smem(NL, false), st>>>(
+            P, ntiles, splits, tiles,
+            reinterpret_cast<unsigned long long*>(meta + 2), nullptr, nullptr);
+        scan_ll_kernel<<<2, THREADS, 0, st>>>(tiles, tiles, ntiles, nullptr,
+                                              meta);
+        return 0;
+    }
+};
+
 // Groups of buckets (ops/kmer_sort.py:bucket_groups on the card): starts
 // (nb + 1,) the buckets' first rows (null: one bucket, [0, n)).  With
 // T = cap / 2, a bucket over T rows is a group alone; the others group
@@ -1137,9 +1830,7 @@ groups_kernel(const int* __restrict__ starts, long long nb, long long n,
     const long long t = cap / 2 > 1 ? cap / 2 : 1;
     const long long per = (nb + GT - 1) / GT;
     const long long b0 = threadIdx.x * per, b1 = min(nb, b0 + per);
-    auto first = [&](long long b) -> long long {
-        return starts ? starts[b] : (b ? n : 0);
-    };
+    auto first = [&](long long b) { return bucket_first(starts, b, n); };
     auto cut = [&](long long b) -> bool {
         const long long s0 = first(b), s1 = first(b + 1);
         if (b % RADIX == 0 || s1 - s0 > t) return true;
@@ -1298,6 +1989,25 @@ unsigned grid_of(long long n) {
     long long blocks = (n + THREADS - 1) / THREADS;
     return (unsigned)(blocks > (1LL << 20) ? (1LL << 20) : blocks);
 }
+
+// The write step (after the count step and the host's read of meta):
+// uniq (n_u, NL) int64, counts (n_u,) int32, S (n_u,) int64 of scratch.
+template <int NL>
+struct MergeWrite {
+    static int run(const Pair& P, long long ntiles, const long long* splits,
+                   long long* tiles, const long long* meta, long long n_u,
+                   long long* uniq, int* counts, long long* S,
+                   cudaStream_t st) {
+        const int e = merge_attr<NL, true>();
+        if (e) return e;
+        merge_kernel<NL, true><<<(unsigned)ntiles, THREADS,
+                                 merge_smem(NL, true), st>>>(
+            P, ntiles, splits, tiles, nullptr, uniq, S);
+        run_counts_kernel<<<grid_of(n_u), THREADS, 0, st>>>(S, meta, n_u,
+                                                            counts);
+        return 0;
+    }
+};
 
 // Run Launch<nl>::run(args...) for 1 <= nl <= MAX_NL; the CUDA error of
 // the launches (0 when they were accepted).
@@ -1586,4 +2296,89 @@ extern "C" int ks_runs_write_launch(const void* keys, const void* pay,
         static_cast<const long long*>(totals), n_u,
         static_cast<int*>(counts));
     return (int)cudaGetLastError();
+}
+
+// Rows a block of lex_order's bucket kernel holds at nl limbs.
+extern "C" int ks_lex_capacity(int nl) {
+    return nl >= 1 && nl <= MAX_NL ? lex_capacity(nl) : 0;
+}
+
+// lex_order's buckets: keys (nl, n) uint32 grouped by prefix (starts
+// (nb + 1,) int32 from ks_bounds_launch, or null: one bucket [0, n)), each
+// bucket's rows in index order, pay (n,) uint32 their indices; plan: the
+// live digits below the partition, least significant first; cap <=
+// ks_lex_capacity(nl).  out (n,) int64 gets the permutation of every
+// bucket of at most cap rows; info (3,) int64 the buckets over LEX_WARP
+// rows (big), those over cap (over), the buckets ranked by a warp; big and
+// over (nb, 2) int64 list (first row, end) of each (over: the caller's).
+extern "C" int ks_lex_buckets_launch(const void* keys, long long n, int nl,
+                                     const void* pay, const void* starts,
+                                     long long nb, int cap,
+                                     const int* plan_host, int npass,
+                                     void* out, void* info, void* big,
+                                     void* over, void* stream) {
+    Plan plan;
+    if (bad_rows(n, nl) || nb < 1 || !read_plan(plan_host, npass, nl, &plan))
+        return (int)cudaErrorInvalidValue;
+    return dispatch<LexBuckets>(nl, static_cast<const uint32_t*>(keys), n,
+                                static_cast<const uint32_t*>(pay),
+                                static_cast<const int*>(starts), nb, cap,
+                                plan, static_cast<long long*>(out),
+                                static_cast<long long*>(info),
+                                static_cast<long long*>(big),
+                                static_cast<long long*>(over),
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Merged rows a tile of the merge path.
+extern "C" int ks_merge_tile() { return MTILE; }
+
+// merge_runs' merge path, count step: ka (na, nl), kb (nb, nl) rows (int32
+// bit patterns, or int64 limbs when wide), ca / cb their int32 counts;
+// splits (ntiles + 1,) and tiles (2, ntiles) int64 of scratch, ntiles =
+// ceil((na + nb) / ks_merge_tile()), na + nb >= 1; meta (3,) int64 gets
+// the runs, the counts' total and the flags (1: an input row below the
+// one before it, the merge path does not apply; 2: an int64 limb outside
+// [0, 2^32)).
+extern "C" int ks_merge_count_launch(const void* ka, const void* kb,
+                                     long long na, long long nb, int nl,
+                                     int wide, const void* ca, const void* cb,
+                                     void* splits, void* tiles, void* meta,
+                                     void* stream) {
+    if (na < 0 || nb < 0 || bad_rows(na + nb, nl) || na + nb == 0)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    long long* m = static_cast<long long*>(meta);
+    const cudaError_t e = cudaMemsetAsync(m + 2, 0, sizeof(long long), st);
+    if (e != cudaSuccess) return (int)e;
+    const Pair P{ka, kb, static_cast<const int*>(ca),
+                 static_cast<const int*>(cb), na, nb, wide};
+    return dispatch<MergeCount>(nl, P, (na + nb + MTILE - 1) / MTILE,
+                                static_cast<long long*>(splits),
+                                static_cast<long long*>(tiles), m, st);
+}
+
+// merge_runs' merge path, write step (after the count step on the same
+// arguments, its flags 0): uniq (n_u, nl) int64, counts (n_u,) int32, S
+// (n_u,) int64 of scratch.
+extern "C" int ks_merge_write_launch(const void* ka, const void* kb,
+                                     long long na, long long nb, int nl,
+                                     int wide, const void* ca, const void* cb,
+                                     const void* splits, void* tiles,
+                                     const void* meta, long long n_u,
+                                     void* uniq, void* counts, void* S,
+                                     void* stream) {
+    if (na < 0 || nb < 0 || bad_rows(na + nb, nl) || na + nb == 0 ||
+        n_u < 1 || n_u > na + nb)
+        return (int)cudaErrorInvalidValue;
+    const Pair P{ka, kb, static_cast<const int*>(ca),
+                 static_cast<const int*>(cb), na, nb, wide};
+    return dispatch<MergeWrite>(nl, P, (na + nb + MTILE - 1) / MTILE,
+                                static_cast<const long long*>(splits),
+                                static_cast<long long*>(tiles),
+                                static_cast<const long long*>(meta), n_u,
+                                static_cast<long long*>(uniq),
+                                static_cast<int*>(counts),
+                                static_cast<long long*>(S),
+                                static_cast<cudaStream_t>(stream));
 }

@@ -15,9 +15,16 @@ once into 2-bit words, a window's limbs by funnel shifts, the block's
 offset by a decoupled look-back); sort_count as a prefix partition (the
 LSD passes on the top live digits, sort_plan) plus a bucket sort-and-count
 in shared memory (bucket_groups), a bucket over the block's capacity
-taking the LSD route on its own segment; merge_runs and lex_order as a
-stable LSD radix sort of SoA uint32 limbs in 8-bit digits (digit_plan), a
-pass skipped where its digit has one bucket, and a run pass.
+taking the LSD route on its own segment; lex_order as the same prefix
+partition carrying the row index (lex_plan: buckets of tens of rows),
+each bucket ranked by counting, by a warp up to LEX_WARP rows, by a block
+(counting or LSD passes in shared memory) up to LEX_CAPACITY, the LSD
+route beyond; merge_runs as a merge path over its two ascending inputs
+(diagonal splits, a tile merged in shared memory, runs marked and summed
+across tile borders), the LSD route (a stable LSD radix sort of SoA
+uint32 limbs in 8-bit digits, digit_plan, a pass skipped where its digit
+has one bucket, then a run pass) when the kernel finds an input out of
+order.
 
 On CPU tensors each entry runs its plain version (the tensor code of
 kmer/megasort.py and ops/limbs.py:plain_lex_order); on CUDA tensors it
@@ -28,10 +35,11 @@ window the count gathers; sort_count and merge_runs take either);
 sort_count and merge_runs give (uniq (n, nl) int64 ascending, counts (n,)
 int32) on both; lex_order an int64 permutation.  int64 limbs must lie
 in [0, 2^32): the card raises on any other value.  COUNT records every
-launch with its shape, and sort_count's routes; each entry syncs with
-the host once or twice (the rows or runs it made; the live digits that
-decide the passes), sort_count twice more for each bucket over
-capacity.
+launch with its shape, and the routes of sort_count, lex_order and
+merge_runs (ROUTES); each entry syncs with the host once or twice (the
+rows or runs it made; the live digits that decide the passes; merge_runs'
+order flag; lex_order's buckets over capacity), sort_count twice more
+and lex_order once more for each bucket over capacity.
 """
 
 from __future__ import annotations
@@ -57,21 +65,40 @@ ENTRIES = ("extract_keys", "sort_count", "merge_runs", "lex_order")
 # rows a block of the bucket kernel holds, by nl (csrc/kmer_sort.cu:
 # bucket_capacity; sort_count checks it against the built kernel)
 BUCKET_CAPACITY = {1: 16384, 2: 13408, 3: 10720, 4: 8928}
+# rows a block of lex_order's bucket kernel holds, by nl (csrc/kmer_sort.cu:
+# lex_capacity; lex_order checks it against the built kernel)
+LEX_CAPACITY = {1: 16384, 2: 16384, 3: 13408, 4: 10720}
+LEX_WARP = 256            # rows a warp of lex_order ranks: a bucket at most
+LEX_MEAN = 128            # lex_order's partition aims its mean bucket here
 MAX_PARTITION = 2         # partition digits at most (65,536 buckets)
-ROUTES = ("partition_passes", "bucket_groups", "over_capacity")
+MERGE_TILE = 2048         # merged rows a tile of merge_runs' merge path
+# merge_runs' flags (the count step's meta[2])
+MERGE_DESCENT, MERGE_WIDE = 1, 2
+# each entry's routes on the card (LaunchCount.routes)
+ROUTES = {"sort_count": ("partition_passes", "bucket_groups", "over_capacity"),
+          "lex_order": ("partition_passes", "warp_buckets", "block_buckets",
+                        "over_capacity"),
+          "merge_runs": ("merge_path", "lsd")}
+
+
+def _no_routes() -> dict:
+    return {entry: dict.fromkeys(routes, 0) for entry, routes in ROUTES.items()}
 
 
 @dataclass
 class LaunchCount:
     """Launches of each entry and each launch's shape (CUDA path only):
     ("extract_keys", B, L, k1), ("sort_count", n, nl),
-    ("merge_runs", na, nb, nl), ("lex_order", n, nl); and sort_count's
-    routes: the partition passes it ran, the groups of buckets its bucket
-    kernel took, the buckets over capacity that took the LSD route.  Safe
-    to add to from several threads."""
+    ("merge_runs", na, nb, nl), ("lex_order", n, nl); and the routes, by
+    entry (ROUTES): sort_count's partition passes, the groups of buckets
+    its bucket kernel took, the buckets over capacity that took the LSD
+    route; lex_order's partition passes, the buckets ranked by a warp, by
+    a block, over capacity (the LSD route); merge_runs' calls that took
+    the merge path or, an input out of order, the LSD route.  Safe to add
+    to from several threads."""
     by_entry: dict = field(default_factory=lambda: dict.fromkeys(ENTRIES, 0))
     shapes: list = field(default_factory=list)
-    routes: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
+    routes: dict = field(default_factory=_no_routes)
     lock: threading.Lock = field(default_factory=threading.Lock,
                                  repr=False, compare=False)
 
@@ -83,17 +110,17 @@ class LaunchCount:
         with self.lock:
             self.by_entry = dict.fromkeys(ENTRIES, 0)
             self.shapes = []
-            self.routes = dict.fromkeys(ROUTES, 0)
+            self.routes = _no_routes()
 
     def add(self, entry: str, *shape: int) -> None:
         with self.lock:
             self.by_entry[entry] += 1
             self.shapes.append((entry, *shape))
 
-    def add_routes(self, **counts: int) -> None:
+    def add_routes(self, entry: str, **counts: int) -> None:
         with self.lock:
             for route, n in counts.items():
-                self.routes[route] += n
+                self.routes[entry][route] += n
 
 
 COUNT = LaunchCount()
@@ -113,6 +140,11 @@ _ARGTYPES = {
     "ks_compact_write_launch": [_P, _P, _LL, _I, _P, _P, _P, _P, _P],
     "ks_runs_count_launch": [_P, _P, _LL, _I, _P, _P],
     "ks_runs_write_launch": [_P, _P, _LL, _I, _P, _P, _LL, _P, _P, _P],
+    "ks_lex_buckets_launch": [_P, _LL, _I, _P, _P, _LL, _I, _P, _I, _P, _P,
+                              _P, _P],
+    "ks_merge_count_launch": [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P],
+    "ks_merge_write_launch": [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P,
+                              _LL, _P, _P, _P],
 }
 
 
@@ -138,10 +170,14 @@ def _scratch_words(n: int) -> int:
     return fn(n)
 
 
-def _built_capacity(nl: int) -> int:
-    fn = _build.load("kmer_sort").ks_bucket_capacity
-    fn.argtypes, fn.restype = [_I], _I
-    return fn(nl)
+def _check_built(what: str, entry: str, want: int, *arg: int) -> None:
+    """Raise unless the built kernel's constant equals the wrapper's."""
+    fn = getattr(_build.load("kmer_sort"), entry)
+    fn.argtypes, fn.restype = [_I] * len(arg), _I
+    got = fn(*arg)
+    if got != want:
+        raise RuntimeError(f"kmer_sort: the kernel's {what} is {got}, not "
+                           f"{want}")
 
 
 def _ints(values) -> ctypes.Array:
@@ -190,6 +226,27 @@ def sort_plan(live, n: int, cap: int):
     part = sorted(msd[:d])
     rest = [p for p in range(len(live)) if live[p] and p not in part]
     return part, rest + part[:1]
+
+
+def lex_plan(live, n: int):
+    """lex_order's plan on the card.  live: for each digit of
+    digit_plan(nl), whether it takes two values or more in the rows; n
+    rows.  Returns (part, rest), indices into digit_plan(nl), least
+    significant first:
+      - part, the partition digits: the most significant live digits, as
+        many as bring the mean bucket n / 256^d to LEX_MEAN rows or fewer,
+        at most MAX_PARTITION (none when n <= LEX_MEAN: one bucket, which a
+        warp ranks).  Every row is kept, so the buckets are small: tens of
+        rows, each ranked by a warp (61 at the level-0 build's 4 M
+        fingerprints);
+      - rest, the digits of a bucket's LSD passes in a block: every live
+        digit below the partition (a bucket's rows share the others)."""
+    msd = [p for p in range(len(live) - 1, -1, -1) if live[p]]
+    d = 0
+    while d < min(MAX_PARTITION, len(msd)) and n > LEX_MEAN * RADIX ** d:
+        d += 1
+    part = sorted(msd[:d])
+    return part, [p for p in range(len(live)) if live[p] and p not in part]
 
 
 def bucket_groups(starts, cap: int) -> np.ndarray:
@@ -407,6 +464,18 @@ def _runs(keys: torch.Tensor, pay: torch.Tensor | None):
     return uniq, counts
 
 
+def _bounds(src: torch.Tensor, plan, part) -> torch.Tensor:
+    """The first row of each bucket of SoA keys (nl, n) grouped by the
+    partition digits part (ascending prefix): (256^d + 1,) int32."""
+    nl, n = src.shape
+    starts = torch.empty(RADIX ** len(part) + 1, dtype=torch.int32,
+                         device=src.device)
+    _launch("ks_bounds_launch", src.device, src.data_ptr(), n, nl,
+            _ints([v for p in reversed(part) for v in plan[p][:2]]),
+            len(part), starts.data_ptr())
+    return starts
+
+
 def sort_count(keys: torch.Tensor):
     """Sort limb rows (n, nl) (int64 limbs, or their int32 bit patterns on
     a card) and run-length count them: (uniq (n_u, nl) int64 ascending,
@@ -424,9 +493,7 @@ def sort_count(keys: torch.Tensor):
         return (torch.empty((0, nl), dtype=torch.int64, device=dev),
                 torch.empty(0, dtype=torch.int32, device=dev))
     cap = BUCKET_CAPACITY[nl]
-    if _built_capacity(nl) != cap:
-        raise RuntimeError(f"kmer_sort: the kernel's bucket capacity at "
-                           f"nl={nl} is {_built_capacity(nl)}, not {cap}")
+    _check_built(f"bucket capacity at nl={nl}", "ks_bucket_capacity", cap, nl)
     plan = digit_plan(nl)
     buf, _, _, live = _load((keys,), plan, 0, counts=False)
     part, rest = sort_plan(live, n, cap)
@@ -435,10 +502,7 @@ def sort_count(keys: torch.Tensor):
     if part:
         _passes(buf, None, plan, [p in part for p in range(len(plan))], None)
         nb = RADIX ** len(part)
-        starts = torch.empty(nb + 1, dtype=torch.int32, device=dev)
-        _launch("ks_bounds_launch", dev, src.data_ptr(), n, nl,
-                _ints([v for p in reversed(part) for v in plan[p][:2]]),
-                len(part), starts.data_ptr())
+        starts = _bounds(src, plan, part)
     # the groups (bucket_groups), formed on the card: info = [G, groups
     # over capacity, unique rows, (g, r0, r1) of each group over capacity]
     gstart = torch.empty(nb + 1, dtype=torch.int32, device=dev)
@@ -475,15 +539,18 @@ def sort_count(keys: torch.Tensor):
             run_counts.data_ptr(), n, nl, gstart.data_ptr(), goff.data_ptr(),
             info.data_ptr(), uniq.data_ptr(), counts.data_ptr())
     COUNT.add("sort_count", n, nl)
-    COUNT.add_routes(partition_passes=len(part), bucket_groups=G - n_over,
-                     over_capacity=n_over)
+    COUNT.add_routes("sort_count", partition_passes=len(part),
+                     bucket_groups=G - n_over, over_capacity=n_over)
     return uniq, counts
 
 
 def merge_runs(ka, ca, kb, cb):
     """Merge two (keys (n_i, nl), counts (n_i,) int32) runs: every key
     once, ascending, with the sum of its counts in both (any number of
-    equal rows)."""
+    equal rows).  On a card: the merge path when both inputs are ascending
+    (non-decreasing; sort_count's and merge_runs' tables are), which the
+    count step checks as it merges (one host sync: the runs and the
+    order flag); else the LSD route."""
     if ka.device.type == "cpu":
         return plain_merge_runs(ka, ca, kb, cb)
     ka, kb = _check_rows("ka", ka), _check_rows("kb", kb)
@@ -495,26 +562,85 @@ def merge_runs(ka, ca, kb, cb):
                          "int32, kb (B, nl) of ka's dtype, cb (B,) int32)")
     if na + nb > MAX_ROWS:
         raise ValueError(f"kmer_sort: {na + nb} rows, more than {MAX_ROWS}")
+    dev = ka.device
     if na + nb == 0:
-        return (torch.empty((0, nl), dtype=torch.int64, device=ka.device),
-                torch.empty(0, dtype=torch.int32, device=ka.device))
-    s, w = _radix((ka, kb), digit_plan(nl), 1,
-                  (ca.contiguous(), cb.contiguous()))
-    out = _runs(s, w)
+        return (torch.empty((0, nl), dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev))
+    ca, cb = ca.contiguous(), cb.contiguous()
+    _check_built("merge tile", "ks_merge_tile", MERGE_TILE)
+    n_tiles = -(-(na + nb) // MERGE_TILE)
+    splits = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
+    tiles = torch.empty(2 * n_tiles, dtype=torch.int64, device=dev)
+    meta = torch.empty(3, dtype=torch.int64, device=dev)
+    args = (ka.data_ptr(), kb.data_ptr(), na, nb, nl,
+            int(ka.dtype == torch.int64), ca.data_ptr(), cb.data_ptr(),
+            splits.data_ptr(), tiles.data_ptr(), meta.data_ptr())
+    _launch("ks_merge_count_launch", dev, *args)
+    n_u, _, flags = meta.tolist()
+    if flags & MERGE_WIDE:
+        raise ValueError("kmer_sort: int64 limbs must lie in [0, 2^32)")
+    if flags & MERGE_DESCENT:            # an input out of order
+        out = _runs(*_radix((ka, kb), digit_plan(nl), 1, (ca, cb)))
+        route = "lsd"
+    else:
+        out = (torch.empty((n_u, nl), dtype=torch.int64, device=dev),
+               torch.empty(n_u, dtype=torch.int32, device=dev))
+        S = torch.empty(n_u, dtype=torch.int64, device=dev)
+        _launch("ks_merge_write_launch", dev, *args, n_u, out[0].data_ptr(),
+                out[1].data_ptr(), S.data_ptr())
+        route = "merge_path"
     COUNT.add("merge_runs", na, nb, nl)
+    COUNT.add_routes("merge_runs", **{route: 1})
     return out
 
 
 def lex_order(keys: torch.Tensor) -> torch.Tensor:
     """Permutation (int64) sorting rows (n, nl) of limbs lexicographically,
     limb 0 first, all 32 bits of every limb; rows with equal keys keep
-    their input order."""
+    their input order.  On a card: the load with the row index (a host
+    sync for the live digits), the partition passes of lex_plan, the
+    buckets' bounds, a warp or a block a bucket (a host sync for the
+    routes and the buckets over capacity), the LSD route for each of
+    those."""
     if keys.device.type == "cpu":
         return plain_lex_order(keys)
     keys = _check_rows("keys", keys)
     n, nl = keys.shape
+    dev = keys.device
     if n == 0:
-        return torch.empty(0, dtype=torch.int64, device=keys.device)
-    _, perm = _radix((keys,), digit_plan(nl), 2)
+        return torch.empty(0, dtype=torch.int64, device=dev)
+    cap = LEX_CAPACITY[nl]
+    _check_built(f"lex capacity at nl={nl}", "ks_lex_capacity", cap, nl)
+    plan = digit_plan(nl)
+    buf, pay, _, live = _load((keys,), plan, 2, counts=False)
+    part, rest = lex_plan(live, n)
+    routes = dict.fromkeys(ROUTES["lex_order"], 0)
+    if not any(live):                    # every row equal: input order
+        out = pay[0].long()
+    else:
+        if part:
+            _passes(buf, pay, plan, [p in part for p in range(len(plan))],
+                    None)
+        src, psrc = buf[len(part) % 2], pay[len(part) % 2]
+        starts = _bounds(src, plan, part) if part else None
+        nb = RADIX ** len(part)
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        info = torch.empty(3, dtype=torch.int64, device=dev)
+        lists = torch.empty((2, nb, 2), dtype=torch.int64, device=dev)
+        _launch("ks_lex_buckets_launch", dev, src.data_ptr(), n, nl,
+                psrc.data_ptr(),
+                starts.data_ptr() if starts is not None else None, nb, cap,
+                _ints([v for p in rest for v in plan[p]]), len(rest),
+                out.data_ptr(), info.data_ptr(), lists[0].data_ptr(),
+                lists[1].data_ptr())
+        n_big, n_over, n_warp = info.tolist()
+        if n_over:
+            for r0, r1 in lists[1, :n_over].tolist():
+                _, p = _radix((), plan, 1, (psrc[r0:r1],),
+                              soa=(src, r0, r1 - r0))
+                out[r0:r1] = p
+        routes.update(partition_passes=len(part), warp_buckets=n_warp,
+                      block_buckets=n_big, over_capacity=n_over)
     COUNT.add("lex_order", n, nl)
-    return perm.long()
+    COUNT.add_routes("lex_order", **routes)
+    return out

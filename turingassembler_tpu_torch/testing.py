@@ -873,7 +873,9 @@ def kmer_sort_cases(seed: int = 0):
     capacity: the LSD route); 200,000 equal rows (no live digit, no
     pass); 300,000 rows of 100,000 canonical 46-mers, whose prefixes skew
     to A (a bucket of A-first rows about 7x one of T-first rows); 40,000
-    one-limb rows (a partition at nl = 1)."""
+    one-limb rows (a partition at nl = 1).  And for lex_order's: 60,000
+    rows of three values in each limb (0, 2^31 - 1, 2^32 - 2), three
+    buckets over a block's capacity (the LSD route with the row index)."""
     rng = np.random.default_rng(seed)
     M32 = 0xFFFFFFFF
 
@@ -943,4 +945,9 @@ def kmer_sort_cases(seed: int = 0):
         "canonical-skewed prefixes": canonical_rows(300_000, 100_000, 46),
         "one limb, k1=16": pool_rows(40_000, 1, 10_000, 16),
     }
-    return {name: (keys, weights(len(keys))) for name, keys in cases.items()}
+    cases = {name: (keys, weights(len(keys))) for name, keys in cases.items()}
+    few = np.random.default_rng(seed + 1)
+    keys = few.integers(0, 3, (60_000, 3)).astype(np.int64) * 0x7FFFFFFF
+    cases["few values, large"] = (keys, few.integers(1, 1000, len(keys))
+                                  .astype(np.int32))
+    return cases
