@@ -51,6 +51,21 @@ before printing a result:
      plain and bound ms (sort_count beside torch.unique, lex_order beside
      torch.sort of the rows packed into int64; sort_count, merge_runs and
      lex_order each in turns with the LSD form and by kernel)
+ 25. unitig_build kernels vs plain (run here, after phase 23, on its
+     workload), exact: the level-0 build's kernels
+     (csrc/unitig_build.cu) against their plain versions on the card:
+     front_keys, link_nodes, rank_chains and assemble_unitigs in the
+     build's order on every case of testing.unitig_build_cases (the
+     circular case's cycle break and second ranking on the card), and
+     each case's whole build card == CPU (the circular one must break its
+     cycles on the card); then on phase 5's workload counted on the card
+     (1,999,953 k-edges, k=45), each entry again and its wrapper, device
+     (profiler, device_ms's retry), plain and bound ms (assemble_unitigs
+     beside torch.unique of the endpoints); the build's split by the
+     kernel route and the tensor route (the plain versions swapped in),
+     in turns: wall, host syncs (torch's sync debug mode; device_build's
+     own at most 3 on the kernel route), device ms by stage, the output
+     pulls and rebuild_adjacency
   5. full width: bench.py's workload (2 Mbp genome, 1,048,576 reads of
      150 bp, k=45; the bench twin's make_workload) through the bench
      twin's stages, count -> level-0 build -> minimizer index ->
@@ -224,10 +239,18 @@ before printing a result:
      script requires extract_keys and sort_count launches in each count
      path (phases 5, 7, 9, 16, 17, 18), merge_runs in phase 17, and every
      merge of the paths on the merge path
+ 26. the unitig_build kernels vs plain once more, at every shape that
+     the paths launched their four entries at (each phase's count set to
+     0 just before it and read just after; the bench twin reports its
+     own): a synthetic table of each (n, k) through all four entries, a
+     rank_chains shape of no such table on random chains.  Before it the
+     script requires all four entries in every phase whose path builds
+     level 0 on the card (UB_PATH_PHASES: 4-9, 16, 18)
  20. the `kernels` JSON line (nw_align, devhash, devhash_count_reads,
      mm_map, kmer_extract_keys, kmer_sort_count, kmer_merge_runs,
-     kmer_lex_order), the nvidia-smi line, and last the result line
-     {"ok": true, "device": {...}}
+     kmer_lex_order, unitig_front_keys, unitig_link_nodes,
+     unitig_rank_chains, unitig_assemble_unitigs), the nvidia-smi line,
+     and last the result line {"ok": true, "device": {...}}
 
 It needs one CUDA GPU; without one it exits non-zero and prints no
 result.  Kernels build at first use into build/kernels/, the host
@@ -294,13 +317,17 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
+def device_ms(fn, reps: int, kernel: str, tries: int = 3,
+              whole: bool = False) -> float:
     """Device time a call of fn spends in the kernels whose names hold
-    `kernel`, from torch.profiler over reps calls: the kernels alone,
-    without the host's time to enqueue them.  The profiler at times sees
-    fewer launches than were made (CUPTI drops them); it is asked again
-    up to `tries` times, and past that the call is timed with CUDA events
-    (the wrapper's host time included), which the log says."""
+    `kernel` (with whole, in all its kernels and memsets, copies aside),
+    from torch.profiler over reps calls: the kernels alone, without the
+    host's time to enqueue them.  The profiler at times sees fewer
+    launches than were made (CUPTI drops them); it is asked again up to
+    `tries` times while it sees fewer than reps `kernel` launches, and
+    past that the call is timed with CUDA events (the wrapper's host time
+    included), which the log says."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()                                   # warm-up
     torch.cuda.synchronize()
@@ -312,6 +339,10 @@ def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
         ev = [e for e in prof.key_averages() if kernel in e.key]
         seen = sum(e.count for e in ev)
         if seen >= reps:
+            if whole:
+                ev = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and "Memcpy" not in e.key]
             return sum(e.self_device_time_total for e in ev) / 1e3 / reps
     log(f"device_ms: the profiler saw {seen} of {reps} {kernel} launches "
         f"{tries} times; CUDA events instead (the wrapper included)")
@@ -1542,17 +1573,21 @@ def device_ms_all(fn, reps):
     return t if t else None
 
 
-def ks_timing(what, fn, plain, nbytes, ops, reps=5, library=None):
+def ks_timing(what, fn, plain, nbytes, ops, reps=5, library=None,
+              tag="kmer_sort", anchor=None):
     """An entry's figures at one shape: wrapper ms (CUDA events around the
-    call, its host syncs included), device ms (profiler), plain ms, the
-    library call's ms, and the bound."""
+    call, its host syncs included), device ms (profiler; with an anchor
+    kernel name, device_ms's retry over all the call's kernels), plain ms,
+    the library call's ms, and the bound."""
     bound, by = bound_of(nbytes, ops)
-    t = {"ms": cuda_ms(fn, reps), "device_ms": device_ms_all(fn, reps),
+    t = {"ms": cuda_ms(fn, reps),
+         "device_ms": device_ms_all(fn, reps) if anchor is None
+         else device_ms(fn, reps, anchor, whole=True),
          "plain_ms": cuda_ms(plain, 2), "bound_ms": bound, "bound_by": by,
          "library_ms": cuda_ms(library, 2) if library else None}
     dev = "not measured" if t["device_ms"] is None \
         else f"{t['device_ms']:.4f} ms"
-    log(f"kmer_sort {what}: wrapper {t['ms']:.4f} ms, device "
+    log(f"{tag} {what}: wrapper {t['ms']:.4f} ms, device "
         f"{dev}, plain {t['plain_ms']:.4f} ms, bound "
         f"{bound:.5f} ms ({by}: {nbytes} bytes, {ops} operations)"
         + (f", library {t['library_ms']:.4f} ms" if library else ""))
@@ -1842,7 +1877,7 @@ def phase_ks_kernel_vs_plain(workload):
         f"{r} {n_}" for r, n_ in routes.items()))
     if routes["partition_passes"] != 2 or not routes["warp_buckets"]:
         raise AssertionError(f"kmer_sort: the fingerprints took {routes}")
-    library = lex_library(fp)
+    library = lex_library(ks.as_limbs(fp))
     hold("torch.sort of the packed fingerprints (the library call)",
          [library()], [want])
     nf = fp.shape[0]
@@ -1853,9 +1888,9 @@ def phase_ks_kernel_vs_plain(workload):
     turns = turns_and_split(f"lex_order of the fingerprints ({nf} x 2)",
                             new, old)
     res["lex_order"] = ks_timing(
-        f"lex_order (the level-0 build's fingerprints, {nf} x 2 int64)",
-        new, lambda: ks.plain_lex_order(fp),
-        8 * 2 * nf + 8 * nf, 2 * nf * log2_ceil(nf), library=library)
+        f"lex_order (the level-0 build's fingerprints, {nf} x 2 int32 bit "
+        "patterns)", new, lambda: ks.plain_lex_order(fp),
+        4 * 2 * nf + 8 * nf, 2 * nf * log2_ceil(nf), library=library)
     res["lex_order"]["routes"] = routes
     res["lex_order"]["turns_device_ms"] = [ms_ for _, ms_ in turns]
     res["lex_order"]["lsd_form_device_ms"] = [
@@ -1970,6 +2005,361 @@ def phase_ks_hold_path_shapes(recorded):
         torch.cuda.empty_cache()
     log(f"kmer_sort: {len(shapes)} shapes of the paths held, max |diff| "
         f"{err}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the unitig_build kernels (the level-0 build's device program)
+# ---------------------------------------------------------------------------
+
+UB_ENTRIES = ("front_keys", "link_nodes", "rank_chains", "assemble_unitigs")
+# the jitted JAX device code each entry replaces
+UB_REPLACES = {
+    "front_keys": "turingassembler_tpu/graph/device_build.py:71",
+    "link_nodes": "turingassembler_tpu/graph/device_build.py:90",
+    "rank_chains": "turingassembler_tpu/graph/device_build.py:150",
+    "assemble_unitigs": "turingassembler_tpu/graph/device_build.py:228"}
+# each entry's first kernel: device_ms's check that the profiler saw it
+UB_ANCHORS = {"front_keys": "front_kernel", "link_nodes": "link_edges_kernel",
+              "rank_chains": "rank_init_kernel",
+              "assemble_unitigs": "unitig_sums_kernel"}
+# the phases whose path builds level 0 on the card: each must launch all
+# four entries (phase 6's spilled runs and phase 13's ranks build on the
+# host)
+UB_PATH_PHASES = (
+    "phase_slice_parity", "phase_full_width", "phase_levels_parity",
+    "phase_levels_full_width", "phase_scaffold_parity",
+    "phase_scaffold_full_width", "phase_ecoli", "phase_bench_twin")
+# unitig_build launches a phase made in a subprocess (phase 18's bench
+# twin): (by entry, shapes), added by main()
+UB_REMOTE = []
+
+
+def hold_ub(what, got, want) -> int:
+    """Largest |difference| of unitig_build outputs and their plain
+    versions; raises unless every pair has one shape and dtype and it is
+    0."""
+    err = 0
+    for g_, w_ in zip(got, want):
+        if g_.shape != w_.shape or g_.dtype != w_.dtype:
+            raise AssertionError(
+                f"unitig_build {what}: {g_.dtype} {tuple(g_.shape)} != the "
+                f"plain version's {w_.dtype} {tuple(w_.shape)}")
+        if g_.numel():
+            err = max(err, int((g_.long() - w_.long()).abs().max()))
+    if err:
+        raise AssertionError(f"unitig_build {what}: max |diff| {err}")
+    return err
+
+
+def ub_entries(u, c, k, what, hold):
+    """Every entry of the build on the card against its plain version on
+    the same inputs, in the build's order (the cycle break and the second
+    ranking where the first finds cycles).  Returns the kernel route's
+    lanes and scalars for the timings."""
+    from turingassembler_tpu_torch.graph import device_build as tdb
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    fp, flags, info = ub.front_keys(u, k)
+    hold(f"front_keys on {what}", (fp, flags, info), ub.plain_front_keys(u, k))
+    order = ks.lex_order(fp)
+    link = ub.link_nodes(fp, order, flags)
+    hold(f"link_nodes on {what}", link, ub.plain_link_nodes(fp, order, flags))
+    sk, tk, lbase, prev = link
+    head, dist, info = ub.rank_chains(prev, info)
+    ph, pd, pinfo = ub.plain_rank_chains(prev)
+    hold(f"rank_chains on {what}", (head, dist, info[:2]),
+         (ph, pd, pinfo[:2]))
+    n_cyc, n_e, bad = info.tolist()
+    if bad:
+        raise AssertionError(f"unitig_build {what}: a limb out of range")
+    if n_cyc:
+        prev, head, dist = tdb._break_cycles(prev, head, info)
+        n_e = info.tolist()[1]
+        ph, pd, pinfo = ub.plain_rank_chains(prev)
+        hold(f"rank_chains after the cycle break on {what}",
+             (head, dist, info[:2]), (ph, pd, pinfo[:2]))
+    out = ub.assemble_unitigs(u, c, sk, tk, lbase, head, dist, k, n_e)
+    want = ub.plain_assemble_unitigs(u, c, sk, tk, lbase, head, dist, k, n_e)
+    hold(f"assemble_unitigs on {what}", (out.ints, out.seq),
+         (want.ints, want.seq))
+    return {"fp": fp, "flags": flags, "order": order, "link": link,
+            "head": head, "dist": dist, "n_cyc": n_cyc, "n_e": n_e,
+            "unitigs": out}
+
+
+def ub_routes():
+    """The build's entries by route: the kernels (the wrappers) and the
+    tensor route (their plain versions on the card, the build before
+    csrc/unitig_build.cu; lex_order is a kernel in both)."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    kernels = {e: getattr(ub, e) for e in UB_ENTRIES}
+    tensor = {e: getattr(ub, "plain_" + e) for e in UB_ENTRIES}
+    return {"kernels": kernels, "tensor": tensor}
+
+
+@contextlib.contextmanager
+def ub_route(fns):
+    """graph/device_build.py with fns (an ub_routes() route) in place of
+    ops/unitig_build.py's entries."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    saved = {e: getattr(ub, e) for e in UB_ENTRIES}
+    for e, fn in fns.items():
+        setattr(ub, e, fn)
+    try:
+        yield
+    finally:
+        for e, fn in saved.items():
+            setattr(ub, e, fn)
+
+
+def host_syncs(fn):
+    """fn's result and the synchronizing CUDA calls it made (torch's sync
+    debug mode warns at each)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def ub_build_split(route, fns, u, c, k, lanes):
+    """One route's level-0 build of the bench table: its wall (median of 3
+    synchronized builds), its host syncs (all, and device_build's own),
+    each stage's device ms (profiler, the stage alone on the kernel
+    route's inputs), the output pulls' and the host's rebuild_adjacency
+    ms."""
+    from turingassembler_tpu_torch.graph import device_build as tdb
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    n = u.shape[0]
+    build = lambda: tdb.build_graph_on_device(u, c, n, k,  # noqa: E731
+                                              device="cuda")
+    with ub_route(fns):
+        build()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = build()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        _, syncs = host_syncs(build)
+        own = tdb.STATS.last_syncs
+    stages = {
+        "front_keys": lambda: fns["front_keys"](u, k),
+        "lex_order": lambda: ks.lex_order(lanes["fp"]),
+        "link_nodes": lambda: fns["link_nodes"](lanes["fp"], lanes["order"],
+                                                lanes["flags"]),
+        "rank_chains": lambda: fns["rank_chains"](lanes["link"][3]),
+        "assemble_unitigs": lambda: fns["assemble_unitigs"](
+            u, c, *lanes["link"][:3], lanes["head"], lanes["dist"], k,
+            lanes["n_e"])}
+    dev = {name: device_ms_all(fn, 3) for name, fn in stages.items()}
+    out = stages["assemble_unitigs"]()
+    t0 = time.perf_counter()
+    out.to_host()
+    pulls = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    g.rebuild_adjacency()
+    adjacency = (time.perf_counter() - t0) * 1e3
+    res = {"wall_ms": sorted(walls)[1], "syncs": syncs, "own_syncs": own,
+           "device_ms": dev, "pulls_ms": pulls, "adjacency_ms": adjacency}
+    log(f"unitig_build (b) the build by the {route} route: wall "
+        f"{res['wall_ms']:.3f} ms (median of 3), {syncs} host syncs "
+        f"({own} of device_build's own), device ms by stage: " + ", ".join(
+            f"{k_} {'not measured' if v is None else f'{v:.4f}'}"
+            for k_, v in dev.items())
+        + f"; output pulls {pulls:.3f} ms, rebuild_adjacency "
+        f"{adjacency:.3f} ms")
+    return res
+
+
+def phase_ub_kernel_vs_plain(workload):
+    """Phase 25 (after phase 23, before phase 5, on its workload): the
+    level-0 build's kernels (csrc/unitig_build.cu) against their plain
+    versions on the card, exact: (a) each entry on every non-empty case
+    of testing.unitig_build_cases (with the circular case's cycle break
+    and second ranking on the card), and every case's whole build on the
+    card == on the CPU, the circular one through the cycle break; (b) on
+    phase 5's workload counted on the card (1,999,953 k-edges at k = 45):
+    each entry again, then its wrapper, device (profiler), plain and
+    bound ms (assemble_unitigs beside torch.unique of the endpoints, the
+    renumbering's library call); the build's split (wall, host syncs,
+    device ms by stage, output pulls, rebuild_adjacency) by the kernel
+    route and the tensor route in turns.  Returns the kernels line's
+    figures."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.graph import device_build as tdb
+    from turingassembler_tpu_torch.kmer.megasort import count_reads_device
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    err, n_gates = 0, 0
+
+    def hold(what, got, want):
+        nonlocal err, n_gates
+        err = max(err, hold_ub(what, got, want))
+        n_gates += 1
+
+    # (a) the edge cases
+    for name, (keys, counts, k) in tt.unitig_build_cases().items():
+        u, c = put(keys, counts)
+        if len(keys):
+            r = ub_entries(u, c, k, repr(name), hold)
+            log(f"unitig_build (a) {name!r} ({len(keys)} k-edges): "
+                f"{r['n_cyc']} cycle lanes, {r['n_e']} unitigs == plain")
+            if name.startswith("circular") and not r["n_cyc"]:
+                raise AssertionError("unitig_build: the circular case has "
+                                     "no cycle")
+        breaks = tdb.STATS.cycle_breaks
+        g = tdb.build_graph_on_device(u, c, len(keys), k, device="cuda")
+        if name.startswith("circular") and \
+                tdb.STATS.cycle_breaks != breaks + 1:
+            raise AssertionError("unitig_build: the circular build broke no "
+                                 "cycle on the card")
+        gc = tdb.build_graph_on_device(u.cpu(), c.cpu(), len(keys), k,
+                                       device="cpu")
+        for f in ("edge_source", "edge_target", "edge_rc", "edge_count",
+                  "seq_off", "seq_data", "node_rc", "adj_off", "adj_list"):
+            hold(f"the build's {f} on {name!r}, card vs CPU",
+                 [torch.as_tensor(getattr(g, f))],
+                 [torch.as_tensor(getattr(gc, f))])
+    log(f"unitig_build (a) testing.unitig_build_cases: {n_gates} gates, max "
+        f"|diff| {err}")
+
+    # (b) the bench table
+    _, reads, lengths = workload
+    u, c, n = count_reads_device(reads, lengths, 45, device="cuda")
+    u, c, k = u[:n], c[:n], 45
+    lanes = ub_entries(u, c, k, f"the bench table ({n} k-edges)", hold)
+    n_e, D, nl1 = lanes["n_e"], 2 * n, u.shape[1]
+    sk, tk, lbase, prev = lanes["link"]
+    head, dist = lanes["head"], lanes["dist"]
+    nl = (k + 15) // 16
+    res = {}
+    res["front_keys"] = ks_timing(
+        f"front_keys ({n} x {nl1} int64 k-edges, k={k})",
+        lambda: ub.front_keys(u, k), lambda: ub.plain_front_keys(u, k),
+        8 * nl1 * n + 8 * D + n, n * (64 * nl + 4 * nl1 + 42),
+        tag="unitig_build", anchor=UB_ANCHORS["front_keys"])
+    fp, order, flags = lanes["fp"], lanes["order"], lanes["flags"]
+    res["link_nodes"] = ks_timing(
+        f"link_nodes ({D} lanes)", lambda: ub.link_nodes(fp, order, flags),
+        lambda: ub.plain_link_nodes(fp, order, flags),
+        8 * D + 8 * D + n + 13 * D, 30 * D, tag="unitig_build",
+        anchor=UB_ANCHORS["link_nodes"])
+    res["rank_chains"] = ks_timing(
+        f"rank_chains ({D} lanes, {ub.rounds(D)} rounds at most)",
+        lambda: ub.rank_chains(prev), lambda: ub.plain_rank_chains(prev),
+        4 * D + 8 * D, 4 * D * ub.rounds(D), tag="unitig_build",
+        anchor=UB_ANCHORS["rank_chains"])
+    # the renumbering's input: the heads' source and the tails' target keys
+    d_idx = torch.arange(D, device="cuda")
+    is_head = head == d_idx
+    u_of = (torch.cumsum(is_head, 0) - 1)[head.long()]
+    ulen = torch.bincount(u_of, minlength=n_e)
+    tail = dist == ulen[u_of] - 1
+    tail_d = torch.empty(n_e, dtype=torch.int64, device="cuda")
+    tail_d[u_of[tail]] = d_idx[tail]
+    e_src = sk[torch.nonzero(is_head).squeeze(1)].long()
+    e_tgt = tk[tail_d].long()
+    res["assemble_unitigs"] = ks_timing(
+        f"assemble_unitigs ({D} lanes, {n_e} unitigs)",
+        lambda: ub.assemble_unitigs(u, c, sk, tk, lbase, head, dist, k, n_e),
+        lambda: ub.plain_assemble_unitigs(u, c, sk, tk, lbase, head, dist, k,
+                                          n_e),
+        4 * n + D + 8 * D + 8 * n_e + 8 * nl1 * n_e + 8 * (5 * n_e + 2)
+        + D + k * n_e, 10 * D + k * n_e, tag="unitig_build",
+        anchor=UB_ANCHORS["assemble_unitigs"],
+        library=lambda: torch.unique(torch.cat([e_src // 2, e_tgt // 2]),
+                                     sorted=True, return_inverse=True))
+
+    # the build's split, the kernel and the tensor route in turns
+    routes = ub_routes()
+    turns = [(r_, ub_build_split(r_, routes[r_], u, c, k, lanes))
+             for r_ in ("kernels", "tensor", "tensor", "kernels")]
+    for r_, sp in turns:
+        if r_ == "kernels" and sp["own_syncs"] > 3:
+            raise AssertionError(f"unitig_build: the kernel route's build "
+                                 f"made {sp['own_syncs']} syncs of its own")
+    res["split"] = turns
+    log(f"unitig_build (b) the bench shapes: all {n_gates} gates max |diff| "
+        f"{err}")
+    res["max_abs_err"] = err
+    return res
+
+
+def ub_table(n, k, seed):
+    """n sorted unique canonical k-edge rows (int64 limbs) on the card and
+    their counts: the windows of a random genome (chains) and random
+    (k+1)-mers, n of them kept."""
+    from turingassembler_tpu_torch.ops import kmers as km
+    from turingassembler_tpu_torch.ops import limbs as lb
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k1 = k + 1
+    g = torch.randint(0, 4, (1, n // 2 + k1), dtype=torch.uint8,
+                      device="cuda", generator=gen)
+    walk = km._pack_windows(g, k1)[0]
+    nl1 = walk.shape[1]
+    rnd = torch.randint(0, 1 << 32, (n, nl1), dtype=torch.int64,
+                        device="cuda", generator=gen)
+    used = 2 * k1 - 32 * (nl1 - 1)
+    rnd[:, -1] &= ((1 << used) - 1) << (32 - used)
+    rows = torch.unique(lb.canonicalize(torch.cat([walk, rnd]), k1)[0], dim=0)
+    keep = torch.randperm(rows.shape[0], device="cuda", generator=gen)[:n]
+    counts = torch.randint(1, 100, (n,), dtype=torch.int32, device="cuda",
+                           generator=gen)
+    return rows[keep.sort().values], counts
+
+
+def ub_chains(D, seed):
+    """prev_ptr (D,) int32 on the card: a random permutation cut into
+    chains, a few closed into pure cycles."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    perm = torch.randperm(D, device="cuda", generator=gen)
+    prev = torch.full((D,), -1, dtype=torch.int32, device="cuda")
+    prev[perm[1:]] = perm[:-1].int()
+    cuts = torch.randperm(D, device="cuda", generator=gen)[:max(D // 1000, 1)]
+    prev[perm[cuts]] = -1
+    return prev
+
+
+def phase_ub_hold_path_shapes(recorded):
+    """Phase 26: the level-0 build's kernels against their plain versions
+    once more, at every shape the paths launched them at (`recorded`, as
+    unitig_build.COUNT records them): a synthetic table (ub_table) of
+    each (n, k) through all four entries, and a rank_chains shape of no
+    such table on random chains.  Returns the largest |difference| (0)."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    err, n_gates = 0, 0
+
+    def hold(what, got, want):
+        nonlocal err, n_gates
+        err = max(err, hold_ub(what, got, want))
+        n_gates += 1
+
+    tables = sorted({(sh[1], sh[2]) for sh in recorded
+                     if sh[0] in ("front_keys", "assemble_unitigs")})
+    for i, (n, k) in enumerate(tables):
+        u, c = ub_table(n, k, 2_000 + i)
+        ub_entries(u, c, k, f"a path shape (n={n}, k={k})", hold)
+        del u, c
+        torch.cuda.empty_cache()
+    lanes = {2 * n for n, _ in tables}
+    for sh in sorted({sh for sh in recorded if sh[0] == "rank_chains"}):
+        if sh[1] not in lanes:
+            prev = ub_chains(sh[1], 3_000 + sh[1] % 1000)
+            h, d, info = ub.rank_chains(prev)
+            ph, pd, pinfo = ub.plain_rank_chains(prev)
+            hold(f"rank_chains at D={sh[1]}", (h, d, info[:2]),
+                 (ph, pd, pinfo[:2]))
+    if {sh[1] for sh in recorded if sh[0] == "link_nodes"} - \
+            {n for n, _ in tables}:
+        raise AssertionError("unitig_build: a link_nodes shape without its "
+                             "front_keys shape")
+    log(f"unitig_build: {len(tables)} tables of the paths' shapes held "
+        f"({n_gates} gates), max |diff| {err}")
     return err
 
 
@@ -4256,6 +4646,14 @@ def phase_bench_twin(phase5_reads_per_s):
               ks[0], routes[0])
     log(f"bench twin: kmer_sort {len(ks[0])} launches (counts and level-0 "
         "builds)")
+    ub = [json.loads(ln[len("unitig_build shapes: "):])
+          for ln in proc.stderr.splitlines()
+          if ln.startswith("unitig_build shapes: ")]
+    if len(ub) != 1:
+        raise AssertionError("bench twin: no `unitig_build shapes:` line")
+    UB_REMOTE.append(({e: sum(1 for sh in ub[0] if sh[0] == e)
+                       for e in UB_ENTRIES}, [tuple(sh) for sh in ub[0]]))
+    log(f"bench twin: unitig_build {len(ub[0])} launches (level-0 builds)")
     builds = [int(ln.rsplit(":", 1)[1]) for ln in proc.stderr.splitlines()
               if ln.startswith("pool builds in the timed map passes:")]
     log(f"bench twin: the graph's pool made {builds} times in the timed map "
@@ -4362,14 +4760,17 @@ def main():
     build_kernels()
 
     walls, rss = {}, {}
-    from turingassembler_tpu_torch.ops import kmer_sort
-    # each phase's kmer_sort launches, by entry, and their shapes: the
-    # count is set to 0 just before a phase and read just after
-    ks_count = {}
+    from turingassembler_tpu_torch.ops import kmer_sort, unitig_build
+    # each phase's kmer_sort and unitig_build launches, by entry, and their
+    # shapes: the counts are set to 0 just before a phase and read just
+    # after
+    ks_count, ub_count = {}, {}
 
     def phase(fn, *args):
         kmer_sort.COUNT.reset()
         KS_REMOTE.clear()
+        unitig_build.COUNT.reset()
+        UB_REMOTE.clear()
         t0 = time.perf_counter()
         res = fn(*args)
         walls[fn.__name__] = time.perf_counter() - t0
@@ -4384,6 +4785,12 @@ def main():
                           for r, n_ in rs.items()}
                       for e, rs in routes.items()}
         ks_count[fn.__name__] = (by, shs, routes)
+        by = dict(unitig_build.COUNT.by_entry)
+        shs = list(unitig_build.COUNT.shapes)
+        for b, sub in UB_REMOTE:
+            by = {e: by[e] + b[e] for e in UB_ENTRIES}
+            shs += sub
+        ub_count[fn.__name__] = (by, shs)
         return res
 
     from turingassembler_tpu_torch.ops import mm_map
@@ -4411,6 +4818,7 @@ def main():
     phase(phase_slice_parity)
     mm, workload = phase(phase_mm_kernel_vs_plain)
     ks = phase(phase_ks_kernel_vs_plain, workload)
+    ub = phase(phase_ub_kernel_vs_plain, workload)
     launches, shapes, bench, reads_per_s = path(phase_full_width, workload)
     del workload
     phase(phase_levels_parity)
@@ -4480,6 +4888,22 @@ def main():
             min(ks_launches.values()) < 1:
         raise AssertionError(f"kmer_sort: launches {ks_launches}, "
                              f"{len(ks_shapes)} shapes")
+    # every phase that drives a path (KS_PATH_PHASES) may build level 0
+    ub_launches = {e: sum(ub_count[p][0][e] for p in KS_PATH_PHASES)
+                   for e in UB_ENTRIES}
+    ub_shapes = [sh for p in KS_PATH_PHASES for sh in ub_count[p][1]]
+    log("unitig_build on the paths: " + ", ".join(
+        f"{e} {n_}" for e, n_ in ub_launches.items()) + "; by phase: "
+        + "; ".join(f"{p[6:]} " + ", ".join(
+            f"{e} {ub_count[p][0][e]}" for e in UB_ENTRIES)
+            for p in KS_PATH_PHASES if any(ub_count[p][0].values())))
+    for p in UB_PATH_PHASES:
+        if not all(ub_count[p][0].values()):
+            raise AssertionError(f"unitig_build: the level-0 build of {p} "
+                                 f"launched {ub_count[p][0]}")
+    if sum(ub_launches.values()) != len(ub_shapes):
+        raise AssertionError(f"unitig_build: launches {ub_launches}, "
+                             f"{len(ub_shapes)} shapes")
     # launches made to compare: read after the paths' counts were taken
     nw["max_abs_err"] = max(nw["max_abs_err"],
                             phase(phase_hold_path_shapes, shapes))
@@ -4487,6 +4911,8 @@ def main():
         phase_mm_hold_path_shapes, mm_count["shapes"] + mm_count["refs"]))
     ks["max_abs_err"] = max(ks["max_abs_err"], phase(
         phase_ks_hold_path_shapes, ks_shapes))
+    ub["max_abs_err"] = max(ub["max_abs_err"], phase(
+        phase_ub_hold_path_shapes, ub_shapes))
     log("phase seconds (set-up included): " + ", ".join(
         f"{k_[6:]} {v:.1f}" for k_, v in walls.items()))
     # cli.main tunes malloc (no mmap, no trim) from phase 7 on
@@ -4537,7 +4963,11 @@ def main():
         **({"over_capacity_buckets": ks_routes[e]["over_capacity"]}
            if e == "sort_count" else {}),
         **({"routes_on_paths": ks_routes[e]} if e in ks_routes else {})}
-        for e in KS_ENTRIES]}),
+        for e in KS_ENTRIES] + [{
+        "name": f"unitig_{e}", "route": "cuda",
+        "source": "turingassembler_tpu_torch/csrc/unitig_build.cu",
+        "replaces": UB_REPLACES[e], "launches": ub_launches[e],
+        "max_abs_err": ub["max_abs_err"], **ub[e]} for e in UB_ENTRIES]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -794,7 +794,7 @@ def test_lex_order_model_on_build_fingerprints(monkeypatch):
 
     monkeypatch.setattr(ks, "lex_order", grab)
     device_build.build_graph_on_device(u, c, n, 45, device="cpu")
-    fp = captured[0].numpy()
+    fp = ks.as_limbs(captured[0]).numpy()    # int32 bit patterns
     assert fp.shape[1] == 2 and len(fp) > ks.LEX_MEAN * ks.RADIX
     want = _jax_lex(fp)
     np.testing.assert_array_equal(kernel(captured[0]).numpy(), want)

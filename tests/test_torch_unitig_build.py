@@ -1,0 +1,681 @@
+"""Port parity: ops/unitig_build.py (the level-0 unitig build's device
+program, the kernels of csrc/unitig_build.cu) on the CPU against the JAX
+package's build on the same k-edge tables, and numpy models of the
+kernels' algorithms against the plain versions.
+
+On the CPU every entry runs its plain version; the card's kernels are held
+against those by chip_smoke.py (phases 25-26).  Here, on
+testing.unitig_build_cases (a circular genome, a palindromic k-edge beside
+a poly-A run, a palindromic node, exact repeats, error-laden branching, k
+= 15, 16, 31, 32, 45, 48, 63, one k-edge, none):
+  - front_keys == JAX `_front` :71-86 and `_fingerprints` (the JAX
+    package's ops, eager); link_nodes and rank_chains == JAX `_front`'s
+    outputs on a table of capacity n (the same lanes); the cycle break and
+    the second ranking == JAX `_break_cycles`; assemble_unitigs == JAX
+    `_assemble`; the whole build == JAX build_graph_on_device;
+  - numpy models of the kernels == the plain versions: front_kernel's
+    uint32 arithmetic (murmur, reverse complement, orientation);
+    link_nodes' node ids by a tiled look-back scan, the byte-nibble
+    adjacency by OR and its popcount degrees (== the plain `degrees`), the
+    successor and predecessor by max; rank_chains' flagged round schedule
+    on two buffers (== JAX `_rank_chains`, cycles flagged, also on chains
+    and cycles of random permutations); assemble_unitigs' scans, the
+    warp-aggregated sums (lo / hi 16-bit halves), the pool writes and the
+    renumbering by marks and a scan (== torch.unique's inverse);
+  - no CPU call reaches the kernel build, and a tensor off the CPU never
+    reaches a plain version (meta tensors, the build stubbed to raise);
+  - a build makes one stacked scalar pull (two after a cycle break) and
+    two output pulls.
+Mirror any edit of csrc/unitig_build.cu in the models here.  Tolerance:
+exact equality everywhere (integers).
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from turingassembler_tpu.graph import device_build as jdb
+from turingassembler_tpu.ops import kmers as jkm
+from turingassembler_tpu.ops import limbs as jlb
+from turingassembler_tpu_torch import _build
+from turingassembler_tpu_torch import testing as tt
+from turingassembler_tpu_torch.graph import device_build as tdb
+from turingassembler_tpu_torch.ops import kmer_sort as ks
+from turingassembler_tpu_torch.ops import limbs as tl
+from turingassembler_tpu_torch.ops import unitig_build as ub
+
+torch.set_num_threads(1)
+
+CASES = tt.unitig_build_cases()
+LIVE = [name for name, (u, _, _) in CASES.items() if len(u)]
+ARRAYS = ("edge_source", "edge_target", "edge_rc", "edge_count", "seq_off",
+          "seq_data", "node_rc", "adj_off", "adj_list")
+U32 = np.uint32
+M32 = U32(0xFFFFFFFF)
+SCAN_PER, SCAN_TILE = 8, 256 * 8       # csrc/unitig_build.cu's scan
+POPC4 = np.array([bin(i).count("1") for i in range(16)], np.int64)
+
+
+# ---------------------------------------------------------------------------
+# the port's plain chain and the JAX functions, once a case
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _port(name):
+    """The plain entries in the build's order on the case's table."""
+    u, c, k = CASES[name]
+    tu, tc = torch.as_tensor(u), torch.as_tensor(c)
+    fp, flags, info = ub.front_keys(tu, k)
+    order = ks.lex_order(fp)
+    sk, tk, lbase, prev = ub.link_nodes(fp, order, flags)
+    head, dist, info = ub.rank_chains(prev, info.clone())
+    n_cyc, n_e, _ = info.tolist()
+    out = {"fp": fp, "flags": flags, "order": order, "src_key": sk,
+           "tgt_key": tk, "lastbase": lbase, "prev_ptr": prev,
+           "head_of": head, "dist": dist, "n_cyc": n_cyc, "n_e": n_e}
+    if n_cyc:
+        prev, head, dist = tdb._break_cycles(prev, head, info)
+        out.update(broken=(prev, head, dist), n_e=info.tolist()[1])
+    lanes = out.get("broken", (prev, head, dist))
+    out["unitigs"] = ub.assemble_unitigs(tu, tc, sk, tk, lbase, lanes[1],
+                                         lanes[2], k, out["n_e"])
+    out["lanes"] = lanes
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_front(name):
+    """JAX _front on the case's table at capacity n: the port's lanes."""
+    u, c, k = CASES[name]
+    out = jdb._front(jnp.asarray(u.astype(np.uint32)), jnp.asarray(c),
+                     jnp.asarray(len(u), jnp.int32), k)
+    return tuple(np.asarray(x) for x in out)
+
+
+def _np(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+# ---------------------------------------------------------------------------
+# the cases
+# ---------------------------------------------------------------------------
+
+def test_cases_hold_their_features():
+    """Each named feature is in its table."""
+    def rc_rows(u, k1):
+        return tl.np_revcomp_limbs(u.astype(np.uint32), k1).astype(np.int64)
+
+    u, _, k = CASES["palindromic k-edge and poly-A, k=21"]
+    assert (rc_rows(u, k + 1) == u).all(axis=1).any()      # rc(e) == e
+    assert (u == 0).all(axis=1).any()                        # poly-A k-edge
+    u, _, k = CASES["palindromic node, k=20"]
+    nodes = np.concatenate([np.asarray(x) for x in jkm.split_kedge(
+        jnp.asarray(u.astype(np.uint32)), k)])
+    assert (tl.np_revcomp_limbs(nodes, k) == nodes).all(axis=1).any()
+    assert _port("circular, k=21")["n_cyc"] > 0
+    assert _port("error-laden branching, k=31")["n_e"] > 100
+    assert {tl.n_limbs(k) * 10 + tl.n_limbs(k + 1)
+            for _, _, k in CASES.values()} >= {11, 12, 22, 23, 33, 34, 44}
+
+
+# ---------------------------------------------------------------------------
+# plain entries == the JAX functions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", LIVE)
+def test_front_keys_vs_jax(name):
+    """fp == JAX _fingerprints of the canonical prefix and suffix nodes;
+    the flags == JAX's orientations and end bases."""
+    u, _, k = CASES[name]
+    ju = jnp.asarray(u.astype(np.uint32))
+    pre, suf = jkm.split_kedge(ju, k)
+    pre_rc, suf_rc = jlb.revcomp_limbs(pre, k), jlb.revcomp_limbs(suf, k)
+    o_pre, o_suf = jlb.lex_lt(pre_rc, pre), jlb.lex_lt(suf_rc, suf)
+    cpre = jnp.where(o_pre[:, None], pre_rc, pre)
+    csuf = jnp.where(o_suf[:, None], suf_rc, suf)
+    fpA, fpB = jdb._fingerprints(jnp.concatenate([cpre, csuf]))
+    p = _port(name)
+    fp = p["fp"].numpy().view(np.uint32)
+    np.testing.assert_array_equal(fp[:, 0], np.asarray(fpA))
+    np.testing.assert_array_equal(fp[:, 1], np.asarray(fpB))
+    f = p["flags"].numpy().astype(np.int64)
+    np.testing.assert_array_equal(f & 1, np.asarray(o_pre))
+    np.testing.assert_array_equal((f >> 1) & 1, np.asarray(o_suf))
+    np.testing.assert_array_equal((f >> 2) & 3,
+                                  np.asarray(jkm.kedge_first_base(ju)))
+    np.testing.assert_array_equal((f >> 4) & 3,
+                                  np.asarray(jkm.kedge_last_base(ju, k)))
+
+
+@pytest.mark.parametrize("name", LIVE)
+def test_link_nodes_vs_jax(name):
+    src_key, tgt_key, lastbase, prev_ptr = _jax_front(name)[:4]
+    p = _port(name)
+    for got, want in ((p["src_key"], src_key), (p["tgt_key"], tgt_key),
+                      (p["lastbase"], lastbase), (p["prev_ptr"], prev_ptr)):
+        assert got.dtype in (torch.int32, torch.uint8)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", LIVE)
+def test_rank_chains_vs_jax(name):
+    head_of, dist, n_cyc = _jax_front(name)[4:]
+    p = _port(name)
+    np.testing.assert_array_equal(p["head_of"].numpy(), head_of)
+    np.testing.assert_array_equal(p["dist"].numpy(), dist)
+    assert p["n_cyc"] == int(n_cyc)
+    if not n_cyc:
+        assert p["n_e"] == int((head_of == np.arange(len(head_of))).sum())
+
+
+def test_break_cycles_vs_jax():
+    """The circular case: two pure cycles broken at mirrored adjacencies,
+    ranked again, == JAX _break_cycles; no cycle is left."""
+    name = "circular, k=21"
+    p = _port(name)
+    assert p["n_cyc"] > 0
+    want = jdb._break_cycles(jnp.asarray(p["prev_ptr"].numpy()),
+                             jnp.asarray(p["head_of"].numpy()))
+    for got, w in zip(p["broken"], want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+    prev, head, _ = p["broken"]
+    assert not (prev.numpy()[head.numpy()] >= 0).any()
+    assert p["n_e"] == 2
+
+
+@pytest.mark.parametrize("name", LIVE)
+def test_assemble_vs_jax(name):
+    u, c, k = CASES[name]
+    p = _port(name)
+    _, head_of, dist = p["lanes"]
+    n, n_e = len(u), p["n_e"]
+    seq_cap = (2 * n + k * n_e + 3) // 4 * 4
+    out = jdb._assemble(
+        jnp.asarray(u.astype(np.uint32)), jnp.asarray(c),
+        jnp.asarray(n, jnp.int32), *(jnp.asarray(_np(x)) for x in (
+            p["src_key"], p["tgt_key"], p["lastbase"], head_of, dist)),
+        k, n_e, seq_cap)
+    (n_edges, total, n_v2, packed, seq_len, ecount, edge_rc, edge_source,
+     edge_target) = (np.asarray(x) for x in out)
+    got = p["unitigs"]
+    assert int(n_edges) == n_e and int(n_v2) == int(got.n_v.item())
+    seq = ((packed[:, None] >> (2 * np.arange(4, dtype=np.uint8))) & 3) \
+        .reshape(-1)[:int(total)]
+    np.testing.assert_array_equal(got.seq.numpy(), seq)
+    np.testing.assert_array_equal(
+        got.seq_off.numpy(), np.concatenate([[0], np.cumsum(seq_len)]))
+    for g_, w_ in ((got.edge_count, ecount), (got.edge_rc, edge_rc),
+                   (got.edge_source, edge_source),
+                   (got.edge_target, edge_target)):
+        np.testing.assert_array_equal(g_.numpy(), w_)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_build_vs_jax(name):
+    """The whole build (CPU) == JAX build_graph_on_device, array for array
+    (the JAX table padded to its power-of-two capacity)."""
+    u, c, k = CASES[name]
+    n = len(u)
+    gt = tdb.build_graph_on_device(torch.as_tensor(u), torch.as_tensor(c), n,
+                                   k, device="cpu")
+    if not n:
+        gj = jdb.build_graph_on_device(None, None, 0, k)
+    else:
+        cap = 1 << max((n - 1).bit_length(), 10)
+        ju = np.full((cap, u.shape[1]), 0xFFFFFFFF, np.uint32)
+        ju[:n] = u
+        jc = np.zeros(cap, np.int32)
+        jc[:n] = c
+        gj = jdb.build_graph_on_device(jnp.asarray(ju), jnp.asarray(jc), n, k)
+    assert gt.n_e == gj.n_e and gt.n_v == gj.n_v
+    for f in ARRAYS:
+        a, b = getattr(gj, f), getattr(gt, f)
+        assert a.shape == b.shape, f
+        assert b.dtype == a.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# numpy models of the kernels
+# ---------------------------------------------------------------------------
+
+def _rotl(x, r):
+    return (x << U32(r)) | (x >> U32(32 - r))
+
+
+def model_murmur(c, seed):
+    """front_kernel's murmur: uint32 products that wrap."""
+    h = np.full(len(c), seed, np.uint32)
+    for limb in range(c.shape[1]):
+        x = c[:, limb] * U32(0xCC9E2D51)
+        x = _rotl(x, 15) * U32(0x1B873593)
+        h = _rotl(h ^ x, 13) * U32(5) + U32(0xE6546B64)
+    h ^= h >> U32(16)
+    h *= U32(0x85EBCA6B)
+    h ^= h >> U32(13)
+    h *= U32(0xC2B2AE35)
+    return h ^ (h >> U32(16))
+
+
+def _rev2(x):
+    x = ((x & U32(0x33333333)) << U32(2)) | ((x >> U32(2)) & U32(0x33333333))
+    x = ((x & U32(0x0F0F0F0F)) << U32(4)) | ((x >> U32(4)) & U32(0x0F0F0F0F))
+    x = ((x & U32(0x00FF00FF)) << U32(8)) | ((x >> U32(8)) & U32(0x00FF00FF))
+    return (x << U32(16)) | (x >> U32(16))
+
+
+def _lex_lt(a, b):
+    lt = np.zeros(len(a), bool)
+    eq = np.ones(len(a), bool)
+    for limb in range(a.shape[1]):
+        lt |= eq & (a[:, limb] < b[:, limb])
+        eq &= a[:, limb] == b[:, limb]
+    return lt
+
+
+def model_front(u, k):
+    """front_kernel: (fp (2n, 2) uint32, flags (n,) uint8)."""
+    x = u.astype(np.uint32)
+    nl, nl1 = tl.n_limbs(k), tl.n_limbs(k + 1)
+    pad, used = 32 * nl - 2 * k, 2 * k - 32 * (nl - 1)
+    mask = M32 if used == 32 else U32((0xFFFFFFFF << (32 - used)) & 0xFFFFFFFF)
+    first = x[:, 0] >> U32(30)
+    last = (x[:, k // 16] >> U32(30 - 2 * (k % 16))) & U32(3)
+    pre = x[:, :nl].copy()
+    suf = x[:, :nl] << U32(2)
+    for limb in range(nl):
+        if limb + 1 < nl1:
+            suf[:, limb] |= x[:, limb + 1] >> U32(30)
+    pre[:, -1] &= mask
+    suf[:, -1] &= mask
+
+    def revcomp(y):
+        r = _rev2(~y[:, ::-1])
+        out = r.copy()
+        if pad:
+            out = r << U32(pad)
+            out[:, :-1] |= r[:, 1:] >> U32(32 - pad)
+        out[:, -1] &= mask
+        return out
+
+    fps, orient = [], []
+    for node in (pre, suf):
+        rc = revcomp(node)
+        o = _lex_lt(rc, node)
+        canon = np.where(o[:, None], rc, node)
+        a = model_murmur(canon, 0x9E3779B9)
+        a[a == M32] = M32 - U32(1)
+        fps.append(np.stack([a, model_murmur(canon, 0x27D4EB2F)], axis=1))
+        orient.append(o.astype(np.uint32))
+    flags = orient[0] | orient[1] << U32(1) | first << U32(2) | last << U32(4)
+    return np.concatenate(fps), flags.astype(np.uint8)
+
+
+def model_scan(v):
+    """The tiled look-back scan: the exclusive prefix of v, each block's
+    offset the sum of the tiles before it, each thread's SCAN_PER values
+    in order after its block's exclusive prefix of thread sums."""
+    v = np.asarray(v, np.int64)
+    n = len(v)
+    pad = -n % SCAN_TILE
+    tiles = np.concatenate([v, np.zeros(pad, np.int64)]).reshape(
+        -1, SCAN_TILE // SCAN_PER, SCAN_PER)
+    thread_sums = tiles.sum(axis=2)
+    tile_off = np.concatenate([[0], np.cumsum(thread_sums.sum(axis=1))[:-1]])
+    before = np.cumsum(thread_sums, axis=1) - thread_sums
+    run = tile_off[:, None, None] + before[:, :, None] + \
+        np.cumsum(tiles, axis=2) - tiles
+    return run.reshape(-1)[:n]
+
+
+def _degree(adj, key):
+    node = key >> 1
+    byte = (adj[node >> 2] >> ((node & 3) * 8).astype(np.uint32)) & U32(0xFF)
+    return POPC4[(byte >> ((key & 1) * 4).astype(np.uint32)) & U32(0xF)]
+
+
+def model_link(fp, order, flags):
+    """ub_link_launch: (src_key, tgt_key, lastbase, prev_ptr, degs)."""
+    D = len(fp)
+    n = D // 2
+    s = fp[order]
+    new = np.ones(D, np.int64)
+    new[1:] = (s[1:] != s[:-1]).any(axis=1)
+    node = np.empty(D, np.int64)
+    node[order] = model_scan(new) + new - 1
+    d = np.arange(D)
+    rc = d >= n
+    i = np.where(rc, d - n, d)
+    f = flags[i].astype(np.int64)
+    o_pre, o_suf, first, last = f & 1, (f >> 1) & 1, (f >> 2) & 3, \
+        (f >> 4) & 3
+    sn = np.where(rc, node[n + i], node[i])
+    tn = np.where(rc, node[i], node[n + i])
+    so = np.where(rc, 1 - o_suf, o_pre)
+    to = np.where(rc, 1 - o_pre, o_suf)
+    lbase = np.where(rc, 3 - first, last)
+    sk, tk = 2 * sn + so, 2 * tn + to
+    adj = np.zeros((D + 3) // 4, np.uint32)
+    np.bitwise_or.at(adj, sn >> 2,
+                     (1 << ((sn & 3) * 8 + so * 4 + lbase)).astype(np.uint32))
+    succ = np.full(2 * D, -1, np.int64)
+    np.maximum.at(succ, sk, d)
+    can = (_degree(adj, tk) == 1) & (_degree(adj, tk ^ 1) == 1)
+    nx = np.where(can, succ[tk], -1)
+    nx[nx == d] = -1
+    prv = np.full(D, -1, np.int64)
+    has = nx >= 0
+    np.maximum.at(prv, nx[has], d[has])
+    marker = np.where((_degree(adj, sk) == 1) & (_degree(adj, sk ^ 1) == 1),
+                      0, -1)
+    prev = np.where(marker == 0, prv, -1)
+    degs = _degree(adj, np.arange(2 * D))
+    return sk, tk, lbase.astype(np.uint8), prev, degs
+
+
+def model_rank(prev):
+    """ub_rank_launch: all rounds queued on two buffers, a round skipped
+    when the one before moved nothing.  (head_of, dist, n_cyc, n_e)."""
+    D = len(prev)
+    d = np.arange(D)
+    R = ub.rounds(D)
+    buf = [np.stack([np.where(prev < 0, d, prev), (prev >= 0)], axis=1),
+           np.full((D, 2), -7, np.int64)]     # scratch: never read unwritten
+    moved = np.zeros(R, bool)
+    for r in range(R):
+        if r > 0 and not moved[r - 1]:
+            continue
+        cur = buf[r % 2]
+        g = cur[cur[:, 0]]
+        buf[(r + 1) % 2] = np.stack([g[:, 0], cur[:, 1] + g[:, 1]], axis=1)
+        moved[r] = (g[:, 1] > 0).any()
+    head, dist = buf[R % 2][:, 0], buf[R % 2][:, 1]
+    return head, dist, int((prev[head] >= 0).sum()), int((head == d).sum())
+
+
+def model_warp_sums(u_of, c, n_e):
+    """unitig_sums_kernel: each 32-lane warp's lanes grouped by unitig,
+    the group's lanes and the 16-bit halves of its counts summed, one add
+    a group."""
+    D = len(u_of)
+    key = (np.arange(D) // 32) * (n_e + 1) + u_of
+    groups, inv = np.unique(key, return_inverse=True)
+    gu = groups % (n_e + 1)
+    lo = np.bincount(inv, weights=c & 0xFFFF).astype(np.int64)
+    hi = np.bincount(inv, weights=c >> 16).astype(np.int64)
+    ulen = np.zeros(n_e, np.int64)
+    ecount = np.zeros(n_e, np.int64)
+    np.add.at(ulen, gu, np.bincount(inv))
+    np.add.at(ecount, gu, lo + (hi << 16))
+    return ulen, ecount
+
+
+def model_assemble(u, counts, sk, tk, lbase, head, dist, k, n_e):
+    """ub_assemble_launch: (seq_off, ecount, edge_rc, edge_source,
+    edge_target, n_v, seq)."""
+    D = len(head)
+    n = D // 2
+    d = np.arange(D)
+    is_head = head == d
+    u_all = np.full(D, -1, np.int64)
+    u_all[is_head] = model_scan(is_head)[is_head]
+    head_d = d[is_head]
+    u_of = u_all[head]
+    ulen, ecount = model_warp_sums(u_of, counts[d % n].astype(np.int64), n_e)
+    seq_off = np.empty(n_e + 1, np.int64)
+    seq_off[:n_e] = model_scan(k + ulen)
+    seq_off[n_e] = seq_off[n_e - 1] + k + ulen[-1]
+    seq = np.full(D + k * n_e, 255, np.uint8)
+    seq[seq_off[u_of] + k + dist] = lbase
+    tail_d = np.full(n_e, -1, np.int64)
+    tail = dist == ulen[u_of] - 1
+    tail_d[u_of[tail]] = d[tail]
+    q = np.arange(n_e * k)
+    uu, j = q // k, q % k
+    hd = head_d[uu]
+    rc = hd >= n
+    pos = np.where(rc, k - j, j)
+    limb = u[np.where(rc, hd - n, hd), pos // 16]
+    b = (limb >> (30 - 2 * (pos % 16))) & 3
+    seq[seq_off[uu] + j] = np.where(rc, 3 - b, b)
+    edge_rc = u_of[np.where(tail_d < n, tail_d + n, tail_d - n)]
+    es, et = sk[head_d], tk[tail_d]
+    used = np.zeros(D, np.int64)
+    used[es >> 1] = 1
+    used[et >> 1] = 1
+    nid = model_scan(used)
+    return (seq_off, ecount, edge_rc, 2 * nid[es >> 1] + (es & 1),
+            2 * nid[et >> 1] + (et & 1), 2 * int(used.sum()), seq)
+
+
+@pytest.mark.parametrize("nl", [1, 2, 3, 4])
+def test_murmur_model(nl):
+    """uint32 murmur == ops/limbs.py:hash_limbs (int64 pieces), with 0 and
+    all-ones limbs, both seeds."""
+    rng = np.random.default_rng(nl)
+    c = rng.integers(0, 1 << 32, (5_000, nl), dtype=np.int64)
+    c[:100] = 0
+    c[100:200] = 0xFFFFFFFF
+    for seed in (0x9E3779B9, 0x27D4EB2F):
+        want = tl.hash_limbs(torch.as_tensor(c), seed=seed).numpy()
+        np.testing.assert_array_equal(model_murmur(c.astype(np.uint32), seed),
+                                      want)
+
+
+@pytest.mark.parametrize("name", LIVE)
+def test_front_model(name):
+    u, _, k = CASES[name]
+    fp, flags = model_front(u, k)
+    p = _port(name)
+    np.testing.assert_array_equal(p["fp"].numpy().view(np.uint32), fp)
+    np.testing.assert_array_equal(p["flags"].numpy(), flags)
+
+
+@pytest.mark.parametrize("n", [1, 7, 2047, 2048, 2049, 10_000])
+def test_scan_model(n):
+    v = np.random.default_rng(n).integers(0, 50, n)
+    np.testing.assert_array_equal(model_scan(v), np.cumsum(v) - v)
+
+
+@pytest.mark.parametrize("name", LIVE)
+def test_link_model(name):
+    """The node-id scan, the byte-nibble adjacency and its popcount
+    degrees (== the plain degrees), the max successor and predecessor ==
+    plain link_nodes."""
+    p = _port(name)
+    fp, order, flags = p["fp"].numpy(), p["order"].numpy(), p["flags"].numpy()
+    sk, tk, lbase, prev, degs = model_link(fp, order, flags)
+    for got, want in ((p["src_key"], sk), (p["tgt_key"], tk),
+                      (p["lastbase"], lbase), (p["prev_ptr"], prev)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    n = len(flags)
+    node = np.empty(2 * n, np.int64)
+    node[order] = np.cumsum(tl.run_starts(torch.as_tensor(fp[order]))
+                            .numpy()) - 1
+    want = ub.degrees(torch.as_tensor(node[:n]), torch.as_tensor(node[n:]),
+                      p["flags"]).numpy()
+    np.testing.assert_array_equal(degs, want)
+
+
+@pytest.mark.parametrize("name", LIVE)
+def test_rank_model(name):
+    """The flagged round schedule == plain rank_chains == JAX
+    _rank_chains on the same lanes, the cycle lanes flagged alike."""
+    p = _port(name)
+    prev = p["prev_ptr"].numpy().astype(np.int64)
+    head, dist, n_cyc, n_e = model_rank(prev)
+    np.testing.assert_array_equal(p["head_of"].numpy(), head)
+    np.testing.assert_array_equal(p["dist"].numpy(), dist)
+    assert (p["n_cyc"], p["n_e"] if not n_cyc else n_e) == (n_cyc, n_e)
+    jh, jd = jdb._rank_chains(jnp.asarray(prev.astype(np.int32)))
+    np.testing.assert_array_equal(np.asarray(jh), head)
+    np.testing.assert_array_equal(np.asarray(jd), dist)
+
+
+@pytest.mark.parametrize("D,n_cycles,seed", [(2, 0, 1), (3, 1, 2),
+                                             (1024, 0, 3), (1025, 3, 4),
+                                             (5_000, 40, 5), (65_537, 2, 6)])
+def test_rank_model_on_permutations(D, n_cycles, seed):
+    """Lanes cut from a random permutation into chains (one of 2^m + 1
+    lanes, the deepest a round count reaches) and pure cycles: the model
+    == plain == JAX _rank_chains; chain lanes at their true head and
+    distance."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(D)
+    prev = np.full(D, -1, np.int64)
+    cuts = np.sort(rng.choice(np.arange(1, D), size=min(D - 1, 9),
+                              replace=False)) if D > 2 else np.array([1])
+    bounds = [0, *cuts.tolist(), D]
+    for i, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        seg = perm[a:b]
+        prev[seg[1:]] = seg[:-1]
+        if i < n_cycles and b - a > 1:
+            prev[seg[0]] = seg[-1]              # close a pure cycle
+    head, dist, n_cyc, _ = model_rank(prev)
+    got_h, got_d, info = ub.plain_rank_chains(torch.as_tensor(
+        prev.astype(np.int32)))
+    np.testing.assert_array_equal(got_h.numpy(), head)
+    np.testing.assert_array_equal(got_d.numpy(), dist)
+    assert int(info[0]) == n_cyc
+    jh, jd = jdb._rank_chains(jnp.asarray(prev.astype(np.int32)))
+    np.testing.assert_array_equal(np.asarray(jh), head)
+    np.testing.assert_array_equal(np.asarray(jd), dist)
+    on_chain = prev[head] < 0
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        seg = perm[a:b]
+        if on_chain[seg[0]]:
+            assert (head[seg] == seg[0]).all()
+            assert (dist[seg] == np.arange(b - a)).all()
+    assert n_cyc == int((~on_chain).sum())
+
+
+@pytest.mark.parametrize("name", LIVE)
+def test_assemble_model(name):
+    u, c, k = CASES[name]
+    p = _port(name)
+    _, head, dist = (x.numpy().astype(np.int64) for x in p["lanes"])
+    want = model_assemble(u, c, p["src_key"].numpy().astype(np.int64),
+                          p["tgt_key"].numpy().astype(np.int64),
+                          p["lastbase"].numpy(), head, dist, k, p["n_e"])
+    got = p["unitigs"]
+    for g_, w_ in zip((got.seq_off, got.edge_count, got.edge_rc,
+                       got.edge_source, got.edge_target), want[:5]):
+        np.testing.assert_array_equal(g_.numpy(), w_)
+    assert int(got.n_v.item()) == want[5]
+    np.testing.assert_array_equal(got.seq.numpy(), want[6])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_warp_sums_model(seed):
+    """Counts up to 2^31 - 1 summed by 16-bit halves in warp groups ==
+    bincount, lengths too."""
+    rng = np.random.default_rng(seed)
+    n_e = [1, 7, 300][seed]
+    u_of = np.sort(rng.integers(0, n_e, 4_000)) if seed else \
+        np.zeros(4_000, np.int64)
+    c = rng.integers(1, 1 << 31, 4_000)
+    ulen, ecount = model_warp_sums(u_of, c, n_e)
+    np.testing.assert_array_equal(ulen, np.bincount(u_of, minlength=n_e))
+    want = np.zeros(n_e, np.int64)
+    np.add.at(want, u_of, c)
+    np.testing.assert_array_equal(ecount, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_renumber_marks_scan(seed):
+    """Marks of the used node ids + an exclusive scan == torch.unique's
+    sorted inverse; n_v twice the used ids."""
+    rng = np.random.default_rng(seed)
+    D = [10, 1_000, 5_000, 40_000][seed]
+    ids = rng.integers(0, D, (2, rng.integers(1, D)))
+    used = np.zeros(D, np.int64)
+    used[ids.reshape(-1)] = 1
+    nid = model_scan(used)
+    u, inv = torch.unique(torch.as_tensor(ids.reshape(-1)), sorted=True,
+                          return_inverse=True)
+    np.testing.assert_array_equal(nid[ids.reshape(-1)], inv.numpy())
+    assert 2 * int(used.sum()) == 2 * len(u)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+def test_rounds():
+    for D in [*range(1, 3000), 2 ** 20, 2 ** 20 + 1, 2 ** 29 - 1]:
+        assert ub.rounds(D) == max(1, int(np.ceil(np.log2(max(D, 2)))) + 1)
+
+
+def _stub_build(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the kernel build was reached")
+    for name in ("build", "load", "_nvcc"):
+        monkeypatch.setattr(_build, name, refuse)
+
+
+def test_cpu_never_builds(monkeypatch):
+    _stub_build(monkeypatch)
+    ub.COUNT.reset()
+    for name in ("circular, k=21", "k=63", "one k-edge, k=31"):
+        u, c, k = CASES[name]
+        g = tdb.build_graph_on_device(torch.as_tensor(u), torch.as_tensor(c),
+                                      len(u), k, device="cpu")
+        assert g.n_e >= 1
+    assert ub.COUNT.launches == 0
+
+
+def test_off_cpu_tensors_go_to_the_kernel(monkeypatch):
+    """A tensor that is not on the CPU is the kernel's (here the stubbed
+    build raises): no entry hands it to its plain version."""
+    _stub_build(monkeypatch)
+    meta = torch.device("meta")
+    n, k = 10, 45
+    rows = torch.zeros((n, 3), dtype=torch.int64, device=meta)
+    lanes = torch.zeros(2 * n, dtype=torch.int32, device=meta)
+    calls = [
+        lambda: ub.front_keys(rows, k),
+        lambda: ub.link_nodes(torch.zeros((2 * n, 2), dtype=torch.int32,
+                                          device=meta),
+                              torch.zeros(2 * n, dtype=torch.int64,
+                                          device=meta),
+                              torch.zeros(n, dtype=torch.uint8, device=meta)),
+        lambda: ub.rank_chains(lanes),
+        lambda: ub.assemble_unitigs(
+            rows, torch.zeros(n, dtype=torch.int32, device=meta), lanes,
+            lanes, torch.zeros(2 * n, dtype=torch.uint8, device=meta), lanes,
+            lanes, k, 3),
+    ]
+    for call in calls:
+        with pytest.raises(AssertionError, match="kernel build"):
+            call()
+    # tables the kernels do not take are refused before any build
+    with pytest.raises(ValueError, match="k-edges"):
+        ub.front_keys(torch.zeros((0, 3), dtype=torch.int64, device=meta), k)
+    with pytest.raises(ValueError, match="1 <= k <= 63"):
+        ub.front_keys(torch.zeros((4, 5), dtype=torch.int64, device=meta), 64)
+    with pytest.raises(ValueError, match="int64"):
+        ub.front_keys(rows.int(), k)
+
+
+def test_limbs_out_of_range_raise():
+    u, c, k = CASES["k=45"]
+    bad = u.copy()
+    bad[3, 1] = 1 << 32
+    with pytest.raises(ValueError, match="outside"):
+        tdb.build_graph_on_device(torch.as_tensor(bad), torch.as_tensor(c),
+                                  len(u), k, device="cpu")
+
+
+@pytest.mark.parametrize("name,syncs", [("k=45", 3), ("circular, k=21", 4)])
+def test_build_syncs(name, syncs):
+    """One stacked scalar pull (two after a cycle break), two output
+    pulls."""
+    u, c, k = CASES[name]
+    before = tdb.STATS.builds
+    tdb.build_graph_on_device(torch.as_tensor(u), torch.as_tensor(c), len(u),
+                              k, device="cpu")
+    assert tdb.STATS.builds == before + 1
+    assert tdb.STATS.last_syncs == syncs

@@ -24,7 +24,9 @@ sorts and run passes of csrc/kmer_sort.cu, in the counts and the level-0
 builds) on the next: `kmer_sort shapes: [[entry, ...shape], ...]`
 (ops/kmer_sort.py:LaunchCount), and the routes of sort_count, lex_order
 and merge_runs on the one after (`kmer_sort routes: {entry: {...}}`);
-before them `pool builds in the timed
+every launch of the level-0 build's kernels (csrc/unitig_build.cu) on
+the next: `unitig_build shapes: [[entry, ...shape], ...]`
+(ops/unitig_build.py:LaunchCount); before them `pool builds in the timed
 map passes: N`, the graph pools made for the map after the warm map (0:
 the warm map made the graph's pool, and every timed pass found it
 cached).
@@ -216,7 +218,7 @@ def main(argv=None) -> int:
     from .device import resolve_device
     from .kmer.megasort import COUNT_CHUNK
     from .mapper.minimizers import POOL_STATS, EdgeMinimizerIndex
-    from .ops import kmer_sort, mm_map, nw_align
+    from .ops import kmer_sort, mm_map, nw_align, unitig_build
     from .ops.hostmem import tune_host_malloc
 
     dev = resolve_device(args.device)
@@ -303,6 +305,7 @@ def main(argv=None) -> int:
     log("mm_map shapes: " + json.dumps(mm_map.COUNT.shapes))
     log("kmer_sort shapes: " + json.dumps(kmer_sort.COUNT.shapes))
     log("kmer_sort routes: " + json.dumps(kmer_sort.COUNT.routes))
+    log("unitig_build shapes: " + json.dumps(unitig_build.COUNT.shapes))
 
     longest, mapped = check_outputs(genome, g_asm, e, s)
     log(f"checks: longest unitig {longest} of {genome_size} bp, "

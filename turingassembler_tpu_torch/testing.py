@@ -22,7 +22,9 @@ the two sequences through one short repeat of the 2-1-2 resolvers.
 mm_world, mm_reads, mm_bound_queries, mm_segment_rows and mm_map_cases
 make the minimizer map kernel's edge cases (ops/mm_map.py);
 mm_align_world, mm_align_queries, mm_pool_end_reads and mm_align_cases
-its gapless bound's alignment and pool-end cases."""
+its gapless bound's alignment and pool-end cases; kmer_sort_cases the
+count's sort cases, kedge_table and unitig_build_cases the level-0
+build's k-edge tables (ops/unitig_build.py)."""
 
 from __future__ import annotations
 
@@ -950,4 +952,86 @@ def kmer_sort_cases(seed: int = 0):
     keys = few.integers(0, 3, (60_000, 3)).astype(np.int64) * 0x7FFFFFFF
     cases["few values, large"] = (keys, few.integers(1, 1000, len(keys))
                                   .astype(np.int32))
+    return cases
+
+
+def kedge_table(reads: np.ndarray, lengths: np.ndarray, k: int):
+    """The sorted unique canonical (k+1)-mers of every valid window of the
+    reads (no code >= 4, inside the read's length) and how often each
+    occurs: (uniq (n, nl) int64 limbs in [0, 2^32), counts (n,) int32), as
+    the count gives them with min count 1."""
+    k1 = k + 1
+    nl = (k1 + 15) // 16
+    B, L = reads.shape
+    P = max(L - k1 + 1, 0)
+    win = reads[:, np.arange(P)[:, None] + np.arange(k1)[None, :]]
+    ok = (win < 4).all(axis=2) & \
+        (np.arange(P)[None, :] + k1 <= np.asarray(lengths)[:, None])
+    codes = win[ok].astype(np.int64)
+
+    def pack(c):
+        c = np.pad(c, ((0, 0), (0, 16 * nl - k1))).reshape(-1, nl, 16)
+        return (c << (30 - 2 * np.arange(16))).sum(axis=2)
+
+    fw, rc = pack(codes), pack(3 - codes[:, ::-1])
+    lt = np.zeros(len(codes), bool)
+    eq = np.ones(len(codes), bool)
+    for limb in range(nl):
+        lt |= eq & (rc[:, limb] < fw[:, limb])
+        eq &= rc[:, limb] == fw[:, limb]
+    canon = np.where(lt[:, None], rc, fw)
+    if not len(canon):
+        return np.zeros((0, nl), np.int64), np.zeros(0, np.int32)
+    uniq, counts = np.unique(canon, axis=0, return_counts=True)
+    return uniq.astype(np.int64), counts.astype(np.int32)
+
+
+def unitig_build_cases(seed: int = 0):
+    """Edge cases of the level-0 build (ops/unitig_build.py): name ->
+    (uniq (n, nl) int64, counts (n,) int32, k), kedge_table of seeded
+    reads.  A circular genome (pure cycles: the cycle break and the second
+    ranking); a palindromic k-edge (odd k, its two lanes on one source
+    key) beside a poly-A run longer than k (a k-edge its own successor);
+    a palindromic node (even k: orientation 0 either way); exact repeats;
+    error-laden branching (many short unitigs, shared nodes); every pair
+    of limb counts of the nodes and the k-edges: k = 15 (1, 1), 16 (1,
+    2), 31 (2, 2), 32 (2, 3), 45 (3, 3), 48 (3, 4), 63 (4, 4); one k-edge;
+    none."""
+    rng = np.random.default_rng(seed)
+
+    def genome(n):
+        return rng.integers(0, 4, n, dtype=np.uint8)
+
+    def table(g, k, coverage=8, read_len=80, err=0.0, circular=False):
+        reads, lengths = sim_reads(g, coverage=coverage, read_len=read_len,
+                                   seed=int(rng.integers(1 << 30)),
+                                   error_rate=err, circular=circular)
+        return (*kedge_table(reads, lengths, k), k)
+
+    def palindrome(m):
+        half = genome(m // 2)
+        return np.concatenate([half, (3 - half)[::-1]])
+
+    cases = {
+        "circular, k=21": table(genome(3_000), 21, coverage=10,
+                                circular=True),
+        "palindromic k-edge and poly-A, k=21": table(np.concatenate(
+            [genome(400), palindrome(22), genome(400), np.zeros(40, np.uint8),
+             genome(400)]), 21, coverage=15, read_len=90),
+        "palindromic node, k=20": table(np.concatenate(
+            [genome(500), palindrome(20), genome(500)]), 20, coverage=12),
+    }
+    rep = genome(300)
+    parts = [genome(600) for _ in range(4)]
+    cases["exact repeats, k=21"] = table(np.concatenate(
+        [parts[0], rep, parts[1], rep, parts[2], rep, parts[3]]), 21,
+        coverage=12)
+    cases["error-laden branching, k=31"] = table(genome(4_000), 31,
+                                                 read_len=100, err=0.02)
+    for k in (15, 16, 32, 45, 48, 63):
+        cases[f"k={k}"] = table(genome(2_000), k, read_len=100, err=0.005)
+    one = kedge_table(genome(32)[None, :], np.array([32]), 31)
+    cases["one k-edge, k=31"] = (one[0][:1], np.array([5], np.int32), 31)
+    cases["none, k=31"] = (np.zeros((0, 2), np.int64),
+                           np.zeros(0, np.int32), 31)
     return cases
