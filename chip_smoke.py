@@ -2021,7 +2021,7 @@ UB_REPLACES = {
     "assemble_unitigs": "turingassembler_tpu/graph/device_build.py:228"}
 # each entry's first kernel: device_ms's check that the profiler saw it
 UB_ANCHORS = {"front_keys": "front_kernel", "link_nodes": "link_edges_kernel",
-              "rank_chains": "rank_init_kernel",
+              "rank_chains": "rank_link_kernel",
               "assemble_unitigs": "unitig_sums_kernel"}
 # the phases whose path builds level 0 on the card: each must launch all
 # four entries (phase 6's spilled runs and phase 13's ranks build on the
@@ -2158,7 +2158,11 @@ def ub_build_split(route, fns, u, c, k, lanes):
             u, c, *lanes["link"][:3], lanes["head"], lanes["dist"], k,
             lanes["n_e"])}
     dev = {name: device_ms_all(fn, 3) for name, fn in stages.items()}
+    # the output pulls: the wait for the queued build, then the copies
+    t0 = time.perf_counter()
     out = stages["assemble_unitigs"]()
+    torch.cuda.synchronize()
+    wait = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     out.to_host()
     pulls = (time.perf_counter() - t0) * 1e3
@@ -2166,14 +2170,16 @@ def ub_build_split(route, fns, u, c, k, lanes):
     g.rebuild_adjacency()
     adjacency = (time.perf_counter() - t0) * 1e3
     res = {"wall_ms": sorted(walls)[1], "syncs": syncs, "own_syncs": own,
-           "device_ms": dev, "pulls_ms": pulls, "adjacency_ms": adjacency}
+           "device_ms": dev, "wait_ms": wait, "pulls_ms": pulls,
+           "adjacency_ms": adjacency}
     log(f"unitig_build (b) the build by the {route} route: wall "
         f"{res['wall_ms']:.3f} ms (median of 3), {syncs} host syncs "
         f"({own} of device_build's own), device ms by stage: " + ", ".join(
             f"{k_} {'not measured' if v is None else f'{v:.4f}'}"
             for k_, v in dev.items())
-        + f"; output pulls {pulls:.3f} ms, rebuild_adjacency "
-        f"{adjacency:.3f} ms")
+        + f"; assemble_unitigs queued and waited for {wait:.3f} ms, then "
+        f"the output pulls {pulls:.3f} ms (copies alone), "
+        f"rebuild_adjacency {adjacency:.3f} ms")
     return res
 
 
@@ -2186,11 +2192,16 @@ def phase_ub_kernel_vs_plain(workload):
     card == on the CPU, the circular one through the cycle break; (b) on
     phase 5's workload counted on the card (1,999,953 k-edges at k = 45):
     each entry again, then its wrapper, device (profiler), plain and
-    bound ms (assemble_unitigs beside torch.unique of the endpoints, the
-    renumbering's library call); the build's split (wall, host syncs,
-    device ms by stage, output pulls, rebuild_adjacency) by the kernel
-    route and the tensor route in turns.  Returns the kernels line's
-    figures."""
+    bound ms, rank_chains by stage with the kernel's own tally of its
+    walks, assemble_unitigs' renumbering stage alone beside torch.unique
+    of the same endpoints; (c) both again at a many-unitig table
+    (ub_table: random k-edges beside a genome's windows); (d) rank_chains
+    on random chains with short cycles and a walk long enough to promote
+    rulers (ub_chains), at three lane counts and at 2^25 - 1 lanes (where
+    a lane's word leaves a walk 5 offset bits), timed there too; the
+    build's split (wall, host syncs, device ms by stage, the wait and the output
+    pulls after it, rebuild_adjacency) by the kernel route and the tensor
+    route in turns.  Returns the kernels line's figures."""
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph import device_build as tdb
     from turingassembler_tpu_torch.kmer.megasort import count_reads_device
@@ -2233,9 +2244,7 @@ def phase_ub_kernel_vs_plain(workload):
     u, c, n = count_reads_device(reads, lengths, 45, device="cuda")
     u, c, k = u[:n], c[:n], 45
     lanes = ub_entries(u, c, k, f"the bench table ({n} k-edges)", hold)
-    n_e, D, nl1 = lanes["n_e"], 2 * n, u.shape[1]
-    sk, tk, lbase, prev = lanes["link"]
-    head, dist = lanes["head"], lanes["dist"]
+    D, nl1 = 2 * n, u.shape[1]
     nl = (k + 15) // 16
     res = {}
     res["front_keys"] = ks_timing(
@@ -2249,31 +2258,36 @@ def phase_ub_kernel_vs_plain(workload):
         lambda: ub.plain_link_nodes(fp, order, flags),
         8 * D + 8 * D + n + 13 * D, 30 * D, tag="unitig_build",
         anchor=UB_ANCHORS["link_nodes"])
-    res["rank_chains"] = ks_timing(
-        f"rank_chains ({D} lanes, {ub.rounds(D)} rounds at most)",
-        lambda: ub.rank_chains(prev), lambda: ub.plain_rank_chains(prev),
-        4 * D + 8 * D, 4 * D * ub.rounds(D), tag="unitig_build",
-        anchor=UB_ANCHORS["rank_chains"])
-    # the renumbering's input: the heads' source and the tails' target keys
-    d_idx = torch.arange(D, device="cuda")
-    is_head = head == d_idx
-    u_of = (torch.cumsum(is_head, 0) - 1)[head.long()]
-    ulen = torch.bincount(u_of, minlength=n_e)
-    tail = dist == ulen[u_of] - 1
-    tail_d = torch.empty(n_e, dtype=torch.int64, device="cuda")
-    tail_d[u_of[tail]] = d_idx[tail]
-    e_src = sk[torch.nonzero(is_head).squeeze(1)].long()
-    e_tgt = tk[tail_d].long()
-    res["assemble_unitigs"] = ks_timing(
-        f"assemble_unitigs ({D} lanes, {n_e} unitigs)",
-        lambda: ub.assemble_unitigs(u, c, sk, tk, lbase, head, dist, k, n_e),
-        lambda: ub.plain_assemble_unitigs(u, c, sk, tk, lbase, head, dist, k,
-                                          n_e),
-        4 * n + D + 8 * D + 8 * n_e + 8 * nl1 * n_e + 8 * (5 * n_e + 2)
-        + D + k * n_e, 10 * D + k * n_e, tag="unitig_build",
-        anchor=UB_ANCHORS["assemble_unitigs"],
-        library=lambda: torch.unique(torch.cat([e_src // 2, e_tgt // 2]),
-                                     sorted=True, return_inverse=True))
+    res.update(ub_rank_and_assemble("the bench table", u, c, k, lanes))
+    # (c) many short unitigs: random k-edges beside a genome's windows
+    mu, mc = ub_table(1_999_953, 45, 4_000)
+    many = ub_entries(mu, mc, 45, "the many-unitig table", hold)
+    for e, r_ in ub_rank_and_assemble("the many-unitig table", mu, mc, 45,
+                                      many).items():
+        res[e]["many_unitigs"] = {"n_e": many["n_e"], **r_}
+    del mu, mc, many
+    # (d) random chains with short cycles and a long walk, at the bench's
+    # lanes, two more counts and UB_LARGE_D
+    for D_ in (D, 65_537, 1_000, UB_LARGE_D):
+        prev_ = ub_chains(D_, 3_000 + D_ % 1000)
+        ph, pd, pinfo = ub.plain_rank_chains(prev_)
+        if not pinfo[0]:
+            raise AssertionError(f"ub_chains({D_}) holds no cycle")
+        h, d_, info_ = ub.rank_chains(prev_)
+        hold(f"rank_chains on chains with short cycles (D={D_})",
+             (h, d_, info_[:2]), (ph, pd, pinfo[:2]))
+        walks = ub_rank_walks(prev_, f"chains of {D_} lanes")
+        if D_ >= UB_RUN_MIN_D and not walks["promoted_rulers"]:
+            raise AssertionError(f"unitig_build: ub_chains({D_})'s long walk "
+                                 "promoted no ruler")
+        log(f"unitig_build (d) {D_} lanes in chains, {int(pinfo[0])} on "
+            f"short cycles: == plain")
+        if D_ == UB_LARGE_D:
+            res["rank_chains"]["large_d"] = {
+                "lanes": D_, **ub_rank_timing(
+                    f"chains of {D_} lanes", prev_), **walks}
+        del prev_, ph, pd, h, d_
+    torch.cuda.empty_cache()
 
     # the build's split, the kernel and the tensor route in turns
     routes = ub_routes()
@@ -2313,16 +2327,157 @@ def ub_table(n, k, seed):
     return rows[keep.sort().values], counts
 
 
+def ub_ruler_lanes(D, stride):
+    """rank_chains' sampled lane of each ruler block of `stride` lanes
+    (csrc/unitig_build.cu's ruler_lane: murmur3's finalizer of the block
+    picks the offset; 32-bit products in 16-bit pieces), on the card; the
+    last may lie past D."""
+    M = 0xFFFFFFFF
+
+    def mul(h, c):
+        return (h * (c & 0xFFFF) + ((h * (c >> 16)) << 16)) & M
+    i = torch.arange(-(-D // stride), dtype=torch.int64, device="cuda")
+    h = i ^ (i >> 16)
+    h = mul(h, 0x85EBCA6B)
+    h = mul(h ^ (h >> 13), 0xC2B2AE35)
+    return i * stride + ((h ^ (h >> 16)) & (stride - 1))
+
+
+# ub_chains' lanes from which a head leads a run of UB_RUN lanes that are
+# no sample: past 2^ob (ob at most 10), so its walk promotes rulers
+UB_RUN, UB_RUN_MIN_D = 1_100, 2_000
+# rank_chains' lanes of a 16.8 M k-edge table: a lane's word leaves a walk
+# 5 offset bits there (8 at the bench)
+UB_LARGE_D = (1 << 25) - 1
+
+
 def ub_chains(D, seed):
     """prev_ptr (D,) int32 on the card: a random permutation cut into
-    chains, a few closed into pure cycles."""
+    chains; with D >= 200, five short cycles closed from lanes that are
+    no ruler at rank_chains' stride (no walk reaches them) and one of
+    2-12 sampled lanes (its rulers stay pending); with D >= UB_RUN_MIN_D,
+    a head followed by UB_RUN lanes that are no sample."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
     gen = torch.Generator(device="cuda").manual_seed(seed)
     perm = torch.randperm(D, device="cuda", generator=gen)
     prev = torch.full((D,), -1, dtype=torch.int32, device="cuda")
     prev[perm[1:]] = perm[:-1].int()
     cuts = torch.randperm(D, device="cuda", generator=gen)[:max(D // 1000, 1)]
     prev[perm[cuts]] = -1
+    if D >= 200:
+        rulers = ub_ruler_lanes(D, ub.RANK_STRIDE)
+        rulers = rulers[rulers < D]
+        plain = torch.ones(D, dtype=torch.bool, device="cuda")
+        plain[rulers] = False
+        plain = plain.nonzero().squeeze(1)
+        plain = plain[torch.randperm(plain.numel(), device="cuda",
+                                     generator=gen)]
+        pick = torch.randperm(rulers.numel(), device="cuda", generator=gen)
+        cycles = [plain[6 * i:6 * i + 2 + i] for i in range(5)] + \
+            [rulers[pick[:min(12, rulers.numel())]]]
+        for cyc in cycles:
+            prev[torch.isin(prev.long(), cyc)] = -1
+            prev[cyc] = torch.roll(cyc, 1).int()
+        if D >= UB_RUN_MIN_D:
+            run = plain[40:40 + UB_RUN]
+            prev[torch.isin(prev.long(), run)] = -1
+            prev[run[0]] = -1
+            prev[run[1:]] = run[:-1].int()
     return prev
+
+
+def ub_rank_walks(prev, what):
+    """One more rank_chains of prev with the kernel's walks tally: its
+    walks, the longest in lanes, the rulers its long walks promoted and
+    the offset bits a lane's word gave a walk, logged."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    tally = torch.zeros(4, dtype=torch.int32, device="cuda")
+    ub.rank_chains(prev, walks=tally)
+    w = dict(zip(("walks", "longest_walk", "promoted_rulers", "walk_bits"),
+                 tally.tolist()))
+    log(f"unitig_build rank_chains on {what} at stride {ub.RANK_STRIDE}, "
+        f"the kernel's tally: {w['walks']} walks, the longest "
+        f"{w['longest_walk']} lanes, {w['promoted_rulers']} rulers promoted "
+        f"(a walk promotes 2^{w['walk_bits']} lanes past its ruler)")
+    return w
+
+
+def ub_rank_timing(what, prev):
+    """rank_chains' wrapper, device, plain and bound ms on prev, and its
+    device ms by stage (the profiler, kernel by kernel)."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    D = prev.shape[0]
+    rank = ks_timing(
+        f"rank_chains on {what} ({D} lanes, stride {ub.RANK_STRIDE})",
+        lambda: ub.rank_chains(prev), lambda: ub.plain_rank_chains(prev),
+        4 * D + 8 * D, 10 * D, tag="unitig_build",
+        anchor=UB_ANCHORS["rank_chains"])
+    by = device_ms_by_kernel(lambda: ub.rank_chains(prev))
+    rank["stages_ms"] = {name: sum(ms_ for k_, (ms_, _) in by.items()
+                                   if key in k_) for name, key in RANK_STAGES}
+    log(f"unitig_build rank_chains on {what} by stage: " + ", ".join(
+        f"{k_} {v:.4f}" for k_, v in rank["stages_ms"].items()) + " ms")
+    return rank
+
+
+def ub_renumber_input(sk, tk, head, dist, n_e):
+    """assemble_unitigs' renumbering input: the heads' source and the
+    tails' target keys (int64)."""
+    D = head.shape[0]
+    d_idx = torch.arange(D, device="cuda")
+    is_head = head == d_idx
+    u_of = (torch.cumsum(is_head, 0) - 1)[head.long()]
+    ulen = torch.bincount(u_of, minlength=n_e)
+    tail = dist == ulen[u_of] - 1
+    tail_d = torch.empty(n_e, dtype=torch.int64, device="cuda")
+    tail_d[u_of[tail]] = d_idx[tail]
+    return sk[torch.nonzero(is_head).squeeze(1)].long(), tk[tail_d].long()
+
+
+RANK_STAGES = (("successors", "rank_link"), ("walks", "rank_walk"),
+               ("ruler rounds", "rank_rulers"), ("finish", "rank_finish"),
+               ("cycles", "rank_cycles"), ("memsets", "Memset"))
+# the renumbering stage's kernels: the Used scan of the marked endpoint
+# nodes and the renumbering pass
+RENUMBER_KERNELS = ("renumber", "Used")
+
+
+def ub_rank_and_assemble(what, u, c, k, lanes):
+    """rank_chains and assemble_unitigs timed at one table: wrapper,
+    device, plain and bound ms; rank_chains' device ms by stage and the
+    kernel's tally of its walks; assemble_unitigs' renumbering stage alone
+    (its kernels' device ms) beside torch.unique of the same
+    endpoints."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    n = u.shape[0]
+    D, n_e, nl1 = 2 * n, lanes["n_e"], u.shape[1]
+    sk, tk, lbase, prev = lanes["link"]
+    head, dist = lanes["head"], lanes["dist"]
+    res = {"rank_chains": {**ub_rank_timing(what, prev),
+                           **ub_rank_walks(prev, what)}}
+    e_src, e_tgt = ub_renumber_input(sk, tk, head, dist, n_e)
+    call = lambda: ub.assemble_unitigs(  # noqa: E731
+        u, c, sk, tk, lbase, head, dist, k, n_e)
+    asm = ks_timing(
+        f"assemble_unitigs on {what} ({D} lanes, {n_e} unitigs)", call,
+        lambda: ub.plain_assemble_unitigs(u, c, sk, tk, lbase, head, dist, k,
+                                          n_e),
+        4 * n + D + 8 * D + 8 * n_e + 8 * nl1 * n_e + 8 * (5 * n_e + 2)
+        + D + k * n_e, 10 * D + k * n_e, tag="unitig_build",
+        anchor=UB_ANCHORS["assemble_unitigs"],
+        library=lambda: torch.unique(torch.cat([e_src // 2, e_tgt // 2]),
+                                     sorted=True, return_inverse=True))
+    by = device_ms_by_kernel(call)
+    asm["stages_ms"] = {k_: ms_ for k_, (ms_, _) in by.items()}
+    asm["renumber_ms"] = sum(ms_ for k_, (ms_, _) in by.items()
+                             if any(r_ in k_ for r_ in RENUMBER_KERNELS))
+    log(f"unitig_build assemble_unitigs on {what} by kernel: " + ", ".join(
+        f"{k_} {ms_:.4f} ({n_} a call)" for k_, (ms_, n_) in by.items())
+        + f"; the renumbering stage alone {asm['renumber_ms']:.4f} ms "
+        f"against torch.unique {asm['library_ms']:.4f} ms "
+        f"({2 * n_e} endpoints)")
+    res["assemble_unitigs"] = asm
+    return res
 
 
 def phase_ub_hold_path_shapes(recorded):

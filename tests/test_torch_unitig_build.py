@@ -17,11 +17,16 @@ a poly-A run, a palindromic node, exact repeats, error-laden branching, k
     uint32 arithmetic (murmur, reverse complement, orientation);
     link_nodes' node ids by a tiled look-back scan, the byte-nibble
     adjacency by OR and its popcount degrees (== the plain `degrees`), the
-    successor and predecessor by max; rank_chains' flagged round schedule
-    on two buffers (== JAX `_rank_chains`, cycles flagged, also on chains
-    and cycles of random permutations); assemble_unitigs' scans, the
-    warp-aggregated sums (lo / hi 16-bit halves), the pool writes and the
-    renumbering by marks and a scan (== torch.unique's inverse);
+    successor and predecessor by max; rank_chains' ruling set (the hashed
+    samples, the walks packing (ruler, offset) words, promotions, the
+    ruler rounds, the finish, the cycle lanes doubled; == JAX
+    `_rank_chains`, also on random chains with short cycles holding no
+    sample, cycles of samples, one chain, no predecessors, D = 2^m and
+    2^m + 1, at strides 1 to 1,024), the cycle lanes' closed form;
+    assemble_unitigs' scans, the sums grouped by warp then in a block's
+    table (lo / hi 16-bit halves; one row add a unitig a tile), the pool
+    writes, the ends and the renumbering (marks and a scan; ==
+    torch.unique's inverse);
   - no CPU call reaches the kernel build, and a tensor off the CPU never
     reaches a plain version (meta tensors, the build stubbed to raise);
   - a build makes one stacked scalar pull (two after a cycle break) and
@@ -56,6 +61,9 @@ ARRAYS = ("edge_source", "edge_target", "edge_rc", "edge_count", "seq_off",
 U32 = np.uint32
 M32 = U32(0xFFFFFFFF)
 SCAN_PER, SCAN_TILE = 8, 256 * 8       # csrc/unitig_build.cu's scan
+UNVISITED, NO_RULER = -1, -2 ** 31    # rank_chains' markers
+MAX_WALK_BITS = 10                     # a walk's offset bits at most
+SUM_TILE, SUM_SLOTS, SUM_PROBES = 256 * 16, 1024, 4   # unitig_sums_kernel
 POPC4 = np.array([bin(i).count("1") for i in range(16)], np.int64)
 
 
@@ -376,46 +384,162 @@ def model_link(fp, order, flags):
     return sk, tk, lbase.astype(np.uint8), prev, degs
 
 
-def model_rank(prev):
-    """ub_rank_launch: all rounds queued on two buffers, a round skipped
-    when the one before moved nothing.  (head_of, dist, n_cyc, n_e)."""
+def mix32(x):
+    """csrc/unitig_build.cu's mix32 (murmur3's finalizer), uint32."""
+    h = np.asarray(x).astype(np.uint32)
+    h ^= h >> U32(16)
+    h *= U32(0x85EBCA6B)
+    h ^= h >> U32(13)
+    h *= U32(0xC2B2AE35)
+    return h ^ (h >> U32(16))
+
+
+def ruler_lane(i, sh):
+    """The sampled lane of ruler block i (lanes [i << sh, (i + 1) << sh))."""
+    i = np.asarray(i, np.int64)
+    return (i << sh) | (mix32(i) & U32((1 << sh) - 1)).astype(np.int64)
+
+
+def is_ruler_lane(d, sh):
+    d = np.asarray(d, np.int64)
+    return (d & ((1 << sh) - 1)) == \
+        (mix32(d >> sh) & U32((1 << sh) - 1)).astype(np.int64)
+
+
+def walk_bits(D, n_r):
+    """csrc's walk_bits: the offset bits of a lane's word."""
+    for ob in range(MAX_WALK_BITS, 0, -1):
+        if n_r + (D >> ob) + 1 + D <= 1 << (31 - ob):
+            return ob
+    return 0
+
+
+def model_rank(prev, stride=ub.RANK_STRIDE, walks=None, promoted=None):
+    """ub_rank_launch: the successors, the heads listed with their rows
+    settled (rank_link_kernel); a walk from each head and each block's
+    sample with a predecessor to the next sample or the chain's end,
+    packing each lane's (ruler id << ob | offset) into its word, a ruler
+    promoted after the offset 2^ob - 1 (rank_walk_kernel); Wyllie on the
+    samples' and promoted rulers' rows until none is pending or the round
+    cap (rank_rulers_kernel; in place on the card, which settles every
+    chain's rows to the same values); each lane from its word and its
+    ruler's row (rank_finish_kernel); the cycle lanes doubled R rounds
+    among themselves (rank_cycles_kernel).  (head_of, dist, n_cyc, n_e);
+    each walk's lane count appended to `walks`, the promoted rulers'
+    count to `promoted` (the kernel's tally: len(walks), max(walks), the
+    promoted, walk_bits)."""
     D = len(prev)
+    sh = stride.bit_length() - 1
     d = np.arange(D)
+    succ = np.full(D, -1, np.int64)
+    succ[prev[prev >= 0]] = d[prev >= 0]
+    n_r = -(-D // stride)
+    ob = walk_bits(D, n_r)
+    hbase = n_r + (D >> ob) + 1
+    rs = np.full((hbase + D, 2), -7, np.int64)    # never read unwritten
+    rs[d[(prev < 0) & is_ruler_lane(d, sh)] >> sh] = (NO_RULER, 0)
+    if ruler_lane((D - 1) >> sh, sh) >= D:
+        rs[(D - 1) >> sh] = (NO_RULER, 0)
+    heads = d[prev < 0]
+    rs[hbase + np.arange(len(heads))] = np.stack([~heads, 0 * heads], axis=1)
+    word = np.full(D, UNVISITED, np.int64)
+    starts = [(int(h), hbase + t) for t, h in enumerate(heads)]
+    starts += [(int(r), i)
+               for i, r in enumerate(ruler_lane(np.arange(n_r), sh))
+               if r < D and prev[r] >= 0]
+    extra = 0
+    for start, ident in starts:
+        word[start] = ident << ob
+        cur, off, n_ = start, 1, 1
+        while succ[cur] >= 0:
+            x = int(succ[cur])
+            if is_ruler_lane(x, sh):
+                rs[x >> sh] = (ident, off)
+                break
+            if off > (1 << ob) - 1:
+                rs[n_r + extra] = (ident, off)
+                ident, off, extra = n_r + extra, 0, extra + 1
+            word[x] = ident << ob | off
+            cur, off, n_ = x, off + 1, n_ + 1
+        if walks is not None:
+            walks.append(n_)
+    if promoted is not None:
+        promoted.append(extra)
+    live = np.r_[0:n_r + extra]
+    assert (rs[live, 0] != -7).all(), "a ruler row no walk wrote"
+    for _ in range(ub.rounds(hbase)):
+        pend = live[rs[live, 0] >= 0]
+        a = rs[rs[pend, 0]]
+        rs[pend] = np.stack([a[:, 0], rs[pend, 1] + a[:, 1]], axis=1)
+        if not (a[:, 0] >= 0).any():
+            break
+    cyc = word == UNVISITED
+    g = rs[word[~cyc] >> ob]
+    cyc[~cyc] = g[:, 0] >= 0
+    head, dist = np.full(D, -7, np.int64), np.full(D, -7, np.int64)
+    g = rs[word[~cyc] >> ob]
+    head[~cyc], dist[~cyc] = ~g[:, 0], g[:, 1] + (word[~cyc] & ((1 << ob) - 1))
     R = ub.rounds(D)
-    buf = [np.stack([np.where(prev < 0, d, prev), (prev >= 0)], axis=1),
-           np.full((D, 2), -7, np.int64)]     # scratch: never read unwritten
-    moved = np.zeros(R, bool)
-    for r in range(R):
-        if r > 0 and not moved[r - 1]:
-            continue
-        cur = buf[r % 2]
-        g = cur[cur[:, 0]]
-        buf[(r + 1) % 2] = np.stack([g[:, 0], cur[:, 1] + g[:, 1]], axis=1)
-        moved[r] = (g[:, 1] > 0).any()
-    head, dist = buf[R % 2][:, 0], buf[R % 2][:, 1]
-    return head, dist, int((prev[head] >= 0).sum()), int((head == d).sum())
+    anc = prev.copy()
+    for _ in range(R):
+        nxt = anc.copy()
+        nxt[cyc] = anc[anc[cyc]]
+        anc = nxt
+    head[cyc], dist[cyc] = anc[cyc], 1 << R
+    return head, dist, int(cyc.sum()), int((head == d).sum())
 
 
-def model_warp_sums(u_of, c, n_e):
-    """unitig_sums_kernel: each 32-lane warp's lanes grouped by unitig,
-    the group's lanes and the 16-bit halves of its counts summed, one add
-    a group."""
+def model_block_sums(u_of, c, n_e, atomics=None):
+    """unitig_sums_kernel: a tile of SUM_TILE lanes at a time, each warp's
+    lanes grouped by unitig (the counts' 16-bit halves summed), the
+    groups' leaders in lane order into a SUM_SLOTS table (u's slot or a
+    free one within SUM_PROBES, else straight to the row), the table into
+    the rows.  (ulen, ecount); `atomics` (n_e,) counts the adds to each
+    unitig's row."""
     D = len(u_of)
-    key = (np.arange(D) // 32) * (n_e + 1) + u_of
-    groups, inv = np.unique(key, return_inverse=True)
-    gu = groups % (n_e + 1)
-    lo = np.bincount(inv, weights=c & 0xFFFF).astype(np.int64)
-    hi = np.bincount(inv, weights=c >> 16).astype(np.int64)
     ulen = np.zeros(n_e, np.int64)
     ecount = np.zeros(n_e, np.int64)
-    np.add.at(ulen, gu, np.bincount(inv))
-    np.add.at(ecount, gu, lo + (hi << 16))
+    adds = np.zeros(n_e, np.int64) if atomics is None else atomics
+
+    def row_add(u, n_, cnt):
+        ulen[u] += n_
+        ecount[u] += cnt
+        adds[u] += 1
+
+    for t0 in range(0, D, SUM_TILE):
+        u = u_of[t0:t0 + SUM_TILE]
+        cc = c[t0:t0 + SUM_TILE]
+        key = (np.arange(len(u)) // 32) * (n_e + 1) + u
+        groups, first, inv = np.unique(key, return_index=True,
+                                       return_inverse=True)
+        lo = np.bincount(inv, weights=cc & 0xFFFF).astype(np.int64)
+        hi = np.bincount(inv, weights=cc >> 16).astype(np.int64)
+        size = np.bincount(inv)
+        slot_key = np.full(SUM_SLOTS, -1, np.int64)
+        slot_len = np.zeros(SUM_SLOTS, np.int64)
+        slot_cnt = np.zeros(SUM_SLOTS, np.int64)
+        for gi in np.argsort(first):
+            gu, cnt = int(groups[gi] % (n_e + 1)), lo[gi] + (hi[gi] << 16)
+            slot = gu & (SUM_SLOTS - 1)
+            for _ in range(SUM_PROBES):
+                if slot_key[slot] in (-1, gu):
+                    slot_key[slot] = gu
+                    slot_len[slot] += size[gi]
+                    slot_cnt[slot] += cnt
+                    break
+                slot = (slot + 1) & (SUM_SLOTS - 1)
+            else:
+                row_add(gu, size[gi], cnt)
+        for s in np.flatnonzero(slot_key >= 0):
+            row_add(slot_key[s], slot_len[s], slot_cnt[s])
     return ulen, ecount
 
 
 def model_assemble(u, counts, sk, tk, lbase, head, dist, k, n_e):
     """ub_assemble_launch: (seq_off, ecount, edge_rc, edge_source,
-    edge_target, n_v, seq)."""
+    edge_target, n_v, seq); seq_off by the look-back scan, the tail lanes
+    listed, then the ends a unitig each, the endpoints renumbered by the
+    marks and their scan."""
     D = len(head)
     n = D // 2
     d = np.arange(D)
@@ -424,15 +548,20 @@ def model_assemble(u, counts, sk, tk, lbase, head, dist, k, n_e):
     u_all[is_head] = model_scan(is_head)[is_head]
     head_d = d[is_head]
     u_of = u_all[head]
-    ulen, ecount = model_warp_sums(u_of, counts[d % n].astype(np.int64), n_e)
+    ulen, esum = model_block_sums(u_of, counts[d % n].astype(np.int64), n_e)
     seq_off = np.empty(n_e + 1, np.int64)
     seq_off[:n_e] = model_scan(k + ulen)
     seq_off[n_e] = seq_off[n_e - 1] + k + ulen[-1]
     seq = np.full(D + k * n_e, 255, np.uint8)
-    seq[seq_off[u_of] + k + dist] = lbase
+    seq[(seq_off[u_of] + k + dist)[dist > 0]] = lbase[dist > 0]
+    seq[seq_off[:-1] + k] = lbase[head_d]          # the head k-mer's warp
+    tail = dist == ulen[u_of] - 1                  # write_seq_kernel's tails
+    assert np.bincount(u_of[tail], minlength=n_e).max() == 1
     tail_d = np.full(n_e, -1, np.int64)
-    tail = dist == ulen[u_of] - 1
     tail_d[u_of[tail]] = d[tail]
+    ecount = esum                                  # the ends, a unitig each
+    edge_rc = u_all[head[np.where(tail_d < n, tail_d + n, tail_d - n)]]
+    es, et = sk[head_d], tk[tail_d]
     q = np.arange(n_e * k)
     uu, j = q // k, q % k
     hd = head_d[uu]
@@ -441,14 +570,12 @@ def model_assemble(u, counts, sk, tk, lbase, head, dist, k, n_e):
     limb = u[np.where(rc, hd - n, hd), pos // 16]
     b = (limb >> (30 - 2 * (pos % 16))) & 3
     seq[seq_off[uu] + j] = np.where(rc, 3 - b, b)
-    edge_rc = u_of[np.where(tail_d < n, tail_d + n, tail_d - n)]
-    es, et = sk[head_d], tk[tail_d]
     used = np.zeros(D, np.int64)
     used[es >> 1] = 1
     used[et >> 1] = 1
     nid = model_scan(used)
-    return (seq_off, ecount, edge_rc, 2 * nid[es >> 1] + (es & 1),
-            2 * nid[et >> 1] + (et & 1), 2 * int(used.sum()), seq)
+    src, tgt = 2 * nid[es >> 1] + (es & 1), 2 * nid[et >> 1] + (et & 1)
+    return seq_off, ecount, edge_rc, src, tgt, 2 * int(used.sum()), seq
 
 
 @pytest.mark.parametrize("nl", [1, 2, 3, 4])
@@ -502,8 +629,9 @@ def test_link_model(name):
 
 @pytest.mark.parametrize("name", LIVE)
 def test_rank_model(name):
-    """The flagged round schedule == plain rank_chains == JAX
-    _rank_chains on the same lanes, the cycle lanes flagged alike."""
+    """The ruling set (the walks, the ruler rounds, the finish, the cycle
+    lanes doubled) == plain rank_chains == JAX _rank_chains on the same
+    lanes, the cycle lanes alike."""
     p = _port(name)
     prev = p["prev_ptr"].numpy().astype(np.int64)
     head, dist, n_cyc, n_e = model_rank(prev)
@@ -520,9 +648,9 @@ def test_rank_model(name):
                                              (5_000, 40, 5), (65_537, 2, 6)])
 def test_rank_model_on_permutations(D, n_cycles, seed):
     """Lanes cut from a random permutation into chains (one of 2^m + 1
-    lanes, the deepest a round count reaches) and pure cycles: the model
-    == plain == JAX _rank_chains; chain lanes at their true head and
-    distance."""
+    lanes, the deepest a round count reaches) and pure cycles: the
+    ruling-set model == plain == JAX _rank_chains; chain lanes at their
+    true head and distance."""
     rng = np.random.default_rng(seed)
     perm = rng.permutation(D)
     prev = np.full(D, -1, np.int64)
@@ -552,6 +680,201 @@ def test_rank_model_on_permutations(D, n_cycles, seed):
     assert n_cyc == int((~on_chain).sum())
 
 
+def _hold_rank(prev, strides=(1, 4, ub.RANK_STRIDE, 64, 1024)):
+    """plain rank_chains == JAX _rank_chains == the model at each stride
+    on prev; chain lanes at their true head and distance, cycle lanes at
+    distance 2^R.  (head_of, dist, cycle lanes)."""
+    D = len(prev)
+    got_h, got_d, info = ub.plain_rank_chains(torch.as_tensor(
+        prev.astype(np.int32)))
+    head, dist = got_h.numpy(), got_d.numpy()
+    jh, jd = jdb._rank_chains(jnp.asarray(prev.astype(np.int32)))
+    np.testing.assert_array_equal(np.asarray(jh), head)
+    np.testing.assert_array_equal(np.asarray(jd), dist)
+    for stride in strides:
+        h, dd, n_cyc, n_e = model_rank(prev, stride)
+        np.testing.assert_array_equal(h, head, err_msg=f"stride {stride}")
+        np.testing.assert_array_equal(dd, dist, err_msg=f"stride {stride}")
+        assert (n_cyc, n_e) == (int(info[0]), int(info[1]))
+    # the chains, walked from their heads
+    want_h, want_d = np.full(D, -1), np.full(D, -1)
+    succ = np.full(D, -1)
+    succ[prev[prev >= 0]] = np.flatnonzero(prev >= 0)
+    for h in np.flatnonzero(prev < 0):
+        cur, k = h, 0
+        while cur >= 0:
+            want_h[cur], want_d[cur] = h, k
+            cur, k = succ[cur], k + 1
+    chain = want_h >= 0
+    np.testing.assert_array_equal(head[chain], want_h[chain])
+    np.testing.assert_array_equal(dist[chain], want_d[chain])
+    assert (dist[~chain] == 1 << ub.rounds(D)).all()
+    assert int(info[0]) == int((~chain).sum())
+    return head, dist, ~chain
+
+
+def _close(prev, lanes):
+    """prev_ptr along `lanes` in order, closed into a pure cycle."""
+    prev[lanes] = np.roll(lanes, 1)
+
+
+def _random_chains(D, rng, cuts):
+    perm = rng.permutation(D)
+    prev = np.full(D, -1, np.int64)
+    prev[perm[1:]] = perm[:-1]
+    prev[perm[np.sort(rng.choice(np.arange(1, D), cuts, replace=False))]] = -1
+    return prev
+
+
+@pytest.mark.parametrize("case", [
+    "short cycles holding no ruler", "a cycle of rulers only",
+    "one chain of D lanes", "every lane a head", "D = 2^12", "D = 2^12 + 1",
+    "D = 2^16", "self loops", "a walk past 2^ob lanes"])
+def test_rank_model_shapes(case):
+    """The ruling set's hard shapes, model == plain == JAX: cycles shorter
+    than the stride with no sampled lane (no walk reaches them), a cycle
+    whose every lane is a sample (its rulers stay pending), one chain
+    through every lane (the ruler rounds' longest list), no
+    predecessors, power-of-two lane counts and one past, one-lane
+    cycles, a head followed by more than 2^ob lanes that are no sample
+    (promotions at the kernel's stride)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    sh = ub.RANK_STRIDE.bit_length() - 1
+    if case == "short cycles holding no ruler":
+        D = 3_000
+        prev = _random_chains(D, rng, 40)
+        plain = rng.permutation(np.flatnonzero(~is_ruler_lane(np.arange(D),
+                                                              sh)))
+        for i in range(5):                   # 5 cycles of 2..15 lanes
+            cyc = plain[20 * i:20 * i + 2 + 3 * i]
+            prev[np.isin(prev, cyc)] = -1        # their successors: heads
+            _close(prev, cyc)
+        assert not is_ruler_lane(np.flatnonzero(_hold_rank(prev)[2]),
+                                 sh).any()
+    elif case == "a cycle of rulers only":
+        D = 4_000
+        prev = _random_chains(D, rng, 30)
+        cyc = ruler_lane(rng.permutation(D // ub.RANK_STRIDE)[:37], sh)
+        prev[np.isin(prev, cyc)] = -1
+        _close(prev, cyc)
+        on_cycle = _hold_rank(prev, (ub.RANK_STRIDE,))[2]
+        np.testing.assert_array_equal(np.flatnonzero(on_cycle), np.sort(cyc))
+    elif case == "one chain of D lanes":
+        prev = _random_chains(20_000, rng, 0)
+        walks = []
+        model_rank(prev, ub.RANK_STRIDE, walks)
+        assert sum(walks) == 20_000
+        _hold_rank(prev)
+    elif case == "every lane a head":
+        prev = np.full(2_049, -1, np.int64)
+        head, dist, _ = _hold_rank(prev)
+        assert (head == np.arange(2_049)).all() and (dist == 0).all()
+    elif case == "self loops":
+        D = 1_000
+        prev = _random_chains(D, rng, 10)
+        lanes = np.array([int(ruler_lane(3, sh)), 101 if not is_ruler_lane(
+            101, sh) else 102])
+        prev[np.isin(prev, lanes)] = -1
+        prev[lanes] = lanes
+        assert _hold_rank(prev)[2].sum() == 2
+    elif case == "a walk past 2^ob lanes":
+        D = 4_000
+        ob = walk_bits(D, -(-D // ub.RANK_STRIDE))
+        prev = _random_chains(D, rng, 20)
+        plain = rng.permutation(np.flatnonzero(~is_ruler_lane(np.arange(D),
+                                                              sh)))
+        run = plain[:(1 << ob) + 77]
+        prev[np.isin(prev, run)] = -1        # their successors: heads
+        prev[run[0]] = -1
+        prev[run[1:]] = run[:-1]
+        walks, promoted = [], []
+        model_rank(prev, ub.RANK_STRIDE, walks, promoted)
+        assert max(walks) == len(run) and promoted[0] >= 1
+        _hold_rank(prev)
+    else:
+        D = {"D = 2^12": 4_096, "D = 2^12 + 1": 4_097,
+             "D = 2^16": 65_536}[case]
+        prev = _random_chains(D, rng, 9)
+        perm = rng.permutation(D)
+        for a in range(0, 60, 20):           # three cycles of 20
+            cyc = perm[a:a + 20]
+            prev[np.isin(prev, cyc)] = -1
+            _close(prev, cyc)
+        _hold_rank(prev)
+
+
+@pytest.mark.parametrize("D,L", [(7, 7), (100, 3), (1_025, 1_025),
+                                 (5_000, 12), (65_537, 5)])
+def test_cycle_lane_contract(D, L):
+    """plain_rank_chains on a pure cycle of L lanes beside chains: each
+    cycle lane's head is the lane 2^R steps back along prev_ptr (R =
+    rounds(D)), modulo the cycle, and its distance 2^R; info[0] counts
+    the cycle's lanes."""
+    rng = np.random.default_rng(L)
+    perm = rng.permutation(D)
+    prev = np.full(D, -1, np.int64)
+    cyc, rest = perm[:L], perm[L:]
+    _close(prev, cyc)
+    prev[rest[1:]] = rest[:-1]
+    head, dist, info = ub.plain_rank_chains(torch.as_tensor(
+        prev.astype(np.int32)))
+    R = ub.rounds(D)
+    back = cyc[(np.arange(L) - (1 << R)) % L]
+    np.testing.assert_array_equal(head.numpy()[cyc], back)
+    assert (dist.numpy()[cyc] == 1 << R).all()
+    assert int(info[0]) == L
+
+
+@pytest.mark.parametrize("stride", [1, 2, 16, 64, 1024])
+def test_ruler_lanes(stride):
+    """One sampled lane a block of `stride` lanes, inside it; is_ruler_lane
+    agrees; on one random chain of 65,536 lanes every lane is walked once,
+    the longest walk stays short, walks past 1,024 lanes promote rulers,
+    and the model == plain."""
+    sh = stride.bit_length() - 1
+    D = 65_536
+    i = np.arange(D // stride)
+    r = ruler_lane(i, sh)
+    assert ((r >> sh) == i).all()
+    marks = is_ruler_lane(np.arange(D), sh)
+    np.testing.assert_array_equal(np.flatnonzero(marks), r)
+    walks, promoted = [], []
+    prev = _random_chains(D, np.random.default_rng(stride), 0)
+    head, dist, _, _ = model_rank(prev, stride, walks, promoted)
+    assert sum(walks) == D
+    assert max(walks) <= stride * 40
+    assert (promoted[0] > 0) == (max(walks) > 1 << MAX_WALK_BITS)
+    if stride == 1024:
+        assert promoted[0] > 0
+    got_h, got_d, _ = ub.plain_rank_chains(torch.as_tensor(
+        prev.astype(np.int32)))
+    np.testing.assert_array_equal(head, got_h.numpy())
+    np.testing.assert_array_equal(dist, got_d.numpy())
+
+
+def test_rank_stride_is_the_kernels():
+    """The wrapper's RANK_STRIDE, which the models and chip_smoke.py take,
+    is csrc's ruler block, 1 << RANK_SHIFT lanes."""
+    src = (_build.CSRC / "unitig_build.cu").read_text()
+    shift = int(src.split("constexpr int RANK_SHIFT = ")[1].split(";")[0])
+    assert 1 << shift == ub.RANK_STRIDE
+
+
+def test_rank_walks_refused():
+    """The walks tally is the kernel's: CPU lanes refuse it, and a tally
+    that is not (4,) int32 on the lanes' device is refused before any
+    build."""
+    with pytest.raises(ValueError, match="plain version makes none"):
+        ub.rank_chains(torch.full((8,), -1, dtype=torch.int32),
+                       walks=torch.zeros(4, dtype=torch.int32))
+    lanes = torch.zeros(64, dtype=torch.int32, device="meta")
+    for bad in (torch.zeros(3, dtype=torch.int32, device="meta"),
+                torch.zeros(4, dtype=torch.int64, device="meta"),
+                torch.zeros(4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="walks must be"):
+            ub.rank_chains(lanes, walks=bad)
+
+
 @pytest.mark.parametrize("name", LIVE)
 def test_assemble_model(name):
     u, c, k = CASES[name]
@@ -568,20 +891,47 @@ def test_assemble_model(name):
     np.testing.assert_array_equal(got.seq.numpy(), want[6])
 
 
+@pytest.mark.parametrize("n_e,spread", [(2, "mixed"), (2, "halves"),
+                                        (50_000, "mixed")])
+def test_block_sums_row_adds(n_e, spread):
+    """Two unitigs over 3 tiles and a bit, their lanes mixed (the bench's
+    shape: a genome-long unitig a strand) or in two halves: one add a
+    unitig's row a tile, where warp aggregation sent one a warp.  50,000
+    unitigs: slots collide and spill to the rows; sums exact."""
+    rng = np.random.default_rng(n_e)
+    D = 3 * SUM_TILE + 77
+    u_of = rng.integers(0, n_e, D) if spread == "mixed" else \
+        (np.arange(D) >= D // 2).astype(np.int64)
+    c = rng.integers(1, 1 << 31, D)
+    adds = np.zeros(n_e, np.int64)
+    ulen, ecount = model_block_sums(u_of, c, n_e, adds)
+    np.testing.assert_array_equal(ulen, np.bincount(u_of, minlength=n_e))
+    want = np.zeros(n_e, np.int64)
+    np.add.at(want, u_of, c)
+    np.testing.assert_array_equal(ecount, want)
+    if n_e == 2:
+        assert adds.sum() <= 2 * 4 and adds.sum() < D // 32
+    else:
+        assert adds.sum() > 0
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_warp_sums_model(seed):
-    """Counts up to 2^31 - 1 summed by 16-bit halves in warp groups ==
-    bincount, lengths too."""
+    """Counts up to 2^31 - 1 summed by 16-bit halves in warp groups, the
+    groups in the block's table == bincount, lengths too; one row add a
+    unitig a tile."""
     rng = np.random.default_rng(seed)
     n_e = [1, 7, 300][seed]
     u_of = np.sort(rng.integers(0, n_e, 4_000)) if seed else \
         np.zeros(4_000, np.int64)
     c = rng.integers(1, 1 << 31, 4_000)
-    ulen, ecount = model_warp_sums(u_of, c, n_e)
+    adds = np.zeros(n_e, np.int64)
+    ulen, ecount = model_block_sums(u_of, c, n_e, adds)
     np.testing.assert_array_equal(ulen, np.bincount(u_of, minlength=n_e))
     want = np.zeros(n_e, np.int64)
     np.add.at(want, u_of, c)
     np.testing.assert_array_equal(ecount, want)
+    assert adds.max() == 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -11,11 +11,12 @@
 //   - _front :90-143, node ids, adjacency, successor and predecessor
 //     pointers: ub_link_launch (the NodeIds scan, link_edges_kernel,
 //     link_next_kernel, link_prev_kernel);
-//   - _rank_chains :150-186: ub_rank_launch (rank_init_kernel, the
-//     rounds, rank_finish_kernel);
+//   - _rank_chains :150-186: ub_rank_launch (rank_link_kernel,
+//     rank_walk_kernel, rank_rulers_kernel, rank_finish_kernel,
+//     rank_cycles_kernel);
 //   - _assemble :228-319: ub_assemble_launch (the Heads scan,
-//     unitig_sums_kernel, the SeqOff scan, write_seq_kernel, ends_kernel,
-//     the Used scan, renumber_kernel).
+//     unitig_sums_kernel, the SeqOff scan, write_seq_kernel,
+//     ends_kernel, the Used scan and renumber_kernel).
 // Between the first two the caller sorts the fingerprints
 // (ops/kmer_sort.py:lex_order, csrc/kmer_sort.cu).  The port's plain
 // versions of the four entries are the tensor code of
@@ -50,31 +51,73 @@
 // Bound by the gathers of the permutation's fingerprints and the atomics:
 // about 200 MB at the bench.
 //
-// rank_chains.  Wyllie's pointer doubling on packed (anc, dist) int2
-// rows, double-buffered, all ceil(log2 D) + 1 rounds queued at once with
-// no host sync: round r sets a device flag when a lane's ancestor still
-// moved, and round r + 1 returns at once when round r's flag is clear.
-// A round that moves nothing writes its input again, so once the lanes
-// settle both buffers hold the answer and the rounds left read nothing.
-// The finish pass writes head_of and dist and counts, into info, the
-// lanes whose head has a predecessor (on a pure cycle) and the heads.
-// Bound by the rounds' gathers of 8-byte rows: at the bench (one
-// genome-length unitig pair) every round runs, about 100 MB each.
+// rank_chains.  A ruling set.  prev_ptr is injective, so the lanes form
+// disjoint chains and pure cycles.  Wyllie's doubling would gather an
+// 8-byte row a lane in each of ceil(log2 D) + 1 rounds, and at the bench
+// (one genome-length unitig a strand) every round would run: 23 passes
+// of about 190 MB of sectors.  Here each lane is touched about three
+// times:
+//   1. rank_link_kernel: each lane's successor (succ[prev[d]] = d), the
+//      heads listed (an atomic a block), every lane's word unvisited;
+//   2. the rulers: every head, and one sampled lane in each block of 16
+//      lanes (RANK_SHIFT), at an offset a hash of the block picks
+//      (ruler_lane), so the samples fall about 16 apart along any chain
+//      whatever the lanes' order; rulerhood is arithmetic;
+//   3. rank_walk_kernel, a thread a ruler: it walks the successors to the
+//      next sample or the chain's end, packing each lane's (ruler id,
+//      offset) into a 4-byte word, and at the next sample writes that
+//      sample's ruler row (this ruler, the gap).  The lane 2^ob steps
+//      past a walk's ruler becomes a ruler of its own, so an offset fits
+//      its bits; ob = walk_bits(D, n_r) leaves the ruler ids room for D
+//      heads: 8 at the bench (D = 3,999,906), 5 at D = 2^25;
+//   4. rank_rulers_kernel, one cooperative launch: Wyllie on the ruler
+//      rows (about D / 16 of them, in L2), in place, a grid-wide
+//      barrier a round, ending on the device once no row is pending; the
+//      heads' rows are settled from the start;
+//   5. rank_finish_kernel: head_of and dist of each lane from its word
+//      and its ruler's row, written in lane order;
+//   6. the cycles: a lane no walk reached (a cycle without a sample) or
+//      whose ruler stays pending (a cycle of samples) is a cycle lane.
+//      The plain version's R = ceil(log2 D) + 1 rounds leave on it the
+//      lane 2^R steps back and the distance 2^R; rank_cycles_kernel,
+//      cooperative, doubles the listed cycle lanes among themselves to
+//      that, and returns at once when there is none.
+// What bounds it: the walk's D dependent successor reads and D scattered
+// word stores.  Scattered stores cost their sector a read and a write
+// back unless it stays in L2, so the layout is set by L2: 4-byte words
+// beside the 4-byte successors (32 MB at the bench) run the walk in half
+// the time of 8-byte rows (48 MB with the successors) on the card, and a
+// 16-byte record a lane (64 MB) ran 4x slower than those.  Then the
+// ruler rounds' barriers, about 4 us a round.  No host sync.
 //
 // assemble_unitigs.  A scan of the head lanes numbers the unitigs and
 // lists their heads; a lane's unitig is its head's number.  Lengths and
-// count sums by integer atomics (exact in any order), aggregated first
-// over the lanes of a warp that share a unitig (__match_any_sync and
-// __reduce_add_sync), so a long unitig costs an atomic a warp.  seq_off is
-// an int64 scan.  Each unitig's first k bases come from its head's row,
-// reverse-complemented for a reverse-complement head, then each lane
-// writes its last base at seq_off + k + dist.  The tail lanes, the
-// reverse-complement pairing and the endpoint keys follow; the endpoint
-// nodes are renumbered by marking the used node ids and an exclusive scan
-// of the marks (the ascending order torch.unique gives, with no sort).
-// About 150 MB at the bench.
+// count sums by integer atomics (exact in any order): a warp's lanes that
+// share a unitig are grouped first (__match_any_sync, their counts summed
+// as 16-bit halves), the groups' leaders add into a block's table in
+// shared memory (a unitig a slot, four probes, a global atomic only past
+// them), and each tile of 4,096 lanes adds its table to the unitig rows:
+// at the bench's two unitigs two atomics a row a tile, where grouping by
+// warp alone sends two a warp, all serialised in L2 on the same two rows.
+// The sums, the scans' status words and the used marks are zeroed by one
+// memset.  seq_off is a look-back scan of k + ulen.  One pass over the
+// lanes then writes each lane's last base at seq_off + k + dist (a random
+// byte store each, the pool in L2) and lists the tail lanes (dist = ulen
+// - 1); a warp takes 32 unitigs at a time and writes their first k bases
+// from their heads' rows.  The
+// ends (count sum, reverse-complement partner, endpoint keys) are taken a
+// unitig a thread, marking the endpoint nodes; the marks' scan numbers
+// them densely in ascending order (torch.unique's), and a pass over the
+// unitigs renumbers the endpoints: one path at every n_e (a one-block
+// sort of the endpoints for few unitigs would save 0.023 ms at the
+// bench's two, on an H100).  Bound at the bench by the pool's random
+// byte stores.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -87,6 +130,12 @@ constexpr unsigned long long ST_AGG = 1, ST_PREFIX = 2;   // status flags
 constexpr long long MAX_GRID = 132 * 16;          // blocks of a lane pass
 constexpr long long MAX_LANES = 1LL << 29;        // D: int32 keys, dists
 constexpr size_t ALIGN = 256;                     // scratch carving
+constexpr int NO_RULER = INT_MIN;                 // a block without a sample
+constexpr int SUM_PER = 16;                       // lanes a thread a tile
+constexpr long long SUM_TILE = (long long)THREADS * SUM_PER;
+constexpr int SUM_SLOTS = 1024;                   // a block's unitig table
+constexpr int SUM_PROBES = 4;
+constexpr int RANK_SHIFT = 4;                     // a ruler block: 16 lanes
 
 __host__ __device__ __forceinline__ long long cdiv(long long a, long long b) {
     return (a + b - 1) / b;
@@ -349,11 +398,14 @@ size_t scan_bytes(long long len) {
     return (size_t)(cdiv(len, SCAN_TILE) + 1) * sizeof(unsigned long long);
 }
 
+// scratch: scan_bytes(len) bytes, zeroed here unless the caller did.
 template <class Op>
-int scan(const Op& op, long long len, void* scratch, cudaStream_t st) {
+int scan(const Op& op, long long len, void* scratch, cudaStream_t st,
+         bool zeroed = false) {
     const long long blocks = cdiv(len, SCAN_TILE);
     if (blocks == 0) return 0;
-    const cudaError_t e = cudaMemsetAsync(scratch, 0, scan_bytes(len), st);
+    const cudaError_t e =
+        zeroed ? cudaSuccess : cudaMemsetAsync(scratch, 0, scan_bytes(len), st);
     if (e != cudaSuccess) return (int)e;
     unsigned long long* status = static_cast<unsigned long long*>(scratch);
     scan_kernel<Op><<<(unsigned)blocks, THREADS, 0, st>>>(
@@ -382,9 +434,10 @@ struct Heads {
     const int* head_of;
     int* u_all;
     int* head_d;
+    long long n_e;
     __device__ long long value(long long d) const { return head_of[d] == d; }
     __device__ void emit(long long d, long long run, long long v) const {
-        if (v) {
+        if (v && run < n_e) {
             u_all[d] = (int)run;
             head_d[run] = (int)d;
         }
@@ -488,144 +541,502 @@ link_prev_kernel(const int* __restrict__ prv, long long D,
 }
 
 // ---------------------------------------------------------------------------
+// block helpers
+// ---------------------------------------------------------------------------
+
+// A slot for each flagged thread of the block in a list whose length is
+// *count: one atomic a block a call, none (and one barrier) when no
+// thread is flagged.  Every thread of the block calls it; sh holds WARPS
+// + 1 ints.
+__device__ int block_append(bool flag, int* count, int* sh) {
+    if (!__syncthreads_or(flag)) return 0;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned b = __ballot_sync(FULL, flag);
+    if (lane == 0) sh[warp] = __popc(b);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int total = 0;
+        for (int w = 0; w < WARPS; ++w) {
+            const int c = sh[w];
+            sh[w] = total;
+            total += c;
+        }
+        sh[WARPS] = total ? atomicAdd(count, total) : 0;
+    }
+    __syncthreads();
+    const int at = sh[WARPS] + sh[warp] + __popc(b & ((1u << lane) - 1));
+    __syncthreads();
+    return at;
+}
+
+// *out += the block's sum of v: one atomic a block, none for 0.  Every
+// thread of the block calls it.
+__device__ void block_add(unsigned v, int* out, unsigned* sh) {
+    v = __reduce_add_sync(FULL, v);
+    if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned total = 0;
+        for (int w = 0; w < WARPS; ++w) total += sh[w];
+        if (total) atomicAdd(out, (int)total);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // rank_chains
 // ---------------------------------------------------------------------------
 
+// murmur3's 32-bit finalizer: the offset of each ruler block's sample.
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    return h ^ (h >> 16);
+}
+
+// Ruler block i (lanes [i << RANK_SHIFT, (i + 1) << RANK_SHIFT)) samples
+// one lane.
+constexpr uint32_t RULER_MASK = (1u << RANK_SHIFT) - 1;
+
+__device__ __forceinline__ long long ruler_lane(long long i) {
+    return (i << RANK_SHIFT) | (long long)(mix32((uint32_t)i) & RULER_MASK);
+}
+
+__device__ __forceinline__ bool is_ruler_lane(long long d) {
+    return (d & RULER_MASK) ==
+           (long long)(mix32((uint32_t)(d >> RANK_SHIFT)) & RULER_MASK);
+}
+
+// A lane's word in st: UNVISITED until a walk packs (ruler id << ob |
+// offset) into it.  Ruler ids: the n_r blocks' samples, then the rulers
+// that over-long walks promote (at most D >> ob + 1), then from hbase one
+// a head.
+constexpr int UNVISITED = -1;
+constexpr int MAX_WALK_BITS = 10;         // offsets 0..1,023 at most
+
+// succ[p] = d for each lane d after p (succ all -1 before); every lane's
+// word UNVISITED; heads[] lists the lanes with no predecessor (counts[0]
+// of them), head t's ruler row (hbase + t) settled at (~head, 0); the row
+// of a block whose sampled lane is a head, or lies past D, NO_RULER.
 __global__ void __launch_bounds__(THREADS)
-rank_init_kernel(const int* __restrict__ prev_ptr, long long D,
-                 int2* __restrict__ st) {
-    LANES(d, D) {
-        const int p = prev_ptr[d];
-        st[d] = p < 0 ? make_int2((int)d, 0) : make_int2(p, 1);
+rank_link_kernel(const int* __restrict__ prev_ptr, long long D,
+                 long long hbase, int* __restrict__ succ,
+                 int* __restrict__ heads, int* counts, int* __restrict__ st,
+                 int2* __restrict__ rs) {
+    __shared__ int sh_app[WARPS + 1];
+    // whole blocks to the end: every thread takes part in the append
+    for (long long base = blockIdx.x * (long long)THREADS; base < D;
+         base += (long long)gridDim.x * THREADS) {
+        const long long d = base + threadIdx.x;
+        const bool ok = d < D;
+        int p = 0;
+        if (ok) {
+            p = prev_ptr[d];
+            st[d] = UNVISITED;
+            if (p >= 0)
+                succ[p] = (int)d;
+            else if (is_ruler_lane(d))
+                rs[d >> RANK_SHIFT] = make_int2(NO_RULER, 0);
+            if (d == D - 1 && ruler_lane(d >> RANK_SHIFT) > d)
+                rs[d >> RANK_SHIFT] = make_int2(NO_RULER, 0);
+        }
+        const bool head = ok && p < 0;
+        const int at = block_append(head, counts, sh_app);
+        if (head) {
+            heads[at] = (int)d;
+            rs[hbase + at] = make_int2(~(int)d, 0);
+        }
     }
 }
 
-// Round r: nxt[d] = (anc of anc, dist + dist of anc); moved[r] = 1 when
-// some lane's ancestor had a distance (had not reached its head).
-// Returns at once when round r - 1 moved nothing.
+// A thread a walk: head t = heads[t] (ruler hbase + t) for t <
+// counts[0], then ruler block i = t - counts[0] where its sampled lane
+// has a predecessor.  A walk follows the successors to the next sampled
+// lane or the chain's end, packing each lane's (ruler id, offset) into
+// its word: 4 bytes a lane, so the successors and the words (32 MB at
+// the bench) stay in L2 while the walks scatter into them.  At a sampled
+// lane it writes that ruler's row (this ruler, the gap), pending; after
+// the offset 2^ob - 1 it makes the next lane a ruler of its own (id n_r +
+// counts[2]++, row (this ruler, 2^ob)).  With tally (null on the
+// build's path) the walks are added to tally[0] and tally[1] is raised to
+// the longest walk's lanes (its start and each lane it packs, across its
+// promotions), a block's figures at once.
 __global__ void __launch_bounds__(THREADS)
-rank_round_kernel(const int2* __restrict__ cur, int2* __restrict__ nxt,
-                  long long D, int* moved, int r) {
-    if (r > 0 && moved[r - 1] == 0) return;
-    bool any = false;
-    LANES(d, D) {
-        const int2 s = cur[d];
-        const int2 g = cur[s.x];
-        nxt[d] = make_int2(g.x, s.y + g.y);
-        any |= g.y > 0;
+rank_walk_kernel(const int* __restrict__ prev_ptr,
+                 const int* __restrict__ succ, const int* __restrict__ heads,
+                 int* counts, long long D, long long n_r, long long hbase,
+                 int ob, int* __restrict__ st, int2* __restrict__ rs,
+                 int* tally) {
+    __shared__ int sh_walks[WARPS], sh_long[WARPS];
+    const long long n_heads = counts[0];
+    const int last = (1 << ob) - 1;
+    int walks = 0, longest = 0;
+    for (long long t = blockIdx.x * (long long)THREADS + threadIdx.x;
+         t < n_heads + n_r; t += (long long)gridDim.x * THREADS) {
+        int id, start;
+        if (t < n_heads) {
+            id = (int)(hbase + t);
+            start = heads[t];
+        } else {
+            id = (int)(t - n_heads);
+            const long long r = ruler_lane(id);
+            if (r >= D || prev_ptr[r] < 0) continue;
+            start = (int)r;
+        }
+        st[start] = id << ob;
+        int lanes = 1;
+        for (int cur = start, off = 1;; ++off, ++lanes) {
+            const int x = succ[cur];
+            if (x < 0) break;
+            if (is_ruler_lane(x)) {
+                rs[x >> RANK_SHIFT] = make_int2(id, off);
+                break;
+            }
+            if (off > last) {
+                const int next = (int)n_r + atomicAdd(counts + 2, 1);
+                rs[next] = make_int2(id, off);
+                id = next;
+                off = 0;
+            }
+            st[x] = id << ob | off;
+            cur = x;
+        }
+        ++walks;
+        longest = lanes > longest ? lanes : longest;
     }
-    if (__syncthreads_or(any) && threadIdx.x == 0) moved[r] = 1;
-}
-
-// head_of, dist; info[0] += lanes whose head has a predecessor (a pure
-// cycle), info[1] += heads.
-__global__ void __launch_bounds__(THREADS)
-rank_finish_kernel(const int2* __restrict__ st,
-                   const int* __restrict__ prev_ptr, long long D,
-                   int* __restrict__ head_of, int* __restrict__ dist,
-                   int* info) {
-    unsigned cyc = 0, heads = 0;
-    LANES(d, D) {
-        const int2 s = st[d];
-        head_of[d] = s.x;
-        dist[d] = s.y;
-        cyc += prev_ptr[s.x] >= 0;
-        heads += s.x == d;
-    }
-    cyc = __reduce_add_sync(FULL, cyc);
-    heads = __reduce_add_sync(FULL, heads);
+    if (!tally) return;
+    walks = __reduce_add_sync(FULL, walks);
+    longest = __reduce_max_sync(FULL, longest);
+    const int w = threadIdx.x >> 5;
     if ((threadIdx.x & 31) == 0) {
-        if (cyc) atomicAdd(info, (int)cyc);
-        if (heads) atomicAdd(info + 1, (int)heads);
+        sh_walks[w] = walks;
+        sh_long[w] = longest;
     }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int i = 1; i < WARPS; ++i) {
+            walks += sh_walks[i];
+            longest = sh_long[i] > longest ? sh_long[i] : longest;
+        }
+        atomicAdd(tally, walks);
+        atomicMax(tally + 1, longest);
+    }
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+        const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
+}
+
+// Wyllie on the ruler rows of the samples and the promoted rulers (n_r +
+// *extra; the heads' rows are settled from the start and only read), in
+// one cooperative launch, in place.  A row (anc, dist), one 64-bit word
+// (anc the low half), with anc < 0 is settled (head ~anc; NO_RULER a
+// block without a sample), else pending on ruler anc at dist.  A round
+// replaces each pending row by (the anc of its anc, the sum of the
+// dists), reading and writing whole words: a row read mid-round, old or
+// new, is an ancestor and its distance either way, so a round moves a row
+// at least as far as a double-buffered round would, often farther.
+// moved[r] is set while a row stays pending; every block reads it after
+// the grid's barrier, so all leave together: once no row is pending, or
+// after cap rounds (the rows on a cycle of samples stay pending; their
+// sums wrap, unread).
+__global__ void __launch_bounds__(THREADS)
+rank_rulers_kernel(int2* rows, const int* extra, long long n_r, int cap,
+                   int* moved) {
+    cg::grid_group grid = cg::this_grid();
+    unsigned long long* rs = reinterpret_cast<unsigned long long*>(rows);
+    const long long n = n_r + __ldcg(extra);
+    for (int r = 0; r < cap; ++r) {
+        bool pending = false;
+        for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x;
+             i < n; i += (long long)gridDim.x * THREADS) {
+            const unsigned long long s = ld_relaxed(rs + i);
+            const int anc = (int)(unsigned)s;
+            if (anc >= 0) {
+                const unsigned long long a = ld_relaxed(rs + anc);
+                const unsigned dist = (unsigned)(s >> 32) +
+                                      (unsigned)(a >> 32);
+                st_relaxed(rs + i, (a & 0xFFFFFFFFull) |
+                                       (unsigned long long)dist << 32);
+                pending |= (int)(unsigned)a >= 0;
+            }
+        }
+        if (__syncthreads_or(pending) && threadIdx.x == 0) moved[r] = 1;
+        grid.sync();
+        if (__ldcg(moved + r) == 0) break;
+    }
+}
+
+// head_of and dist of each lane from its word: its ruler's head, and the
+// ruler's distance plus its offset; info[1] = the heads (every chain's
+// own).  A lane no walk reached, or whose ruler is still pending, lies on
+// a pure cycle: listed in cyc (counts[1] of them) with anc[d] =
+// prev_ptr[d].  With tally: tally[2] = the promoted rulers, tally[3] =
+// ob.
+__global__ void __launch_bounds__(THREADS)
+rank_finish_kernel(const int* __restrict__ prev_ptr,
+                   const int* __restrict__ st, const int2* __restrict__ rs,
+                   long long D, int ob, int* __restrict__ head_of,
+                   int* __restrict__ dist, int* __restrict__ cyc, int* counts,
+                   int* __restrict__ anc, int* info, int* tally) {
+    __shared__ int sh_app[WARPS + 1];
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+        info[1] = counts[0];
+        if (tally) {
+            tally[2] = counts[2];
+            tally[3] = ob;
+        }
+    }
+    for (long long base = blockIdx.x * (long long)THREADS; base < D;
+         base += (long long)gridDim.x * THREADS) {
+        const long long d = base + threadIdx.x;
+        bool on_cycle = false;
+        if (d < D) {
+            const int w = st[d];
+            on_cycle = w == UNVISITED;
+            if (!on_cycle) {
+                const int2 g = rs[w >> ob];
+                on_cycle = g.x >= 0;
+                if (!on_cycle) {
+                    head_of[d] = ~g.x;
+                    dist[d] = g.y + (w & ((1 << ob) - 1));
+                }
+            }
+            if (on_cycle) anc[d] = prev_ptr[d];
+        }
+        const int at = block_append(on_cycle, counts + 1, sh_app);
+        if (on_cycle) cyc[at] = (int)d;
+    }
+}
+
+// The cycle lanes, in one cooperative launch: R doubling rounds among
+// themselves (after round r anc holds the lane 2^(r+1) steps back), then
+// head_of = the lane 2^R steps back and dist = 2^R, what the plain
+// version's R rounds leave there; info[0] = their number, info[1] += the
+// lanes that are their own.  Returns at once when there is none.
+__global__ void __launch_bounds__(THREADS)
+rank_cycles_kernel(const int* __restrict__ cyc, const int* counts, int* anc0,
+                   int* anc1, int R, int* __restrict__ head_of,
+                   int* __restrict__ dist, int* info) {
+    __shared__ unsigned sh_sum[WARPS];
+    const long long C = __ldcg(counts + 1);
+    if (blockIdx.x == 0 && threadIdx.x == 0) info[0] = (int)C;
+    if (C == 0) return;
+    cg::grid_group grid = cg::this_grid();
+    const long long first = blockIdx.x * (long long)THREADS + threadIdx.x;
+    const long long step = (long long)gridDim.x * THREADS;
+    int* cur = anc0;
+    int* nxt = anc1;
+    for (int r = 0; r < R; ++r) {
+        for (long long i = first; i < C; i += step) {
+            const int d = cyc[i];
+            nxt[d] = __ldcg(cur + __ldcg(cur + d));
+        }
+        grid.sync();
+        int* t = cur;
+        cur = nxt;
+        nxt = t;
+    }
+    unsigned heads = 0;
+    for (long long i = first; i < C; i += step) {
+        const int d = cyc[i];
+        const int h = __ldcg(cur + d);
+        head_of[d] = h;
+        dist[d] = 1 << R;
+        heads += h == d;
+    }
+    block_add(heads, info + 1, sh_sum);
 }
 
 // ---------------------------------------------------------------------------
 // assemble_unitigs
 // ---------------------------------------------------------------------------
 
-// u_of[d] = the unitig of d's head; ulen[u] += 1 and ecount[u] += the
-// count of d's k-edge, one atomic for the lanes of a warp that share u.
+// A block's unitig sums in shared memory: a unitig a slot.
+struct SumTable {
+    int key[SUM_SLOTS];
+    int len[SUM_SLOTS];
+    unsigned long long cnt[SUM_SLOTS];
+};
+
+// (len, cnt) into unitig u's slot: its own or a free one within
+// SUM_PROBES of u's; past them straight into u's row.
+__device__ void table_add(SumTable& t, int u, int len, unsigned long long cnt,
+                          int* ulen, unsigned long long* esum) {
+    int slot = u & (SUM_SLOTS - 1);
+    for (int p = 0; p < SUM_PROBES; ++p) {
+        const int was = atomicCAS(&t.key[slot], -1, u);
+        if (was == -1 || was == u) {
+            atomicAdd(&t.len[slot], len);
+            atomicAdd(&t.cnt[slot], cnt);
+            return;
+        }
+        slot = (slot + 1) & (SUM_SLOTS - 1);
+    }
+    atomicAdd(ulen + u, len);
+    atomicAdd(esum + u, cnt);
+}
+
+// ulen[u] += 1 and esum[u] += the count of d's k-edge for each lane d
+// of unitig u (its head's number): a warp's lanes that share u as one
+// group (the counts' 16-bit halves summed), the groups into the block's
+// table, the table into the unitig rows once a tile of SUM_TILE lanes.
 __global__ void __launch_bounds__(THREADS)
 unitig_sums_kernel(const int* __restrict__ head_of,
                    const int* __restrict__ u_all,
-                   const int* __restrict__ counts, long long n,
-                   int* __restrict__ u_of, int* ulen,
-                   unsigned long long* ecount) {
+                   const int* __restrict__ counts, long long n, int* ulen,
+                   unsigned long long* esum) {
+    __shared__ SumTable t;
     const long long D = 2 * n;
     const int lane = threadIdx.x & 31;
-    // whole warps to the end: every lane takes part in the warp's match
-    for (long long base = blockIdx.x * (long long)THREADS; base < D;
-         base += (long long)gridDim.x * THREADS) {
-        const long long d = base + threadIdx.x;
-        const bool ok = d < D;
-        int u = -1;
-        unsigned c = 0;
-        if (ok) {
-            u = u_all[head_of[d]];
-            u_of[d] = u;
-            c = (unsigned)counts[d < n ? d : d - n];
+    for (long long tile = blockIdx.x * SUM_TILE; tile < D;
+         tile += (long long)gridDim.x * SUM_TILE) {
+        for (int s = threadIdx.x; s < SUM_SLOTS; s += THREADS) {
+            t.key[s] = -1;
+            t.len[s] = 0;
+            t.cnt[s] = 0;
         }
-        const unsigned peers = __match_any_sync(FULL, u);
-        const unsigned lo = __reduce_add_sync(peers, c & 0xFFFFu);
-        const unsigned hi = __reduce_add_sync(peers, c >> 16);
-        if (ok && lane == __ffs(peers) - 1) {
-            atomicAdd(ulen + u, __popc(peers));
-            atomicAdd(ecount + u,
-                      (unsigned long long)lo + ((unsigned long long)hi << 16));
+        __syncthreads();
+        // whole warps: every lane takes part in the warp's match
+        for (int q = 0; q < SUM_PER; ++q) {
+            const long long d = tile + (long long)q * THREADS + threadIdx.x;
+            const bool ok = d < D;
+            int u = -1;
+            unsigned c = 0;
+            if (ok) {
+                u = u_all[head_of[d]];
+                c = (unsigned)counts[d < n ? d : d - n];
+            }
+            const unsigned peers = __match_any_sync(FULL, u);
+            const unsigned lo = __reduce_add_sync(peers, c & 0xFFFFu);
+            const unsigned hi = __reduce_add_sync(peers, c >> 16);
+            if (ok && lane == __ffs(peers) - 1)
+                table_add(t, u, __popc(peers),
+                          lo + ((unsigned long long)hi << 16), ulen, esum);
         }
+        __syncthreads();
+        for (int s = threadIdx.x; s < SUM_SLOTS; s += THREADS) {
+            const int u = t.key[s];
+            if (u >= 0) {
+                atomicAdd(ulen + u, t.len[s]);
+                atomicAdd(esum + u, t.cnt[s]);
+            }
+        }
+        __syncthreads();
     }
 }
 
-// Each lane's last base at seq_off[u] + k + dist, the tail lane of each
-// unitig (dist = ulen - 1), then each unitig's first k bases from its
-// head's row (reversed and complemented for a reverse-complement head).
+// Each lane's last base at seq_off[u] + k + dist, but a head's; the tail
+// lane of each unitig (dist = ulen - 1) into tail_d.  Then a warp takes 32
+// unitigs at a time: each lane loads one's head row, pool offset and head
+// base (32 independent loads, not a chain of them), and the warp writes
+// each in turn, its fields passed by shuffles: the first k bases from the
+// head's row (reversed and complemented for a reverse-complement head)
+// and the head's last base after them, so a one-lane unitig is written in
+// one piece.
 __global__ void __launch_bounds__(THREADS)
 write_seq_kernel(const long long* __restrict__ uniq, long long n, int nl1,
-                 int k, const int* __restrict__ u_of,
-                 const int* __restrict__ dist, const int* __restrict__ ulen,
+                 int k, const int* __restrict__ head_of,
+                 const int* __restrict__ u_all, const int* __restrict__ dist,
+                 const int* __restrict__ ulen,
                  const uint8_t* __restrict__ lastbase,
                  const int* __restrict__ head_d,
                  const long long* __restrict__ seq_off, long long n_e,
                  int* __restrict__ tail_d, uint8_t* __restrict__ seq) {
     LANES(d, 2 * n) {
-        const int u = u_of[d], ds = dist[d];
-        seq[seq_off[u] + k + ds] = lastbase[d];
+        const int u = u_all[head_of[d]], ds = dist[d];
+        if (ds) seq[seq_off[u] + k + ds] = lastbase[d];
         if (ds == ulen[u] - 1) tail_d[u] = (int)d;
     }
-    LANES(q, n_e * k) {
-        const long long u = q / k;
-        const int j = (int)(q - u * k);
-        const int hd = head_d[u];
-        const bool rc = hd >= n;
-        const long long e = rc ? hd - n : hd;
-        const int pos = rc ? k - j : j;
-        const uint32_t limb = (uint32_t)uniq[e * nl1 + pos / 16];
-        const uint32_t b = (limb >> (30 - 2 * (pos % 16))) & 3u;
-        seq[seq_off[u] + j] = (uint8_t)(rc ? 3u - b : b);
+    const int lane = threadIdx.x & 31;
+    const long long warps = ((long long)gridDim.x * THREADS) >> 5;
+    for (long long u0 = ((blockIdx.x * (long long)THREADS + threadIdx.x) >> 5)
+                        * 32;
+         u0 < n_e; u0 += warps * 32) {
+        int hd = 0;
+        long long at = 0;
+        uint32_t last = 0, limb[4] = {0, 0, 0, 0};
+        if (u0 + lane < n_e) {
+            hd = head_d[u0 + lane];
+            at = seq_off[u0 + lane];
+            last = lastbase[hd];
+            const long long row = (hd >= n ? hd - n : hd) * nl1;
+#pragma unroll
+            for (int l = 0; l < 4; ++l)
+                if (l < nl1) limb[l] = (uint32_t)uniq[row + l];
+        }
+        const int m = n_e - u0 < 32 ? (int)(n_e - u0) : 32;
+        for (int i = 0; i < m; ++i) {
+            const bool rc = __shfl_sync(FULL, hd, i) >= n;
+            const long long a = __shfl_sync(FULL, at, i);
+            uint32_t w[4];
+#pragma unroll
+            for (int l = 0; l < 4; ++l) w[l] = __shfl_sync(FULL, limb[l], i);
+            const uint32_t lb = __shfl_sync(FULL, last, i);
+            for (int j = lane; j <= k; j += 32) {
+                if (j == k) {
+                    seq[a + k] = (uint8_t)lb;
+                    break;
+                }
+                const int pos = rc ? k - j : j, l = pos >> 4;
+                const uint32_t x = l == 0 ? w[0] : l == 1 ? w[1]
+                                                  : l == 2 ? w[2] : w[3];
+                const uint32_t b = (x >> (30 - 2 * (pos & 15))) & 3u;
+                seq[a + j] = (uint8_t)(rc ? 3u - b : b);
+            }
+        }
     }
 }
 
-// edge_rc[u] = the unitig of the reverse complement of u's tail; the
-// endpoint keys (source of the head, target of the tail) into edge_src,
-// edge_tgt, their nodes marked used.
+// What a unitig's ends give: its count sum, edge_rc (the unitig of the
+// reverse complement of its tail lane) and its endpoint keys (its head's
+// source, its tail's target).
+struct Ends {
+    const int* head_of;
+    const int* u_all;
+    const int* head_d;
+    const int* tail_d;
+    const unsigned long long* esum;
+    const int* src_key;
+    const int* tgt_key;
+    long long n;
+    long long* ecount;
+    long long* edge_rc;
+    __device__ int2 operator()(long long u) const {
+        const int td = tail_d[u];
+        ecount[u] = (long long)esum[u];
+        edge_rc[u] = u_all[head_of[td < n ? td + n : td - n]];
+        return make_int2(src_key[head_d[u]], tgt_key[td]);
+    }
+};
+
+// Each unitig's ends, its endpoint keys into edge_src and edge_tgt, their
+// nodes marked in used.
 __global__ void __launch_bounds__(THREADS)
-ends_kernel(const int* __restrict__ head_d, const int* __restrict__ tail_d,
-            const int* __restrict__ u_of, const int* __restrict__ src_key,
-            const int* __restrict__ tgt_key, long long n, long long n_e,
-            long long* __restrict__ edge_rc, long long* __restrict__ edge_src,
+ends_kernel(Ends ends, long long n_e, long long* __restrict__ edge_src,
             long long* __restrict__ edge_tgt, uint8_t* used) {
     LANES(u, n_e) {
-        const int td = tail_d[u];
-        edge_rc[u] = u_of[td < n ? td + n : td - n];
-        const int es = src_key[head_d[u]], et = tgt_key[td];
-        edge_src[u] = es;
-        edge_tgt[u] = et;
-        used[es >> 1] = 1;
-        used[et >> 1] = 1;
+        const int2 e = ends(u);
+        edge_src[u] = e.x;
+        edge_tgt[u] = e.y;
+        used[e.x >> 1] = 1;
+        used[e.y >> 1] = 1;
     }
 }
 
+// The endpoints through nid, the Used scan's dense ids of the marked
+// nodes.
 __global__ void __launch_bounds__(THREADS)
 renumber_kernel(const int* __restrict__ nid, long long n_e,
                 long long* __restrict__ edge_src,
@@ -669,44 +1080,97 @@ struct LinkScratch {
     }
 };
 
+// ceil(log2 n) + 1 for n >= 2 (2 for n < 2): the doubling rounds that
+// rank any chain of n rows.
+int rounds_for(long long n) {
+    int b = 0;
+    while ((1LL << b) < (n < 2 ? 2 : n)) ++b;
+    return b + 1;
+}
+
+constexpr int MAX_ROUNDS = 30;             // 2^R, a cycle lane's dist, fits
+
+// The bits of a walk's offset in a lane's word: as many as leave room for
+// every ruler id (n_r blocks, at most (D >> ob) + 1 promoted, at most D
+// heads) in the other 31 - ob, up to MAX_WALK_BITS.
+int walk_bits(long long D, long long n_r) {
+    for (int ob = MAX_WALK_BITS; ob > 0; --ob)
+        if (n_r + (D >> ob) + 1 + D <= (1LL << (31 - ob))) return ob;
+    return 0;
+}
+
 struct RankScratch {
-    int2* st0;
-    int2* st1;
-    int* moved;
+    int* succ;
+    int* st;           // the lanes' words
+    int* heads;        // then the cycle lanes
+    int* anc0;         // the cycle lanes' ancestors, two buffers
+    int* anc1;
+    int2* rs;          // the ruler rows: samples, promoted, heads
+    int* counts;       // heads, cycle lanes, promoted rulers, round flags
     size_t bytes;
-    RankScratch(void* base, long long D, int rounds) {
+    RankScratch(void* base, long long D, long long rows) {
         Carve c(base);
-        st0 = c.take<int2>(D);
-        st1 = c.take<int2>(D);
-        moved = c.take<int>(rounds);
+        succ = c.take<int>(D);
+        st = c.take<int>(D);
+        heads = c.take<int>(D);
+        anc0 = c.take<int>(D);
+        anc1 = c.take<int>(D);
+        rs = c.take<int2>(rows);
+        counts = c.take<int>(3 + 32);
         bytes = c.used;
     }
 };
 
+// Everything the launch zeroes comes first, in one region: the scans'
+// status words, the sums, the used marks.
 struct AssembleScratch {
-    int* u_all;
-    int* u_of;
-    int* head_d;
+    unsigned long long* heads_scan;
+    unsigned long long* seqoff_scan;
+    unsigned long long* used_scan;
+    unsigned long long* esum;
     int* ulen;
-    int* tail_d;
     uint8_t* used;
+    size_t zero_bytes;
+    int* u_all;
+    int* head_d;
+    int* tail_d;
     int* nid;
-    void* scan;
     size_t bytes;
     AssembleScratch(void* base, long long n, long long n_e) {
         const long long D = 2 * n;
+        const long long w_d = (long long)scan_bytes(D) / 8;
+        const long long w_e = (long long)scan_bytes(n_e) / 8;
         Carve c(base);
-        u_all = c.take<int>(D);
-        u_of = c.take<int>(D);
-        head_d = c.take<int>(n_e);
+        heads_scan = c.take<unsigned long long>(2 * w_d + w_e);
+        seqoff_scan = heads_scan ? heads_scan + w_d : nullptr;
+        used_scan = heads_scan ? heads_scan + w_d + w_e : nullptr;
+        esum = c.take<unsigned long long>(n_e);
         ulen = c.take<int>(n_e);
-        tail_d = c.take<int>(n_e);
         used = c.take<uint8_t>(D);
+        zero_bytes = c.used;
+        u_all = c.take<int>(D);
+        head_d = c.take<int>(n_e);
+        tail_d = c.take<int>(n_e);
         nid = c.take<int>(D);
-        scan = c.take<uint8_t>((long long)scan_bytes(D > n_e ? D : n_e));
         bytes = c.used;
     }
 };
+
+// Blocks of a cooperative launch of kernel: as many as fit at once, at
+// most per_sm a multiprocessor.
+int coop_grid(const void* kernel, int per_sm, unsigned* grid) {
+    int dev, sms, fit;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &fit, kernel, THREADS, 0)) != cudaSuccess)
+        return (int)e;
+    if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+    *grid = (unsigned)(sms * (fit < per_sm ? fit : per_sm));
+    return 0;
+}
 
 bool bad_edges(long long n) { return n < 1 || 2 * n >= MAX_LANES; }
 
@@ -776,34 +1240,72 @@ extern "C" int ub_link_launch(const void* fp, const void* order,
     return (int)cudaGetLastError();
 }
 
-extern "C" long long ub_rank_scratch_bytes(long long D, int rounds) {
-    return (long long)RankScratch(nullptr, D, rounds).bytes;
+// The ruler layout of a launch: n_r block rows, the promoted from n_r,
+// the heads' from *hbase; the offset bits *ob; the rows to allocate.
+long long rank_layout(long long D, int* ob, long long* n_r,
+                      long long* hbase) {
+    *n_r = cdiv(D, 1LL << RANK_SHIFT);
+    *ob = walk_bits(D, *n_r);
+    *hbase = *n_r + (D >> *ob) + 1;
+    return *hbase + D;
 }
 
-// rank_chains: prev_ptr (D,) int32 -> head_of, dist (D,) int32 after
-// `rounds` doubling rounds at most (ceil(log2 D) + 1); info[0] = the lanes
-// on pure cycles, info[1] = the heads.  scratch:
-// ub_rank_scratch_bytes(D, rounds) bytes.
+extern "C" long long ub_rank_scratch_bytes(long long D) {
+    if (D < 1 || D >= MAX_LANES) return -1;
+    int ob;
+    long long n_r, hbase;
+    const long long rows = rank_layout(D, &ob, &n_r, &hbase);
+    return (long long)RankScratch(nullptr, D, rows).bytes;
+}
+
+// rank_chains: prev_ptr (D,) int32 -> head_of, dist (D,) int32; a cycle
+// lane gets what `rounds` (ceil(log2 D) + 1) doubling rounds leave.
+// info[0] = the lanes on pure cycles, info[1] = the heads.  tally: null,
+// or (4,) int32 zeroed, which gets the walks, the longest walk's lanes,
+// the promoted rulers and ob.  scratch: ub_rank_scratch_bytes(D) bytes.
 extern "C" int ub_rank_launch(const void* prev_ptr, long long D, int rounds,
                               void* scratch, void* head_of, void* dist,
-                              void* info, void* stream) {
-    if (D < 1 || D >= MAX_LANES || rounds < 1 || rounds > 64)
+                              void* info, void* tally, void* stream) {
+    if (D < 1 || D >= MAX_LANES || rounds < 1 || rounds > MAX_ROUNDS)
         return (int)cudaErrorInvalidValue;
+    int ob;
+    long long n_r, hbase;
+    const long long rows = rank_layout(D, &ob, &n_r, &hbase);
+    if (ob < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    RankScratch s(scratch, D, rounds);
+    RankScratch s(scratch, D, rows);
     const int* pp = static_cast<const int*>(prev_ptr);
-    UB_TRY(cudaMemsetAsync(s.moved, 0, rounds * sizeof(int), st));
-    UB_TRY(cudaMemsetAsync(info, 0, 2 * sizeof(int), st));
+    int* hof = static_cast<int*>(head_of);
+    int* dst = static_cast<int*>(dist);
+    int* inf = static_cast<int*>(info);
+    int* tl = static_cast<int*>(tally);
+    int cap = rounds_for(hbase);
+    int* extra = s.counts + 2;
+    int* moved = s.counts + 3;
+    UB_TRY(cudaMemsetAsync(s.succ, 0xFF, D * sizeof(int), st));
+    UB_TRY(cudaMemsetAsync(s.counts, 0, (3 + 32) * sizeof(int), st));
     const unsigned g = grid_of(D);
-    rank_init_kernel<<<g, THREADS, 0, st>>>(pp, D, s.st0);
-    int2* buf[2] = {s.st0, s.st1};
-    for (int r = 0; r < rounds; ++r)
-        rank_round_kernel<<<g, THREADS, 0, st>>>(buf[r & 1], buf[(r + 1) & 1],
-                                                 D, s.moved, r);
-    rank_finish_kernel<<<g, THREADS, 0, st>>>(
-        buf[rounds & 1], pp, D, static_cast<int*>(head_of),
-        static_cast<int*>(dist), static_cast<int*>(info));
-    return (int)cudaGetLastError();
+    rank_link_kernel<<<g, THREADS, 0, st>>>(pp, D, hbase, s.succ, s.heads,
+                                            s.counts, s.st, s.rs);
+    UB_TRY(cudaGetLastError());
+    rank_walk_kernel<<<g, THREADS, 0, st>>>(pp, s.succ, s.heads, s.counts, D,
+                                            n_r, hbase, ob, s.st, s.rs, tl);
+    UB_TRY(cudaGetLastError());
+    unsigned g_r, g_c;
+    UB_TRY(coop_grid((const void*)rank_rulers_kernel, 4, &g_r));
+    void* r_args[] = {&s.rs, &extra, &n_r, &cap, &moved};
+    UB_TRY(cudaLaunchCooperativeKernel((const void*)rank_rulers_kernel, g_r,
+                                       THREADS, r_args, 0, st));
+    rank_finish_kernel<<<g, THREADS, 0, st>>>(pp, s.st, s.rs, D, ob, hof, dst,
+                                              s.heads, s.counts, s.anc0, inf,
+                                              tl);
+    UB_TRY(cudaGetLastError());
+    UB_TRY(coop_grid((const void*)rank_cycles_kernel, 1, &g_c));
+    void* c_args[] = {&s.heads, &s.counts, &s.anc0, &s.anc1, &rounds, &hof,
+                      &dst, &inf};
+    UB_TRY(cudaLaunchCooperativeKernel((const void*)rank_cycles_kernel, g_c,
+                                       THREADS, c_args, 0, st));
+    return 0;
 }
 
 extern "C" long long ub_assemble_scratch_bytes(long long n, long long n_e) {
@@ -836,26 +1338,30 @@ extern "C" int ub_assemble_launch(const void* uniq, const void* counts,
     long long* edge_tgt = edge_src + n_e;
     long long* n_v = edge_tgt + n_e;
     const int* hof = static_cast<const int*>(head_of);
-    UB_TRY(cudaMemsetAsync(s.ulen, 0, n_e * sizeof(int), st));
-    UB_TRY(cudaMemsetAsync(s.used, 0, D, st));
-    UB_TRY(cudaMemsetAsync(ecount, 0, n_e * sizeof(long long), st));
-    UB_TRY(scan(Heads{hof, s.u_all, s.head_d}, D, s.scan, st));
-    unitig_sums_kernel<<<grid_of(D), THREADS, 0, st>>>(
-        hof, s.u_all, static_cast<const int*>(counts), n, s.u_of, s.ulen,
-        reinterpret_cast<unsigned long long*>(ecount));
+    UB_TRY(cudaMemsetAsync(s.heads_scan, 0, s.zero_bytes, st));
+    UB_TRY(scan(Heads{hof, s.u_all, s.head_d, n_e}, D, s.heads_scan, st,
+                true));
+    const long long sum_grid = cdiv(D, SUM_TILE);
+    unitig_sums_kernel<<<(unsigned)(sum_grid < MAX_GRID ? sum_grid : MAX_GRID),
+                         THREADS, 0, st>>>(
+        hof, s.u_all, static_cast<const int*>(counts), n, s.ulen, s.esum);
     UB_TRY(cudaGetLastError());
-    UB_TRY(scan(SeqOff{s.ulen, seq_off, n_e, k}, n_e, s.scan, st));
-    write_seq_kernel<<<grid_of(D > n_e * k ? D : n_e * k), THREADS, 0, st>>>(
-        static_cast<const long long*>(uniq), n, nl1, k, s.u_of,
+    UB_TRY(scan(SeqOff{s.ulen, seq_off, n_e, k}, n_e, s.seqoff_scan, st,
+                true));
+    write_seq_kernel<<<grid_of(D > 32 * n_e ? D : 32 * n_e), THREADS, 0,
+                       st>>>(
+        static_cast<const long long*>(uniq), n, nl1, k, hof, s.u_all,
         static_cast<const int*>(dist), s.ulen,
         static_cast<const uint8_t*>(lastbase), s.head_d, seq_off, n_e,
         s.tail_d, static_cast<uint8_t*>(seq));
-    ends_kernel<<<grid_of(n_e), THREADS, 0, st>>>(
-        s.head_d, s.tail_d, s.u_of, static_cast<const int*>(src_key),
-        static_cast<const int*>(tgt_key), n, n_e, edge_rc, edge_src, edge_tgt,
-        s.used);
     UB_TRY(cudaGetLastError());
-    UB_TRY(scan(Used{s.used, s.nid, n_v, D}, D, s.scan, st));
+    const Ends ends{hof, s.u_all, s.head_d, s.tail_d, s.esum,
+                    static_cast<const int*>(src_key),
+                    static_cast<const int*>(tgt_key), n, ecount, edge_rc};
+    ends_kernel<<<grid_of(n_e), THREADS, 0, st>>>(ends, n_e, edge_src,
+                                                  edge_tgt, s.used);
+    UB_TRY(cudaGetLastError());
+    UB_TRY(scan(Used{s.used, s.nid, n_v, D}, D, s.used_scan, st, true));
     renumber_kernel<<<grid_of(n_e), THREADS, 0, st>>>(s.nid, n_e, edge_src,
                                                       edge_tgt);
     return (int)cudaGetLastError();

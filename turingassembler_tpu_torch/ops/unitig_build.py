@@ -18,8 +18,8 @@ in the order graph/device_build.py calls them:
     pool (`_assemble` :228-319).
 Directed lanes are [0, n) in canonical orientation and [n, 2n)
 reverse-complemented.  csrc/unitig_build.cu says how each computes the
-plain version's integers; rank_chains queues all its rounds with no host
-sync.
+plain version's integers; rank_chains ranks a ruling set (a sampled lane
+in each block of RANK_STRIDE lanes) with no host sync.
 
 On CPU tensors each entry runs its plain version (the tensor code the
 level-0 build ran before the kernels); on CUDA tensors it launches the
@@ -48,6 +48,7 @@ from . import limbs as lb
 ENTRIES = ("front_keys", "link_nodes", "rank_chains", "assemble_unitigs")
 MAX_K = 63                      # (k+1)-mers of at most 4 limbs
 MAX_EDGES = (1 << 28) - 1       # D = 2n < 2^29: int32 keys and distances
+RANK_STRIDE = 16                # lanes a ruler block (csrc's RANK_SHIFT)
 
 
 def rounds(D: int) -> int:
@@ -90,11 +91,11 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "ub_front_launch": [_P, _LL, _I, _P, _P, _P],
     "ub_link_launch": [_P, _P, _P, _LL, _P, _P, _P, _P, _P],
-    "ub_rank_launch": [_P, _LL, _I, _P, _P, _P, _P],
+    "ub_rank_launch": [_P, _LL, _I, _P, _P, _P, _P, _P],
     "ub_assemble_launch": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
                            _P, _P],
 }
-_SCRATCH = {"ub_link_scratch_bytes": [_LL], "ub_rank_scratch_bytes": [_LL, _I],
+_SCRATCH = {"ub_link_scratch_bytes": [_LL], "ub_rank_scratch_bytes": [_LL],
             "ub_assemble_scratch_bytes": [_LL, _LL]}
 
 
@@ -388,15 +389,23 @@ def link_nodes(fp: torch.Tensor, order: torch.Tensor, flags: torch.Tensor):
     return src_key, tgt_key, lastbase, prev_ptr
 
 
-def rank_chains(prev_ptr: torch.Tensor, info=None):
+def rank_chains(prev_ptr: torch.Tensor, info=None, walks=None):
     """prev_ptr (D,) int32 -> (head_of, dist (D,) int32, info): for a lane
     on a chain its head and distance from it; for a lane on a pure cycle
-    some lane of that cycle.  info (3,) int32 (a new one when None) gets
-    info[0] = the lanes on pure cycles, info[1] = the heads (n_e once no
-    cycle is left).  On a card all rounds(D) rounds are queued with no
-    host sync; a round returns at once when the one before moved
-    nothing."""
+    the lane 2^R steps back and 2^R (R = rounds(D)), as the plain
+    version's rounds leave them.  info (3,) int32 (a new one when None)
+    gets info[0] = the lanes on pure cycles, info[1] = the heads (n_e once
+    no cycle is left).  On a card: the heads and a sampled lane in each
+    block of RANK_STRIDE lanes walk to the next sample, the samples are
+    ranked, then the lanes; no host sync.  walks, for measurements: None,
+    or a zeroed (4,) int32 tensor on the lanes' card that gets the
+    kernel's walks, its longest walk in lanes, the rulers its long walks
+    promoted and the offset bits a lane's word gives a walk (the plain
+    version makes no walks, so CPU lanes refuse it)."""
     if prev_ptr.device.type == "cpu":
+        if walks is not None:
+            raise ValueError("unitig_build: walks are the kernel's; the "
+                             "plain version makes none")
         return plain_rank_chains(prev_ptr, info)
     D = prev_ptr.shape[0]
     if not 1 <= D <= 2 * MAX_EDGES:
@@ -408,13 +417,16 @@ def rank_chains(prev_ptr: torch.Tensor, info=None):
     if info.shape != (3,) or info.dtype != torch.int32 or info.device != dev:
         raise ValueError("unitig_build: info must be (3,) int32 on the lanes' "
                          "device")
-    r = rounds(D)
-    scratch = _scratch("ub_rank_scratch_bytes", dev, D, r)
+    if walks is not None and (walks.shape != (4,) or walks.dtype != torch.int32
+                              or walks.device != dev):
+        raise ValueError("unitig_build: walks must be (4,) int32 on the "
+                         "lanes' device")
+    scratch = _scratch("ub_rank_scratch_bytes", dev, D)
     head_of = torch.empty(D, dtype=torch.int32, device=dev)
     dist = torch.empty(D, dtype=torch.int32, device=dev)
-    _launch("ub_rank_launch", dev, prev_ptr.data_ptr(), D, r,
+    _launch("ub_rank_launch", dev, prev_ptr.data_ptr(), D, rounds(D),
             scratch.data_ptr(), head_of.data_ptr(), dist.data_ptr(),
-            info.data_ptr())
+            info.data_ptr(), None if walks is None else walks.data_ptr())
     COUNT.add("rank_chains", D)
     return head_of, dist, info
 
