@@ -58,10 +58,15 @@ before printing a result:
      build's order on every case of testing.unitig_build_cases (the
      circular case's cycle break and second ranking on the card), and
      each case's whole build card == CPU (the circular one must break its
-     cycles on the card); then on phase 5's workload counted on the card
-     (1,999,953 k-edges, k=45), each entry again and its wrapper, device
-     (profiler, device_ms's retry), plain and bound ms (assemble_unitigs
-     beside torch.unique of the endpoints); the build's split by the
+     cycles on the card); link_nodes on made-up fingerprint collisions
+     (testing.link_collision_cases, also with the equal rows shuffled)
+     of three cases' and the many-unitig table's fingerprints; then on
+     phase 5's workload counted on the card (1,999,953 k-edges, k=45),
+     each entry again and its wrapper, device (profiler, device_ms's
+     retry), plain and bound ms (assemble_unitigs beside torch.unique of
+     the endpoints; link_nodes by kernel, at a many-unitig table too, and
+     in turns with other forms of csrc/unitig_build.cu where TA_UB_FORMS
+     lists them); the build's split by the
      kernel route and the tensor route (the plain versions swapped in),
      in turns: wall, host syncs (torch's sync debug mode; device_build's
      own at most 3 on the kernel route), device ms by stage, the output
@@ -838,22 +843,26 @@ def plain_mapper():
         yield
 
 
-def mm_variants(variants, src=None):
-    """Scratch copies of csrc/mm_map.cu with text edits, for timing stages
-    and layouts; the committed source is never edited.  variants:
+def source_variants(kernel, variants, src=None,
+                    timed=("map_kernel", "bound_kernel")):
+    """Scratch copies of csrc/<kernel>.cu with text edits, for timing
+    stages and layouts; the committed source is never edited.  variants:
     {name: [(anchor, text), ...]}: each anchor, found exactly once, is
     replaced by text.  All copies build at once (one nvcc each) into a
-    fresh directory under build/.  Returns {name: ctypes library}."""
+    fresh directory under build/; the registers of the `timed` kernels
+    are logged.  Returns {name: ctypes library}."""
     import ctypes
     from turingassembler_tpu_torch import _build
-    src = src if src is not None else (_build.CSRC / "mm_map.cu").read_text()
-    d = tempfile.mkdtemp(prefix="mm_variants_", dir=_build.BUILD_DIR.parent)
+    src = src if src is not None else \
+        (_build.CSRC / f"{kernel}.cu").read_text()
+    d = tempfile.mkdtemp(prefix=f"{kernel}_variants_",
+                         dir=_build.BUILD_DIR.parent)
     procs = {}
     for name, edits in variants.items():
         text = src
         for anchor, new in edits:
             if text.count(anchor) != 1:
-                raise AssertionError(f"mm_map variant {name}: anchor found "
+                raise AssertionError(f"{kernel} variant {name}: anchor found "
                                      f"{text.count(anchor)} times: {anchor!r}")
             text = text.replace(anchor, new)
         cu, so = os.path.join(d, f"{name}.cu"), os.path.join(d, f"{name}.so")
@@ -866,20 +875,21 @@ def mm_variants(variants, src=None):
     for name, (proc, so) in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
-            raise AssertionError(f"mm_map variant {name}: nvcc failed:\n{out}")
+            raise AssertionError(f"{kernel} variant {name}: nvcc failed:\n"
+                                 f"{out}")
         libs[name] = ctypes.CDLL(so)
-        log(f"mm_map variant {name}: registers " + ", ".join(
-            f"{k_} {v_}" for k_, v_ in ptxas_registers(out).items()))
+        log(f"{kernel} variant {name}: registers " + ", ".join(
+            f"{k_} {v_}" for k_, v_ in ptxas_registers(out, timed).items()))
     return libs
 
 
-def ptxas_registers(out):
-    """{kernel: registers} from nvcc's -Xptxas -v report, for the map and
-    bound kernels."""
+def ptxas_registers(out, kernels):
+    """{kernel: registers} from nvcc's -Xptxas -v report, for the named
+    kernels."""
     regs, kernel = {}, None
+    pattern = r"Function properties for \S*?(" + "|".join(kernels) + ")"
     for line in out.splitlines():
-        m = re.search(r"Function properties for \S*?(map_kernel|bound_kernel)",
-                      line)
+        m = re.search(pattern, line)
         if m:
             kernel = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
@@ -890,13 +900,14 @@ def ptxas_registers(out):
 
 
 @contextlib.contextmanager
-def mm_library(lib):
-    """ops/mm_map's launches go to `lib` (a variant of mm_variants)."""
+def use_library(kernel, lib):
+    """The launches of csrc/<kernel>.cu go to `lib` (a variant built
+    beside it)."""
     from unittest import mock
     from turingassembler_tpu_torch import _build
     real = _build.load
     with mock.patch.object(_build, "load",
-                           lambda name: lib if name == "mm_map" else
+                           lambda name: lib if name == kernel else
                            real(name)):
         yield
 
@@ -1058,7 +1069,7 @@ def mm_timing_variants():
         (_between(src, "// The bound entry: a group of G",
                   "// The rows entry's shared memory"),
          MM_BYTEWISE_BOUND_KERNEL)]
-    return mm_variants(v, src)
+    return source_variants("mm_map", v, src)
 
 
 def hold_mm(what, got, want) -> int:
@@ -1339,7 +1350,7 @@ def mm_kernel_vs_plain(variants):
                             mm),
            "byte-wise bound": args}
     for name, a in alt.items():
-        with mm_library(variants[name]):
+        with use_library("mm_map", variants[name]):
             err = max(err, hold_mm(f"bench batch, {name} variant",
                                    mm_map.map_batch(*a), out))
     times = {}
@@ -1348,7 +1359,7 @@ def mm_kernel_vs_plain(variants):
             device_ms(lambda: mm_map.map_batch(*args), 30, "map_kernel"))
         for name in stage_of + tuple(alt):
             a = alt.get(name, args)
-            with mm_library(variants[name]):
+            with use_library("mm_map", variants[name]):
                 times.setdefault(name, []).append(device_ms(
                     lambda: mm_map.map_batch(*a), 30, "map_kernel"))
     best = {k_: min(v) for k_, v in times.items()}
@@ -1391,7 +1402,7 @@ def mm_kernel_vs_plain(variants):
     want = plain_gapless_bound(*bargs)
     err = max(err, hold_mm("bench batch gapless bound",
                            mm_map.gapless_bound(*bargs), want))
-    with mm_library(variants["byte-wise bound"]):
+    with use_library("mm_map", variants["byte-wise bound"]):
         err = max(err, hold_mm("bench batch gapless bound, byte-wise bound "
                                "variant", mm_map.gapless_bound(*bargs), want))
     timed("gapless_bound", lambda: mm_map.gapless_bound(*bargs),
@@ -1402,8 +1413,8 @@ def mm_kernel_vs_plain(variants):
     btimes, wtimes = {}, {}
     for turn in range(3):
         for name in ("kernel", "byte-wise bound"):
-            with mm_library(variants[name]) if name != "kernel" else \
-                    contextlib.nullcontext():
+            with use_library("mm_map", variants[name]) \
+                    if name != "kernel" else contextlib.nullcontext():
                 btimes.setdefault(name, []).append(device_ms(
                     lambda: mm_map.gapless_bound(*bargs), 30,
                     "bound_kernel"))
@@ -2020,7 +2031,7 @@ UB_REPLACES = {
     "rank_chains": "turingassembler_tpu/graph/device_build.py:150",
     "assemble_unitigs": "turingassembler_tpu/graph/device_build.py:228"}
 # each entry's first kernel: device_ms's check that the profiler saw it
-UB_ANCHORS = {"front_keys": "front_kernel", "link_nodes": "link_edges_kernel",
+UB_ANCHORS = {"front_keys": "front_kernel", "link_nodes": "link_runs_kernel",
               "rank_chains": "rank_link_kernel",
               "assemble_unitigs": "unitig_sums_kernel"}
 # the phases whose path builds level 0 on the card: each must launch all
@@ -2086,6 +2097,137 @@ def ub_entries(u, c, k, what, hold):
     return {"fp": fp, "flags": flags, "order": order, "link": link,
             "head": head, "dist": dist, "n_cyc": n_cyc, "n_e": n_e,
             "unitigs": out}
+
+
+# the cases whose fingerprints link_nodes is held on with made-up
+# collisions (tests/test_torch_unitig_build.py's LINK_BASES, the same
+# seeds)
+UB_LINK_BASES = ("error-laden branching, k=31", "k=45", "circular, k=21")
+# lists other forms of csrc/unitig_build.cu to time link_nodes against
+UB_FORMS = "TA_UB_FORMS"
+
+
+def ub_link_collisions(what, fp, flags, seed, hold):
+    """link_nodes against its plain version on made-up collisions of the
+    fingerprints fp (testing.link_collision_cases), in lex_order's order
+    and, for two of them, with the equal rows shuffled."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    from turingassembler_tpu_torch.ops import limbs as lb
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for case, f in tt.link_collision_cases(fp.cpu().numpy(),
+                                           flags.cpu().numpy(), seed).items():
+        f = torch.as_tensor(f, device="cuda")
+        orders = {"": ks.lex_order(f)}
+        if case in ("runs of 9-40 lanes", "one run of 5,000 lanes"):
+            o = orders[""]
+            run = torch.cumsum(lb.run_starts(f[o]), 0)
+            mix = torch.randperm(len(f), device="cuda", generator=gen)
+            orders[", the equal rows shuffled"] = \
+                o[mix[torch.argsort(run[mix], stable=True)]]
+        for tag, o in orders.items():
+            hold(f"link_nodes on {what}, {case}{tag}",
+                 ub.link_nodes(f, o, flags), ub.plain_link_nodes(f, o, flags))
+    log(f"unitig_build link_nodes on {what}'s fingerprints with made-up "
+        f"collisions ({', '.join(tt.LINK_COLLISIONS)}): == plain")
+
+
+def ub_link_timing(what, lanes, n):
+    """link_nodes' wrapper, device, plain and bound ms at one table, and
+    its device ms by kernel (the profiler)."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    fp, order, flags = lanes["fp"], lanes["order"], lanes["flags"]
+    D = 2 * n
+    call = lambda: ub.link_nodes(fp, order, flags)  # noqa: E731
+    t = ks_timing(f"link_nodes on {what} ({D} lanes)", call,
+                  lambda: ub.plain_link_nodes(fp, order, flags),
+                  8 * D + 8 * D + n + 13 * D, 30 * D, tag="unitig_build",
+                  anchor=UB_ANCHORS["link_nodes"])
+    by = device_ms_by_kernel(call)
+    t["stages_ms"] = {kernel_name(k_): ms_ for k_, (ms_, _) in by.items()}
+    log(f"unitig_build link_nodes on {what} by kernel, device ms "
+        "(launches a call): " + ", ".join(
+            f"{kernel_name(k_)} {ms_:.4f} ({n_})" for k_, (ms_, n_) in
+            by.items()))
+    return t
+
+
+UB_LINK_KERNELS = ("link_runs_kernel", "link_lanes_kernel")
+# link_runs_kernel with a part cut out, timed beside the whole kernel
+# (the outputs are not held): the word scatter written by position, the
+# fingerprint gather replaced by a made-up value of the position
+UB_LINK_CUTS = {
+    "no word scatter": [("            word[d[q]] = run_word(",
+                         "            word[j0 + q] = run_word(")],
+    "no fingerprint gather": [("            v[q] = fp[d[q]];",
+                               "            v[q] = make_uint2((unsigned)"
+                               "((j0 + q) >> 1), 0u);")]}
+UB_LINK_CUTS["neither"] = UB_LINK_CUTS["no word scatter"] + \
+    UB_LINK_CUTS["no fingerprint gather"]
+
+
+def ub_link_cut_variants():
+    """The UB_LINK_CUTS copies of csrc/unitig_build.cu, built."""
+    return source_variants("unitig_build", UB_LINK_CUTS,
+                           timed=UB_LINK_KERNELS)
+
+
+def ub_link_cuts(lanes, libs):
+    """link_runs_kernel's device ms (the profiler) whole and with each cut
+    of libs (ub_link_cut_variants), in turns there and back: what its
+    random gather and scatter cost."""
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    fp, order, flags = lanes["fp"], lanes["order"], lanes["flags"]
+    call = lambda: ub.link_nodes(fp, order, flags)  # noqa: E731
+    names = ["whole", *libs]
+    turns = []
+    for name in names + names[::-1]:
+        with use_library("unitig_build", libs[name]) if name in libs \
+                else contextlib.nullcontext():
+            by = device_ms_by_kernel(call)
+        turns.append((name, sum(ms_ for k_, (ms_, _) in by.items()
+                                if "link_runs_kernel" in k_)))
+    log("unitig_build link_runs_kernel with parts cut out, in turns, device "
+        "ms: " + ", ".join(f"{name} {ms_:.4f}" for name, ms_ in turns))
+    return turns
+
+
+def ub_form_turns(lanes):
+    """link_nodes at one table in turns with other forms of
+    csrc/unitig_build.cu, the sources that TA_UB_FORMS lists (paths
+    joined by os.pathsep, each named by its file name, built one after
+    another): this form, then each listed one, then back in the
+    reverse order (device ms, the profiler), each form's outputs held
+    equal to this one's.  None when it is unset."""
+    srcs = [p_ for p_ in os.environ.get(UB_FORMS, "").split(os.pathsep)
+            if p_]
+    if not srcs:
+        log("unitig_build link_nodes in turns with other forms: not "
+            f"measured ({UB_FORMS} unset)")
+        return None
+    from turingassembler_tpu_torch.ops import unitig_build as ub
+    libs = {}
+    for path in srcs:
+        with open(path) as f:
+            libs.update(source_variants(
+                "unitig_build", {os.path.basename(path): []}, src=f.read(),
+                timed=UB_LINK_KERNELS))
+    fp, order, flags = lanes["fp"], lanes["order"], lanes["flags"]
+    call = lambda: ub.link_nodes(fp, order, flags)  # noqa: E731
+    for name, lib in libs.items():
+        with use_library("unitig_build", lib):
+            hold_ub(f"link_nodes, the form {name}", call(), lanes["link"])
+    turns = []
+    names = ["this", *libs]
+    for name in names + names[::-1]:
+        with use_library("unitig_build", libs[name]) if name in libs \
+                else contextlib.nullcontext():
+            turns.append((name, device_ms_all(call, 3)))
+    log("unitig_build link_nodes in turns with other forms, device ms: "
+        + ", ".join(f"{name} {'not measured' if ms_ is None else f'{ms_:.4f}'}"
+                    for name, ms_ in turns))
+    return turns
 
 
 def ub_routes():
@@ -2184,24 +2326,37 @@ def ub_build_split(route, fns, u, c, k, lanes):
 
 
 def phase_ub_kernel_vs_plain(workload):
+    """Phase 25: ub_kernel_vs_plain, the link_nodes cuts building (nvcc)
+    while the edge cases run."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        return ub_kernel_vs_plain(workload, ex.submit(ub_link_cut_variants))
+
+
+def ub_kernel_vs_plain(workload, cuts):
     """Phase 25 (after phase 23, before phase 5, on its workload): the
     level-0 build's kernels (csrc/unitig_build.cu) against their plain
     versions on the card, exact: (a) each entry on every non-empty case
     of testing.unitig_build_cases (with the circular case's cycle break
     and second ranking on the card), and every case's whole build on the
-    card == on the CPU, the circular one through the cycle break; (b) on
-    phase 5's workload counted on the card (1,999,953 k-edges at k = 45):
-    each entry again, then its wrapper, device (profiler), plain and
-    bound ms, rank_chains by stage with the kernel's own tally of its
+    card == on the CPU, the circular one through the cycle break;
+    link_nodes on made-up collisions of UB_LINK_BASES' fingerprints; (b)
+    on phase 5's workload counted on the card (1,999,953 k-edges at k =
+    45): each entry again, then its wrapper, device (profiler), plain and
+    bound ms, link_nodes by kernel, link_runs_kernel with parts cut out
+    (cuts: the future of ub_link_cut_variants) and link_nodes in turns
+    with the other forms of the source that TA_UB_FORMS lists, where it
+    is set; rank_chains by stage with the kernel's own tally of its
     walks, assemble_unitigs' renumbering stage alone beside torch.unique
-    of the same endpoints; (c) both again at a many-unitig table
-    (ub_table: random k-edges beside a genome's windows); (d) rank_chains
-    on random chains with short cycles and a walk long enough to promote
-    rulers (ub_chains), at three lane counts and at 2^25 - 1 lanes (where
-    a lane's word leaves a walk 5 offset bits), timed there too; the
-    build's split (wall, host syncs, device ms by stage, the wait and the output
-    pulls after it, rebuild_adjacency) by the kernel route and the tensor
-    route in turns.  Returns the kernels line's figures."""
+    of the same endpoints; (c) the three again at a many-unitig table
+    (ub_table: random k-edges beside a genome's windows), and link_nodes
+    on its fingerprints' made-up collisions; (d) rank_chains on random
+    chains with short cycles and a walk long enough to promote rulers
+    (ub_chains), at three lane counts and at 2^25 - 1 lanes (where a
+    lane's word leaves a walk 5 offset bits), timed there too; the
+    build's split (wall, host syncs, device ms by stage, the wait and the
+    output pulls after it, rebuild_adjacency) by the kernel route and the
+    tensor route in turns.  Returns the kernels line's figures."""
     from turingassembler_tpu_torch import testing as tt
     from turingassembler_tpu_torch.graph import device_build as tdb
     from turingassembler_tpu_torch.kmer.megasort import count_reads_device
@@ -2223,6 +2378,9 @@ def phase_ub_kernel_vs_plain(workload):
             if name.startswith("circular") and not r["n_cyc"]:
                 raise AssertionError("unitig_build: the circular case has "
                                      "no cycle")
+            if name in UB_LINK_BASES:
+                ub_link_collisions(repr(name), r["fp"], r["flags"], len(name),
+                                   hold)
         breaks = tdb.STATS.cycle_breaks
         g = tdb.build_graph_on_device(u, c, len(keys), k, device="cuda")
         if name.startswith("circular") and \
@@ -2252,16 +2410,17 @@ def phase_ub_kernel_vs_plain(workload):
         lambda: ub.front_keys(u, k), lambda: ub.plain_front_keys(u, k),
         8 * nl1 * n + 8 * D + n, n * (64 * nl + 4 * nl1 + 42),
         tag="unitig_build", anchor=UB_ANCHORS["front_keys"])
-    fp, order, flags = lanes["fp"], lanes["order"], lanes["flags"]
-    res["link_nodes"] = ks_timing(
-        f"link_nodes ({D} lanes)", lambda: ub.link_nodes(fp, order, flags),
-        lambda: ub.plain_link_nodes(fp, order, flags),
-        8 * D + 8 * D + n + 13 * D, 30 * D, tag="unitig_build",
-        anchor=UB_ANCHORS["link_nodes"])
+    res["link_nodes"] = ub_link_timing("the bench table", lanes, n)
+    res["link_nodes"]["cuts"] = ub_link_cuts(lanes, cuts.result())
+    res["link_nodes"]["turns"] = ub_form_turns(lanes)
     res.update(ub_rank_and_assemble("the bench table", u, c, k, lanes))
     # (c) many short unitigs: random k-edges beside a genome's windows
     mu, mc = ub_table(1_999_953, 45, 4_000)
     many = ub_entries(mu, mc, 45, "the many-unitig table", hold)
+    res["link_nodes"]["many_unitigs"] = ub_link_timing(
+        "the many-unitig table", many, mu.shape[0])
+    ub_link_collisions("the many-unitig table", many["fp"], many["flags"],
+                       4_000, hold)
     for e, r_ in ub_rank_and_assemble("the many-unitig table", mu, mc, 45,
                                       many).items():
         res[e]["many_unitigs"] = {"n_e": many["n_e"], **r_}

@@ -15,9 +15,13 @@ a poly-A run, a palindromic node, exact repeats, error-laden branching, k
     `_assemble`; the whole build == JAX build_graph_on_device;
   - numpy models of the kernels == the plain versions: front_kernel's
     uint32 arithmetic (murmur, reverse complement, orientation);
-    link_nodes' node ids by a tiled look-back scan, the byte-nibble
-    adjacency by OR and its popcount degrees (== the plain `degrees`), the
-    successor and predecessor by max; rank_chains' ruling set (the hashed
+    link_nodes' run pass (node ids by the tiles' look-back, each run
+    reduced by the tile it starts in, past the tile where it goes on: the
+    byte-nibble adjacency by OR and its popcount degrees (== the plain
+    `degrees`), the successors and the two highest rc lanes by max; a
+    word a lane and a pred a key) and lane pass, also on made-up
+    fingerprint collisions (testing.link_collision_cases) and with equal
+    rows in any order; rank_chains' ruling set (the hashed
     samples, the walks packing (ruler, offset) words, promotions, the
     ruler rounds, the finish, the cycle lanes doubled; == JAX
     `_rank_chains`, also on random chains with short cycles holding no
@@ -61,6 +65,9 @@ ARRAYS = ("edge_source", "edge_target", "edge_rc", "edge_count", "seq_off",
 U32 = np.uint32
 M32 = U32(0xFFFFFFFF)
 SCAN_PER, SCAN_TILE = 8, 256 * 8       # csrc/unitig_build.cu's scan
+THREADS = 256
+RUN_TILE, RUN_FIRST = THREADS * 2, 32  # link_runs_kernel's tile, first step
+LINK_SUCC = 1 << 30                    # a lane word's successor flag
 UNVISITED, NO_RULER = -1, -2 ** 31    # rank_chains' markers
 MAX_WALK_BITS = 10                     # a walk's offset bits at most
 SUM_TILE, SUM_SLOTS, SUM_PROBES = 256 * 16, 1024, 4   # unitig_sums_kernel
@@ -339,49 +346,84 @@ def model_scan(v):
     return run.reshape(-1)[:n]
 
 
-def _degree(adj, key):
-    node = key >> 1
-    byte = (adj[node >> 2] >> ((node & 3) * 8).astype(np.uint32)) & U32(0xFF)
-    return POPC4[(byte >> ((key & 1) * 4).astype(np.uint32)) & U32(0xF)]
+def _lane_flags(flags, d, n):
+    """link_runs_kernel's lane_flags: each lane's source orientation and
+    last base."""
+    rc = d >= n
+    f = flags[np.where(rc, d - n, d)].astype(np.int64)
+    return (np.where(rc, 1 - ((f >> 1) & 1), f & 1),
+            np.where(rc, 3 - ((f >> 2) & 3), (f >> 4) & 3))
 
 
 def model_link(fp, order, flags):
-    """ub_link_launch: (src_key, tgt_key, lastbase, prev_ptr, degs)."""
+    """ub_link_launch: link_runs_kernel a tile of RUN_TILE positions at a
+    time (the run starts, each run's slot among the tile's starts and its
+    node id after the look-back's prefix; the tile's last run followed
+    past the tile, RUN_FIRST positions then THREADS at a time; the slots'
+    adjacency byte, highest lane and two highest rc lanes by orientation;
+    each lane's word (source key | LINK_SUCC where it is its key's
+    successor on a chain), written once, and each key's pred in node
+    order), then link_lanes_kernel a k-edge at a time (prev_ptr its key's
+    pred where the word has LINK_SUCC).  Returns (src_key, tgt_key,
+    lastbase, prev_ptr, degs (2D,) by key, the positions each tile
+    followed past its end)."""
     D = len(fp)
     n = D // 2
     s = fp[order]
-    new = np.ones(D, np.int64)
-    new[1:] = (s[1:] != s[:-1]).any(axis=1)
-    node = np.empty(D, np.int64)
-    node[order] = model_scan(new) + new - 1
-    d = np.arange(D)
-    rc = d >= n
-    i = np.where(rc, d - n, d)
-    f = flags[i].astype(np.int64)
-    o_pre, o_suf, first, last = f & 1, (f >> 1) & 1, (f >> 2) & 3, \
-        (f >> 4) & 3
-    sn = np.where(rc, node[n + i], node[i])
-    tn = np.where(rc, node[i], node[n + i])
-    so = np.where(rc, 1 - o_suf, o_pre)
-    to = np.where(rc, 1 - o_pre, o_suf)
-    lbase = np.where(rc, 3 - first, last)
-    sk, tk = 2 * sn + so, 2 * tn + to
-    adj = np.zeros((D + 3) // 4, np.uint32)
-    np.bitwise_or.at(adj, sn >> 2,
-                     (1 << ((sn & 3) * 8 + so * 4 + lbase)).astype(np.uint32))
-    succ = np.full(2 * D, -1, np.int64)
-    np.maximum.at(succ, sk, d)
-    can = (_degree(adj, tk) == 1) & (_degree(adj, tk ^ 1) == 1)
-    nx = np.where(can, succ[tk], -1)
-    nx[nx == d] = -1
-    prv = np.full(D, -1, np.int64)
-    has = nx >= 0
-    np.maximum.at(prv, nx[has], d[has])
-    marker = np.where((_degree(adj, sk) == 1) & (_degree(adj, sk ^ 1) == 1),
-                      0, -1)
-    prev = np.where(marker == 0, prv, -1)
-    degs = _degree(adj, np.arange(2 * D))
-    return sk, tk, lbase.astype(np.uint8), prev, degs
+    start = np.ones(D, bool)
+    start[1:] = (s[1:] != s[:-1]).any(axis=1)
+    word = np.zeros(D, np.int64)
+    pred = np.full(2 * D, -3, np.int64)              # -3: never written
+    written = np.zeros(D, np.int64)
+    degs = np.zeros(2 * D, np.int64)
+    past = []
+    for j0 in range(0, D, RUN_TILE):
+        j1 = min(j0 + RUN_TILE, D)
+        runs = int(start[j0:j1].sum())
+        r = np.cumsum(start[j0:j1]) - 1       # the slot; -1: an earlier run
+        base = int(start[:j0].sum())          # the look-back's prefix
+        pos, slot = np.arange(j0, j1)[r >= 0], r[r >= 0]
+        ext, step = j1, RUN_FIRST
+        while runs and j1 < D:
+            c = int((s[ext:ext + step] == s[j1 - 1]).all(axis=1).sum())
+            ext += c
+            if c < step:
+                break
+            step = THREADS
+        pos = np.concatenate([pos, np.arange(j1, ext)])
+        slot = np.concatenate([slot, np.full(ext - j1, runs - 1)])
+        past.append(ext - j1)
+        d = order[pos]
+        so, lb = _lane_flags(flags, d, n)
+        rc = np.where(d >= n, d - n, d + n)
+        adj = np.zeros(runs, np.int64)
+        np.bitwise_or.at(adj, slot, 1 << (so * 4 + lb))
+        succ = np.full((2, runs), -1, np.int64)
+        np.maximum.at(succ, (so, slot), d)
+        top = np.full((2, 2, runs), -1, np.int64)
+        np.maximum.at(top, (so, 0, slot), rc)
+        second = rc != top[so, 0, slot]
+        np.maximum.at(top, (so[second], 1, slot[second]), rc[second])
+        chain = (POPC4[adj & 15] == 1) & (POPC4[adj >> 4] == 1)   # run_chain
+        word[d] = 2 * (base + slot) + so + \
+            np.where(chain[slot] & (succ[so, slot] == d), LINK_SUCC, 0)
+        written[d] += 1
+        i = np.arange(2 * runs)                              # run_pred
+        r_, o_ = i >> 1, i & 1
+        first = top[1 - o_, 0, r_]
+        pred[2 * base + i] = np.where(chain[r_], np.where(
+            first != succ[o_, r_], first, top[1 - o_, 1, r_]), -1)
+        nodes = base + np.arange(runs)
+        degs[2 * nodes] = POPC4[adj & 15]
+        degs[2 * nodes + 1] = POPC4[adj >> 4]
+    assert (written == 1).all()
+    f = flags.astype(np.int64)
+    sk = word & (LINK_SUCC - 1)
+    prev = np.where(word & LINK_SUCC, pred[sk], -1)
+    assert (prev >= -1).all()
+    tk = np.concatenate([sk[n:], sk[:n]]) ^ 1
+    lbase = np.concatenate([(f >> 4) & 3, 3 - ((f >> 2) & 3)])
+    return sk, tk, lbase.astype(np.uint8), prev, degs, past
 
 
 def mix32(x):
@@ -609,12 +651,13 @@ def test_scan_model(n):
 
 @pytest.mark.parametrize("name", LIVE)
 def test_link_model(name):
-    """The node-id scan, the byte-nibble adjacency and its popcount
-    degrees (== the plain degrees), the max successor and predecessor ==
+    """The run pass (node ids by the tiles' look-back, each run's
+    byte-nibble adjacency and its popcount degrees (== the plain
+    degrees), its highest lanes, prev_ptr from them) and the lane pass ==
     plain link_nodes."""
     p = _port(name)
     fp, order, flags = p["fp"].numpy(), p["order"].numpy(), p["flags"].numpy()
-    sk, tk, lbase, prev, degs = model_link(fp, order, flags)
+    sk, tk, lbase, prev, degs, _ = model_link(fp, order, flags)
     for got, want in ((p["src_key"], sk), (p["tgt_key"], tk),
                       (p["lastbase"], lbase), (p["prev_ptr"], prev)):
         np.testing.assert_array_equal(got.numpy(), want)
@@ -625,6 +668,71 @@ def test_link_model(name):
     want = ub.degrees(torch.as_tensor(node[:n]), torch.as_tensor(node[n:]),
                       p["flags"]).numpy()
     np.testing.assert_array_equal(degs, want)
+
+
+# tables of at least 5,000 lanes whose fingerprints the collision cases
+# remake
+LINK_BASES = ("error-laden branching, k=31", "k=45", "circular, k=21")
+
+
+@functools.lru_cache(maxsize=None)
+def _collisions(base):
+    p = _port(base)
+    return tt.link_collision_cases(p["fp"].numpy(), p["flags"].numpy(),
+                                   seed=len(base))
+
+
+def _hold_link(fp, order, flags):
+    """model_link == plain link_nodes on the given inputs; returns the
+    positions each tile followed past its end."""
+    want = ub.plain_link_nodes(torch.as_tensor(fp), torch.as_tensor(order),
+                               torch.as_tensor(flags))
+    got = model_link(fp, order, flags)
+    for g, w in zip(got[:4], want):
+        np.testing.assert_array_equal(g, w.numpy())
+    return got[5]
+
+
+@pytest.mark.parametrize("case", tt.LINK_COLLISIONS)
+@pytest.mark.parametrize("base", LINK_BASES)
+def test_link_model_on_collisions(base, case):
+    """Made-up fingerprint collisions (runs of 9-40 lanes with repeated
+    (orientation, base) pairs, merged nodes, one run of 5,000 lanes, every
+    row equal, k-edges their own successors): the run pass == plain
+    link_nodes; runs are finished past their tile by the tile they start
+    in, the long ones past more than one tile."""
+    fp = _collisions(base)[case]
+    order = ks.lex_order(torch.as_tensor(fp)).numpy()
+    past = _hold_link(fp, order, _port(base)["flags"].numpy())
+    if case in ("runs of 9-40 lanes", "one run of 5,000 lanes",
+                "every row equal"):     # runs of 2 to 4 may fit the tiles
+        assert max(past) > (0 if case == "runs of 9-40 lanes" else RUN_TILE)
+    u = fp.view(U32)
+    assert (np.unique(u, axis=0, return_counts=True)[1].max() >=
+            {"runs of 9-40 lanes": 9, "nodes merged in pairs": 3,
+             "one run of 5,000 lanes": 5_000, "every row equal": len(fp),
+             "k-edges their own successors": 3}[case])
+
+
+@pytest.mark.parametrize("case", ["runs of 9-40 lanes",
+                                  "one run of 5,000 lanes"])
+def test_link_model_any_order_of_equal_rows(case):
+    """Equal rows in any order (the sorted order's runs shuffled): the
+    same outputs as the stable order's."""
+    base = LINK_BASES[0]
+    fp = _collisions(base)[case]
+    flags = _port(base)["flags"].numpy()
+    order = ks.lex_order(torch.as_tensor(fp)).numpy()
+    s = fp[order]
+    run = np.cumsum(np.concatenate([[True], (s[1:] != s[:-1]).any(axis=1)]))
+    shuffled = order[np.lexsort((np.random.default_rng(1).random(len(fp)),
+                                 run))]
+    assert (shuffled != order).any()
+    want = model_link(fp, order, flags)
+    _hold_link(fp, shuffled, flags)
+    got = model_link(fp, shuffled, flags)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("name", LIVE)
@@ -858,6 +966,18 @@ def test_rank_stride_is_the_kernels():
     src = (_build.CSRC / "unitig_build.cu").read_text()
     shift = int(src.split("constexpr int RANK_SHIFT = ")[1].split(";")[0])
     assert 1 << shift == ub.RANK_STRIDE
+
+
+def test_link_constants_are_the_kernels():
+    """model_link's tile, first step and word flag are csrc's."""
+    src = (_build.CSRC / "unitig_build.cu").read_text()
+
+    def const(name):
+        return src.split(f"constexpr int {name} = ")[1].split(";")[0]
+    assert int(const("THREADS")) == THREADS
+    assert int(const("RUN_PER")) * THREADS == RUN_TILE
+    assert int(const("RUN_FIRST")) == RUN_FIRST
+    assert const("LINK_SUCC") == f"1 << {LINK_SUCC.bit_length() - 1}"
 
 
 def test_rank_walks_refused():

@@ -9,8 +9,7 @@
 //   - _front :71-86 and _fingerprints :51-58: entry ub_front_launch
 //     (front_kernel);
 //   - _front :90-143, node ids, adjacency, successor and predecessor
-//     pointers: ub_link_launch (the NodeIds scan, link_edges_kernel,
-//     link_next_kernel, link_prev_kernel);
+//     pointers: ub_link_launch (link_runs_kernel, link_lanes_kernel);
 //   - _rank_chains :150-186: ub_rank_launch (rank_link_kernel,
 //     rank_walk_kernel, rank_rulers_kernel, rank_finish_kernel,
 //     rank_cycles_kernel);
@@ -35,21 +34,41 @@
 // limbs reversed and realigned by the pad bits), the orientation flags,
 // both mixes of each canonical node k-mer.  Bytes-bound.
 //
-// link_nodes.  Node ids are the run starts of the sorted fingerprints,
-// numbered by an inclusive scan and scattered through the permutation
-// (ascending-fingerprint numbering, as the JAX package's segment ids
-// give).  The scan is one launch: a block a tile of 2,048 positions, its
-// offset from a decoupled look-back over blocks in ticket order (a
-// 64-bit status word a block: its sum and a flag, aggregate or inclusive
-// prefix; the extraction of csrc/kmer_sort.cu scans the same way).
-// Adjacency is one byte a node (the forward nibble in bits 0-3, the
-// reverse nibble in bits 4-7), set by atomicOr on 32-bit words, a degree
-// the popcount of a nibble; the successor and predecessor tables are set
-// by atomicMax, so the highest lane wins, as the port's scatter_reduce
-// "amax" and the JAX package's in-order scatter leave them.  Then the
-// next pointer with the palindromic self-successor cut, and prev_ptr.
-// Bound by the gathers of the permutation's fingerprints and the atomics:
-// about 200 MB at the bench.
+// link_nodes.  A lane's source node is its own fingerprint row's node, so
+// the lanes of node v are the positions of v's run in the sorted order,
+// and all that the plain version scatters by node is a reduction over a
+// run.  link_runs_kernel takes a tile of 512 sorted positions a block,
+// in ticket order: each position's lane read once (order, streamed), its
+// fingerprint gathered once (the previous position's from the thread
+// before) and its flag byte; the run starts numbered by a decoupled
+// look-back over the tiles' start counts (64-bit status words, as the
+// extraction of csrc/kmer_sort.cu scans; ascending-fingerprint numbering,
+// as the JAX package's segment ids give); each run that starts in the
+// tile reduced into a slot in shared memory by shared atomics: its
+// adjacency byte (the forward nibble in bits 0-3, the reverse in 4-7, a
+// degree the popcount of a nibble), and for each source orientation its
+// highest lane (the successor) and its two highest reverse-complement
+// lanes.  The last run, where it goes on past the tile, is followed by
+// its own block to its end (a run of more than 8 lanes needs a
+// fingerprint collision, so one step of 32 positions, then 256 at a
+// time).  A lane's prev_ptr is then its key's pred where it is its key's
+// successor on a chain, else -1 (see below), so each lane leaves one
+// 4-byte word (its source key and that flag, a scattered store into 16
+// MB at the bench) and each key its pred (in node order, coalesced);
+// link_lanes_kernel, a thread a k-edge, reads the words of lanes i and n
+// + i (coalesced) and writes the four outputs, each target key the other
+// lane's source key with the orientation bit flipped, each prev_ptr a
+// gather of pred where flagged.  The highest lane wins everywhere, as the
+// port's scatter_reduce "amax" and the JAX package's in-order scatter
+// leave it, whatever the order of equal rows.  No global atomic but the
+// tickets, no memset but the status words.  The inputs and outputs are
+// 118 MB at the bench (0.035 ms at 3.35 TB/s); what bounds it on the
+// card is random access: of link_runs_kernel's 0.27 ms there on an H100,
+// the fingerprint gather and the word scatter take about 0.12 each, the
+// rest 0.11 (chip_smoke.py phase 25 times it with each cut out).  An
+// 8-byte word a lane, or the four outputs scattered from here, cost
+// more; an L2 prefetch of the fingerprints or a pre-touch of the words
+// gained nothing.
 //
 // rank_chains.  A ruling set.  prev_ptr is injective, so the lanes form
 // disjoint chains and pure cycles.  Wyllie's doubling would gather an
@@ -136,6 +155,11 @@ constexpr long long SUM_TILE = (long long)THREADS * SUM_PER;
 constexpr int SUM_SLOTS = 1024;                   // a block's unitig table
 constexpr int SUM_PROBES = 4;
 constexpr int RANK_SHIFT = 4;                     // a ruler block: 16 lanes
+constexpr int RUN_PER = 2;                        // link_nodes: positions a
+constexpr long long RUN_TILE = (long long)THREADS * RUN_PER;   // thread, a
+constexpr int RUN_FIRST = 32;                     // block; the first step
+constexpr int LINK_SUCC = 1 << 30;                // past a tile; a lane
+                                                  // word's flag (keys < 2^30)
 
 __host__ __device__ __forceinline__ long long cdiv(long long a, long long b) {
     return (a + b - 1) / b;
@@ -335,6 +359,42 @@ __device__ long long block_exclusive_scan(long long v, long long* total,
 // status: one zeroed 64-bit word a block; ticket: one zeroed word after
 // them.  A block takes a ticket in launch order, so every block with a
 // smaller ticket has started and its status word will be published.
+
+// Block t publishes its tile's sum agg: block 0 its inclusive prefix at
+// once, the others the aggregate.  One thread calls it.
+__device__ __forceinline__ void publish_agg(long long t, long long agg,
+                                            unsigned long long* status) {
+    st_release(&status[t],
+               ((unsigned long long)agg << 2) | (t == 0 ? ST_PREFIX : ST_AGG));
+}
+
+// The sum of the tiles before block t, read back over the blocks before
+// it, 32 status words a step, to the nearest inclusive prefix; then t's
+// inclusive prefix is published.  Warp 0 calls it after publish_agg.
+__device__ long long look_back(long long t, long long agg,
+                               unsigned long long* status) {
+    if (t == 0) return 0;
+    const int lane = threadIdx.x & 31;
+    long long excl = 0;
+    for (long long kk = t - 1;; kk -= 32) {
+        const long long idx = kk - lane;               // lane 0 the nearest
+        unsigned long long s = idx >= 0 ? ld_acquire(&status[idx]) : ST_PREFIX;
+        while (__any_sync(FULL, (s & 3) == 0))
+            if ((s & 3) == 0) s = ld_acquire(&status[idx]);
+        const unsigned pre = __ballot_sync(FULL, (s & 3) == ST_PREFIX);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        long long x = lane <= stop ? (long long)(s >> 2) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+        excl += x;
+        if (pre) break;
+    }
+    if (lane == 0)
+        st_release(&status[t],
+                   ((unsigned long long)(excl + agg) << 2) | ST_PREFIX);
+    return excl;
+}
+
 template <class Op>
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(Op op, long long len, unsigned long long* status,
@@ -356,33 +416,8 @@ scan_kernel(Op op, long long len, unsigned long long* status,
     long long agg;
     const long long before = block_exclusive_scan(sum, &agg, sh);
     if (warp == 0) {
-        long long excl = 0;
-        if (t == 0) {
-            if (lane == 0)
-                st_release(&status[0],
-                           ((unsigned long long)agg << 2) | ST_PREFIX);
-        } else {
-            if (lane == 0)
-                st_release(&status[t], ((unsigned long long)agg << 2) | ST_AGG);
-            for (long long kk = t - 1;; kk -= 32) {
-                const long long idx = kk - lane;       // lane 0 the nearest
-                unsigned long long s = idx >= 0 ? ld_acquire(&status[idx])
-                                                : ST_PREFIX;
-                while (__any_sync(FULL, (s & 3) == 0))
-                    if ((s & 3) == 0) s = ld_acquire(&status[idx]);
-                const unsigned pre = __ballot_sync(FULL, (s & 3) == ST_PREFIX);
-                const int stop = pre ? __ffs(pre) - 1 : 31;
-                long long x = lane <= stop ? (long long)(s >> 2) : 0;
-#pragma unroll
-                for (int o = 16; o > 0; o >>= 1)
-                    x += __shfl_xor_sync(FULL, x, o);
-                excl += x;
-                if (pre) break;
-            }
-            if (lane == 0)
-                st_release(&status[t],
-                           ((unsigned long long)(excl + agg) << 2) | ST_PREFIX);
-        }
+        if (lane == 0) publish_agg(t, agg, status);
+        const long long excl = look_back(t, agg, status);
         if (lane == 0) s_off = excl;
     }
     __syncthreads();
@@ -394,39 +429,23 @@ scan_kernel(Op op, long long len, unsigned long long* status,
     }
 }
 
-size_t scan_bytes(long long len) {
-    return (size_t)(cdiv(len, SCAN_TILE) + 1) * sizeof(unsigned long long);
+// The status words and the ticket of a look-back over `tiles` blocks.
+size_t status_bytes(long long tiles) {
+    return (size_t)(tiles + 1) * sizeof(unsigned long long);
 }
 
-// scratch: scan_bytes(len) bytes, zeroed here unless the caller did.
+size_t scan_bytes(long long len) { return status_bytes(cdiv(len, SCAN_TILE)); }
+
+// scratch: scan_bytes(len) bytes, zeroed by the caller.
 template <class Op>
-int scan(const Op& op, long long len, void* scratch, cudaStream_t st,
-         bool zeroed = false) {
+int scan(const Op& op, long long len, void* scratch, cudaStream_t st) {
     const long long blocks = cdiv(len, SCAN_TILE);
     if (blocks == 0) return 0;
-    const cudaError_t e =
-        zeroed ? cudaSuccess : cudaMemsetAsync(scratch, 0, scan_bytes(len), st);
-    if (e != cudaSuccess) return (int)e;
     unsigned long long* status = static_cast<unsigned long long*>(scratch);
     scan_kernel<Op><<<(unsigned)blocks, THREADS, 0, st>>>(
         op, len, status, reinterpret_cast<unsigned*>(status + blocks));
     return (int)cudaGetLastError();
 }
-
-// node[order[j]] = (run starts of the sorted fingerprints up to j) - 1
-struct NodeIds {
-    const uint2* fp;
-    const long long* order;
-    int* node;
-    __device__ long long value(long long j) const {
-        if (j == 0) return 1;
-        const uint2 a = fp[order[j]], b = fp[order[j - 1]];
-        return a.x != b.x || a.y != b.y;
-    }
-    __device__ void emit(long long j, long long run, long long v) const {
-        node[order[j]] = (int)(run + v - 1);
-    }
-};
 
 // The head lanes (head_of[d] == d) in lane order: unitig u's head is
 // head_d[u], and u_all[d] = u at a head lane d.
@@ -476,68 +495,233 @@ struct Used {
 // link_nodes
 // ---------------------------------------------------------------------------
 
-// Out-degree of a (node, orientation) key: the popcount of the node's
-// nibble (forward bits 0-3, reverse bits 4-7 of the node's byte).
-__device__ __forceinline__ int degree(const unsigned* __restrict__ adj,
-                                      int key) {
-    const int node = key >> 1;
-    const unsigned byte = adj[node >> 2] >> ((node & 3) * 8);
-    return __popc((byte >> ((key & 1) * 4)) & 0xFu);
+// The lanes with source node v are the positions of v's run in the sorted
+// order (a lane's source is its own fingerprint row), so node v's
+// adjacency, successors and predecessor candidates are reductions over
+// its run, and a lane's prev_ptr needs only its own run's figures: lane e
+// on key K = 2v + so has a predecessor only where both of v's nibbles
+// hold one bit and e is the highest lane on K (succ[K] == e, so the
+// plain version's nxt points at it), and then it is the highest d with
+// tgt_key[d] == K, d != e: tgt_key[d] == K exactly where rc(d) leaves
+// K ^ 1, so it is the highest rc lane of v's run on K ^ 1 that is not e
+// (the second highest where the highest is e: a k-edge its own successor).
+
+// A lane's source orientation and last base, from its k-edge's flags.
+__device__ __forceinline__ void lane_flags(const uint8_t* __restrict__ flags,
+                                           long long n, int d, unsigned* so,
+                                           unsigned* lb) {
+    const bool rc = d >= n;
+    const unsigned f = flags[rc ? d - n : d];
+    *so = rc ? 1u - ((f >> 1) & 1u) : f & 1u;
+    *lb = rc ? 3u - ((f >> 2) & 3u) : (f >> 4) & 3u;
 }
 
-// A thread a lane d: its source and target keys and last base; its
-// adjacency bit (source node, source orientation, last base) and
-// succ[src_key] = the highest such lane.
+__device__ __forceinline__ int rc_lane(int d, long long n) {
+    return d >= n ? d - (int)n : d + (int)n;
+}
+
+// The runs that start in a block's tile, a slot each (its index among
+// them): the node's adjacency byte (bit so * 4 + last base: the forward
+// nibble, then the reverse), and for each source orientation so the
+// highest lane and the highest and second-highest rc lane.
+struct RunSlots {
+    unsigned adj[RUN_TILE];
+    int succ[2][RUN_TILE];
+    int top[2][2][RUN_TILE];
+};
+
+__device__ __forceinline__ void run_add(RunSlots& s, int r, int d,
+                                        unsigned so, unsigned lb,
+                                        long long n) {
+    atomicOr(&s.adj[r], 1u << (so * 4 + lb));
+    atomicMax(&s.succ[so][r], d);
+    atomicMax(&s.top[so][0][r], rc_lane(d, n));
+}
+
+// After every run_add of the run: the second-highest rc lane.
+__device__ __forceinline__ void run_second(RunSlots& s, int r, int d,
+                                           unsigned so, long long n) {
+    const int x = rc_lane(d, n);
+    if (x != s.top[so][0][r]) atomicMax(&s.top[so][1][r], x);
+}
+
+// Both of the run's nibbles hold one bit: its keys' lanes are on chains.
+__device__ __forceinline__ bool run_chain(const RunSlots& s, int r) {
+    const unsigned a = s.adj[r];
+    return __popc(a & 0xFu) == 1 && __popc(a >> 4) == 1;
+}
+
+// Lane d's word: its source key, and LINK_SUCC where it is its key's
+// successor on a chain (its prev_ptr is then its key's entry in pred).
+__device__ __forceinline__ int run_word(const RunSlots& s, int r,
+                                        long long node, int d, unsigned so) {
+    const int key = (int)(2 * node) + (int)so;
+    return run_chain(s, r) && s.succ[so][r] == d ? key | LINK_SUCC : key;
+}
+
+// pred[2 node + so] of run r: the highest rc lane on the other
+// orientation that is not the key's successor (-1 off a chain).
+__device__ __forceinline__ int run_pred(const RunSlots& s, int r,
+                                        unsigned so) {
+    if (!run_chain(s, r)) return -1;
+    const int first = s.top[so ^ 1][0][r];
+    return first != s.succ[so][r] ? first : s.top[so ^ 1][1][r];
+}
+
+// The run pass: a block a tile of RUN_TILE sorted positions, in ticket
+// order.  Each position's lane (order, streamed), its fingerprint (one
+// gather) and its flags; the previous position's fingerprint from the
+// thread before (one more gather at the tile's start).  The runs that
+// start in the tile are numbered by a look-back over the tiles' start
+// counts and reduced in shared memory; the last of them, where it goes on
+// past the tile, is followed by this block (RUN_FIRST positions, then
+// THREADS at a time) to its end, and the positions of the tile before its
+// first start are left to the block whose run they end.  Each lane's
+// word goes to word[lane], a scattered 4-byte store, and each run's two
+// keys' pred to pred in node order, coalesced.
 __global__ void __launch_bounds__(THREADS)
-link_edges_kernel(const uint8_t* __restrict__ flags,
-                  const int* __restrict__ node, long long n,
+link_runs_kernel(const uint2* __restrict__ fp,
+                 const long long* __restrict__ order,
+                 const uint8_t* __restrict__ flags, long long n,
+                 int* __restrict__ word, int* __restrict__ pred,
+                 unsigned long long* status, unsigned* ticket) {
+    __shared__ RunSlots s;
+    __shared__ uint2 s_last[THREADS];
+    __shared__ long long sh[WARPS];
+    __shared__ long long s_off;
+    __shared__ unsigned s_ticket;
+    const int tid = threadIdx.x;
+    const long long D = 2 * n;
+    if (tid == 0) s_ticket = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const long long t = s_ticket;
+    const long long tile_end = (t + 1) * RUN_TILE < D ? (t + 1) * RUN_TILE : D;
+    const long long j0 = t * RUN_TILE + (long long)tid * RUN_PER;
+    int d[RUN_PER];
+    uint2 v[RUN_PER];
+    unsigned so[RUN_PER], lb[RUN_PER];
+#pragma unroll
+    for (int q = 0; q < RUN_PER; ++q)
+        d[q] = j0 + q < D ? (int)__ldcs(order + j0 + q) : 0;   // streamed
+#pragma unroll
+    for (int q = 0; q < RUN_PER; ++q) {
+        v[q] = make_uint2(0, 0);
+        so[q] = lb[q] = 0;
+        if (j0 + q < D) {
+            v[q] = fp[d[q]];
+            lane_flags(flags, n, d[q], &so[q], &lb[q]);
+        }
+    }
+    uint2 prev = make_uint2(0, 0);
+    if (tid == 0 && t > 0) prev = fp[order[j0 - 1]];
+    s_last[tid] = v[RUN_PER - 1];
+    __syncthreads();
+    if (tid > 0) prev = s_last[tid - 1];
+    bool start[RUN_PER];
+    long long cnt = 0;
+#pragma unroll
+    for (int q = 0; q < RUN_PER; ++q) {
+        const uint2 p = q ? v[q - 1] : prev;
+        start[q] = j0 + q < D &&
+                   (j0 + q == 0 || v[q].x != p.x || v[q].y != p.y);
+        cnt += start[q];
+    }
+    long long runs;
+    const long long before = block_exclusive_scan(cnt, &runs, sh);
+    if (tid < 32) {
+        if (tid == 0) publish_agg(t, runs, status);
+        const long long excl = look_back(t, runs, status);
+        if (tid == 0) s_off = excl;
+    }
+    int r[RUN_PER];                 // the run's slot; -1: an earlier tile's
+    int rr = (int)before - 1;
+#pragma unroll
+    for (int q = 0; q < RUN_PER; ++q) {
+        rr += start[q];
+        r[q] = j0 + q < D ? rr : -1;
+    }
+    for (int i = tid; i < runs; i += THREADS) {
+        s.adj[i] = 0;
+        s.succ[0][i] = s.succ[1][i] = -1;
+        s.top[0][0][i] = s.top[0][1][i] = s.top[1][0][i] = s.top[1][1][i] = -1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < RUN_PER; ++q)
+        if (r[q] >= 0) run_add(s, r[q], d[q], so[q], lb[q], n);
+    // the last run, on past a full tile: the positions [tile_end, ext)
+    // that hold its fingerprint (sorted, so they follow on)
+    const int last = (int)runs - 1;
+    long long ext = tile_end;
+    if (runs > 0 && tile_end < D) {
+        const uint2 w = s_last[THREADS - 1];
+        for (int step = RUN_FIRST;; step = THREADS) {
+            const long long j = ext + tid;
+            bool in = false;
+            if (tid < step && j < D) {
+                const int e = (int)order[j];
+                const uint2 x = fp[e];
+                in = x.x == w.x && x.y == w.y;
+                if (in) {
+                    unsigned o, b;
+                    lane_flags(flags, n, e, &o, &b);
+                    run_add(s, last, e, o, b, n);
+                }
+            }
+            const int c = __syncthreads_count(in);
+            ext += c;
+            if (c < step) break;
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < RUN_PER; ++q)
+        if (r[q] >= 0) run_second(s, r[q], d[q], so[q], n);
+    for (long long j = tile_end + tid; j < ext; j += THREADS) {
+        const int e = (int)order[j];
+        unsigned o, b;
+        lane_flags(flags, n, e, &o, &b);
+        run_second(s, last, e, o, n);
+    }
+    __syncthreads();
+    const long long base = s_off;
+#pragma unroll
+    for (int q = 0; q < RUN_PER; ++q)
+        if (r[q] >= 0)
+            word[d[q]] = run_word(s, r[q], base + r[q], d[q], so[q]);
+    for (long long j = tile_end + tid; j < ext; j += THREADS) {
+        const int e = (int)order[j];
+        unsigned o, b;
+        lane_flags(flags, n, e, &o, &b);
+        word[e] = run_word(s, last, base + last, e, o);
+    }
+    for (int i = tid; i < 2 * runs; i += THREADS)
+        pred[2 * base + i] = run_pred(s, i >> 1, i & 1);
+}
+
+// The lane pass, a thread a k-edge i: lanes i and n + i from their words;
+// each one's target key is the other's source key with the orientation
+// flipped (tgt_key[d] = src_key[rc(d)] ^ 1), its prev_ptr its key's pred
+// where the word says so, its last base from the flags.
+__global__ void __launch_bounds__(THREADS)
+link_lanes_kernel(const int* __restrict__ word, const int* __restrict__ pred,
+                  const uint8_t* __restrict__ flags, long long n,
                   int* __restrict__ src_key, int* __restrict__ tgt_key,
-                  uint8_t* __restrict__ lastbase, unsigned* adj, int* succ) {
-    LANES(d, 2 * n) {
-        const bool rc = d >= n;
-        const long long i = rc ? d - n : d;
+                  uint8_t* __restrict__ lastbase,
+                  int* __restrict__ prev_ptr) {
+    LANES(i, n) {
+        const int a = word[i], b = word[n + i];
+        const int ka = a & ~LINK_SUCC, kb = b & ~LINK_SUCC;
         const unsigned f = flags[i];
-        const unsigned o_pre = f & 1u, o_suf = (f >> 1) & 1u;
-        const unsigned first = (f >> 2) & 3u, last = (f >> 4) & 3u;
-        const int np = node[i], ns = node[n + i];
-        const int sn = rc ? ns : np, tn = rc ? np : ns;
-        const unsigned so = rc ? 1u - o_suf : o_pre;
-        const unsigned to = rc ? 1u - o_pre : o_suf;
-        const unsigned lb = rc ? 3u - first : last;
-        const int sk = 2 * sn + (int)so;
-        src_key[d] = sk;
-        tgt_key[d] = 2 * tn + (int)to;
-        lastbase[d] = (uint8_t)lb;
-        atomicOr(adj + (sn >> 2), 1u << ((sn & 3) * 8 + so * 4 + lb));
-        atomicMax(succ + sk, (int)d);
+        src_key[i] = ka;
+        src_key[n + i] = kb;
+        tgt_key[i] = kb ^ 1;
+        tgt_key[n + i] = ka ^ 1;
+        lastbase[i] = (uint8_t)((f >> 4) & 3u);
+        lastbase[n + i] = (uint8_t)(3u - ((f >> 2) & 3u));
+        prev_ptr[i] = a & LINK_SUCC ? pred[ka] : -1;
+        prev_ptr[n + i] = b & LINK_SUCC ? pred[kb] : -1;
     }
-}
-
-// nxt[d]: the lane after d on a chain (the target's only successor where
-// the target has in- and out-degree 1, not d itself); prv[nxt] = the
-// highest such d.  prev_ptr[d] = 0 where d's source has in- and
-// out-degree 1, else -1 (link_prev_kernel completes it).
-__global__ void __launch_bounds__(THREADS)
-link_next_kernel(const int* __restrict__ src_key,
-                 const int* __restrict__ tgt_key,
-                 const unsigned* __restrict__ adj,
-                 const int* __restrict__ succ, long long D, int* prv,
-                 int* __restrict__ prev_ptr) {
-    LANES(d, D) {
-        const int sk = src_key[d], tk = tgt_key[d];
-        int nx = -1;
-        if (degree(adj, tk) == 1 && degree(adj, tk ^ 1) == 1) nx = succ[tk];
-        if (nx == d) nx = -1;                 // palindromic self-successor
-        if (nx >= 0) atomicMax(prv + nx, (int)d);
-        prev_ptr[d] = degree(adj, sk) == 1 && degree(adj, sk ^ 1) == 1 ? 0
-                                                                        : -1;
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
-link_prev_kernel(const int* __restrict__ prv, long long D,
-                 int* __restrict__ prev_ptr) {
-    LANES(d, D) prev_ptr[d] = prev_ptr[d] == 0 ? prv[d] : -1;
 }
 
 // ---------------------------------------------------------------------------
@@ -1062,20 +1246,18 @@ struct Carve {
 };
 
 struct LinkScratch {
-    int* node;
-    unsigned* adj;
-    int* succ;
-    int* prv;
-    void* scan;
+    int* word;         // each lane's source key and LINK_SUCC
+    int* pred;         // each key's successor's prev_ptr
+    unsigned long long* status;
+    long long tiles;
     size_t bytes;
     LinkScratch(void* base, long long n) {
         const long long D = 2 * n;
+        tiles = cdiv(D, RUN_TILE);
         Carve c(base);
-        node = c.take<int>(D);
-        adj = c.take<unsigned>(cdiv(D, 4));
-        succ = c.take<int>(2 * D);
-        prv = c.take<int>(D);
-        scan = c.take<uint8_t>((long long)scan_bytes(D));
+        word = c.take<int>(D);
+        pred = c.take<int>(2 * D);
+        status = c.take<unsigned long long>(tiles + 1);
         bytes = c.used;
     }
 };
@@ -1210,33 +1392,29 @@ extern "C" long long ub_link_scratch_bytes(long long n) {
     return (long long)LinkScratch(nullptr, n).bytes;
 }
 
-// link_nodes: fp (2n, 2) int32, order (2n,) int64 (the stable ascending
-// permutation of fp's rows as unsigned pairs), flags (n,) uint8 ->
-// src_key, tgt_key (2n,) int32, lastbase (2n,) uint8, prev_ptr (2n,)
-// int32.  scratch: ub_link_scratch_bytes(n) bytes, 256-byte aligned.
+// link_nodes: fp (2n, 2) int32, order (2n,) int64 (an ascending
+// permutation of fp's rows as unsigned pairs; equal rows in any order),
+// flags (n,) uint8 -> src_key, tgt_key (2n,) int32, lastbase (2n,) uint8,
+// prev_ptr (2n,) int32.  scratch: ub_link_scratch_bytes(n) bytes,
+// 256-byte aligned.
 extern "C" int ub_link_launch(const void* fp, const void* order,
                               const void* flags, long long n, void* scratch,
                               void* src_key, void* tgt_key, void* lastbase,
                               void* prev_ptr, void* stream) {
     if (bad_edges(n)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const long long D = 2 * n;
     LinkScratch s(scratch, n);
-    UB_TRY(cudaMemsetAsync(s.adj, 0, cdiv(D, 4) * sizeof(unsigned), st));
-    UB_TRY(cudaMemsetAsync(s.succ, 0xFF, 2 * D * sizeof(int), st));
-    UB_TRY(cudaMemsetAsync(s.prv, 0xFF, D * sizeof(int), st));
-    UB_TRY(scan(NodeIds{static_cast<const uint2*>(fp),
-                        static_cast<const long long*>(order), s.node},
-                D, s.scan, st));
-    int* sk = static_cast<int*>(src_key);
-    int* tk = static_cast<int*>(tgt_key);
-    int* pp = static_cast<int*>(prev_ptr);
-    link_edges_kernel<<<grid_of(D), THREADS, 0, st>>>(
-        static_cast<const uint8_t*>(flags), s.node, n, sk, tk,
-        static_cast<uint8_t*>(lastbase), s.adj, s.succ);
-    link_next_kernel<<<grid_of(D), THREADS, 0, st>>>(sk, tk, s.adj, s.succ, D,
-                                                     s.prv, pp);
-    link_prev_kernel<<<grid_of(D), THREADS, 0, st>>>(s.prv, D, pp);
+    const uint8_t* fl = static_cast<const uint8_t*>(flags);
+    UB_TRY(cudaMemsetAsync(s.status, 0, status_bytes(s.tiles), st));
+    link_runs_kernel<<<(unsigned)s.tiles, THREADS, 0, st>>>(
+        static_cast<const uint2*>(fp), static_cast<const long long*>(order),
+        fl, n, s.word, s.pred, s.status,
+        reinterpret_cast<unsigned*>(s.status + s.tiles));
+    UB_TRY(cudaGetLastError());
+    link_lanes_kernel<<<grid_of(n), THREADS, 0, st>>>(
+        s.word, s.pred, fl, n, static_cast<int*>(src_key),
+        static_cast<int*>(tgt_key), static_cast<uint8_t*>(lastbase),
+        static_cast<int*>(prev_ptr));
     return (int)cudaGetLastError();
 }
 
@@ -1339,15 +1517,13 @@ extern "C" int ub_assemble_launch(const void* uniq, const void* counts,
     long long* n_v = edge_tgt + n_e;
     const int* hof = static_cast<const int*>(head_of);
     UB_TRY(cudaMemsetAsync(s.heads_scan, 0, s.zero_bytes, st));
-    UB_TRY(scan(Heads{hof, s.u_all, s.head_d, n_e}, D, s.heads_scan, st,
-                true));
+    UB_TRY(scan(Heads{hof, s.u_all, s.head_d, n_e}, D, s.heads_scan, st));
     const long long sum_grid = cdiv(D, SUM_TILE);
     unitig_sums_kernel<<<(unsigned)(sum_grid < MAX_GRID ? sum_grid : MAX_GRID),
                          THREADS, 0, st>>>(
         hof, s.u_all, static_cast<const int*>(counts), n, s.ulen, s.esum);
     UB_TRY(cudaGetLastError());
-    UB_TRY(scan(SeqOff{s.ulen, seq_off, n_e, k}, n_e, s.seqoff_scan, st,
-                true));
+    UB_TRY(scan(SeqOff{s.ulen, seq_off, n_e, k}, n_e, s.seqoff_scan, st));
     write_seq_kernel<<<grid_of(D > 32 * n_e ? D : 32 * n_e), THREADS, 0,
                        st>>>(
         static_cast<const long long*>(uniq), n, nl1, k, hof, s.u_all,
@@ -1361,7 +1537,7 @@ extern "C" int ub_assemble_launch(const void* uniq, const void* counts,
     ends_kernel<<<grid_of(n_e), THREADS, 0, st>>>(ends, n_e, edge_src,
                                                   edge_tgt, s.used);
     UB_TRY(cudaGetLastError());
-    UB_TRY(scan(Used{s.used, s.nid, n_v, D}, D, s.used_scan, st, true));
+    UB_TRY(scan(Used{s.used, s.nid, n_v, D}, D, s.used_scan, st));
     renumber_kernel<<<grid_of(n_e), THREADS, 0, st>>>(s.nid, n_e, edge_src,
                                                       edge_tgt);
     return (int)cudaGetLastError();

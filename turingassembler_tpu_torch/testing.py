@@ -24,7 +24,8 @@ make the minimizer map kernel's edge cases (ops/mm_map.py);
 mm_align_world, mm_align_queries, mm_pool_end_reads and mm_align_cases
 its gapless bound's alignment and pool-end cases; kmer_sort_cases the
 count's sort cases, kedge_table and unitig_build_cases the level-0
-build's k-edge tables (ops/unitig_build.py)."""
+build's k-edge tables (ops/unitig_build.py), link_collision_cases
+made-up fingerprint collisions of its link_nodes."""
 
 from __future__ import annotations
 
@@ -1035,3 +1036,76 @@ def unitig_build_cases(seed: int = 0):
     cases["none, k=31"] = (np.zeros((0, 2), np.int64),
                            np.zeros(0, np.int32), 31)
     return cases
+
+
+# link_collision_cases' names
+LINK_COLLISIONS = ("runs of 9-40 lanes", "nodes merged in pairs",
+                   "one run of 5,000 lanes", "every row equal",
+                   "k-edges their own successors")
+
+
+def link_collision_cases(fp: np.ndarray, flags: np.ndarray, seed: int = 0):
+    """Made-up inputs of ops/unitig_build.py:link_nodes: name -> a copy of
+    the node fingerprints fp (2n, 2) int32 with rows of distinct lanes
+    forced equal, collisions the murmur mixes do not make at these sizes.
+    "runs of 9-40 lanes": a third of the rows in groups of 9-40 taking
+    their first row's value, so (orientation, base) pairs repeat in a run;
+    "nodes merged in pairs": a fifth of the distinct values given another
+    one's, runs of about 4 lanes; "one run of 5,000 lanes": 5,000 rows
+    (all, where fewer) taking the median row's value, a run across
+    several of the kernel's 512-position tiles; "every row equal";
+    "k-edges their own successors": 20 k-edges i with o_pre == o_suf (in
+    the flags (n,) uint8) whose prefix and suffix rows take a value of
+    their own, a node with one lane a key whose one successor is itself;
+    for half of them one more lane of the same orientation and last base
+    as lane n + i joins the node, its rc lane below i, so that i's
+    predecessor is the second highest rc lane on the other orientation."""
+    rng = np.random.default_rng(seed)
+    D = len(fp)
+    out = {}
+    f = fp.copy()
+    perm = rng.permutation(D)
+    at = 0
+    while at < D // 3:
+        grp = perm[at:at + int(rng.integers(9, 41))]
+        f[grp] = f[grp[0]]
+        at += len(grp)
+    out["runs of 9-40 lanes"] = f
+    vals, inv = np.unique(fp, axis=0, return_inverse=True)
+    pick = rng.permutation(len(vals))[:2 * (len(vals) // 10)]
+    to = np.arange(len(vals))
+    to[pick[1::2]] = pick[0::2]
+    out["nodes merged in pairs"] = vals[to[inv.reshape(-1)]]
+    f = fp.copy()
+    u = fp.view(np.uint32)
+    median = fp[np.lexsort((u[:, 1], u[:, 0]))[D // 2]]
+    f[rng.permutation(D)[:5_000]] = median
+    out["one run of 5,000 lanes"] = f
+    out["every row equal"] = np.repeat(fp[:1], D, axis=0)
+    n = D // 2
+    f = flags.astype(np.int64)
+    lane = np.arange(D)
+    src = lane % n
+    so = np.where(lane < n, f[src] & 1, 1 - ((f[src] >> 1) & 1))
+    lb = np.where(lane < n, (f[src] >> 4) & 3, 3 - ((f[src] >> 2) & 3))
+    f_loop = fp.copy()
+    fresh = fp.view(np.uint32)[:, 0].max() + 1
+    loops = rng.permutation(np.nonzero((f & 1) == ((f >> 1) & 1))[0])
+    used = set()
+    for t, i in enumerate(loops[:20]):
+        if fresh + t > 0xFFFFFFFE:
+            break
+        val = np.array([fresh + t, 7], np.uint32).view(np.int32)
+        f_loop[[i, n + i]] = val
+        used.update((i, n + i))
+        if t % 2:
+            # lane g: so and lb of lane n + i, rc(g) < i, no lane used
+            ok = (so == so[n + i]) & (lb == lb[n + i]) & \
+                (np.where(lane < n, lane + n, lane - n) < i)
+            cand = [g for g in np.nonzero(ok)[0]
+                    if g not in used and (g + n) % D not in used]
+            if cand:
+                f_loop[cand[0]] = val
+                used.update((cand[0], (cand[0] + n) % D))
+    out["k-edges their own successors"] = f_loop
+    return out
