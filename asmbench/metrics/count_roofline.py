@@ -1,0 +1,6 @@
+"""count_roofline: the count layer's least time (roofline/bytes.py over
+roofline/peaks.py) over the device-busy time inside its spans, percent."""
+
+
+def read(view):
+    return view.roofline_pct("count")

@@ -1,0 +1,6 @@
+"""map_ms: mean host wall of a job's map spans, ms (each span ends in
+a device sync)."""
+
+
+def read(view):
+    return view.span_mean_ms("map")
