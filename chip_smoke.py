@@ -2269,6 +2269,22 @@ def host_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
+def traced_build(fn):
+    """fn() under the program's tracer (turingassembler_tpu_torch/
+    tracing.py): its result and the records of the `build` spans it
+    made."""
+    from turingassembler_tpu_torch import tracing
+    tracing.clear()
+    tracing.start()
+    try:
+        out = fn()
+    finally:
+        tracing.stop()
+    recs = [r for r in tracing.records() if r[2].split(".")[0] == "build"]
+    tracing.clear()
+    return out, recs
+
+
 def ub_build_split(route, fns, u, c, k, lanes):
     """One route's level-0 build of the bench table: its wall (median of 3
     synchronized builds), its host syncs (all, and device_build's own),
@@ -2289,7 +2305,10 @@ def ub_build_split(route, fns, u, c, k, lanes):
             g = build()
             walls.append((time.perf_counter() - t0) * 1e3)
         _, syncs = host_syncs(build)
-        own = tdb.STATS.last_syncs
+        # device_build's own: every sync of its spans but lex_order's,
+        # which build.front holds
+        own = sum(r[6].get("syncs", 0) for r in traced_build(build)[1]
+                  if r[2] != "build.front")
     stages = {
         "front_keys": lambda: fns["front_keys"](u, k),
         "lex_order": lambda: ks.lex_order(lanes["fp"]),
@@ -2381,10 +2400,10 @@ def ub_kernel_vs_plain(workload, cuts):
             if name in UB_LINK_BASES:
                 ub_link_collisions(repr(name), r["fp"], r["flags"], len(name),
                                    hold)
-        breaks = tdb.STATS.cycle_breaks
-        g = tdb.build_graph_on_device(u, c, len(keys), k, device="cuda")
-        if name.startswith("circular") and \
-                tdb.STATS.cycle_breaks != breaks + 1:
+        g, recs = traced_build(lambda: tdb.build_graph_on_device(
+            u, c, len(keys), k, device="cuda"))
+        if name.startswith("circular") and not any(
+                r[2] == "build" and r[6]["cycle_breaks"] for r in recs):
             raise AssertionError("unitig_build: the circular build broke no "
                                  "cycle on the card")
         gc = tdb.build_graph_on_device(u.cpu(), c.cpu(), len(keys), k,

@@ -51,6 +51,7 @@ from turingassembler_tpu.ops import kmers as jkm
 from turingassembler_tpu.ops import limbs as jlb
 from turingassembler_tpu_torch import _build
 from turingassembler_tpu_torch import testing as tt
+from turingassembler_tpu_torch import tracing
 from turingassembler_tpu_torch.graph import device_build as tdb
 from turingassembler_tpu_torch.ops import kmer_sort as ks
 from turingassembler_tpu_torch.ops import limbs as tl
@@ -1142,10 +1143,17 @@ def test_limbs_out_of_range_raise():
 @pytest.mark.parametrize("name,syncs", [("k=45", 3), ("circular, k=21", 4)])
 def test_build_syncs(name, syncs):
     """One stacked scalar pull (two after a cycle break), two output
-    pulls."""
+    pulls: the syncs the `build` span and its children count."""
     u, c, k = CASES[name]
-    before = tdb.STATS.builds
-    tdb.build_graph_on_device(torch.as_tensor(u), torch.as_tensor(c), len(u),
-                              k, device="cpu")
-    assert tdb.STATS.builds == before + 1
-    assert tdb.STATS.last_syncs == syncs
+    tracing.clear()
+    tracing.start()
+    try:
+        tdb.build_graph_on_device(torch.as_tensor(u), torch.as_tensor(c),
+                                  len(u), k, device="cpu")
+    finally:
+        tracing.stop()
+    recs = tracing.records()
+    tracing.clear()
+    (root,) = [r for r in recs if r[2] == "build"]
+    assert sum(r[6].get("syncs", 0) for r in recs) == syncs
+    assert root[6]["cycle_breaks"] == (syncs == 4)

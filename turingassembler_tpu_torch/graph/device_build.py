@@ -24,30 +24,17 @@ csrc/unitig_build.cu on a card, their plain tensor versions on the CPU.
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops import kmer_sort as ks
 from ..ops import unitig_build as ub
 from .structs import AsmGraph
 
 log = logging.getLogger("turingassembler")
-
-
-@dataclass
-class BuildStats:
-    """The level-0 builds, the last one's host syncs (its own pulls: the
-    stacked scalars once, again after a cycle break, then the outputs;
-    lex_order's syncs are its own), and the builds that broke a cycle."""
-    builds: int = 0
-    last_syncs: int = 0
-    cycle_breaks: int = 0
-
-
-STATS = BuildStats()
 
 
 def _break_cycles(prev_ptr: torch.Tensor, head_of: torch.Tensor, info):
@@ -112,37 +99,45 @@ def build_graph_on_device(uniq: torch.Tensor, counts: torch.Tensor, n: int,
     uniq: (>= n, nl) int64 limb rows, rows [0, n) sorted unique;
     counts: (>= n,) int32.  Host syncs: lex_order's own, one stacked pull
     of (cycle lanes, unitigs, limb flag) after the ranking (a second after
-    a cycle break), and the two output pulls (STATS counts them)."""
+    a cycle break), and the two output pulls.  The `build` span (tracing.py)
+    counts them, with its unitigs and cycle_breaks; its children
+    build.front, build.rank, build.cycles, build.assemble (the pulls'
+    bytes) and build.host (the host graph) divide its time."""
     dev = resolve_device(device)
     if n == 0:
         return AsmGraph(ksize=k)
-    uniq = uniq[:n].to(dev)
-    counts = counts[:n].to(dev).int()
-    src_key, tgt_key, lastbase, prev_ptr, info = _front(uniq, k)
-    head_of, dist = _rank_chains(prev_ptr, info)
-    n_cyc, n_e, bad = info.tolist()          # one sync for the scalars
-    syncs = 1
-    if bad:
-        raise ValueError("device_build: a k-edge limb lies outside "
-                         "[0, 2^32)")
-    if n_cyc:
-        prev_ptr, head_of, dist = _break_cycles(prev_ptr, head_of, info)
-        n_cyc, n_e, _ = info.tolist()
-        syncs += 1
-        STATS.cycle_breaks += 1
-    ints, seq = _assemble(uniq, counts, src_key, tgt_key, lastbase, head_of,
-                          dist, k, n_e)
-    syncs += 2
-    STATS.builds += 1
-    STATS.last_syncs = syncs
-    log.debug("level-0 build: %d unitigs, %d host syncs besides lex_order's",
-              n_e, syncs)
+    with tracing.span("build"):
+        uniq = uniq[:n].to(dev)
+        counts = counts[:n].to(dev).int()
+        with tracing.span("build.front"):
+            src_key, tgt_key, lastbase, prev_ptr, info = _front(uniq, k)
+        with tracing.span("build.rank"):
+            head_of, dist = _rank_chains(prev_ptr, info)
+            tracing.host_sync()
+            n_cyc, n_e, bad = info.tolist()      # one sync for the scalars
+        if bad:
+            raise ValueError("device_build: a k-edge limb lies outside "
+                             "[0, 2^32)")
+        tracing.add(cycle_breaks=int(n_cyc > 0))
+        if n_cyc:
+            with tracing.span("build.cycles"):
+                prev_ptr, head_of, dist = _break_cycles(prev_ptr, head_of,
+                                                        info)
+                tracing.host_sync()
+                n_cyc, n_e, _ = info.tolist()
+        with tracing.span("build.assemble"):
+            ints, seq = _assemble(uniq, counts, src_key, tgt_key, lastbase,
+                                  head_of, dist, k, n_e)
+            tracing.add(bytes=ints.nbytes + seq.nbytes)
+        tracing.add(unitigs=n_e)
+        log.debug("level-0 build: %d unitigs", n_e)
 
-    g = AsmGraph(ksize=k)
-    g.node_rc = np.arange(int(ints[-1]), dtype=np.int64) ^ 1
-    (g.seq_off, g.edge_count, g.edge_rc, g.edge_source,
-     g.edge_target) = (a.copy() for a in np.split(
-         ints[:-1], [n_e + 1, 2 * n_e + 1, 3 * n_e + 1, 4 * n_e + 1]))
-    g.seq_data = seq
-    g.rebuild_adjacency()
+        with tracing.span("build.host"):
+            g = AsmGraph(ksize=k)
+            g.node_rc = np.arange(int(ints[-1]), dtype=np.int64) ^ 1
+            (g.seq_off, g.edge_count, g.edge_rc, g.edge_source,
+             g.edge_target) = (a.copy() for a in np.split(
+                 ints[:-1], [n_e + 1, 2 * n_e + 1, 3 * n_e + 1, 4 * n_e + 1]))
+            g.seq_data = seq
+            g.rebuild_adjacency()
     return g

@@ -34,6 +34,7 @@ from typing import Iterable, List, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops import kmer_sort as ks
 from ..ops import limbs as lb
@@ -62,8 +63,9 @@ def _merge_unique_runs(ka, ca, kb, cb):
 
 def _filter_min_count_device(keys, counts, min_count: int):
     """Drop rows with count < min_count, keeping sorted order."""
-    keep = counts >= min_count
-    return keys[keep], counts[keep]
+    keep = torch.nonzero(counts >= min_count).squeeze(1)
+    tracing.host_sync()                 # the nonzero's row count
+    return keys.index_select(0, keep), counts.index_select(0, keep)
 
 
 class _Accumulator:
@@ -104,11 +106,13 @@ class _Accumulator:
         if not self.lanes:
             self.window = []
             return
-        rows = torch.cat(self.window) if len(self.window) > 1 \
-            else self.window[0]
-        self.window, self.lanes = [], 0
-        uniq, counts = _sort_count(rows)
-        del rows
+        with tracing.span("count.sort", rows=self.lanes):
+            rows = torch.cat(self.window) if len(self.window) > 1 \
+                else self.window[0]
+            self.window, self.lanes = [], 0
+            uniq, counts = _sort_count(rows)
+            del rows
+            tracing.add(unique=uniq.shape[0])
         n_t, n_u = self.table[0].shape[0], uniq.shape[0]
         if n_t and self.device_lanes and n_t + n_u > self.device_lanes:
             # the merged table would pass the device budget: the table
@@ -116,7 +120,8 @@ class _Accumulator:
             # runs share
             self.spill_table()
         elif n_t:
-            uniq, counts = _merge_unique_runs(*self.table, uniq, counts)
+            with tracing.span("count.merge"):
+                uniq, counts = _merge_unique_runs(*self.table, uniq, counts)
         self.table = (uniq, counts)
         if self.device_lanes and uniq.shape[0] >= self.device_lanes:
             self.spill_table()
@@ -202,7 +207,9 @@ def _coalesce_batches(batches, target_reads: int):
     255), so the count extracts few large records and not many small
     batches.  Unlike the JAX function the tail record keeps only its
     reads: no fixed shape is reused here, so pad rows would only be sent
-    to the device to hold no window."""
+    to the device to hold no window.  While tracing, the wait on
+    `batches` (the parse upstream) is counted as `source_ns` on the
+    enclosing span (count.coalesce)."""
     buf: List[tuple] = []
     nb = 0
 
@@ -217,7 +224,7 @@ def _coalesce_batches(batches, target_reads: int):
         buf, nb = [], 0
         return bases, lens
 
-    for b, l in batches:
+    for b, l in tracing.timed(batches, "source_ns"):
         while len(b):
             take = min(len(b), target_reads - nb)
             buf.append((b[:take], l[:take]))
@@ -249,25 +256,51 @@ def count_kedges_megasort_device(
     (_coalesce_batches, as the JAX count joins them), one extraction a
     record.  `stats`, when given, receives "records" (records counted),
     "host_runs" (runs kept in host memory) and "disk_runs" (runs saved
-    under spill_dir)."""
+    under spill_dir).  Its spans (tracing.py): `count` (records, rows)
+    and below it count.coalesce (a record's join; source_ns the wait on
+    `batches` inside it), count.ship (the record's copy: bytes,
+    pageable), count.extract (rows), count.sort (rows, unique and
+    sort_count's routes, count.sort.lsd its buckets over capacity),
+    count.merge and count.filter."""
     dev = resolve_device(device)
     k1 = k + 1
     acc = _Accumulator(lb.n_limbs(k1), max_lanes, dev, device_lanes,
                        host_mb, spill_dir)
     records = 0
-    for bases, lengths in _coalesce_batches(batches, COUNT_CHUNK):
-        records += 1
-        acc.feed(_extract_chunk(
-            torch.as_tensor(np.ascontiguousarray(bases, np.uint8)).to(dev),
-            torch.as_tensor(lengths).to(dev), k1))
-    acc.flush()
-    if acc.host_runs:
-        res = acc.merged_host_runs(min_count)
-    else:
-        uniq, counts = acc.result()
-        if min_count > 1:
-            uniq, counts = _filter_min_count_device(uniq, counts, min_count)
-        res = uniq, counts, int(counts.shape[0])
+    with tracing.span("count"):
+        recs = _coalesce_batches(batches, COUNT_CHUNK)
+        while True:
+            with tracing.span("count.coalesce"):
+                rec = next(recs, None)
+            if rec is None:
+                break
+            records += 1
+            bases = torch.as_tensor(np.ascontiguousarray(rec[0], np.uint8))
+            lengths = torch.as_tensor(rec[1])
+            with tracing.span("count.ship",
+                              bytes=bases.nbytes + lengths.nbytes,
+                              pageable=int(not bases.is_pinned())):
+                if dev.type != "cpu":
+                    tracing.host_sync(2)    # a blocking copy waits
+                bases, lengths = bases.to(dev), lengths.to(dev)
+            with tracing.span("count.extract"):
+                rows = _extract_chunk(bases, lengths, k1)
+                tracing.add(rows=rows.shape[0])
+            del bases, lengths
+            tracing.add(rows=rows.shape[0])
+            acc.feed(rows)
+            del rows
+        acc.flush()
+        if acc.host_runs:
+            res = acc.merged_host_runs(min_count)
+        else:
+            uniq, counts = acc.result()
+            if min_count > 1:
+                with tracing.span("count.filter"):
+                    uniq, counts = _filter_min_count_device(uniq, counts,
+                                                            min_count)
+            res = uniq, counts, int(counts.shape[0])
+        tracing.add(records=records)
     if stats is not None:
         stats.update(records=records, disk_runs=acc.disk_runs,
                      host_runs=len(acc.host_runs) - acc.disk_runs)

@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..graph.structs import AsmGraph
 from ..ops import dp
@@ -427,6 +428,7 @@ def _device_pool(seq_data: np.ndarray, seq_off: np.ndarray,
         _POOL_CACHE[key] = ((weakref.ref(seq_data), weakref.ref(seq_off)),
                             dev)
         POOL_STATS["builds"] += 1
+        tracing.add(pool_builds=1)
         return dev
 
 
@@ -569,6 +571,7 @@ def _dp_verify_rest(seq_data, seq_off, edges, starts, bases, lengths,
     qidx = torch.clamp(qlo[:, None] + j[:, :Lq], max=Lq - 1)
     q = torch.gather(_on_device(bases, torch.uint8, dev)[r], 1, qidx)
     sc = dp.affine_scores_tensors(q, ql_t, t, w1 - w0, scoring, mode="fit")
+    tracing.host_sync()
     return torch.where(ql_t > 0, sc, 0).to(torch.int32).cpu().numpy()
 
 
@@ -595,7 +598,20 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
         return map_reads_sharded(index, bases, lengths, mesh,
                                  batch_size=batch_size, graph=graph,
                                  min_score=min_score, with_hits=with_hits)
-    dev = resolve_device(device)
+    with tracing.span("map", reads=len(bases)):
+        out = _map_on(resolve_device(device), index, bases, lengths,
+                      batch_size, graph, min_score, shipped, with_hits)
+        if tracing.enabled():
+            tracing.add(mapped=int(np.count_nonzero(out[0] >= 0)))
+    return out
+
+
+def _map_on(dev, index, bases, lengths, batch_size, graph, min_score,
+            shipped, with_hits):
+    """map_reads on one device, its time divided among the spans map.ship
+    (the reads' copy: bytes, pageable), map.vote (the map_batch launches;
+    pool_builds on a pool cache miss), map.dp (the DP of the voted lanes
+    the gapless bound did not accept: pairs) and map.pull (the outputs)."""
     N = len(bases)
     edges = np.full(N, -1, np.int32)
     hits = np.zeros(N, np.int32)
@@ -606,46 +622,68 @@ def map_reads(index: EdgeMinimizerIndex, bases: np.ndarray,
         min_score = dp.MIN_MAP_SCORE
     hkeys, vals, salt = index.device_tables(dev)
     if shipped is None:
-        shipped = (_on_device(bases, torch.uint8, dev),
-                   _on_device(lengths, torch.int32, dev))
+        # pageable: a host array, or a CPU tensor not pinned
+        host = not isinstance(bases, torch.Tensor) or \
+            bases.device.type == "cpu"
+        pinned = isinstance(bases, torch.Tensor) and \
+            (bases.device.type != "cpu" or bases.is_pinned())
+        with tracing.span("map.ship", bytes=bases.nbytes + lengths.nbytes,
+                          pageable=int(not pinned)):
+            if host and dev.type != "cpu":
+                tracing.host_sync(2)            # a blocking copy waits
+            shipped = (_on_device(bases, torch.uint8, dev),
+                       _on_device(lengths, torch.int32, dev))
     bases_d, lens_d = shipped[0][:N], shipped[1][:N]
     verified = graph is not None
     # the kernel writes each batch straight into the (N,) arrays
     out = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(3)]
-    if verified:
-        sd, sod = _device_pool(graph.seq_data, graph.seq_off, dev)
-        mt, mm = int(dp.SCORING_BWA[0]), int(dp.SCORING_BWA[1])
-        thr_h = np.asarray(min_score, np.int64)
-        thr = int(thr_h) if thr_h.ndim == 0 else torch.as_tensor(
-            np.broadcast_to(thr_h, (N,)).astype(np.int32)).to(dev)
-        out += [torch.empty(N, dtype=torch.int32, device=dev),
-                torch.empty(N, dtype=torch.bool, device=dev)]
-    for i in range(0, N, batch_size):
-        sl = slice(i, i + batch_size)
+    with tracing.span("map.vote"):
         if verified:
-            mm_map.map_batch(bases_d[sl], lens_d[sl], hkeys, vals, salt,
-                             index.k, index.w, sd, sod,
-                             thr if isinstance(thr, int) else thr[sl], mt,
-                             mm, out=[o[sl] for o in out])
-        else:
-            mm_map.map_batch(bases_d[sl], lens_d[sl], hkeys, vals, salt,
-                             index.k, index.w, out=[o[sl] for o in out])
+            sd, sod = _device_pool(graph.seq_data, graph.seq_off, dev)
+            mt, mm = int(dp.SCORING_BWA[0]), int(dp.SCORING_BWA[1])
+            thr_h = np.asarray(min_score, np.int64)
+            if thr_h.ndim and dev.type != "cpu":
+                tracing.host_sync()             # a blocking copy waits
+            thr = int(thr_h) if thr_h.ndim == 0 else torch.as_tensor(
+                np.broadcast_to(thr_h, (N,)).astype(np.int32)).to(dev)
+            out += [torch.empty(N, dtype=torch.int32, device=dev),
+                    torch.empty(N, dtype=torch.bool, device=dev)]
+        for i in range(0, N, batch_size):
+            sl = slice(i, i + batch_size)
+            if verified:
+                mm_map.map_batch(bases_d[sl], lens_d[sl], hkeys, vals, salt,
+                                 index.k, index.w, sd, sod,
+                                 thr if isinstance(thr, int) else thr[sl],
+                                 mt, mm, out=[o[sl] for o in out])
+            else:
+                mm_map.map_batch(bases_d[sl], lens_d[sl], hkeys, vals, salt,
+                                 index.k, index.w, out=[o[sl] for o in out])
     edges_d, hits_d, starts_d = out[:3]
     if verified:
         # fast lanes are accepted; the rest of the mapped lanes go to the
         # DP; the accept and the clamp below stay on the device
-        accept_d = out[4]
-        rest = torch.nonzero((edges_d >= 0) & ~accept_d).squeeze(1)
-        if len(rest):
-            sc = _dp_verify_rest(_dp_codes(sd, graph.seq_data), sod, edges_d,
-                                 starts_d, bases_d, lens_d, rest,
-                                 dp.SCORING_BWA, device=dev)
-            thr_rest = thr if isinstance(thr, int) else \
-                thr[rest].cpu().numpy()
-            accept_d[rest] = torch.as_tensor(sc >= thr_rest).to(dev)
-        edges_d = torch.where(accept_d, edges_d, -1)
+        with tracing.span("map.dp"):
+            accept_d = out[4]
+            tracing.host_sync()
+            rest = torch.nonzero((edges_d >= 0) & ~accept_d).squeeze(1)
+            tracing.add(pairs=len(rest))
+            if len(rest):
+                sc = _dp_verify_rest(_dp_codes(sd, graph.seq_data), sod,
+                                     edges_d, starts_d, bases_d, lens_d,
+                                     rest, dp.SCORING_BWA, device=dev)
+                if isinstance(thr, int):
+                    thr_rest = thr
+                else:
+                    tracing.host_sync()
+                    thr_rest = thr[rest].cpu().numpy()
+                if dev.type != "cpu":
+                    tracing.host_sync()         # a blocking copy waits
+                accept_d[rest] = torch.as_tensor(sc >= thr_rest).to(dev)
+            edges_d = torch.where(accept_d, edges_d, -1)
     # public starts are BWA-pos style: clamped >= 0 on mapped lanes
     starts_d = torch.where(edges_d >= 0, torch.clamp(starts_d, min=0), -1)
-    if with_hits:
-        hits = hits_d.cpu().numpy()
-    return edges_d.cpu().numpy(), hits, starts_d.cpu().numpy()
+    with tracing.span("map.pull"):
+        tracing.host_sync(2 + with_hits)
+        if with_hits:
+            hits = hits_d.cpu().numpy()
+        return edges_d.cpu().numpy(), hits, starts_d.cpu().numpy()

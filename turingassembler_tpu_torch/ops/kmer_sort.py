@@ -39,7 +39,10 @@ launch with its shape, and the routes of sort_count, lex_order and
 merge_runs (ROUTES); each entry syncs with the host once or twice (the
 rows or runs it made; the live digits that decide the passes; merge_runs'
 order flag; lex_order's buckets over capacity), sort_count twice more
-and lex_order once more for each bucket over capacity.
+and lex_order once more for each bucket over capacity.  tracing.py
+counts each sync on the span open (host_sync), sort_count's routes and
+merge_runs' beside COUNT's, and times sort_count's loop over the buckets
+over capacity as `count.sort.lsd`.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from . import kmers as km
 from . import limbs as lb
 
@@ -304,6 +307,7 @@ def plain_sort_count(keys: torch.Tensor):
     """(uniq (n, nl) int64 ascending, counts (n,) int32)."""
     keys = as_limbs(keys)
     s = keys[plain_lex_order(keys)]
+    tracing.host_sync()
     starts = torch.nonzero(lb.run_starts(s)).squeeze(1)
     ends = torch.cat([starts[1:], starts.new_tensor([s.shape[0]])])
     return s[starts], (ends - starts).to(torch.int32)
@@ -368,6 +372,7 @@ def extract_keys(bases: torch.Tensor, lengths: torch.Tensor,
     _launch("ks_extract_launch", dev, bases.data_ptr(), lengths.data_ptr(),
             B, L, k1, scratch.data_ptr(), total.data_ptr(), out.data_ptr())
     COUNT.add("extract_keys", B, L, k1)
+    tracing.host_sync()
     return out[:int(total.item())]
 
 
@@ -406,6 +411,7 @@ def _load(rows: Tuple[torch.Tensor, ...], plan, pay_mode: int,
             _ints([v for step in plan for v in step]), npass,
             keys[0].data_ptr(),
             pay[0].data_ptr() if pay is not None else None, hist.data_ptr())
+    tracing.host_sync()
     wide, *diff = hist[npass * RADIX:].tolist()
     if wide:
         raise ValueError("kmer_sort: int64 limbs must lie in [0, 2^32)")
@@ -454,6 +460,7 @@ def _runs(keys: torch.Tensor, pay: torch.Tensor | None):
     pay_p = pay.data_ptr() if pay is not None else None
     _launch("ks_runs_count_launch", dev, keys.data_ptr(), pay_p, n, nl,
             tiles.data_ptr(), totals.data_ptr())
+    tracing.host_sync()
     n_u = int(totals[0].item())
     uniq = torch.empty((n_u, nl), dtype=torch.int64, device=dev)
     counts = torch.empty(n_u, dtype=torch.int32, device=dev)
@@ -520,18 +527,25 @@ def sort_count(keys: torch.Tensor):
             gruns.data_ptr())
     _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
             info.data_ptr(), goff.data_ptr())
+    tracing.host_sync()
     G, n_over, n_u = info[:3].tolist()
     if n_over:
+        tracing.host_sync()
         over = info[3:3 + 3 * n_over].view(n_over, 3).tolist()
-        for g, r0, r1 in over:
-            # no partition digit: no live digit, every row equal, in order
-            u, c = _runs(*_radix((), plan, 0, soa=(src, r0, r1 - r0))) \
-                if part else _runs(src, None)
-            run_keys[:, r0:r0 + u.shape[0]] = to_i32(u).t()
-            run_counts[r0:r0 + u.shape[0]] = c
-            gruns[g] = u.shape[0]
+        with tracing.span("count.sort.lsd", buckets=n_over,
+                          rows=sum(r1 - r0 for _, r0, r1 in over)):
+            for g, r0, r1 in over:
+                # no partition digit: no live digit, every row equal, in
+                # order
+                u, c = _runs(*_radix((), plan, 0, soa=(src, r0, r1 - r0))) \
+                    if part else _runs(src, None)
+                run_keys[:, r0:r0 + u.shape[0]] = to_i32(u).t()
+                run_counts[r0:r0 + u.shape[0]] = c
+                tracing.host_sync()     # the scalar's blocking copy
+                gruns[g] = u.shape[0]
         _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
                 info.data_ptr(), goff.data_ptr())
+        tracing.host_sync()
         n_u = int(info[2].item())
     uniq = torch.empty((n_u, nl), dtype=torch.int64, device=dev)
     counts = torch.empty(n_u, dtype=torch.int32, device=dev)
@@ -541,6 +555,8 @@ def sort_count(keys: torch.Tensor):
     COUNT.add("sort_count", n, nl)
     COUNT.add_routes("sort_count", partition_passes=len(part),
                      bucket_groups=G - n_over, over_capacity=n_over)
+    tracing.add(partition_passes=len(part), groups=G - n_over,
+                over_capacity=n_over)
     return uniq, counts
 
 
@@ -576,6 +592,7 @@ def merge_runs(ka, ca, kb, cb):
             int(ka.dtype == torch.int64), ca.data_ptr(), cb.data_ptr(),
             splits.data_ptr(), tiles.data_ptr(), meta.data_ptr())
     _launch("ks_merge_count_launch", dev, *args)
+    tracing.host_sync()
     n_u, _, flags = meta.tolist()
     if flags & MERGE_WIDE:
         raise ValueError("kmer_sort: int64 limbs must lie in [0, 2^32)")
@@ -591,6 +608,7 @@ def merge_runs(ka, ca, kb, cb):
         route = "merge_path"
     COUNT.add("merge_runs", na, nb, nl)
     COUNT.add_routes("merge_runs", **{route: 1})
+    tracing.add(**{route: 1})
     return out
 
 
@@ -633,8 +651,10 @@ def lex_order(keys: torch.Tensor) -> torch.Tensor:
                 _ints([v for p in rest for v in plan[p]]), len(rest),
                 out.data_ptr(), info.data_ptr(), lists[0].data_ptr(),
                 lists[1].data_ptr())
+        tracing.host_sync()
         n_big, n_over, n_warp = info.tolist()
         if n_over:
+            tracing.host_sync()
             for r0, r1 in lists[1, :n_over].tolist():
                 _, p = _radix((), plan, 1, (psrc[r0:r1],),
                               soa=(src, r0, r1 - r0))

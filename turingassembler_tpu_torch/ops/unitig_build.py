@@ -40,7 +40,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from . import kmer_sort as ks
 from . import kmers as km
 from . import limbs as lb
@@ -141,6 +141,7 @@ class Unitigs:
 
     def to_host(self):
         """(ints, seq) as numpy arrays."""
+        tracing.host_sync(2)
         return self.ints.cpu().numpy(), self.seq.cpu().numpy()
 
 
