@@ -50,7 +50,11 @@ before printing a result:
      level-0 build's fingerprints, each with wrapper, device (profiler),
      plain and bound ms (sort_count beside torch.unique, lex_order beside
      torch.sort of the rows packed into int64; sort_count, merge_runs and
-     lex_order each in turns with the LSD form and by kernel)
+     lex_order each in turns with the LSD form and by kernel); sort_count
+     of the yeast cell's shape of buckets over capacity (2,000 of them,
+     23 M rows at nl = 4) against the plain version, in turns with the
+     host loop over those buckets that the batched route replaced (wall,
+     device ms, launches and syncs a call)
  25. unitig_build kernels vs plain (run here, after phase 23, on its
      workload), exact: the level-0 build's kernels
      (csrc/unitig_build.cu) against their plain versions on the card:
@@ -1618,7 +1622,9 @@ KS_CASE_ROUTES = {
         lambda r: r == {"partition_passes": 0, "bucket_groups": 0,
                         "over_capacity": 1},
     "canonical-skewed prefixes":
-        lambda r: r["over_capacity"] == 0 and r["bucket_groups"] > 1}
+        lambda r: r["over_capacity"] == 0 and r["bucket_groups"] > 1,
+    "many prefixes over the capacity":   # testing.OVER_CAPACITY_CASE's
+        lambda r: r["over_capacity"] == 200 and r["partition_passes"] == 2}
 # and the lex_order route (LaunchCount.routes["lex_order"])
 LEX_CASE_ROUTES = {
     "few values, large":
@@ -1911,9 +1917,108 @@ def phase_ks_kernel_vs_plain(workload):
 
     log(f"kmer_sort (b) the bench shapes: all {n_gates} gates max |diff| "
         f"{err}")
+    skew_err, res["sort_count"]["over_capacity_shape"] = ks_over_capacity()
     ks_count_split(*workload[1:])
-    res["max_abs_err"] = err
+    res["max_abs_err"] = max(err, skew_err)
     return res
+
+
+# the yeast cell's buckets over capacity, in shape (a repeat-rich
+# library's count at nl = 4): prefixes, copies of each prefix's repeated
+# row, random rows beside it (testing.over_capacity_rows), 23 M rows
+KS_SKEW = (2_000, 7_500, 4_000)
+
+
+def ks_loop_route(src, part, plan, info, run_keys, run_counts, gruns,
+                  rows):
+    """The route for sort_count's groups over capacity before the batched
+    one, for kmer_sort._over_capacity's place: a host loop, each group
+    through _radix + _runs on its own segment, its runs copied into the
+    bucket kernel's scratch and its run count written from the host
+    (three syncs a group; the list's pull, and here n_over's)."""
+    from turingassembler_tpu_torch import tracing
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    tracing.host_sync(2)
+    n_over = int(info[1].item())
+    for g, r0, r1, _ in info[4:4 + 4 * n_over].view(n_over, 4).tolist():
+        u, c = ks._runs(*ks._radix((), plan, 0, soa=(src, r0, r1 - r0))) \
+            if part else ks._runs(src, None)
+        run_keys[:, r0:r0 + u.shape[0]] = ks.to_i32(u).t()
+        run_counts[r0:r0 + u.shape[0]] = c
+        tracing.host_sync()             # the scalar's blocking copy
+        gruns[g] = u.shape[0]
+
+
+def ks_syncs(fn):
+    """The host syncs the program counts (tracing.host_sync) in one call
+    of fn."""
+    from turingassembler_tpu_torch import tracing
+    tracing.clear()
+    tracing.start()
+    try:
+        with tracing.span("probe"):
+            fn()
+    finally:
+        tracing.stop()
+    n = sum(r[6].get("syncs", 0) for r in tracing.records())
+    tracing.clear()
+    return n
+
+
+def ks_over_capacity():
+    """Phase 23 (c): sort_count on the yeast cell's shape of buckets over
+    capacity (KS_SKEW: 2,000 buckets of one row 7,500 times beside 4,000
+    random rows, nl = 4) against the plain version, exact, every such
+    bucket through the batched route; then in turns (route, loop, loop,
+    route) with the host loop it replaced (ks_loop_route in the route's
+    place): wall ms (CUDA events, the host's syncs included) and device
+    ms (profiler), and each one's launches by kernel and host syncs a
+    call.  Returns (max |diff|, the figures)."""
+    from turingassembler_tpu_torch import testing as tt
+    from turingassembler_tpu_torch.ops import kmer_sort as ks
+    rows = tt.over_capacity_rows(*KS_SKEW, seed=25, device="cuda")
+    n = rows.shape[0]
+    what = f"sort_count of the repeat-rich shape ({n} x 4 rows)"
+    got, routes = ks_routes_of(lambda: ks.sort_count(rows))
+    routes = routes["sort_count"]
+    err = hold_ks(what, got, ks.plain_sort_count(rows))
+    log(f"kmer_sort (c) {what}: routes " + ", ".join(
+        f"{r} {n_}" for r, n_ in routes.items()))
+    if routes["over_capacity"] != KS_SKEW[0]:
+        raise AssertionError(f"kmer_sort: the repeat-rich shape took "
+                             f"{routes}")
+    route = ks._over_capacity
+
+    def loop():
+        ks._over_capacity = ks_loop_route
+        try:
+            return ks.sort_count(rows)
+        finally:
+            ks._over_capacity = route
+
+    new = lambda: ks.sort_count(rows)                       # noqa: E731
+    err = max(err, hold_ks(f"the host loop on {what}", loop(), got))
+    del got
+    turns = [(name, cuda_ms(fn, 2), device_ms_all(fn, 1)) for name, fn in
+             (("route", new), ("loop", loop), ("loop", loop),
+              ("route", new))]
+    log(f"kmer_sort (c) {what} in turns, wall / device ms: " + ", ".join(
+        f"{name_} {w_:.3f} / "
+        f"{'not measured' if d_ is None else f'{d_:.3f}'}"
+        for name_, w_, d_ in turns))
+    out = {"rows": n, "over_capacity": KS_SKEW[0], "turns": turns}
+    for name, fn in (("route", new), ("loop", loop)):
+        split = device_ms_by_kernel(fn, reps=1)
+        out[f"{name}_launches"] = sum(n_ for _, n_ in split.values())
+        out[f"{name}_syncs"] = ks_syncs(fn)
+        log(f"kmer_sort (c) {what}, the {name}: {out[f'{name}_launches']} "
+            f"device operations, {out[f'{name}_syncs']} host syncs a call; "
+            "device ms (launches) by kernel: " + ", ".join(
+                f"{kernel_name(k_)} {ms_:.4f} ({n_})" for k_, (ms_, n_) in
+                sorted(split.items(), key=lambda kv: -kv[1][0])[:8]))
+    del rows
+    torch.cuda.empty_cache()
+    return err, out
 
 
 # kernel-name pieces of one count's device work, by part (the rest is
@@ -1928,7 +2033,9 @@ KS_PARTS = (("ship", ("Memcpy HtoD",)),
             ("bucket", ("bucket_kernel",)),
             ("compaction", ("scan_ll_kernel", "compact_kernel")),
             ("run-length (over capacity)", ("runs_kernel",
-                                            "run_counts_kernel")))
+                                            "run_counts_kernel",
+                                            "gather_kernel",
+                                            "place_runs_kernel")))
 
 
 def ks_count_split(reads, lengths):

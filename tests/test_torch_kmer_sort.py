@@ -22,8 +22,10 @@ against those by chip_smoke.py.  Here:
   - a tensor-code model of the card's sort_count route (the load's live
     digits, sort_plan, the partition passes, the bucket bounds,
     bucket_groups, the bucket kernel's distinct rows, their places by
-    counting or by passes, their counts, the LSD route of a bucket over
-    capacity, compaction) == JAX _sort_count on
+    counting or by passes, their counts, the batched route for the
+    buckets over capacity (gathered in group order, sorted as one
+    segment, one run pass, each run placed back by its group),
+    compaction) == JAX _sort_count on
     kmer_sort_cases and on extracted reads at k = 15, 31, 45, 63, at the
     kernel's block capacity and at a tiny one (both routes run);
     sort_plan for k1 in 2..64 at n below and above each digit threshold;
@@ -48,7 +50,10 @@ against those by chip_smoke.py.  Here:
     on ascending inputs with runs longer than a tile of 64 rows, an empty
     side, one input below the other; the order check picks the LSD route
     for a descent inside a tile or at a tile border, the merge path for
-    ascending inputs with or without equal rows.
+    ascending inputs with or without equal rows;
+  - on the card (skipped without one; it uses no JAX): sort_count on the
+    yeast cell's shape of buckets over capacity == plain_sort_count, and
+    the route's host syncs the same for 10 such buckets as for 2,000.
 Mirror any edit of csrc/kmer_sort.cu's extraction, bucket, lex or merge
 route in the models here.  Tolerance: exact equality everywhere
 (integers).
@@ -379,13 +384,12 @@ def _distinct(rows):
 
 
 def _model_runs(s):
-    if len(s) == 0:
-        return s, torch.zeros(0, dtype=torch.int32)
+    """The run pass: (each run's key, its rows, its first row)."""
     new = torch.ones(len(s), dtype=torch.bool)
     new[1:] = (s[1:] != s[:-1]).any(dim=1)
     starts = torch.nonzero(new).squeeze(1)
     ends = torch.cat([starts[1:], starts.new_tensor([len(s)])])
-    return s[starts], (ends - starts).to(torch.int32)
+    return s[starts], (ends - starts).to(torch.int32), starts
 
 
 def model_sort_count(keys, cap):
@@ -407,33 +411,46 @@ def model_sort_count(keys, cap):
         gs = np.array([0, n])
     routes = dict.fromkeys(ks.ROUTES["sort_count"], 0)
     routes["partition_passes"] = len(part)
-    uniq, counts = [], []
+    runs = {}                                 # a group's (keys, counts)
+    over = []                                 # the groups over capacity
     for g in range(len(gs) - 1):
         seg = rows[gs[g]:gs[g + 1]]
-        if len(seg) == 0:                             # no runs
-            routes["bucket_groups"] += 1
-            continue
-        if len(seg) <= cap:                           # bucket_kernel
-            passes = list(rest)
-            if part and _digit(seg[:1], plan, rest[-1]).item() == \
-                    _digit(seg[-1:], plan, rest[-1]).item():
-                passes = passes[:-1]          # one bucket: the last pass goes
-            dist, c = _distinct(seg)
-            o = _rank_order(dist) if len(dist) <= RANK_SORT \
-                else _lsd_order(dist, plan, passes)
-            u, c = dist[o], c[o]
-            routes["bucket_groups"] += 1
-        else:                                 # over capacity: the LSD route
-            live = _live(seg, plan)
-            u, c = _model_runs(
-                _lsd(seg, plan, [p for p in range(len(plan)) if live[p]]))
+        if len(seg) > cap:                    # left to the batched route
+            over.append(g)
             routes["over_capacity"] += 1
-        uniq.append(u)
-        counts.append(c)
-    if not uniq:
+            continue
+        routes["bucket_groups"] += 1
+        if len(seg) == 0:                             # no runs
+            continue
+        passes = list(rest)                           # bucket_kernel
+        if part and _digit(seg[:1], plan, rest[-1]).item() == \
+                _digit(seg[-1:], plan, rest[-1]).item():
+            passes = passes[:-1]              # one bucket: the last pass goes
+        dist, c = _distinct(seg)
+        o = _rank_order(dist) if len(dist) <= RANK_SORT \
+            else _lsd_order(dist, plan, passes)
+        runs[g] = dist[o], c[o]
+    if over:
+        # the batched route: the groups over capacity gathered in group
+        # order (gather_kernel), sorted as one segment on its live digits
+        # (the LSD pass kernels), one run pass, each run back to the group
+        # whose rows hold its first row (place_runs_kernel)
+        off = np.cumsum([0] + [gs[g + 1] - gs[g] for g in over])
+        seg = torch.cat([rows[gs[g]:gs[g + 1]] for g in over])
+        live = _live(seg, plan)
+        u, c, first = _model_runs(
+            _lsd(seg, plan, [p for p in range(len(plan)) if live[p]]))
+        # no run crosses a group: each group's first row starts a run
+        assert set(off[:-1].tolist()) <= set(first.tolist())
+        group = np.searchsorted(off, first.numpy(), side="right") - 1
+        for j, g in enumerate(over):
+            runs[g] = u[group == j], c[group == j]
+    if not runs:
         return (torch.zeros((0, nl), dtype=torch.int64),
                 torch.zeros(0, dtype=torch.int32), routes)
-    return torch.cat(uniq), torch.cat(counts), routes   # compaction
+    # compaction: each group's runs, in group order
+    return (torch.cat([runs[g][0] for g in sorted(runs)]),
+            torch.cat([runs[g][1] for g in sorted(runs)]), routes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -466,6 +483,10 @@ def test_sort_count_model_on_cases_equals_jax(name, cap):
                           "over_capacity": 1}
     if cap == "kernel" and name == "canonical-skewed prefixes":
         assert routes["over_capacity"] == 0 and routes["bucket_groups"] > 1
+    # every prefix's repeated row puts its bucket over capacity, at both
+    if name == "many prefixes over the capacity":
+        assert routes["over_capacity"] == tt.OVER_CAPACITY_CASE[0]
+        assert routes["partition_passes"] == 2
     # at the tiny capacity these take both routes (tiers of frequent keys)
     if cap == "tiny" and name in ("all ones, nl=2", "all ones, nl=4",
                                   "one prefix over the capacity"):
@@ -1044,3 +1065,54 @@ def test_merge_route_choice(name):
         uniq, sums = _np_merge(ka, ca, kb, cb)
         np.testing.assert_array_equal(u.numpy(), uniq)
         np.testing.assert_array_equal(c.numpy(), sums)
+
+
+# ---------------------------------------------------------------------------
+# On the card: sort_count's batched route for the buckets over capacity
+# ---------------------------------------------------------------------------
+
+def _lsd_span(rows):
+    """ops/kmer_sort.py:sort_count(rows) under tracing: its result and the
+    counts of its one `count.sort.lsd` span."""
+    from turingassembler_tpu_torch import tracing
+    tracing.clear()
+    tracing.start()
+    try:
+        out = ks.sort_count(rows)
+    finally:
+        tracing.stop()
+    spans = [r[6] for r in tracing.records() if r[2] == "count.sort.lsd"]
+    tracing.clear()
+    assert len(spans) == 1
+    return out, spans[0]
+
+
+@pytest.mark.card
+def test_over_capacity_route_on_the_card():
+    """At nl = 4, 2,000 prefixes each holding one row repeated 7,500 times
+    beside 4,000 random rows (the yeast cell's shape, 23 M rows), and 10
+    such prefixes among 1 M random rows: sort_count == plain_sort_count
+    exactly, each such bucket through the batched route; the route's
+    host syncs (its span's) are the same for 10 buckets over capacity and
+    for 2,000, and at most 3: no loop over the buckets."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card visible: the route's kernels run on the "
+                    "card")
+    dev = torch.device("cuda")
+    syncs = {}
+    for n_over in (10, 2_000):
+        rows = tt.over_capacity_rows(n_over, 7_500, 4_000, seed=n_over,
+                                     device=dev)
+        if n_over == 10:             # two partition digits, as at 2,000
+            rows = torch.cat([rows, torch.randint(
+                0, 1 << 32, (1_000_000, 4), dtype=torch.int64, device=dev)])
+        before = ks.COUNT.routes["sort_count"]["over_capacity"]
+        (u, c), span = _lsd_span(rows)
+        assert ks.COUNT.routes["sort_count"]["over_capacity"] - before \
+            == n_over == span["buckets"]
+        assert span["rows"] >= n_over * 11_500
+        pu, pc = ks.plain_sort_count(rows)
+        assert torch.equal(u, pu) and torch.equal(c, pc)
+        syncs[n_over] = span["syncs"]
+        del rows, u, c, pu, pc
+    assert syncs[10] == syncs[2_000] <= 3

@@ -63,7 +63,9 @@
 //      a scan would read a limb of every row);
 //      groups_kernel, the buckets' groups (bucket_groups): a bucket, or a
 //      run of small ones inside one 256-bucket block of the prefix, at
-//      most cap rows, and the groups over cap;
+//      most cap rows, and the groups over cap, listed in group order
+//      with their rows' total and each one's offset in a gathered
+//      segment (block scans);
 //   4. bucket_kernel: persistent blocks, a group at a time, the next
 //      group's rows prefetched into L2.  The group's rows in shared
 //      memory; equal rows counted once by a hash table of row indices;
@@ -76,15 +78,29 @@
 //      gathers and barriers; counting equal rows first leaves about 100
 //      distinct rows a group;
 //   5. compaction: one block scans the groups' run counts (one host sync
-//      for the total, with the groups over cap), then a warp a group
-//      copies its runs to uniq (int64 limbs) and counts.
-// A bucket over the block's capacity (poly-A, high-copy repeats, all
-// rows equal) takes the LSD route on its own segment: load (from the
-// SoA), the passes whose digit takes two values there, the run pass,
-// its runs copied into the scratch; the wrapper counts such buckets.
-// Rows equal in every digit cost no pass.  What bounds it now: the two
-// partition passes (28 bytes a row each) and the load; the bucket kernel
-// reads each row once.
+//      for the total, with the groups over cap and their rows), then a
+//      warp a group copies its runs to uniq (int64 limbs) and counts.
+// The buckets over the block's capacity (poly-A, high-copy repeats, all
+// rows equal) take one batched route between steps 4 and 5, the same
+// launches and host syncs for one such bucket or ten thousand:
+// gather_kernel copies every one's rows, in group order (ascending
+// prefix), into one SoA segment and ORs each limb's XOR against its
+// first row (a host sync: the segment's live digits); the LSD pass
+// kernels sort the segment on every live digit, the partition's
+// included, so each group's rows stay where the gather put them, sorted;
+// the run pass over the whole segment (a host sync: its runs; no run
+// crosses a group, whose prefixes differ); place_runs_kernel puts each
+// run at its group's first row plus its rank among the group's runs (a
+// binary search of its start in the groups' offsets, one of the runs'
+// starts for the group's first run) and the group's run count in gruns;
+// then compaction's scan again (its total's sync).  Without a partition
+// digit the one group is every row, all equal: the run pass reads the
+// rows where they are.  The wrapper counts such buckets.  What bounds it
+// now: the two partition passes (28 bytes a row each) and the load; the
+// bucket kernel reads each row once; where buckets go over capacity,
+// the segment's passes (up to 16 at nl = 4, 36 bytes a row each): 2,000
+// such buckets of 23 M rows at nl = 4 take 11-12 ms on an H100, where a
+// host loop of the LSD route a bucket took 1.5 s.
 //
 // Bucket capacity: a row takes its nl uint32 limbs, a uint16 count, a
 // uint16 list entry and two uint16 hash slots, (4 nl + 8) bytes, beside
@@ -159,10 +175,10 @@
 // Inputs out of order (raw rows) take the LSD route below; the wrapper
 // records which.
 //
-// LSD sort (merge_runs' inputs out of order, a bucket over capacity of
-// sort_count or lex_order, the partition passes).  Keys as nl separate
-// uint32 arrays (SoA) in two ping-pong buffers, with an optional 32-bit
-// payload beside them.  The load kernel counts every digit of every pass
+// LSD sort (merge_runs' inputs out of order, sort_count's segment of the
+// buckets over capacity, a bucket over capacity of lex_order, the
+// partition passes).  Keys as nl separate uint32 arrays (SoA) in two
+// ping-pong buffers, with an optional 32-bit payload beside them.  The load kernel counts every digit of every pass
 // at once (as CUB's onesweep does up front); the host skips a pass whose
 // digit takes one value (the load's XOR words).  Digits are the four
 // bytes of each limb (ops/kmer_sort.py:digit_plan).  A pass: a tile count
@@ -1050,8 +1066,8 @@ __device__ void block_lsd_pass(const uint32_t* dl, int shift, uint32_t dmask,
 // the passes' barriers cost more than their work.
 // local_last: the last digit is the group's low prefix digit, ascending
 // over its rows, so the pass is skipped when the first and last rows
-// share it.  A group over cap rows is the host's (the LSD route): left
-// as it is.
+// share it.  A group over cap rows is left as it is, gruns 0: the
+// batched route (gather_kernel ... place_runs_kernel) finishes it.
 template <int NL>
 __global__ void __launch_bounds__(BT, 1)
 bucket_kernel(const uint32_t* __restrict__ keys, long long n,
@@ -1817,16 +1833,20 @@ struct MergeCount {
 // T = cap / 2, a bucket over T rows is a group alone; the others group
 // while their first rows fall in one T-row window and one 256-bucket
 // block.  gstart (G + 1,) gets each group's first row, then n; info
-// (int64): [G, the groups over cap rows, (the scan's total), then (g, r0,
-// r1) for each group over cap].  One block, GT threads, a run of
-// buckets a thread.  A group may be empty (the bucket kernel writes 0
-// runs).
+// (int64): [G, the groups over cap rows, (the scan's total), their rows,
+// then (g, r0, r1, off) for each group over cap, in group order, off its
+// first row in the segment that gathers them (OVER_HEAD, OVER_REC)].
+// One block, GT threads, a run of buckets a thread, so block scans give
+// each thread's first group, first group over cap and its offset.  A
+// group may be empty (the bucket kernel writes 0 runs).
 constexpr int GT = 1024;
+constexpr int OVER_HEAD = 4, OVER_REC = 4;
 
 __global__ void __launch_bounds__(GT)
 groups_kernel(const int* __restrict__ starts, long long nb, long long n,
               int cap, int* __restrict__ gstart, long long* __restrict__ info) {
     __shared__ int sh[GT / 32];
+    __shared__ long long shl[GT / 32];
     const long long t = cap / 2 > 1 ? cap / 2 : 1;
     const long long per = (nb + GT - 1) / GT;
     const long long b0 = threadIdx.x * per, b1 = min(nb, b0 + per);
@@ -1837,28 +1857,159 @@ groups_kernel(const int* __restrict__ starts, long long nb, long long n,
         const long long sp = first(b - 1);
         return s0 - sp > t || s0 / t != sp / t;
     };
-    int mine = 0;
-    for (long long b = b0; b < b1; ++b) mine += cut(b);
-    int G;
+    int mine = 0, mine_over = 0;
+    long long mine_rows = 0;
+    for (long long b = b0; b < b1; ++b) {
+        if (!cut(b)) continue;
+        ++mine;
+        const long long m = first(b + 1) - first(b);
+        if (m > cap) {                   // a bucket alone, over capacity
+            ++mine_over;
+            mine_rows += m;
+        }
+    }
+    int G, n_over;
+    long long rows;
     int k = block_exclusive_scan<int, GT / 32>(mine, &G, sh);
+    int j = block_exclusive_scan<int, GT / 32>(mine_over, &n_over, sh);
+    long long off =
+        block_exclusive_scan<long long, GT / 32>(mine_rows, &rows, shl);
     if (threadIdx.x == 0) {
         info[0] = G;
-        info[1] = 0;
+        info[1] = n_over;
+        info[3] = rows;
         gstart[G] = (int)n;
     }
-    __syncthreads();
     for (long long b = b0; b < b1; ++b) {
         if (!cut(b)) continue;
         const long long s0 = first(b), s1 = first(b + 1);
         gstart[k] = (int)s0;
-        if (s1 - s0 > cap) {             // a bucket alone, over capacity
-            const long long j = atomicAdd(
-                reinterpret_cast<unsigned long long*>(info + 1), 1ULL);
-            info[3 + 3 * j] = k;
-            info[4 + 3 * j] = s0;
-            info[5 + 3 * j] = s1;
+        if (s1 - s0 > cap) {
+            long long* o = info + OVER_HEAD + (long long)OVER_REC * j++;
+            o[0] = k;
+            o[1] = s0;
+            o[2] = s1;
+            o[3] = off;
+            off += s1 - s0;
         }
         ++k;
+    }
+}
+
+// The group over cap whose gathered rows hold segment row i: the last
+// one of info's list whose offset is at most i (i >= 0, n_over >= 1).
+__device__ __forceinline__ long long over_group(const long long* over,
+                                                long long n_over,
+                                                long long i) {
+    long long lo = 0, hi = n_over - 1;
+    while (lo < hi) {
+        const long long mid = (lo + hi + 1) / 2;
+        if (over[OVER_REC * mid + 3] <= i)
+            lo = mid;
+        else
+            hi = mid - 1;
+    }
+    return lo;
+}
+
+// The batched route, first step: the rows of every group over cap
+// (info's list) from keys (NL, n) into seg (NL, m), m = info[3], group
+// after group, each at its offset; diff (NL,) gets each limb's OR over
+// the segment of the limb XOR the segment's first row's (the live
+// digits, as load_hist_kernel's).  A block a tile of TILE segment rows:
+// one binary search finds the tile's first group, and a thread's rows,
+// ascending, step to the next group where its offset is reached (a
+// group holds more than cap rows, so a tile spans one or two).
+template <int NL>
+__global__ void __launch_bounds__(THREADS)
+gather_kernel(const uint32_t* __restrict__ keys, long long n,
+              const long long* __restrict__ info,
+              uint32_t* __restrict__ seg, uint32_t* __restrict__ diff) {
+    __shared__ long long j_sh;
+    __shared__ uint32_t dx_sh[MAX_NL];
+    const long long* over = info + OVER_HEAD;
+    const long long n_over = info[1], m = info[3];
+    const long long c0 = (long long)blockIdx.x * TILE;
+    const long long c1 = min(m, c0 + TILE);
+    if (threadIdx.x == 0) j_sh = over_group(over, n_over, c0);
+    if (threadIdx.x < NL) dx_sh[threadIdx.x] = 0;
+    __syncthreads();
+    uint32_t ref[NL], dx[NL];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+        ref[l] = keys[(size_t)l * n + over[1]];
+        dx[l] = 0;
+    }
+    long long j = j_sh;
+    for (long long i = c0 + threadIdx.x; i < c1; i += THREADS) {
+        while (j + 1 < n_over && over[OVER_REC * (j + 1) + 3] <= i) ++j;
+        const long long r =
+            over[OVER_REC * j + 1] + (i - over[OVER_REC * j + 3]);
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+            const uint32_t v = keys[(size_t)l * n + r];
+            seg[(size_t)l * m + i] = v;
+            dx[l] |= v ^ ref[l];
+        }
+    }
+#pragma unroll
+    for (int l = 0; l < NL; ++l)
+        if (dx[l]) atomicOr(&dx_sh[l], dx[l]);
+    __syncthreads();
+    if (threadIdx.x < NL && dx_sh[threadIdx.x])
+        atomicOr(&diff[threadIdx.x], dx_sh[threadIdx.x]);
+}
+
+template <int NL>
+struct Gather {
+    static int run(const uint32_t* keys, long long n, const long long* info,
+                   long long m, uint32_t* seg, uint32_t* diff,
+                   cudaStream_t st) {
+        gather_kernel<NL><<<(unsigned)n_tiles(m), THREADS, 0, st>>>(
+            keys, n, info, seg, diff);
+        return 0;
+    }
+};
+
+// The batched route, last step: the runs of the sorted segment (uniq
+// (n_u, nl) int64 each run's key, counts (n_u,) int32, S (n_u,) int64
+// each run's first row in the segment: the run pass's payload prefix
+// without a payload) back to their groups.  A thread a run: its group
+// j, the one whose gathered rows hold S[r] (no run crosses a group: the
+// groups' prefixes differ, so each group's first row starts a run); its
+// rank t among j's runs, r less the first run at or after j's offset
+// (a binary search of S); its key to run_keys (nl, n) and its count to
+// run_counts (n,) at j's first row r0 plus t, as the bucket kernel
+// writes a group's runs; the group's last run writes gruns[g] = t + 1.
+__global__ void __launch_bounds__(THREADS)
+place_runs_kernel(const long long* __restrict__ uniq,
+                  const int* __restrict__ counts,
+                  const long long* __restrict__ S, long long n_u, int nl,
+                  const long long* __restrict__ info,
+                  uint32_t* __restrict__ run_keys, long long n,
+                  int* __restrict__ run_counts, long long* __restrict__ gruns) {
+    const long long* over = info + OVER_HEAD;
+    const long long n_over = info[1], m = info[3];
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         r < n_u; r += step) {
+        const long long s = S[r];
+        const long long j = over_group(over, n_over, s);
+        const long long* o = over + OVER_REC * j;
+        long long a = 0, b = r;
+        while (a < b) {
+            const long long mid = (a + b) / 2;
+            if (S[mid] < o[3])
+                a = mid + 1;
+            else
+                b = mid;
+        }
+        const long long t = r - a, dst = o[1] + t;
+        for (int l = 0; l < nl; ++l)
+            run_keys[(size_t)l * n + dst] = (uint32_t)uniq[r * nl + l];
+        run_counts[dst] = counts[r];
+        const long long end = j + 1 < n_over ? o[OVER_REC + 3] : m;
+        if (r + 1 == n_u || S[r + 1] >= end) gruns[o[0]] = t + 1;
     }
 }
 
@@ -2190,7 +2341,7 @@ extern "C" int ks_bounds_launch(const void* keys, long long n, int nl,
 
 // The groups of the buckets (starts (nb + 1,) int32, or null: one
 // bucket of n rows) for a block capacity cap: gstart (nb + 2,) int32,
-// info (3 + 3 nb,) int64, as groups_kernel fills them.
+// info (4 + 4 nb,) int64, as groups_kernel fills them.
 extern "C" int ks_groups_launch(const void* starts, long long nb,
                                 long long n, int cap, void* gstart,
                                 void* info, void* stream) {
@@ -2222,6 +2373,46 @@ extern "C" int ks_bucket_launch(const void* keys, long long n, int nl,
                             static_cast<int*>(run_counts),
                             static_cast<long long*>(gruns),
                             static_cast<cudaStream_t>(stream));
+}
+
+// The batched route for the groups over cap, first step (after the
+// bucket kernel; info as ks_groups_launch filled it, with n_over =
+// info[1] >= 1 and m = info[3] rows, which the host passes): their rows
+// from keys (nl, n) into seg (nl, m) uint32; diff (nl,) uint32 gets
+// each limb's OR over the segment of the limb XOR its first row's.
+extern "C" int ks_gather_launch(const void* keys, long long n, int nl,
+                                const void* info, long long m, void* seg,
+                                void* diff, void* stream) {
+    if (bad_rows(n, nl) || m < 1 || m > n) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const cudaError_t e = cudaMemsetAsync(diff, 0, nl * sizeof(uint32_t), st);
+    if (e != cudaSuccess) return (int)e;
+    return dispatch<Gather>(nl, static_cast<const uint32_t*>(keys), n,
+                            static_cast<const long long*>(info), m,
+                            static_cast<uint32_t*>(seg),
+                            static_cast<uint32_t*>(diff), st);
+}
+
+// The batched route, last step (after the run pass over the sorted
+// segment, or over keys themselves when there is no partition): uniq
+// (n_u, nl) int64, counts (n_u,) int32 and S (n_u,) int64, the run
+// pass's outputs and its scratch of run starts, into run_keys (nl, n)
+// uint32, run_counts (n,) int32 and gruns (G,) int64 of the bucket
+// kernel, for each group info lists.
+extern "C" int ks_place_runs_launch(const void* uniq, const void* counts,
+                                    const void* S, long long n_u, int nl,
+                                    const void* info, void* run_keys,
+                                    long long n, void* run_counts,
+                                    void* gruns, void* stream) {
+    if (bad_rows(n, nl) || n_u < 1 || n_u > n)
+        return (int)cudaErrorInvalidValue;
+    place_runs_kernel<<<grid_of(n_u), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(uniq), static_cast<const int*>(counts),
+        static_cast<const long long*>(S), n_u, nl,
+        static_cast<const long long*>(info), static_cast<uint32_t*>(run_keys),
+        n, static_cast<int*>(run_counts), static_cast<long long*>(gruns));
+    return (int)cudaGetLastError();
 }
 
 // Compaction, first step: goff (G,) int64 the exclusive scan of gruns

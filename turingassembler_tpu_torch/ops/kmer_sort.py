@@ -14,17 +14,18 @@ csrc/kmer_sort.cu says how: extraction in one launch (each read packed
 once into 2-bit words, a window's limbs by funnel shifts, the block's
 offset by a decoupled look-back); sort_count as a prefix partition (the
 LSD passes on the top live digits, sort_plan) plus a bucket sort-and-count
-in shared memory (bucket_groups), a bucket over the block's capacity
-taking the LSD route on its own segment; lex_order as the same prefix
-partition carrying the row index (lex_plan: buckets of tens of rows),
-each bucket ranked by counting, by a warp up to LEX_WARP rows, by a block
-(counting or LSD passes in shared memory) up to LEX_CAPACITY, the LSD
-route beyond; merge_runs as a merge path over its two ascending inputs
-(diagonal splits, a tile merged in shared memory, runs marked and summed
-across tile borders), the LSD route (a stable LSD radix sort of SoA
-uint32 limbs in 8-bit digits, digit_plan, a pass skipped where its digit
-has one bucket, then a run pass) when the kernel finds an input out of
-order.
+in shared memory (bucket_groups), the buckets over the block's capacity
+gathered into one segment, sorted by the LSD passes and their runs put
+back by group (one batched route, whatever their number); lex_order as
+the same prefix partition carrying the row index (lex_plan: buckets of
+tens of rows), each bucket ranked by counting, by a warp up to LEX_WARP
+rows, by a block (counting or LSD passes in shared memory) up to
+LEX_CAPACITY, the LSD route beyond; merge_runs as a merge path over its
+two ascending inputs (diagonal splits, a tile merged in shared memory,
+runs marked and summed across tile borders), the LSD route (a stable LSD
+radix sort of SoA uint32 limbs in 8-bit digits, digit_plan, a pass
+skipped where its digit has one bucket, then a run pass) when the kernel
+finds an input out of order.
 
 On CPU tensors each entry runs its plain version (the tensor code of
 kmer/megasort.py and ops/limbs.py:plain_lex_order); on CUDA tensors it
@@ -38,11 +39,13 @@ in [0, 2^32): the card raises on any other value.  COUNT records every
 launch with its shape, and the routes of sort_count, lex_order and
 merge_runs (ROUTES); each entry syncs with the host once or twice (the
 rows or runs it made; the live digits that decide the passes; merge_runs'
-order flag; lex_order's buckets over capacity), sort_count twice more
-and lex_order once more for each bucket over capacity.  tracing.py
-counts each sync on the span open (host_sync), sort_count's routes and
-merge_runs' beside COUNT's, and times sort_count's loop over the buckets
-over capacity as `count.sort.lsd`.
+order flag; lex_order's buckets over capacity), sort_count three times
+more when buckets go over capacity (the segment's live digits, its runs,
+the unique rows again), however many they are, and lex_order once more
+for each bucket over capacity.  tracing.py counts each sync on the span
+open (host_sync), sort_count's routes and merge_runs' beside COUNT's,
+and times sort_count's route for the buckets over capacity, up to its
+last sync, as `count.sort.lsd`.
 """
 
 from __future__ import annotations
@@ -139,6 +142,8 @@ _ARGTYPES = {
     "ks_bounds_launch": [_P, _LL, _I, _P, _I, _P],
     "ks_groups_launch": [_P, _LL, _LL, _I, _P, _P],
     "ks_bucket_launch": [_P, _LL, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "ks_gather_launch": [_P, _LL, _I, _P, _LL, _P, _P],
+    "ks_place_runs_launch": [_P, _P, _P, _LL, _I, _P, _P, _LL, _P, _P],
     "ks_compact_count_launch": [_P, _P, _P],
     "ks_compact_write_launch": [_P, _P, _LL, _I, _P, _P, _P, _P, _P],
     "ks_runs_count_launch": [_P, _P, _LL, _I, _P, _P],
@@ -415,9 +420,14 @@ def _load(rows: Tuple[torch.Tensor, ...], plan, pay_mode: int,
     wide, *diff = hist[npass * RADIX:].tolist()
     if wide:
         raise ValueError("kmer_sort: int64 limbs must lie in [0, 2^32)")
-    live = [(diff[limb] >> shift) & ((1 << width) - 1) != 0
+    return keys, pay, (hist if counts else None), _live(diff, plan)
+
+
+def _live(diff, plan) -> List[bool]:
+    """For each digit of the plan, whether it takes two values or more in
+    rows whose limbs' OR of row ^ the first row is diff (host ints)."""
+    return [(diff[limb] >> shift) & ((1 << width) - 1) != 0
             for limb, shift, width in plan]
-    return keys, pay, (hist if counts else None), live
 
 
 def _passes(keys: torch.Tensor, pay, plan, run, hist):
@@ -452,6 +462,12 @@ def _runs(keys: torch.Tensor, pay: torch.Tensor | None):
     """Run-length pass over sorted SoA keys (nl, n): (uniq (n_u, nl) int64,
     counts (n_u,) int32), a count the rows of a run or their payload's
     sum."""
+    return _run_table(keys, pay)[:2]
+
+
+def _run_table(keys: torch.Tensor, pay: torch.Tensor | None):
+    """_runs' (uniq, counts) and the payload's exclusive prefix at each
+    run, (n_u,) int64: without a payload, each run's first row."""
     dev = keys.device
     nl, n = keys.shape
     n_tiles = -(-n // TILE)
@@ -468,7 +484,7 @@ def _runs(keys: torch.Tensor, pay: torch.Tensor | None):
     _launch("ks_runs_write_launch", dev, keys.data_ptr(), pay_p, n, nl,
             tiles.data_ptr(), totals.data_ptr(), n_u, uniq.data_ptr(),
             counts.data_ptr(), starts.data_ptr())
-    return uniq, counts
+    return uniq, counts, starts
 
 
 def _bounds(src: torch.Tensor, plan, part) -> torch.Tensor:
@@ -483,14 +499,47 @@ def _bounds(src: torch.Tensor, plan, part) -> torch.Tensor:
     return starts
 
 
+def _over_capacity(src: torch.Tensor, part, plan, info: torch.Tensor,
+                   run_keys: torch.Tensor, run_counts: torch.Tensor,
+                   gruns: torch.Tensor, rows: int) -> None:
+    """sort_count's route for the groups over the bucket kernel's
+    capacity, all of them at once: the same launches and host syncs for
+    one group or ten thousand.  src (nl, n) the partitioned SoA rows;
+    info as ks_groups_launch fills it (the groups over capacity, in group
+    order, and their rows' total, rows, which the host has read).  Their
+    rows are gathered into one segment, in group order, with each limb's
+    XOR against the first row (a sync: the live digits), sorted by the
+    LSD passes on every live digit (the partition's too, so each group's
+    rows stay where the gather put them) and run-length counted (a sync);
+    each run goes to its group's first row plus its rank among the
+    group's runs, in run_keys and run_counts, and each group's run count
+    to gruns, as the bucket kernel writes a group's.  No partition digit:
+    the one group is every row, all equal, and the run pass reads src."""
+    dev = src.device
+    nl, n = src.shape
+    if part:
+        seg = torch.empty((2, nl, rows), dtype=torch.int32, device=dev)
+        diff = torch.empty(nl, dtype=torch.int32, device=dev)
+        _launch("ks_gather_launch", dev, src.data_ptr(), n, nl,
+                info.data_ptr(), rows, seg[0].data_ptr(), diff.data_ptr())
+        tracing.host_sync()
+        keys = _passes(seg, None, plan, _live(diff.tolist(), plan), None)[0]
+    else:
+        keys = src
+    uniq, counts, starts = _run_table(keys, None)
+    _launch("ks_place_runs_launch", dev, uniq.data_ptr(), counts.data_ptr(),
+            starts.data_ptr(), uniq.shape[0], nl, info.data_ptr(),
+            run_keys.data_ptr(), n, run_counts.data_ptr(), gruns.data_ptr())
+
+
 def sort_count(keys: torch.Tensor):
     """Sort limb rows (n, nl) (int64 limbs, or their int32 bit patterns on
     a card) and run-length count them: (uniq (n_u, nl) int64 ascending,
     counts (n_u,) int32).  On a card: load, partition (sort_plan),
-    bucket bounds and groups (bucket_groups), the bucket kernel, the LSD
-    route for each bucket over capacity, compaction; two host syncs (the
-    live digits, the unique rows) and two more for each bucket over
-    capacity."""
+    bucket bounds and groups (bucket_groups), the bucket kernel, one
+    batched route for every bucket over capacity (_over_capacity),
+    compaction; two host syncs (the live digits, the unique rows), and
+    three more when buckets go over capacity, however many."""
     if keys.device.type == "cpu":
         return plain_sort_count(keys)
     keys = _check_rows("keys", keys)
@@ -511,9 +560,10 @@ def sort_count(keys: torch.Tensor):
         nb = RADIX ** len(part)
         starts = _bounds(src, plan, part)
     # the groups (bucket_groups), formed on the card: info = [G, groups
-    # over capacity, unique rows, (g, r0, r1) of each group over capacity]
+    # over capacity, unique rows, the rows of the groups over capacity,
+    # (g, r0, r1, offset in their gathered segment) of each, in order]
     gstart = torch.empty(nb + 1, dtype=torch.int32, device=dev)
-    info = torch.empty(3 + 3 * nb, dtype=torch.int64, device=dev)
+    info = torch.empty(4 + 4 * nb, dtype=torch.int64, device=dev)
     _launch("ks_groups_launch", dev,
             starts.data_ptr() if starts is not None else None, nb, n, cap,
             gstart.data_ptr(), info.data_ptr())
@@ -528,25 +578,17 @@ def sort_count(keys: torch.Tensor):
     _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
             info.data_ptr(), goff.data_ptr())
     tracing.host_sync()
-    G, n_over, n_u = info[:3].tolist()
+    G, n_over, n_u, rows = info[:4].tolist()
     if n_over:
-        tracing.host_sync()
-        over = info[3:3 + 3 * n_over].view(n_over, 3).tolist()
-        with tracing.span("count.sort.lsd", buckets=n_over,
-                          rows=sum(r1 - r0 for _, r0, r1 in over)):
-            for g, r0, r1 in over:
-                # no partition digit: no live digit, every row equal, in
-                # order
-                u, c = _runs(*_radix((), plan, 0, soa=(src, r0, r1 - r0))) \
-                    if part else _runs(src, None)
-                run_keys[:, r0:r0 + u.shape[0]] = to_i32(u).t()
-                run_counts[r0:r0 + u.shape[0]] = c
-                tracing.host_sync()     # the scalar's blocking copy
-                gruns[g] = u.shape[0]
-        _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
-                info.data_ptr(), goff.data_ptr())
-        tracing.host_sync()
-        n_u = int(info[2].item())
+        # the span closes after the unique rows' sync, which follows the
+        # route's last launch: its wall covers the route's device work
+        with tracing.span("count.sort.lsd", buckets=n_over, rows=rows):
+            _over_capacity(src, part, plan, info, run_keys, run_counts,
+                           gruns, rows)
+            _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
+                    info.data_ptr(), goff.data_ptr())
+            tracing.host_sync()
+            n_u = int(info[2].item())
     uniq = torch.empty((n_u, nl), dtype=torch.int64, device=dev)
     counts = torch.empty(n_u, dtype=torch.int32, device=dev)
     _launch("ks_compact_write_launch", dev, run_keys.data_ptr(),

@@ -23,7 +23,8 @@ mm_world, mm_reads, mm_bound_queries, mm_segment_rows and mm_map_cases
 make the minimizer map kernel's edge cases (ops/mm_map.py);
 mm_align_world, mm_align_queries, mm_pool_end_reads and mm_align_cases
 its gapless bound's alignment and pool-end cases; kmer_sort_cases the
-count's sort cases, kedge_table and unitig_build_cases the level-0
+count's sort cases, over_capacity_rows a repeat-rich count's rows (many
+prefixes, each with one row repeated past a sort block), kedge_table and unitig_build_cases the level-0
 build's k-edge tables (ops/unitig_build.py), link_collision_cases
 made-up fingerprint collisions of its link_nodes."""
 
@@ -862,6 +863,35 @@ def mm_map_cases(seed: int = 0):
     return g, cases
 
 
+# kmer_sort_cases' "many prefixes over the capacity": prefixes, copies of
+# each prefix's one repeated row, distinct rows beside it
+OVER_CAPACITY_CASE = (200, 9_000, 20)
+
+
+def over_capacity_rows(n_prefixes: int, copies: int, singles: int,
+                       nl: int = 4, seed: int = 0, device="cpu"):
+    """Rows shaped like a repeat-rich library's count (a few k-mers
+    thousands of times over): n_prefixes distinct prefixes (the top 16
+    bits of limb 0), each holding one row repeated `copies` times beside
+    `singles` random rows of the same prefix; every other bit random;
+    shuffled.  (n_prefixes * (copies + singles), nl) int64 limbs in
+    [0, 2^32), made on `device` from `seed`."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(n):
+        return torch.randint(0, 1 << 32, (n, nl), dtype=torch.int64,
+                             device=device, generator=gen)
+
+    prefix = torch.randperm(1 << 16, device=device,
+                            generator=gen)[:n_prefixes] << 16
+    heavy, single = rand(n_prefixes), rand(n_prefixes * singles)
+    heavy[:, 0] = (heavy[:, 0] & 0xFFFF) | prefix
+    single[:, 0] = (single[:, 0] & 0xFFFF) | prefix.repeat_interleave(singles)
+    rows = torch.cat([heavy.repeat_interleave(copies, dim=0), single])
+    return rows[torch.randperm(len(rows), device=device, generator=gen)]
+
+
 def kmer_sort_cases(seed: int = 0):
     """Edge cases of the count's sort (ops/kmer_sort.py): name -> (keys (n,
     nl) int64 limbs in [0, 2^32), weights (n,) int32).  Rows of k1-mers
@@ -876,7 +906,10 @@ def kmer_sort_cases(seed: int = 0):
     capacity: the LSD route); 200,000 equal rows (no live digit, no
     pass); 300,000 rows of 100,000 canonical 46-mers, whose prefixes skew
     to A (a bucket of A-first rows about 7x one of T-first rows); 40,000
-    one-limb rows (a partition at nl = 1).  And for lex_order's: 60,000
+    one-limb rows (a partition at nl = 1); over_capacity_rows(200, 9,000,
+    20), 1,804,000 rows at nl = 4 (200 buckets over the block's capacity
+    of 8,928: the batched route, many groups at once).  And for
+    lex_order's: 60,000
     rows of three values in each limb (0, 2^31 - 1, 2^32 - 2), three
     buckets over a block's capacity (the LSD route with the row index)."""
     rng = np.random.default_rng(seed)
@@ -947,6 +980,8 @@ def kmer_sort_cases(seed: int = 0):
                                       axis=0),
         "canonical-skewed prefixes": canonical_rows(300_000, 100_000, 46),
         "one limb, k1=16": pool_rows(40_000, 1, 10_000, 16),
+        "many prefixes over the capacity": over_capacity_rows(
+            *OVER_CAPACITY_CASE, seed=seed).numpy(),
     }
     cases = {name: (keys, weights(len(keys))) for name, keys in cases.items()}
     few = np.random.default_rng(seed + 1)
