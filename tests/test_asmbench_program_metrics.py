@@ -183,5 +183,6 @@ def test_the_readers_are_in_the_benchmark():
         want = ("device_trace" if name.endswith("idle_ms")
                 else "host_clock")
         assert m["source"] == want
-    assert listed["map_dp_pct"]["workloads"] == ["ecoli.aux_map"]
-    assert len(listed["h2d_pageable_mb"]["workloads"]) == 3
+    assert listed["map_dp_pct"]["workloads"] == ["ecoli.aux_map",
+                                                 "scerevisiae.aux_map"]
+    assert len(listed["h2d_pageable_mb"]["workloads"]) == 4

@@ -77,9 +77,10 @@ def _front(uniq: torch.Tensor, k: int):
     return (*ub.link_nodes(fp, order, flags), info)
 
 
-def _rank_chains(prev_ptr: torch.Tensor, info):
-    """(head_of, dist); info gets the cycle lanes and the heads."""
-    head_of, dist, _ = ub.rank_chains(prev_ptr, info)
+def _rank_chains(prev_ptr: torch.Tensor, info, walks=None):
+    """(head_of, dist); info gets the cycle lanes and the heads, walks
+    (when given) the kernel's walk figures."""
+    head_of, dist, _ = ub.rank_chains(prev_ptr, info, walks)
     return head_of, dist
 
 
@@ -101,8 +102,10 @@ def build_graph_on_device(uniq: torch.Tensor, counts: torch.Tensor, n: int,
     of (cycle lanes, unitigs, limb flag) after the ranking (a second after
     a cycle break), and the two output pulls.  The `build` span (tracing.py)
     counts them, with its unitigs and cycle_breaks; its children
-    build.front, build.rank, build.cycles, build.assemble (the pulls'
-    bytes) and build.host (the host graph) divide its time."""
+    build.front, build.rank (lanes; on a card also rank_chains'
+    walk_bits, the offset bits of a lane's word, and promoted, the
+    rulers its long walks promoted), build.cycles, build.assemble (the
+    pulls' bytes) and build.host (the host graph) divide its time."""
     dev = resolve_device(device)
     if n == 0:
         return AsmGraph(ksize=k)
@@ -111,10 +114,17 @@ def build_graph_on_device(uniq: torch.Tensor, counts: torch.Tensor, n: int,
         counts = counts[:n].to(dev).int()
         with tracing.span("build.front"):
             src_key, tgt_key, lastbase, prev_ptr, info = _front(uniq, k)
-        with tracing.span("build.rank"):
-            head_of, dist = _rank_chains(prev_ptr, info)
+        with tracing.span("build.rank", lanes=2 * n):
+            # while tracing on a card, the kernel's walk figures ride
+            # the scalars' one pull
+            walks = torch.zeros(4, dtype=torch.int32, device=dev) \
+                if dev.type == "cuda" and tracing.enabled() else None
+            head_of, dist = _rank_chains(prev_ptr, info, walks)
             tracing.host_sync()
-            n_cyc, n_e, bad = info.tolist()      # one sync for the scalars
+            n_cyc, n_e, bad, *walked = (
+                info if walks is None else torch.cat([info, walks])).tolist()
+            if walked:
+                tracing.add(walk_bits=walked[3], promoted=walked[2])
         if bad:
             raise ValueError("device_build: a k-edge limb lies outside "
                              "[0, 2^32)")

@@ -90,6 +90,8 @@ class _Accumulator:
         self.host_runs: List[tuple] = []
         self.host_bytes = 0
         self.disk_runs = 0
+        self.flushes = 0            # windows sorted and counted
+        self.table_rows = 0         # the device table's most rows
 
     def feed(self, rows: torch.Tensor) -> None:
         # a record may hold more rows than a window: it is cut at the
@@ -113,6 +115,7 @@ class _Accumulator:
             uniq, counts = _sort_count(rows)
             del rows
             tracing.add(unique=uniq.shape[0])
+        self.flushes += 1
         n_t, n_u = self.table[0].shape[0], uniq.shape[0]
         if n_t and self.device_lanes and n_t + n_u > self.device_lanes:
             # the merged table would pass the device budget: the table
@@ -120,9 +123,11 @@ class _Accumulator:
             # runs share
             self.spill_table()
         elif n_t:
-            with tracing.span("count.merge"):
+            with tracing.span("count.merge", rows_in=n_t + n_u):
                 uniq, counts = _merge_unique_runs(*self.table, uniq, counts)
+                tracing.add(rows_out=uniq.shape[0])
         self.table = (uniq, counts)
+        self.table_rows = max(self.table_rows, uniq.shape[0])
         if self.device_lanes and uniq.shape[0] >= self.device_lanes:
             self.spill_table()
 
@@ -256,18 +261,20 @@ def count_kedges_megasort_device(
     (_coalesce_batches, as the JAX count joins them), one extraction a
     record.  `stats`, when given, receives "records" (records counted),
     "host_runs" (runs kept in host memory) and "disk_runs" (runs saved
-    under spill_dir).  Its spans (tracing.py): `count` (records, rows)
-    and below it count.coalesce (a record's join; source_ns the wait on
+    under spill_dir).  Its spans (tracing.py): `count` (k1, records,
+    rows, flushes: the windows sorted, table_rows: the device table's
+    most rows before the cutoff) and below it count.coalesce (a record's join; source_ns the wait on
     `batches` inside it), count.ship (the record's copy: bytes,
     pageable), count.extract (rows), count.sort (rows, unique and
     sort_count's routes, count.sort.lsd its buckets over capacity),
-    count.merge and count.filter."""
+    count.merge (rows_in: both tables' rows, rows_out: the merged
+    table's) and count.filter."""
     dev = resolve_device(device)
     k1 = k + 1
     acc = _Accumulator(lb.n_limbs(k1), max_lanes, dev, device_lanes,
                        host_mb, spill_dir)
     records = 0
-    with tracing.span("count"):
+    with tracing.span("count", k1=k1):
         recs = _coalesce_batches(batches, COUNT_CHUNK)
         while True:
             with tracing.span("count.coalesce"):
@@ -300,7 +307,8 @@ def count_kedges_megasort_device(
                     uniq, counts = _filter_min_count_device(uniq, counts,
                                                             min_count)
             res = uniq, counts, int(counts.shape[0])
-        tracing.add(records=records)
+        tracing.add(records=records, flushes=acc.flushes,
+                    table_rows=acc.table_rows)
     if stats is not None:
         stats.update(records=records, disk_runs=acc.disk_runs,
                      host_runs=len(acc.host_runs) - acc.disk_runs)
