@@ -84,6 +84,36 @@ def test_coalesce_batches_equals_jax(name):
     assert all(len(gb) == 500 for gb, _ in got[:-1])
 
 
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_staged_records_equal_the_joined_ones(name, monkeypatch):
+    """Records written into staging (one reused buffer, refilled with a
+    stray byte before each record, as a reused block holds old bytes)
+    equal _coalesce_batches' fresh joins byte for byte, pad bytes and the
+    short tail record included."""
+    monkeypatch.setattr(tms, "COUNT_CHUNK", 500)
+    batches = ragged(len(name), *STREAMS[name])
+    want = list(tms._coalesce_batches(iter(batches), tms.COUNT_CHUNK))
+    width = max(STREAMS[name][1], default=0)
+    slab = torch.empty(tms.COUNT_CHUNK * width, dtype=torch.uint8)
+    lens = torch.empty(tms.COUNT_CHUNK, dtype=torch.int32)
+    shapes = []
+
+    def staging(n, w):
+        shapes.append((n, w))
+        slab.fill_(100 + len(shapes))
+        lens.fill_(-len(shapes))
+        return slab[:n * w].view(n, w), lens[:n]
+
+    got = [(b.clone(), l.clone()) for b, l in
+           tms._coalesce_batches(iter(batches), tms.COUNT_CHUNK, staging)]
+    assert shapes == [wb.shape for wb, _ in want]
+    assert len(got) == len(want) == -(-sum(STREAMS[name][0]) // 500)
+    for (gb, gl), (wb, wl) in zip(got, want):
+        assert gb.dtype == torch.uint8 and gl.dtype == torch.int32
+        np.testing.assert_array_equal(gb.numpy(), wb)
+        np.testing.assert_array_equal(gl.numpy(), wl)
+
+
 def count_batches(seed=5):
     """Reads of a 30 kbp genome with errors, in ragged batches of two
     widths."""

@@ -13,6 +13,7 @@ from turingassembler_tpu_torch import tracing
 from turingassembler_tpu_torch.graph import device_build as tdb
 from turingassembler_tpu_torch.kmer import megasort as tms
 from turingassembler_tpu_torch.mapper import minimizers as tm
+from turingassembler_tpu_torch.ops import limbs as lb
 
 torch.set_num_threads(1)
 
@@ -363,3 +364,52 @@ def test_counted_syncs_are_the_cards(cell):
     seen.pop(None, None)                # the harness's own, outside
     assert counted == seen
     assert sum(counted.values()) > 0
+
+
+def pageable_count(batches, k, min_count, dev):
+    """The count as it was before its staging, the reference: each
+    record a fresh numpy join, a blocking copy from pageable memory, and
+    its extraction at once."""
+    k1 = k + 1
+    acc = tms._Accumulator(lb.n_limbs(k1), 1 << 28, dev)
+    for bases, lengths in tms._coalesce_batches(iter(batches),
+                                                tms.COUNT_CHUNK):
+        acc.feed(tms._extract_chunk(torch.as_tensor(bases).to(dev),
+                                    torch.as_tensor(lengths).to(dev), k1))
+    uniq, counts = acc.result()
+    return tms._filter_min_count_device(uniq, counts, min_count)
+
+
+@pytest.mark.card
+def test_staged_count_equals_the_pageable_one():
+    """At ecoli.level0's shapes, one library, the card held busy by a
+    sleep queued before the count so that the host runs ahead of the
+    copies: the count's table and counts equal the pageable reference's,
+    and every record was copied from pinned staging without a blocking
+    copy (pageable 0, no sync counted on count.ship)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card visible: the staging is pinned for the "
+                    "card's copy engine")
+    from asmbench import library, spec
+    dev = torch.device("cuda")
+    _, config, mix, entry = spec.load_cell("ecoli.level0", spec.benchmark())
+    (lib,) = library.make_libraries(config, 2_147_483_713, 1, dev)
+    batches = entry.genomic_batches(lib, mix["batch_reads"])
+    k, mc = config["k0"], config["min_kmer_count"]
+    want_u, want_c = pageable_count(batches, k, mc, dev)
+    tracing.clear()
+    tracing.start()
+    try:
+        torch.cuda._sleep(1_000_000_000)
+        u, c, n = tms.count_kedges_megasort_device(
+            iter(batches), k, min_count=mc, device=dev)
+    finally:
+        tracing.stop()
+    ships = by_name(tracing.records(), "count.ship")
+    tracing.clear()
+    n_reads = sum(len(b) for b, _ in batches)
+    assert len(ships) == -(-n_reads // tms.COUNT_CHUNK) > 1
+    assert all(s[COUNTS]["pageable"] == 0 and "syncs" not in s[COUNTS]
+               for s in ships)
+    assert n == want_u.shape[0] > 0
+    assert torch.equal(u, want_u) and torch.equal(c, want_c)

@@ -206,28 +206,39 @@ def count_reads_device(
 COUNT_CHUNK = 131072
 
 
-def _coalesce_batches(batches, target_reads: int):
+def _coalesce_batches(batches, target_reads: int, staging=None):
     """Merge a stream of (bases, lengths) host batches into records of
     `target_reads` rows (width = max width in the group, padded with
     255), so the count extracts few large records and not many small
     batches.  Unlike the JAX function the tail record keeps only its
     reads: no fixed shape is reused here, so pad rows would only be sent
-    to the device to hold no window.  While tracing, the wait on
-    `batches` (the parse upstream) is counted as `source_ns` on the
-    enclosing span (count.coalesce)."""
+    to the device to hold no window.  A record is a fresh numpy pair, or
+    with `staging`, the (bases (n, W) uint8, lengths (n,) int32) CPU
+    tensors that `staging(n, W)` returns, written through their numpy
+    views (the count's pinned staging on a card).  While tracing, the
+    wait on `batches` (the parse upstream) is counted as `source_ns` on
+    the enclosing span (count.coalesce)."""
     buf: List[tuple] = []
     nb = 0
 
-    def _cat():
+    def _join():
         nonlocal buf, nb
         W = max(b.shape[1] for b, _ in buf)
-        bases = np.concatenate([
-            b if b.shape[1] == W else np.concatenate(
-                [b, np.full((len(b), W - b.shape[1]), 255, np.uint8)], 1)
-            for b, _ in buf])
-        lens = np.concatenate([l for _, l in buf]).astype(np.int32)
+        if staging is None:
+            rec = bases, lens = np.empty((nb, W), np.uint8), \
+                np.empty(nb, np.int32)
+        else:
+            rec = staging(nb, W)
+            bases, lens = rec[0].numpy(), rec[1].numpy()
+        r = 0
+        for b, l in buf:
+            n, w = b.shape
+            bases[r:r + n, :w] = b
+            bases[r:r + n, w:] = 255
+            lens[r:r + n] = l
+            r += n
         buf, nb = [], 0
-        return bases, lens
+        return rec
 
     for b, l in tracing.timed(batches, "source_ns"):
         while len(b):
@@ -236,9 +247,50 @@ def _coalesce_batches(batches, target_reads: int):
             nb += take
             b, l = b[take:], l[take:]
             if nb >= target_reads:
-                yield _cat()
+                yield _join()
     if nb:
-        yield _cat()
+        yield _join()
+
+
+def _pinned(n: int, width: int):
+    """A record's staging: pinned host tensors from torch's caching host
+    allocator, which hands a block out again only once the copies queued
+    from it have run, so two or three blocks serve every record."""
+    return (torch.empty((n, width), dtype=torch.uint8, pin_memory=True),
+            torch.empty(n, dtype=torch.int32, pin_memory=True))
+
+
+def _shipped_records(batches, dev: torch.device):
+    """The count's records on `dev`, in order: (bases, lengths).
+
+    On a card each record is joined straight into pinned staging and its
+    copy queued without blocking, on the current stream (so it stays
+    ordered before the extraction), and it is handed on only after the
+    next record is joined: the copy engine moves record i while the host
+    joins record i+1.  On the CPU each record is a fresh numpy join,
+    handed on at once."""
+    staged = dev.type == "cuda"
+    recs = _coalesce_batches(batches, COUNT_CHUNK,
+                             _pinned if staged else None)
+    queued = []         # the record shipped and not yet handed on
+    while True:
+        with tracing.span("count.coalesce"):
+            rec = next(recs, None)
+        if queued:
+            yield queued.pop()  # popped: the consumer frees it alone
+        if rec is None:
+            return
+        bases, lengths = torch.as_tensor(rec[0]), torch.as_tensor(rec[1])
+        with tracing.span("count.ship",
+                          bytes=bases.nbytes + lengths.nbytes,
+                          pageable=int(not bases.is_pinned())):
+            queued.append((bases.to(dev, non_blocking=staged),
+                           lengths.to(dev, non_blocking=staged)))
+        # the staging back to the allocator before the next join; it
+        # holds the block until the copy from it has run
+        del bases, lengths, rec
+        if not staged:
+            yield queued.pop()
 
 
 def pull_rows(arr: torch.Tensor, n: int) -> np.ndarray:
@@ -259,37 +311,27 @@ def count_kedges_megasort_device(
 
     The batches are joined into records of COUNT_CHUNK reads first
     (_coalesce_batches, as the JAX count joins them), one extraction a
-    record.  `stats`, when given, receives "records" (records counted),
-    "host_runs" (runs kept in host memory) and "disk_runs" (runs saved
-    under spill_dir).  Its spans (tracing.py): `count` (k1, records,
-    rows, flushes: the windows sorted, table_rows: the device table's
-    most rows before the cutoff) and below it count.coalesce (a record's join; source_ns the wait on
-    `batches` inside it), count.ship (the record's copy: bytes,
-    pageable), count.extract (rows), count.sort (rows, unique and
-    sort_count's routes, count.sort.lsd its buckets over capacity),
-    count.merge (rows_in: both tables' rows, rows_out: the merged
-    table's) and count.filter."""
+    record; on a card each record is joined into pinned staging and
+    shipped without blocking, one record ahead of its extraction
+    (_shipped_records).  `stats`, when given, receives "records"
+    (records counted), "host_runs" (runs kept in host memory) and
+    "disk_runs" (runs saved under spill_dir).  Its spans (tracing.py):
+    `count` (k1, records, rows, flushes: the windows sorted, table_rows:
+    the device table's most rows before the cutoff) and below it
+    count.coalesce (a record's join; source_ns the wait on `batches`
+    inside it), count.ship (the record's copy, queued without a sync on
+    a card: bytes, pageable), count.extract (rows), count.sort (rows,
+    unique and sort_count's routes, count.sort.lsd its buckets over
+    capacity), count.merge (rows_in: both tables' rows, rows_out: the
+    merged table's) and count.filter."""
     dev = resolve_device(device)
     k1 = k + 1
     acc = _Accumulator(lb.n_limbs(k1), max_lanes, dev, device_lanes,
                        host_mb, spill_dir)
     records = 0
     with tracing.span("count", k1=k1):
-        recs = _coalesce_batches(batches, COUNT_CHUNK)
-        while True:
-            with tracing.span("count.coalesce"):
-                rec = next(recs, None)
-            if rec is None:
-                break
+        for bases, lengths in _shipped_records(batches, dev):
             records += 1
-            bases = torch.as_tensor(np.ascontiguousarray(rec[0], np.uint8))
-            lengths = torch.as_tensor(rec[1])
-            with tracing.span("count.ship",
-                              bytes=bases.nbytes + lengths.nbytes,
-                              pageable=int(not bases.is_pinned())):
-                if dev.type != "cpu":
-                    tracing.host_sync(2)    # a blocking copy waits
-                bases, lengths = bases.to(dev), lengths.to(dev)
             with tracing.span("count.extract"):
                 rows = _extract_chunk(bases, lengths, k1)
                 tracing.add(rows=rows.shape[0])
