@@ -224,7 +224,7 @@ before printing a result:
      the NW launches of all its map passes join the kernels line, their
      shapes phase 12; its mm_map launches (its `mm_map shapes:` line)
      join the kernels line, their shapes phase 22; the graph's device
-     pool is made 0 times in its timed map passes (its `pool builds`
+     pool is not made again in its timed map passes (its `pool rebuilt`
      line)
  19. the graft twin (turingassembler_tpu_torch/graft_entry.py): entry()'s
      forward card == CPU, then dryrun_multichip(1) and (4) on cuda:0
@@ -235,7 +235,7 @@ before printing a result:
  12. kernel vs plain once more, at every (B, Lq, Lt) that phases 5, 7,
      9, 10, 11, 13, 16, 18 and 19 launched the kernel at, with their scoring
      and mode
- 22. the mm_map kernel vs plain once more, at every (B, L, entry) that
+ 22. the mm_map kernel vs plain once more, at every (entry, B, L) that
      phases 5, 9, 10, 11, 13, 16, 18 and 19 launched it at (their mm_map
      counts are set to 0 just before each and read just after), on a
      synthetic world's reads, queries or segment rows of that shape
@@ -534,6 +534,13 @@ def phase_kernel_vs_plain():
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def nw_shapes(start: int = 0):
+    """The NW kernel's launches from the start-th on, (B, Lq, Lt) each
+    (nw_align.COUNT records them as ("banded_affine_score", B, Lq, Lt))."""
+    from turingassembler_tpu_torch.ops import nw_align
+    return [tuple(sh[1:]) for sh in nw_align.COUNT.shapes[start:]]
+
+
 def phase_hold_path_shapes(recorded):
     """Every (B, Lq, Lt) the main paths launched the kernel at, held
     against the plain version at that very shape, scoring and mode.
@@ -706,8 +713,8 @@ def phase_full_width(workload):
     torch.cuda.reset_peak_memory_stats()
     nw_align.COUNT.reset()
     st, out = run_main_path(reads, lengths, ir, il, k)
-    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
-    shapes = [("map", sh) for sh in nw_align.COUNT.shapes]
+    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
+    shapes = [("map", sh) for sh in nw_shapes()]
     g, idx, e, s, ei = out["g"], out["idx"], out["e"], out["s"], out["ei"]
 
     passes = [st] + [run_main_path(reads, lengths, ir, il, k)[0]
@@ -786,10 +793,10 @@ def plain_tables(hkeys, vals):
 
 
 def plain_pool(pool):
-    """The plain version's nibble-packed pool (_pack_pool_nibbles, on the
+    """The plain version's nibble-packed pool (pack_pool_nibbles, on the
     pool's device) from the kernel's uint8 codes; a packed pool as it
     is."""
-    from turingassembler_tpu_torch.mapper.minimizers import POOL_PAD_W
+    from turingassembler_tpu_torch.ops.mm_map import POOL_PAD_W
     if pool.dtype != torch.uint8:
         return pool
     n, dev = pool.shape[0], pool.device
@@ -806,14 +813,14 @@ def plain_map_batch(bases, lengths, hkeys, vals, salt, k, w, seq_pk=None,
                     seq_off=None, thr=None, mt=0, mm=0, out=None):
     """ops/mm_map.map_batch's plain version on any device, from the
     tables and pool in either layout."""
-    from turingassembler_tpu_torch.mapper import minimizers as mz
+    from turingassembler_tpu_torch.ops import mm_map
     hkeys, vals = plain_tables(hkeys, vals)
     if seq_pk is None:
-        res = mz._vote_core(bases, lengths, hkeys, vals, salt, k, w)
+        res = mm_map.plain_vote(bases, lengths, hkeys, vals, salt, k, w)
     else:
-        res = mz._verified_core(bases, lengths, hkeys, vals, salt,
-                                plain_pool(seq_pk), seq_off, thr, k, w, mt,
-                                mm)
+        res = mm_map.plain_verified(bases, lengths, hkeys, vals, salt,
+                                    plain_pool(seq_pk), seq_off, thr, k, w,
+                                    mt, mm)
     if out is None:
         return res
     for o, r in zip(out, res):
@@ -823,14 +830,14 @@ def plain_map_batch(bases, lengths, hkeys, vals, salt, k, w, seq_pk=None,
 
 def plain_gapless_bound(seq_pk, *args):
     """ops/mm_map.gapless_bound's plain version on any device."""
-    from turingassembler_tpu_torch.mapper import minimizers as mz
-    return mz._gapless_bound_dev(plain_pool(seq_pk), *args)
+    from turingassembler_tpu_torch.ops import mm_map
+    return mm_map.plain_gapless_bound(plain_pool(seq_pk), *args)
 
 
 def plain_minimizer_rows(bases, lengths, k, w):
     """ops/mm_map.minimizer_rows's plain version on any device."""
-    from turingassembler_tpu_torch.mapper import minimizers as mz
-    return mz._compact_minimizer_rows(bases, lengths, k, w)
+    from turingassembler_tpu_torch.ops import mm_map
+    return mm_map.plain_minimizer_rows(bases, lengths, k, w)
 
 
 @contextlib.contextmanager
@@ -1174,7 +1181,7 @@ def pool_bytes(off, edges, starts, lengths, L):
 def pool_words(off, edges, starts, lengths, L):
     """Nibble-packed pool words (8 bytes each, the int64 layout) under the
     on-edge positions of queries, each word once."""
-    from turingassembler_tpu_torch.mapper.minimizers import POOL_PAD_W
+    from turingassembler_tpu_torch.ops.mm_map import POOL_PAD_W
     g = torch.nonzero(covered(off, edges, starts, lengths, L))[:, 0]
     return int(torch.unique((g + 8 * POOL_PAD_W) >> 3).numel())
 
@@ -1204,21 +1211,22 @@ def mm_map_bytes(bases, lengths, ptables, off, out, per_read_thr):
     rows of 64 bytes, each bucket once, and a value row of 16 a found key,
     each key once, nibble-packed int64 pool words, int64 thresholds, 33
     bytes of outputs)."""
-    from turingassembler_tpu_torch.mapper import minimizers as mz
+    from turingassembler_tpu_torch.ops import mm_map
     hkeys, vals, salt = ptables
     B, L = bases.shape
-    km, _h, is_mm = mz.minimizer_mask(bases, lengths, MM_K, MM_W)
+    km, _h, is_mm = mm_map.minimizer_mask(bases, lengths, MM_K, MM_W)
     P = km.shape[1]
-    pos = torch.where(is_mm, torch.arange(P, device=bases.device), mz.BIG)
-    sp = torch.sort(pos, dim=1).values[:, :mz.MM_CAP]
+    pos = torch.where(is_mm, torch.arange(P, device=bases.device),
+                      mm_map.BIG)
+    sp = torch.sort(pos, dim=1).values[:, :mm_map.MM_CAP]
     q = torch.gather(km, 1, torch.clamp(sp, max=P - 1)[:, :, None]
                      .expand(-1, -1, 2))[sp < P]
     mask = hkeys.shape[0] - 1
-    b1 = mz._cuckoo_h(q[:, 0], q[:, 1], salt, mask, 0)
-    b2 = mz._cuckoo_h(q[:, 0], q[:, 1], salt, mask, 1)
+    b1 = mm_map.cuckoo_hash(q[:, 0], q[:, 1], salt, mask, 0)
+    b2 = mm_map.cuckoo_hash(q[:, 0], q[:, 1], salt, mask, 1)
     r1 = hkeys[b1]
     in_b1 = ((r1[:, 0::2] == q[:, :1]) & (r1[:, 1::2] == q[:, 1:])).any(1)
-    found = mz._cuckoo_probe(hkeys, vals, salt, q)[2]
+    found = mm_map.cuckoo_probe(hkeys, vals, salt, q)[2]
     n_probe = q.shape[0]
     rows = int(torch.unique(torch.cat([b1, b2[~in_b1]])).numel())
     keys = int(torch.unique(q[found], dim=0).shape[0])
@@ -1277,7 +1285,8 @@ def mm_kernel_vs_plain(variants):
             if not np.array_equal(getattr(idx, f), getattr(ref, f)):
                 raise AssertionError(f"mm_map: the card's index {f} differs")
         tables = idx.device_tables("cuda")
-        pool = mz._device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
+        pool = mz._device_pool(g.seq_data, g.seq_off,
+                               torch.device("cuda"))[:2]
         for name, (entry, arrays) in cases.items():
             err = max(err, hold_mm_entry(name, entry, arrays, tables, pool))
         log(f"mm_map (a): {len(idx.keys)} index keys of the {world} world "
@@ -1297,11 +1306,12 @@ def mm_kernel_vs_plain(variants):
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pool = mz._device_pool(gb.seq_data, gb.seq_off, torch.device("cuda"))
+        pool = mz._device_pool(gb.seq_data, gb.seq_off,
+                               torch.device("cuda"))[:2]
         torch.cuda.synchronize()
         pool_ms.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
-    pk_host = mz._pack_pool_nibbles(gb.seq_data)
+    pk_host = mm_map.pack_pool_nibbles(gb.seq_data)
     pack_ms = (time.perf_counter() - t0) * 1e3
     log(f"mm_map pool of the bench graph ({len(gb.seq_data)} codes): first "
         f"map {pool_ms[0]:.3f} ms (the codes copied), then {pool_ms[1]:.3f} "
@@ -1410,7 +1420,7 @@ def mm_kernel_vs_plain(variants):
         err = max(err, hold_mm("bench batch gapless bound, byte-wise bound "
                                "variant", mm_map.gapless_bound(*bargs), want))
     timed("gapless_bound", lambda: mm_map.gapless_bound(*bargs),
-          lambda: mz._gapless_bound_dev(ppool[0], *bargs[1:]),
+          lambda: mm_map.plain_gapless_bound(ppool[0], *bargs[1:]),
           B * (L + 4 + 16 + 5) + pool_bytes(pool[1], edges, starts, lens, L)
           + off_bytes(edges), 0, "bound_kernel",
           f"; {B} queries of {L} codes, {mm_map.POOL_PAD}-byte pool pad")
@@ -1453,7 +1463,7 @@ def mm_kernel_vs_plain(variants):
             torch.empty(R, dtype=torch.int32, device="cuda"),
             torch.empty((R * P, 4), dtype=torch.int64, device="cuda"),
             torch.empty(1, dtype=torch.int32, device="cuda")]
-    res["minimizer_rows"]["launch_ms"] = cuda_ms(lambda: mm_map._launch(
+    res["minimizer_rows"]["launch_ms"] = cuda_ms(lambda: mm_map.LIB.launch(
         "mm_minimizer_rows_launch", rows.device, rows.data_ptr(),
         rlen.data_ptr(), R, RL, MM_K, MM_W, *(b_.data_ptr() for b_ in bufs)),
         20)
@@ -1464,7 +1474,7 @@ def mm_kernel_vs_plain(variants):
 
 
 def phase_mm_hold_path_shapes(recorded):
-    """Phase 22: every (B, L, entry, verified) the paths launched the
+    """Phase 22: every (entry, B, L, verified) the paths launched the
     mm_map kernel at, held against the plain version on a synthetic
     world's reads (testing.mm_reads), queries or segment rows of that
     very shape.  Returns the largest |difference| (0)."""
@@ -1473,13 +1483,13 @@ def phase_mm_hold_path_shapes(recorded):
     g = tt.mm_world(seed=9)
     idx = mz.EdgeMinimizerIndex.build(g, device="cuda")
     tables = idx.device_tables("cuda")
-    pool = mz._device_pool(g.seq_data, g.seq_off, torch.device("cuda"))
+    pool = mz._device_pool(g.seq_data, g.seq_off, torch.device("cuda"))[:2]
     make = {"map_batch": ("map", tt.mm_reads),
             "gapless_bound": ("bound", tt.mm_bound_queries),
             "minimizer_rows": ("rows", tt.mm_segment_rows)}
     err = 0
-    shapes = sorted({(B, L, entry) for B, L, entry, _v in recorded})
-    for i, (B, L, entry) in enumerate(shapes):
+    shapes = sorted({(entry, B, L) for entry, B, L, _v in recorded})
+    for i, (entry, B, L) in enumerate(shapes):
         kind, gen = make[entry]
         err = max(err, hold_mm_entry(f"{entry} shape of the paths", kind,
                                      gen(g, B, L, 100 + i), tables, pool))
@@ -1643,9 +1653,9 @@ LEX_CASE_ROUTES = {
 def ks_routes_of(fn):
     """fn's result and the routes its calls took, by entry."""
     from turingassembler_tpu_torch.ops import kmer_sort as ks
-    before = {e: dict(r) for e, r in ks.COUNT.routes.items()}
+    before = {e: dict(r) for e, r in ks.COUNT.counts.items()}
     out = fn()
-    return out, {e: {r: ks.COUNT.routes[e][r] - n_ for r, n_ in rs.items()}
+    return out, {e: {r: ks.COUNT.counts[e][r] - n_ for r, n_ in rs.items()}
                  for e, rs in before.items()}
 
 
@@ -2344,6 +2354,10 @@ def ub_routes():
     from turingassembler_tpu_torch.ops import unitig_build as ub
     kernels = {e: getattr(ub, e) for e in UB_ENTRIES}
     tensor = {e: getattr(ub, "plain_" + e) for e in UB_ENTRIES}
+    # device_build hands rank_chains the kernel's walks tally (None unless
+    # tracing); the tensor route keeps none
+    tensor["rank_chains"] = lambda prev_ptr, info=None, walks=None: \
+        ub.plain_rank_chains(prev_ptr, info)
     return {"kernels": kernels, "tensor": tensor}
 
 
@@ -2864,12 +2878,12 @@ def phase_levels_parity():
             d, PARITY_LEVELS_GENOME, 21)
         out = {w: os.path.join(d, w)
                for w in ("card", "cpu", "spill", "spill_cpu")}
-        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        before = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
         g2 = pipeline.assembly_basic(levels_config(paths, out["card"]),
                                      device="cuda")
         torch.cuda.synchronize()
         launched = nw_align.COUNT.launches - before[0]
-        pairs = nw_align.COUNT.pairs - before[1]
+        pairs = nw_align.COUNT.total("pairs") - before[1]
         pipeline.assembly_basic(levels_config(paths, out["cpu"]),
                                 device="cpu")
         for name in LEVEL_FILES:
@@ -2986,8 +3000,9 @@ def phase_levels_full_width(genome_len=250_000):
                            str(K_LEVELS), "-mc", str(MIN_COUNT_LEVELS),
                            "-o", out, "--device", "cuda"])
             torch.cuda.synchronize()
-        launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
-        shapes = list(nw_align.COUNT.shapes)
+        launches = nw_align.COUNT.launches
+        pairs = nw_align.COUNT.total("pairs")
+        shapes = nw_shapes()
         walls = stage_walls()
         if rc != 0:
             raise AssertionError(f"levels: the CLI returned {rc}")
@@ -3129,7 +3144,7 @@ def phase_scaffold_parity(d):
     genome, files = tt.linked_read_library(PARITY_GENOME, 41, d,
                                            n_segments=PARITY_SEGMENTS)
     out = {w: os.path.join(d, w) for w in ("card", "cpu")}
-    before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+    before = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
     # the stage clock starts here, not at the last stage of a phase before
     set_log_stage("init")
     reset_stage_walls()
@@ -3138,7 +3153,7 @@ def phase_scaffold_parity(d):
     torch.cuda.synchronize()
     t_card, walls = time.perf_counter() - t0, stage_walls()
     launched = nw_align.COUNT.launches - before[0]
-    pairs = nw_align.COUNT.pairs - before[1]
+    pairs = nw_align.COUNT.total("pairs") - before[1]
     counts = dict(bridge.BRIDGE_COUNTS)
     pipeline.assembly3(linked_config(files, out["cpu"]), device="cpu")
     caches = local_graph_caches(out["card"])
@@ -3246,7 +3261,7 @@ def phase_scaffold_full_width(d, genome_len=2_000_000):
         """One CLI command: wall seconds to the device's sync, the NW
         kernel's pairs and launches, and under the profiler (device
         activity only) the device's busy seconds."""
-        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        before = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
         n_shapes = len(nw_align.COUNT.shapes)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3257,9 +3272,9 @@ def phase_scaffold_full_width(d, genome_len=2_000_000):
             sec[name] = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"scaffolds: `{name}` returned {rc}")
-        nw[name] = (nw_align.COUNT.pairs - before[1],
+        nw[name] = (nw_align.COUNT.total("pairs") - before[1],
                     nw_align.COUNT.launches - before[0],
-                    nw_align.COUNT.shapes[n_shapes:])
+                    nw_shapes(n_shapes))
 
     torch.cuda.reset_peak_memory_stats()
     reset_stage_walls()
@@ -3466,8 +3481,8 @@ def phase_path_scoring(n_pairs=5_000):
     best = bridge.score_paths(lg, paths, reads, lengths, n1, device="cuda")
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
-    shapes = list(nw_align.COUNT.shapes)
+    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
+    shapes = nw_shapes()
     # card against CPU, lane by lane (after the path's counts were read)
     card = bridge.path_read_hits(lg, paths, reads, lengths, device="cuda")
     cpu = bridge.path_read_hits(lg, paths, reads, lengths, device="cpu")
@@ -3606,7 +3621,7 @@ def phase_barcode_levels(parity_out, full_out, genome):
                                      f"returned {rc}")
         if dev == "cuda":
             torch.cuda.synchronize()
-            shapes += nw_align.COUNT.shapes[n_shapes:]
+            shapes += nw_shapes(n_shapes)
             launched_a = nw_align.COUNT.launches - before
         runs[dev] = (dir_files(out), printed, time.perf_counter() - t0)
     files = runs["cpu"][0]
@@ -3652,7 +3667,7 @@ def phase_barcode_levels(parity_out, full_out, genome):
     reset_stage_walls()
     nw_align.COUNT.reset()
     for name, args in steps:
-        before = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        before = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with prof.around(name):
@@ -3662,10 +3677,10 @@ def phase_barcode_levels(parity_out, full_out, genome):
             sec[name] = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"barcode levels: `{name}` returned {rc}")
-        nw[name] = (nw_align.COUNT.pairs - before[1],
+        nw[name] = (nw_align.COUNT.total("pairs") - before[1],
                     nw_align.COUNT.launches - before[0])
     launches = nw_align.COUNT.launches
-    shapes += list(nw_align.COUNT.shapes)
+    shapes += nw_shapes()
     walls, busy = stage_walls(), prof.busy
 
     with open(os.path.join(out, "assembly.log")) as fp:
@@ -3915,13 +3930,14 @@ def rank_worker(spec):
            "aux_single": aux_single,
            "host_build": host_build}[spec["kind"]](spec)
     res.update(seconds=time.perf_counter() - t0,
-               launches=nw_align.COUNT.launches, pairs=nw_align.COUNT.pairs,
-               shapes=nw_align.COUNT.shapes,
+               launches=nw_align.COUNT.launches,
+               pairs=nw_align.COUNT.total("pairs"),
+               shapes=nw_shapes(),
                mm_launches=mm_map.COUNT.launches,
                mm_shapes=mm_map.COUNT.shapes,
                ks_by_entry=kmer_sort.COUNT.by_entry,
                ks_shapes=kmer_sort.COUNT.shapes,
-               ks_routes=kmer_sort.COUNT.routes)
+               ks_routes=kmer_sort.COUNT.counts)
     print(json.dumps(res), flush=True)
 
 
@@ -4145,8 +4161,8 @@ def phase_multi_process(parity_out, parity_files, parity_genome, full_out):
     torch.cuda.synchronize()
     t_map = time.perf_counter() - t1
     launches += nw_align.COUNT.launches
-    n_c, p_c = nw_align.COUNT.launches, nw_align.COUNT.pairs
-    shapes += label(nw_align.COUNT.shapes)
+    n_c, p_c = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
+    shapes += label(nw_shapes())
     single = map_reads(idx, reads, lengths, graph=g, device="cuda")
     for name, a, b in zip(("edges", "hits", "starts"), sharded, single):
         if not np.array_equal(a, b):
@@ -4475,8 +4491,9 @@ def phase_secondary_engines(bench):
     got, t_hash = timed(lambda: count_kedges_from_reads(
         reads, lengths, k, batch_size=HASH_BATCH, engine="hash",
         device=CARD))
-    read_launches, lanes = devhash.COUNT.reads, devhash.COUNT.lanes
-    rows_in_b = devhash.COUNT.rows
+    read_launches = devhash.COUNT.by_entry["insert_reads"]
+    lanes = devhash.COUNT.total("lanes")
+    rows_in_b = devhash.COUNT.by_entry["insert"]
     same("hash engine", got, (bench["kedges"], bench["counts"]))
     ms_out, t_mega = timed(lambda: count_kedges_from_reads(
         reads, lengths, k, batch_size=HASH_BATCH, engine="megasort",
@@ -4525,14 +4542,14 @@ def phase_secondary_engines(bench):
     sh_out = sh.finalize()
     torch.cuda.synchronize()
     t_sh = time.perf_counter() - t1
-    sh_launches = devhash.COUNT.rows
+    sh_launches = devhash.COUNT.by_entry["insert"]
     same("ShardedHashCounter", sh_out, ref)
     n_batches = -(-len(sreads) // HASH_BATCH)
     log(f"secondary engines (d) ShardedHashCounter, {D} shards on {CARD}, "
         f"2^{SHARD_CAP_LOG2} slots a shard, {n_batches} batches: {t_sh:.3f} "
         "s, none dropped or overflowed, == the single count; devhash rows "
         f"entry {sh_launches} launches")
-    if sh_launches != D * n_batches or devhash.COUNT.reads:
+    if sh_launches != D * n_batches or devhash.COUNT.by_entry["insert_reads"]:
         raise AssertionError("ShardedHashCounter: not one rows-entry launch "
                              "a shard and batch")
     # (d)'s first batch again, now that its counts are read: the same
@@ -4907,7 +4924,7 @@ def phase_ecoli():
         with contextlib.redirect_stdout(sys.stderr):
             rc = ecoli_scale.main(["--out", os.path.join(d, "lib"),
                                    "--report", report])
-        shapes = list(nw_align.COUNT.shapes)
+        shapes = nw_shapes()
         parts, outcomes = dict(bridge.BRIDGE_PROF), dict(bridge.BRIDGE_COUNTS)
         if not os.path.exists(report):
             raise AssertionError(f"ecoli: assembly3 returned {rc}")
@@ -5067,7 +5084,7 @@ def phase_bench_twin(phase5_reads_per_s):
     mm = [json.loads(ln[len("mm_map shapes: "):])
           for ln in proc.stderr.splitlines()
           if ln.startswith("mm_map shapes: ")]
-    if len(mm) != 1 or not any(sh[2] == "map_batch" for sh in mm[0]):
+    if len(mm) != 1 or not any(sh[0] == "map_batch" for sh in mm[0]):
         raise AssertionError("bench twin: no `mm_map shapes:` line with a "
                              "map_batch launch")
     log(f"bench twin: mm_map {len(mm[0])} launches (index builds and maps)")
@@ -5094,13 +5111,14 @@ def phase_bench_twin(phase5_reads_per_s):
     UB_REMOTE.append(({e: sum(1 for sh in ub[0] if sh[0] == e)
                        for e in UB_ENTRIES}, [tuple(sh) for sh in ub[0]]))
     log(f"bench twin: unitig_build {len(ub[0])} launches (level-0 builds)")
-    builds = [int(ln.rsplit(":", 1)[1]) for ln in proc.stderr.splitlines()
-              if ln.startswith("pool builds in the timed map passes:")]
-    log(f"bench twin: the graph's pool made {builds} times in the timed map "
-        "passes")
-    if builds != [0]:
+    rebuilt = [ln.rsplit(":", 1)[1].strip()
+               for ln in proc.stderr.splitlines()
+               if ln.startswith("pool rebuilt in the timed map passes:")]
+    log(f"bench twin: the graph's pool rebuilt in the timed map passes: "
+        f"{rebuilt}")
+    if rebuilt != ["False"]:
         raise AssertionError("bench twin: the timed map passes made the "
-                             f"graph's pool again ({builds})")
+                             f"graph's pool again ({rebuilt})")
     return (len(nw[0]), [("map", tuple(sh)) for sh in nw[0]],
             (len(mm[0]), [tuple(sh) for sh in mm[0]], []))
 
@@ -5135,15 +5153,16 @@ def phase_graft_twin():
             raise AssertionError(f"graft dryrun_multichip({n_shards}): "
                                  f"{fig['unique_hash']} unique by the hash "
                                  f"engine, {fig['unique_sort']} by sort")
-    rows = devhash.COUNT.rows
-    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.pairs
-    shapes = [("map", sh) for sh in nw_align.COUNT.shapes]
+    rows = devhash.COUNT.by_entry["insert"]
+    launches, pairs = nw_align.COUNT.launches, nw_align.COUNT.total("pairs")
+    shapes = [("map", sh) for sh in nw_shapes()]
     log(f"graft dryruns: devhash rows entry {rows} launches; NW {pairs} "
         f"pairs in {launches} launches")
     # one rows-entry launch a shard of each hash counter
-    if rows != 1 + 4 or devhash.COUNT.reads:
+    reads_launches = devhash.COUNT.by_entry["insert_reads"]
+    if rows != 1 + 4 or reads_launches:
         raise AssertionError(f"graft dryruns: {rows} rows launches, "
-                             f"{devhash.COUNT.reads} reads launches")
+                             f"{reads_launches} reads launches")
     err = max(hold_graft_hash_stage(n_shards) for n_shards in (1, 4))
     return rows, err, launches, shapes
 
@@ -5217,7 +5236,7 @@ def main():
         rss[fn.__name__] = peak_rss_gib()
         by = dict(kmer_sort.COUNT.by_entry)
         shs = list(kmer_sort.COUNT.shapes)
-        routes = {e: dict(r) for e, r in kmer_sort.COUNT.routes.items()}
+        routes = {e: dict(r) for e, r in kmer_sort.COUNT.counts.items()}
         for b, sub, rt in KS_REMOTE:
             by = {e: by[e] + b.get(e, 0) for e in KS_ENTRIES}
             shs += sub
@@ -5235,7 +5254,7 @@ def main():
 
     from turingassembler_tpu_torch.ops import mm_map
     # the mm_map kernel's launches on the paths (phases 5, 9, 10, 11, 13,
-    # 16, 18, 19) and each launch's (B, L, entry, verified)
+    # 16, 18, 19) and each launch's (entry, B, L, verified)
     mm_count = {"launches": 0, "shapes": [], "refs": []}
 
     def path(fn, *args):
@@ -5293,7 +5312,7 @@ def main():
     dh_rows, launches, shapes = dh_rows + rows, launches + n, shapes + sh
     dh["max_abs_err"] = max(dh["max_abs_err"], err)
     log(f"mm_map on the paths: {mm_count['launches']} launches; by entry "
-        + ", ".join(f"{e} {sum(1 for s_ in mm_count['shapes'] if s_[2] == e)}"
+        + ", ".join(f"{e} {sum(1 for s_ in mm_count['shapes'] if s_[0] == e)}"
                     for e in ("map_batch", "gapless_bound", "minimizer_rows")))
     if mm_count["launches"] < 1 or \
             mm_count["launches"] != len(mm_count["shapes"]):
@@ -5390,7 +5409,7 @@ def main():
         "launches": mm_count["launches"], "max_abs_err": mm["max_abs_err"],
         **mm["map_batch"], "library_ms": None,
         "launches_by_entry": {e: sum(1 for s_ in mm_count["shapes"]
-                                     if s_[2] == e)
+                                     if s_[0] == e)
                               for e in ("map_batch", "gapless_bound",
                                         "minimizer_rows")},
         **{f"{e}_{k_}": mm[e][k_] for e in ("gapless_bound", "minimizer_rows")

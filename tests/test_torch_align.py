@@ -151,13 +151,13 @@ def test_pallas_fit_case():
 
 def test_wrapper_cpu_runs_plain_and_counts_no_launch():
     q, qlen, t, tlen = _random_pairs(32, 30, 50, seed=4)
-    before = (nw_align.COUNT.launches, nw_align.COUNT.pairs)
+    before = (nw_align.COUNT.launches, nw_align.COUNT.total("pairs"))
     got = nw_align.banded_affine_score(
         torch.as_tensor(q), torch.as_tensor(qlen), torch.as_tensor(t),
         torch.as_tensor(tlen), mode="fit")
     np.testing.assert_array_equal(got.numpy(),
                                   _jax(q, qlen, t, tlen, mode="fit"))
-    assert (nw_align.COUNT.launches, nw_align.COUNT.pairs) == before
+    assert (nw_align.COUNT.launches, nw_align.COUNT.total("pairs")) == before
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -1106,9 +1106,9 @@ def test_over_capacity_route_on_the_card():
         if n_over == 10:             # two partition digits, as at 2,000
             rows = torch.cat([rows, torch.randint(
                 0, 1 << 32, (1_000_000, 4), dtype=torch.int64, device=dev)])
-        before = ks.COUNT.routes["sort_count"]["over_capacity"]
+        before = ks.COUNT.counts["sort_count"]["over_capacity"]
         (u, c), span = _lsd_span(rows)
-        assert ks.COUNT.routes["sort_count"]["over_capacity"] - before \
+        assert ks.COUNT.counts["sort_count"]["over_capacity"] - before \
             == n_over == span["buckets"]
         assert span["rows"] >= n_over * 11_500
         pu, pc = ks.plain_sort_count(rows)

@@ -20,6 +20,7 @@ from turingassembler_tpu.graph.from_contigs import \
 from turingassembler_tpu.kmer import count as jcount
 from turingassembler_tpu.localasm import bridge as JB
 from turingassembler_tpu.localasm import local as JL
+from turingassembler_tpu_torch import _build
 from turingassembler_tpu_torch import cli as tcli
 from turingassembler_tpu_torch import config as tcfg
 from turingassembler_tpu_torch import convert
@@ -527,13 +528,13 @@ def test_launch_count_from_threads():
     this machine's cores, a switch interval of a microsecond)."""
     import sys
     import threading
-    count = nw_align.LaunchCount()
+    count = _build.LaunchCount({"banded_affine_score": ("pairs",)})
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         workers = [threading.Thread(target=lambda i=i: [
-            count.add(i + 1, 150, 182) for _ in range(2_000)])
-            for i in range(16)]
+            count.add("banded_affine_score", i + 1, 150, 182, pairs=i + 1)
+            for _ in range(2_000)]) for i in range(16)]
         for w in workers:
             w.start()
         for w in workers:
@@ -542,9 +543,9 @@ def test_launch_count_from_threads():
     finally:
         sys.setswitchinterval(old)
     assert count.launches == 32_000 == len(count.shapes)
-    assert count.pairs == 2_000 * sum(range(1, 17))
+    assert count.total("pairs") == 2_000 * sum(range(1, 17))
     count.reset()
-    assert (count.launches, count.pairs, count.shapes) == (0, 0, [])
+    assert (count.launches, count.total("pairs"), count.shapes) == (0, 0, [])
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from turingassembler_tpu.mapper import minimizers as jm
 from turingassembler_tpu_torch import convert
 from turingassembler_tpu_torch import testing as tt
 from turingassembler_tpu_torch.mapper import minimizers as tm
+from turingassembler_tpu_torch.ops import mm_map
 
 # small tensors: one intra-op thread each, so test workers do not
 # oversubscribe the cores
@@ -89,7 +90,8 @@ def test_minimizer_mask_parity():
     for i in range(B):
         seqs[i, lengths[i]:] = 255
     jk, jh, jmm = jm.minimizer_mask(seqs, lengths)
-    tk, th, tmm = tm.minimizer_mask(_t(seqs), _t(lengths))
+    tk, th, tmm = mm_map.minimizer_mask(_t(seqs), _t(lengths), tm.MM_K,
+                                         tm.MM_W)
     _eq(jk, tk)
     _eq(jh, th)
     _eq(jmm, tmm)
@@ -118,8 +120,8 @@ def test_cuckoo_probe_parity(world):
     jh, jv, js = ij.device_tables()
     je, jp, jf = jm._cuckoo_probe(jh, jv, js, jnp.asarray(queries))
     hk, vals, salt = it.device_tables("cpu")
-    te, tp, tf = tm._cuckoo_probe(hk, vals, salt,
-                                  _t(queries.astype(np.int64)))
+    te, tp, tf = mm_map.cuckoo_probe(hk, vals, salt,
+                                     _t(queries.astype(np.int64)))
     _eq(jf, tf)
     _eq(je, te)
     f = np.asarray(jf)
@@ -132,14 +134,14 @@ def test_vote_core_parity(world):
     jh, jv, js = world["ij"].device_tables()
     jout = jm._map_batch(reads, lengths, jh, jv, js, 17, 17)
     hk, vals, salt = world["it"].device_tables("cpu")
-    tout = tm._vote_core(_t(reads), _t(lengths), hk, vals, salt, 17, 17)
+    tout = mm_map.plain_vote(_t(reads), _t(lengths), hk, vals, salt, 17, 17)
     for a, b in zip(jout, tout):
         _eq(a, b)
     starts = np.asarray(jout[2])
     assert (starts[np.asarray(jout[0]) >= 0] < 0).any()   # signed starts
 
 
-@pytest.mark.parametrize("Lq", [152, 8 * tm.POOL_PAD_W + 40])
+@pytest.mark.parametrize("Lq", [152, 8 * mm_map.POOL_PAD_W + 40])
 def test_gapless_bound_parity(Lq):
     """Interior, head/tail overhang, short and unmapped lanes; the wide
     width takes the per-position gather."""
@@ -164,10 +166,10 @@ def test_gapless_bound_parity(Lq):
         jnp.asarray(seq_off.astype(np.int32)), jnp.asarray(edges),
         jnp.asarray(starts), jnp.asarray(bases), jnp.asarray(lengths),
         1, -4, jm.RESCORE_PAD)
-    pk, so = tm._device_pool(seq_data, seq_off, torch.device("cpu"))
+    pk, so, _ = tm._device_pool(seq_data, seq_off, torch.device("cpu"))
     _eq(jm._pack_pool_nibbles(seq_data), pk)
-    tb, tf = tm._gapless_bound_dev(pk, so, _t(edges), _t(starts), _t(bases),
-                                   _t(lengths), 1, -4)
+    tb, tf = mm_map.plain_gapless_bound(pk, so, _t(edges), _t(starts),
+                                        _t(bases), _t(lengths), 1, -4)
     _eq(jf, tf)
     _eq(jb, tb)
 

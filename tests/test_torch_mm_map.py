@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from turingassembler_tpu.mapper import minimizers as jm
-from turingassembler_tpu_torch import _build
+from turingassembler_tpu_torch import _build, tracing
 from turingassembler_tpu_torch import testing as tt
 from turingassembler_tpu_torch.mapper import minimizers as tm
 from turingassembler_tpu_torch.ops import mm_map
@@ -326,13 +326,13 @@ def model_map(bases, lengths, rec, salt, pool=None, thr=None):
     l0, l1, mark = model_marks(bases, lengths)
     for b in range(len(bases)):
         seq, n = bases[b], int(lengths[b])
-        slots = np.flatnonzero(mark[b])[:tm.MM_CAP]   # the first cap marks
+        slots = np.flatnonzero(mark[b])[:mm_map.MM_CAP]   # the first cap marks
         edge, start = [], []
         for p in slots:
             found, ev, pos = model_probe(rec, salt, l0[b, p], l1[b, p])
             hit = found and ev > 0
             edge.append(ev - 1 if hit else SENT)
-            start.append(pos - int(p) if hit else tm.BIG)
+            start.append(pos - int(p) if hit else mm_map.BIG)
         be, best, bs, n_best, tot = model_vote(edge, start)
         for f, v in (("be", be), ("best", best), ("bs", bs),
                      ("n_marked", int(mark[b].sum())), ("tot", tot),
@@ -373,7 +373,7 @@ def world():
     g, cases = G, CASES
     idx = tm.EdgeMinimizerIndex.build(g, device="cpu")
     hkeys, vals, salt = idx.hash_tables()
-    pk = tm._pack_pool_nibbles(g.seq_data)
+    pk = mm_map.pack_pool_nibbles(g.seq_data)
     return dict(g=g, cases=cases, idx=idx, hkeys=hkeys, vals=vals, salt=salt,
                 rec=mm_map.bucket_records(hkeys, vals), pk=pk,
                 codes=g.seq_data, off=g.seq_off.astype(np.int64))
@@ -391,7 +391,7 @@ def _reads_of(entry, arrays):
 
 # the cases wide enough for a vote (MM_CAP window positions)
 VOTE_CASES = [n for n, (e, a) in CASES.items()
-              if _reads_of(e, a)[0].shape[1] - K + 1 >= tm.MM_CAP]
+              if _reads_of(e, a)[0].shape[1] - K + 1 >= mm_map.MM_CAP]
 
 
 def _u32(a):
@@ -438,8 +438,8 @@ def test_cases_reach_every_edge(world):
                       (world["codes"], world["off"]), thr)
         seen["N"] += int(((bases == 4).any(1)).sum())
         seen["short"] += int((lengths < K + W - 1).sum())
-        seen["overflow"] += int((m["n_marked"] > tm.MM_CAP).sum())
-        seen["two slot sets"] += int((np.minimum(m["n_marked"], tm.MM_CAP)
+        seen["overflow"] += int((m["n_marked"] > mm_map.MM_CAP).sum())
+        seen["two slot sets"] += int((np.minimum(m["n_marked"], mm_map.MM_CAP)
                                       > 32).sum())
         seen["tie"] += int((m["n_best"] > 1).sum())
         seen["gated"] += int(((m["n_best"] == 1) & (m["be"] < 0)).sum())
@@ -454,7 +454,7 @@ def test_cases_reach_every_edge(world):
     assert seen["mapped"] > 300 and seen["thresholds"] > 50, seen
     assert (world["idx"].count > 1).any()           # shared minimizers
     wide = -(-(cases["wide queries"][1][2].shape[1] + 7) // 8) + 1
-    assert wide > tm.POOL_PAD_W >= -(-(152 + 7) // 8) + 1
+    assert wide > mm_map.POOL_PAD_W >= -(-(152 + 7) // 8) + 1
 
 
 @pytest.mark.parametrize("name", _names("map"))
@@ -622,7 +622,7 @@ ALIGN_G, ALIGN_CASES = tt.mm_align_cases(seed=5)
 @pytest.fixture(scope="module")
 def align_world():
     g = ALIGN_G
-    return dict(g=g, pk=tm._pack_pool_nibbles(g.seq_data), codes=g.seq_data,
+    return dict(g=g, pk=mm_map.pack_pool_nibbles(g.seq_data), codes=g.seq_data,
                 off=g.seq_off.astype(np.int64))
 
 
@@ -794,17 +794,45 @@ def test_rows_model_and_wrapper_equal_jax(world, name):
         assert jmm.sum() > 300
 
 
+def _pool_builds(calls):
+    """Each of calls run in a thread of its own, all at once, with
+    tracing on: (their results, the pool_builds counted on their
+    spans)."""
+    got, go = [None] * len(calls), threading.Barrier(len(calls))
+
+    def worker(i):
+        go.wait()
+        with tracing.span("pool"):
+            got[i] = calls[i]()
+
+    tracing.clear()
+    tracing.start()
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(calls))]
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(timeout=60)
+        assert not any(t_.is_alive() for t_ in threads)
+    finally:
+        tracing.stop()
+    builds = sum(r[6].get("pool_builds", 0) for r in tracing.records())
+    tracing.clear()
+    return got, builds
+
+
 def test_pool_cache_same_array_same_tensors(world):
     """(e) The same seq_data and seq_off give the very tensors of the first
     call; no second pool is made."""
     g = world["g"]
     dev = torch.device("cpu")
     first = tm._device_pool(g.seq_data, g.seq_off, dev)
-    builds = tm.POOL_STATS["builds"]
-    again = tm._device_pool(g.seq_data, g.seq_off, dev)
-    assert again[0] is first[0] and again[1] is first[1]
-    assert tm.POOL_STATS["builds"] == builds
-    _eq(tm._pack_pool_nibbles(g.seq_data), first[0], "packed pool")
+    (again,), builds = _pool_builds(
+        [lambda: tm._device_pool(g.seq_data, g.seq_off, dev)])
+    assert builds == 0 and all(a is b for a, b in zip(again, first))
+    _eq(mm_map.pack_pool_nibbles(g.seq_data), first[0], "packed pool")
+    assert first[2] is g.seq_data         # the DP reads the host codes
 
 
 def test_pool_cache_replaced_seq_data_new_pool(world):
@@ -815,10 +843,10 @@ def test_pool_cache_replaced_seq_data_new_pool(world):
     old = tm._device_pool(g.seq_data, g.seq_off, dev)
     new_seq = g.seq_data.copy()
     new_seq[:50] = (new_seq[:50] + 1) % 4
-    builds = tm.POOL_STATS["builds"]
-    new = tm._device_pool(new_seq, g.seq_off, dev)
-    assert tm.POOL_STATS["builds"] == builds + 1 and new[0] is not old[0]
-    _eq(tm._pack_pool_nibbles(new_seq), new[0], "new pool")
+    (new,), builds = _pool_builds(
+        [lambda: tm._device_pool(new_seq, g.seq_off, dev)])
+    assert builds == 1 and new[0] is not old[0]
+    _eq(mm_map.pack_pool_nibbles(new_seq), new[0], "new pool")
     assert not torch.equal(new[0], old[0])
     assert tm._device_pool(g.seq_data, g.seq_off, dev)[0] is old[0]
 
@@ -829,19 +857,9 @@ def test_pool_cache_threads_get_one_pool(world):
     g = world["g"]
     seq, off = g.seq_data.copy(), g.seq_off.copy()
     dev = torch.device("cpu")
-    builds = tm.POOL_STATS["builds"]
-    got, go = [], threading.Barrier(8)
-
-    def worker():
-        go.wait()
-        got.append(tm._device_pool(seq, off, dev))
-
-    threads = [threading.Thread(target=worker) for _ in range(8)]
-    for t_ in threads:
-        t_.start()
-    for t_ in threads:
-        t_.join()
-    assert len(got) == 8 and tm.POOL_STATS["builds"] == builds + 1
+    got, builds = _pool_builds(
+        [lambda: tm._device_pool(seq, off, dev)] * 8)
+    assert len(got) == 8 and builds == 1
     assert all(p[0] is got[0][0] and p[1] is got[0][1] for p in got)
 
 

@@ -7,6 +7,10 @@ source and flags, so an edited source is rebuilt and an unchanged one
 is reused.  Several sources build in parallel, one nvcc each.  Nothing
 here runs on import, and the CPU path never looks for nvcc.
 
+Kernels binds one library's C entries, declared once from a table, and
+launches them on a device's current stream; LaunchCount is the tally
+every wrapper keeps of its launches.
+
 Each `native/<name>.cpp` (the FASTQ reader, the barcode sorter, the graph
 kernels, the read pack) is compiled the same way by the host C++
 compiler (`c++`, else `g++`) into `build/native/`, on the CPU as well:
@@ -22,7 +26,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
+
+from . import tracing
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -101,6 +109,105 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
         return lib
+
+
+# a pointer, or the stream, as c_void_p: an undeclared int argument is
+# passed as a 32-bit C int and cuts a device pointer
+P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+class Kernels:
+    """The C entries of csrc/<name>.cu.
+
+    entries: each launch entry's argument ctypes, the stream left out
+    (launch appends it); each returns a CUDA error code.  queries: each
+    host function's (argument ctypes, result ctype), the sizes and
+    built constants the wrapper asks for.  Both are declared on a
+    library once, when it is first loaded (or when `load` hands over
+    another one)."""
+
+    def __init__(self, name: str, entries: Dict[str, Sequence],
+                 queries: Dict[str, Tuple[Sequence, type]] | None = None):
+        self.name = name
+        self.entries = entries
+        self.queries = queries or {}
+        self._bound = (None, {})     # (library, its declared functions)
+
+    def _fns(self) -> dict:
+        lib = load(self.name)
+        bound_lib, fns = self._bound
+        if lib is not bound_lib:
+            fns = {}
+            for entry, args in self.entries.items():
+                fn = fns[entry] = getattr(lib, entry)
+                fn.argtypes, fn.restype = [*args, P], I
+            for entry, (args, res) in self.queries.items():
+                fn = fns[entry] = getattr(lib, entry)
+                fn.argtypes, fn.restype = list(args), res
+            self._bound = (lib, fns)
+        return fns
+
+    def launch(self, entry: str, dev: torch.device, *args) -> None:
+        """Call a launch entry on dev's current stream; raise on a CUDA
+        error."""
+        fn = self._fns()[entry]
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+
+    def query(self, entry: str, *args):
+        """A host function's value."""
+        return self._fns()[entry](*args)
+
+
+class LaunchCount:
+    """A wrapper's launches (the CUDA path only): `launches`, `by_entry`,
+    each launch's shape as (entry, *shape) in `shapes`, and each entry's
+    named counts in `counts[entry]`, declared by `entries` (entry -> the
+    names of its counts).  Safe to add to from several threads: the
+    bridge launches NW and the map from worker threads."""
+
+    def __init__(self, entries: Dict[str, Sequence[str]]):
+        self._names = {e: tuple(n) for e, n in entries.items()}
+        self.lock = threading.Lock()
+        self.reset()
+
+    @property
+    def launches(self) -> int:
+        return sum(self.by_entry.values())
+
+    def reset(self) -> None:
+        with self.lock:
+            self.by_entry = dict.fromkeys(self._names, 0)
+            self.shapes = []
+            self.counts = {e: dict.fromkeys(n, 0)
+                           for e, n in self._names.items()}
+
+    def add(self, entry: str, *shape, **counts: int) -> None:
+        """One launch of entry, its shape, and sums of entry's counts
+        (pairs, lanes) that stay here."""
+        with self.lock:
+            self.by_entry[entry] += 1
+            self.shapes.append((entry, *shape))
+            self._add(entry, counts)
+
+    def route(self, entry: str, **counts: int) -> None:
+        """The route a call of entry took: adds to entry's counts and,
+        under the same names, to the innermost open span."""
+        with self.lock:
+            self._add(entry, counts)
+        tracing.add(**counts)
+
+    def _add(self, entry: str, counts: dict) -> None:
+        mine = self.counts[entry]
+        for name, n in counts.items():
+            mine[name] += n
+
+    def total(self, name: str) -> int:
+        """A count summed over the entries that keep it."""
+        with self.lock:
+            return sum(c.get(name, 0) for c in self.counts.values())
 
 
 def _cxx() -> str:

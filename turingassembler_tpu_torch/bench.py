@@ -18,18 +18,17 @@ keep 4 decimals (bench.py keeps 2; the build stage takes hundredths).
 Every NW launch of the map passes, warm one included, goes to stderr on
 a line of its own: `nw shapes: [[B, Lq, Lt], ...]`; every launch of the
 minimizer map kernel in the process (the index build's and the map's,
-csrc/mm_map.cu) on the next: `mm_map shapes: [[B, L, entry, verified],
+csrc/mm_map.cu) on the next: `mm_map shapes: [[entry, B, L, verified],
 ...]`; every launch of the count's kernels in the process (extraction,
 sorts and run passes of csrc/kmer_sort.cu, in the counts and the level-0
 builds) on the next: `kmer_sort shapes: [[entry, ...shape], ...]`
-(ops/kmer_sort.py:LaunchCount), and the routes of sort_count, lex_order
-and merge_runs on the one after (`kmer_sort routes: {entry: {...}}`);
-every launch of the level-0 build's kernels (csrc/unitig_build.cu) on
-the next: `unitig_build shapes: [[entry, ...shape], ...]`
-(ops/unitig_build.py:LaunchCount); before them `pool builds in the timed
-map passes: N`, the graph pools made for the map after the warm map (0:
-the warm map made the graph's pool, and every timed pass found it
-cached).
+(ops/kmer_sort.py:COUNT), and the routes of sort_count, lex_order and
+merge_runs on the one after (`kmer_sort routes: {entry: {...}}`); every
+launch of the level-0 build's kernels (csrc/unitig_build.cu) on the
+next: `unitig_build shapes: [[entry, ...shape], ...]`
+(ops/unitig_build.py:COUNT); before them `pool rebuilt in the timed map
+passes: False` when the graph's pool after the timed map passes is the
+one the warm map made (every timed pass found it cached).
 
 Baselines (upstream publishes no throughput; bench.py's estimates for
 the upstream C pipeline, not a measurement of any device): count +
@@ -217,7 +216,7 @@ def main(argv=None) -> int:
     from . import _build
     from .device import resolve_device
     from .kmer.megasort import COUNT_CHUNK
-    from .mapper.minimizers import POOL_STATS, EdgeMinimizerIndex
+    from .mapper.minimizers import EdgeMinimizerIndex, _device_pool
     from .ops import kmer_sort, mm_map, nw_align, unitig_build
     from .ops.hostmem import tune_host_malloc
 
@@ -281,14 +280,15 @@ def main(argv=None) -> int:
                 (shipped_asm[0][:nw0], shipped_asm[1][:nw0]))
     log(f"warm map of {nw0} reads: {stage.seconds['map']:.3f}s (excluded)")
     t_map, map_passes = None, []
-    builds0 = POOL_STATS["builds"]
+    pool0 = _device_pool(g_asm.seq_data, g_asm.seq_off, dev)[0]
     for i in range(N_MAP_PASSES):
         stage = Stages(dev)
-        launches0, pairs0 = nw_align.COUNT.launches, nw_align.COUNT.pairs
+        launches0 = nw_align.COUNT.launches
+        pairs0 = nw_align.COUNT.total("pairs")
         e_i, s_i = map_shipped(stage, idx, reads, lengths, g_asm, shipped_asm)
         dt = stage.seconds["map"]
         launches = nw_align.COUNT.launches - launches0
-        pairs = nw_align.COUNT.pairs - pairs0
+        pairs = nw_align.COUNT.total("pairs") - pairs0
         map_passes.append(round(dt, 4))
         log(f"map pass {i}: {n_reads} reads in {dt:.4f}s = "
             f"{n_reads / dt:,.0f} reads/s ({(e_i >= 0).mean() * 100:.3f}%"
@@ -299,12 +299,12 @@ def main(argv=None) -> int:
             nw = {"launches": launches, "pairs": pairs}
         if time.perf_counter() - t_start > BUDGET_S + 120:
             break
-    log(f"pool builds in the timed map passes: "
-        f"{POOL_STATS['builds'] - builds0}")
-    log("nw shapes: " + json.dumps(nw_align.COUNT.shapes))
+    pool = _device_pool(g_asm.seq_data, g_asm.seq_off, dev)[0]
+    log(f"pool rebuilt in the timed map passes: {pool is not pool0}")
+    log("nw shapes: " + json.dumps([sh[1:] for sh in nw_align.COUNT.shapes]))
     log("mm_map shapes: " + json.dumps(mm_map.COUNT.shapes))
     log("kmer_sort shapes: " + json.dumps(kmer_sort.COUNT.shapes))
-    log("kmer_sort routes: " + json.dumps(kmer_sort.COUNT.routes))
+    log("kmer_sort routes: " + json.dumps(kmer_sort.COUNT.counts))
     log("unitig_build shapes: " + json.dumps(unitig_build.COUNT.shapes))
 
     longest, mapped = check_outputs(genome, g_asm, e, s)

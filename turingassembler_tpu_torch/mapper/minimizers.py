@@ -13,9 +13,8 @@ affine-gap DP (ops/dp.py, the CUDA kernel on the card).
 
 On the card the minimizer marks, probe, vote and gapless bound of a
 batch are one launch of the csrc/mm_map.cu kernel (ops/mm_map.py), and
-the index build's marks another; the tensor functions below
-(minimizer_mask, _cuckoo_probe, _vote_core, _verified_core,
-_gapless_bound_dev) are its plain versions, which CPU tensors take.
+the index build's marks another; CPU tensors take its plain versions,
+which live beside it, as do the tables' and the pool's device layouts.
 
 Hashes and limbs are int64 values in [0, 2^32) (ops/limbs.py).  The
 cuckoo tables are built on the host with numpy int64 and probed on the
@@ -36,61 +35,14 @@ from .. import tracing
 from ..device import resolve_device
 from ..graph.structs import AsmGraph
 from ..ops import dp
-from ..ops import kmers as kmod
 from ..ops import limbs as lb
 from ..ops import mm_map
+from ..ops.mm_map import CUCKOO_CAP, cuckoo_hash
 
 MM_K = 17       # MINIMIZERS_KMER (reference src/attribute.h:21)
 MM_W = 17       # MINIMIZERS_WINDOW (reference src/attribute.h:20)
 NL = lb.n_limbs(MM_K)  # 2 limbs
-MM_CAP = 48     # minimizer slots per read (a 150 bp read has ~16)
-CUCKOO_CAP = 4  # slots per cuckoo bucket
 RESCORE_PAD = 16   # target-window slack around the voted start
-POOL_PAD_W = 32    # sentinel words around the nibble-packed pool
-BIG = 1 << 30
-
-
-def minimizer_mask(bases: torch.Tensor, lengths: torch.Tensor,
-                   k: int = MM_K, w: int = MM_W):
-    """Minimizer positions of each forward-strand sequence.
-
-    bases (B, L) uint8 codes (>= 4 invalid), lengths (B,).  Returns
-    (kmers (B, P, NL) int64, hashes (B, P) int64, is_mm (B, P) bool),
-    P = L - k + 1; is_mm marks positions that are the leftmost window
-    minimum of at least one complete window inside the read.
-
-    Position p is the leftmost minimum of window i iff every hash in
-    [i, p) is strictly greater and every hash in (p, i+w) is >=; with
-    the capped runs of strictly-greater hashes to the left (Lrun) and of
-    >= hashes to the right (Rrun), some complete in-read window elects p
-    iff max(p - Lrun, 0) <= min(p + Rrun - w + 1, W_len - 1)."""
-    B, L = bases.shape
-    P = L - k + 1
-    dev = bases.device
-    km = kmod._pack_windows(bases, k)
-    valid = kmod.window_validity(bases, lengths, k)
-    h = torch.where(valid, lb.hash_limbs(km), lb.M32)
-    if L - k - w + 2 <= 0:
-        return km, h, torch.zeros((B, P), dtype=torch.bool, device=dev)
-
-    def run(cmp, left: bool):
-        cnt = torch.zeros((B, P), dtype=torch.int32, device=dev)
-        alive = torch.ones((B, P), dtype=torch.bool, device=dev)
-        pad = torch.full((B, w - 1), lb.M32, dtype=torch.int64, device=dev)
-        ext = torch.cat([pad, h], 1) if left else torch.cat([h, pad], 1)
-        for d in range(1, w):
-            other = ext[:, w - 1 - d:w - 1 - d + P] if left else ext[:, d:d + P]
-            alive &= cmp(other, h)
-            cnt += alive
-        return cnt
-
-    lrun = run(torch.gt, True)
-    rrun = run(torch.ge, False)
-    pos = torch.arange(P, device=dev)[None, :]
-    w_len = lengths.long()[:, None] - k - w + 2
-    lo = torch.maximum(torch.clamp(pos - lrun, min=0), pos - w + 1)
-    hi = torch.minimum(torch.minimum(pos + rrun - w + 1, w_len - 1), pos)
-    return km, h, (lo <= hi) & (w_len > 0) & valid
 
 
 # ---------------------------------------------------------------------
@@ -98,16 +50,6 @@ def minimizer_mask(bases: torch.Tensor, lengths: torch.Tensor,
 # most 2 bucket-row gathers + 1 value-row gather, with the values
 # pre-fused to what the vote needs: (edge+1 if singleton else 0, pos).
 # ---------------------------------------------------------------------
-
-def _cuckoo_h(q0, q1, salt: int, mask: int, which: int):
-    """Bucket hash over both key limbs; `which` selects the table.  Works
-    on numpy and torch int64 arrays alike, bit-exact."""
-    if which == 0:
-        x = (q0 ^ lb.mul32(q1, 0x9E3779B1)) + salt
-    else:
-        x = (q1 ^ lb.mul32(q0, 0x85EBCA77)) + (salt ^ 0x5BD1E995)
-    return lb.fmix32(x & lb.M32) & mask
-
 
 def build_cuckoo_tables(keys: np.ndarray, edge: np.ndarray,
                         pos: np.ndarray, count: np.ndarray):
@@ -137,8 +79,8 @@ def _try_build_cuckoo(k0, k1, edge, pos, count, nb: int):
     mask = nb - 1
     for salt_i in range(4):
         salt = (0xA5A5A5A5 + 0x9E3779B9 * salt_i) & lb.M32
-        h1 = _cuckoo_h(k0, k1, salt, mask, 0)
-        h2 = _cuckoo_h(k0, k1, salt, mask, 1)
+        h1 = cuckoo_hash(k0, k1, salt, mask, 0)
+        h2 = cuckoo_hash(k0, k1, salt, mask, 1)
         fill = np.zeros(nb, np.int64)
         bucket = np.full(M, -1, np.int64)
         slot = np.full(M, -1, np.int64)
@@ -171,38 +113,6 @@ def _try_build_cuckoo(k0, k1, edge, pos, count, nb: int):
     return None
 
 
-def _cuckoo_probe(hkeys: torch.Tensor, vals: torch.Tensor, salt: int,
-                  queries: torch.Tensor):
-    """Device probe: (edge_sing (Q,) [-1 when the key is absent or not a
-    singleton], pos (Q,), found (Q,) bool)."""
-    mask = hkeys.shape[0] - 1
-    q0, q1 = queries[:, 0], queries[:, 1]
-    b1 = _cuckoo_h(q0, q1, salt, mask, 0)
-    b2 = _cuckoo_h(q0, q1, salt, mask, 1)
-    r1, r2 = hkeys[b1], hkeys[b2]
-    m = torch.cat([(r1[:, 0::2] == q0[:, None]) & (r1[:, 1::2] == q1[:, None]),
-                   (r2[:, 0::2] == q0[:, None]) & (r2[:, 1::2] == q1[:, None])],
-                  dim=1)
-    found = m.any(dim=1)
-    s = m.to(torch.int8).argmax(dim=1)          # first matching slot
-    fidx = torch.where(s < CUCKOO_CAP, b1 * CUCKOO_CAP + s,
-                       b2 * CUCKOO_CAP + (s - CUCKOO_CAP))
-    v = vals[fidx]
-    return torch.where(found, v[:, 0] - 1, -1), v[:, 1], found
-
-
-def _compact_minimizer_rows(mat: torch.Tensor, elen: torch.Tensor,
-                            k: int, w: int) -> torch.Tensor:
-    """minimizer_mask + ascending compaction of the marked positions:
-    (n, NL + 2) int64 rows of key limbs, segment row, in-segment position
-    (the plain version of the mm_map kernel's rows entry)."""
-    km, _h, is_mm = minimizer_mask(mat, elen, k, w)
-    B, P, nl = km.shape
-    flat = torch.nonzero(is_mm.reshape(-1)).squeeze(1)
-    return torch.cat([km.reshape(-1, nl)[flat], (flat // P)[:, None],
-                      (flat % P)[:, None]], dim=1)
-
-
 @dataclass
 class EdgeMinimizerIndex:
     """Sorted minimizer table over all live edges of a graph (host)."""
@@ -223,19 +133,13 @@ class EdgeMinimizerIndex:
         return self._hash
 
     def device_tables(self, device: str | torch.device = "cuda"):
-        """(hkeys, vals, salt) on `device` in the layout its map takes,
-        made once a device: the plain version's int64 tables on the CPU;
-        on a card the kernel's bucket records (mm_map.bucket_records) and
-        vals None."""
+        """(hkeys, vals, salt) on `device` in the layout its map takes
+        (mm_map.device_tables), made once a device."""
         dev = resolve_device(device)
         if str(dev) not in self._dev:
             hkeys, vals, salt = self.hash_tables()
-            if dev.type == "cuda":
-                self._dev[str(dev)] = (torch.as_tensor(
-                    mm_map.bucket_records(hkeys, vals)).to(dev), None, salt)
-            else:
-                self._dev[str(dev)] = (torch.as_tensor(hkeys),
-                                       torch.as_tensor(vals), salt)
+            self._dev[str(dev)] = (*mm_map.device_tables(hkeys, vals, dev),
+                                   salt)
         return self._dev[str(dev)]
 
     SEG = 4096     # content window positions per device row
@@ -307,135 +211,32 @@ class EdgeMinimizerIndex:
                    count=counts, k=k, w=w)
 
 
-def _vote_core(bases, lengths, hkeys, vals, salt: int, k: int, w: int):
-    """Per-read best-edge vote.  Returns (best_edge (B,) [-1 if unmapped
-    or ambiguous], best_hits (B,), est_start (B,) signed), int64.
-
-    Each read's minimizer positions are compacted to MM_CAP slots (a row
-    sort), looked up in the cuckoo table, and the singleton hits are
-    tallied per edge by sorting each row by edge and run-length counting
-    along it.  The sort need not be stable: the start estimate is the
-    minimum over the run."""
-    B = bases.shape[0]
-    dev = bases.device
-    km, _h, is_mm = minimizer_mask(bases, lengths, k, w)
-    P = km.shape[1]
-    p_or_big = torch.where(is_mm, torch.arange(P, device=dev)[None, :], BIG)
-    sp = torch.sort(p_or_big, dim=1).values[:, :MM_CAP]
-    cval = sp < P
-    spc = torch.clamp(sp, max=P - 1)
-    ckg = torch.gather(km, 1, spc[:, :, None].expand(-1, -1, NL))
-    ck = torch.where(cval[:, :, None], ckg, lb.M32).reshape(-1, NL)
-    cp = torch.where(cval, spc, 0).reshape(-1)
-
-    edge_sing, pos_v, _found = _cuckoo_probe(hkeys, vals, salt, ck)
-    sing = cval.reshape(-1) & (edge_sing >= 0)
-    SENT = 0x7FFFFFFF
-    ce = torch.where(sing, edge_sing, SENT).reshape(B, MM_CAP)
-    # SIGNED start: negative when the read overhangs the edge head
-    cs = torch.where(sing, pos_v - cp, BIG).reshape(B, MM_CAP)
-
-    se, order = torch.sort(ce, dim=1)
-    ss = torch.gather(cs, 1, order)
-    jj = torch.arange(MM_CAP, device=dev)[None, :].expand(B, -1)
-    newrun = torch.ones_like(se, dtype=torch.bool)
-    newrun[:, 1:] = se[:, 1:] != se[:, :-1]
-    run_start = torch.cummax(torch.where(newrun, jj, -1), dim=1).values
-    is_end = torch.ones_like(se, dtype=torch.bool)
-    is_end[:, :-1] = se[:, :-1] != se[:, 1:]
-    validrun = se != SENT
-    runlen = torch.where(is_end & validrun, jj - run_start + 1, 0)
-    best = runlen.amax(dim=1)
-    n_best = ((runlen == best[:, None]) & (runlen > 0)).sum(dim=1)
-    # run-min of the start estimate: segmented doubling min along the row
-    m = ss
-    off = 1
-    while off < MM_CAP:
-        shifted = torch.cat([torch.full((B, off), BIG, dtype=m.dtype,
-                                        device=dev), m[:, :-off]], dim=1)
-        m = torch.where(jj - off >= run_start, torch.minimum(m, shifted), m)
-        off <<= 1
-    pick = is_end & validrun & (runlen == best[:, None]) & \
-        (n_best == 1)[:, None] & (best > 0)[:, None]
-    best_edge = torch.where(pick, se, -1).amax(dim=1)
-    best_start = torch.where(pick, m, BIG).amin(dim=1)
-    # confidence gate (RATIO_OF_CONFIDENT=0.85, MIN_NUMBER_SINGLETON=2)
-    tot = validrun.sum(dim=1)
-    conf = (best * 100 >= 85 * tot) | (tot <= 2)
-    be = torch.where(conf, best_edge, -1)
-    return be, best, torch.where(be >= 0, best_start, -1)
-
-
-def _verified_core(bases, lengths, hkeys, vals, salt, seq_pk, seq_off, thr,
-                   k: int, w: int, mt: int, mm: int):
-    """Vote + gapless verification on the device.  Returns (best_edge,
-    best_hits, est_start, bound, fast); `fast` lanes are accepted without
-    the DP."""
-    be, best, bs = _vote_core(bases, lengths, hkeys, vals, salt, k, w)
-    bound, feas = _gapless_bound_dev(seq_pk, seq_off, be, bs, bases,
-                                     lengths, mt, mm)
-    return be, best, bs, bound, feas & (bound >= thr)
-
-
-def _pack_pool_nibbles(seq_data: np.ndarray) -> np.ndarray:
-    """4-bit-pack a base-code pool into 32-bit words (8 codes a word,
-    lowest nibble first) with POOL_PAD_W sentinel words (0xF nibbles,
-    never equal to a read code) at both ends.  int64 host array."""
-    n = len(seq_data)
-    nw = -(-n // 8)
-    buf = np.full(8 * nw, 0xF, np.int64)
-    buf[:n] = seq_data
-    words = (buf.reshape(nw, 8) << (4 * np.arange(8, dtype=np.int64))).sum(1)
-    pad = np.full(POOL_PAD_W, lb.M32, np.int64)
-    return np.concatenate([pad, words, pad])
-
-
-_POOL_CACHE: dict = {}   # (ids, device) -> (weakrefs, (pool, seq_off))
+_POOL_CACHE: dict = {}   # (ids, device) -> (weakrefs, device_pool's)
 _POOL_LOCK = threading.Lock()
-POOL_STATS = {"builds": 0}   # device pools made (a cache miss each)
 
 
 def _device_pool(seq_data: np.ndarray, seq_off: np.ndarray,
                  device: torch.device):
-    """(pool, seq_off) of a graph on `device` in the layout its map
-    takes: the nibble-packed int64 words of _pack_pool_nibbles on the
-    CPU, the uint8 codes themselves on a card (mm_map.padded_codes: a
-    view of the codes alone, the remainder DP's copy too, in a buffer
-    padded for the kernel).  Cached per (seq_data, seq_off) array identity, as the JAX
-    package's _device_pool caches its packed pool: the graph modules
-    replace seq_data and never edit it in place.  The bridge maps from
-    worker threads, so the cache takes a lock; it is cleared past 8
-    entries."""
+    """(pool, seq_off, the codes the remainder DP reads) of a graph in
+    the layout its map takes on `device` (mm_map.device_pool).  Cached
+    per (seq_data, seq_off) array identity, as the JAX package's
+    _device_pool caches its packed pool: the graph modules replace
+    seq_data and never edit it in place.  The bridge maps from worker
+    threads, so the cache takes a lock; it is cleared past 8 entries.  A
+    miss counts pool_builds on the span open."""
     key = (id(seq_data), id(seq_off), str(device))
     with _POOL_LOCK:
         hit = _POOL_CACHE.get(key)
         if hit is not None and hit[0][0]() is seq_data \
                 and hit[0][1]() is seq_off:
             return hit[1]
-        if device.type == "cuda":
-            # on-edge codes (< 16) equal the plain version's nibbles, so
-            # the kernel's bound reads the codes themselves, with a pad
-            # for its word loads
-            if len(seq_data) and int(seq_data.max()) >= 16:
-                raise ValueError("seq_data holds codes >= 16, which the "
-                                 "nibble-packed pool cannot hold")
-            pool = mm_map.padded_codes(seq_data, device)
-        else:
-            pool = torch.as_tensor(_pack_pool_nibbles(seq_data))
-        dev = (pool, torch.as_tensor(np.asarray(seq_off, np.int64)).to(device))
+        dev = mm_map.device_pool(seq_data, seq_off, device)
         if len(_POOL_CACHE) >= 8:
             _POOL_CACHE.clear()
         _POOL_CACHE[key] = ((weakref.ref(seq_data), weakref.ref(seq_off)),
                             dev)
-        POOL_STATS["builds"] += 1
         tracing.add(pool_builds=1)
         return dev
-
-
-def _dp_codes(pool: torch.Tensor, seq_data: np.ndarray):
-    """The codes the remainder DP reads: on a card the pool is the codes'
-    device copy; on the CPU the host array."""
-    return pool if pool.device.type == "cuda" else seq_data
 
 
 def _on_device(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -444,49 +245,6 @@ def _on_device(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         a = torch.as_tensor(np.ascontiguousarray(a))
     return a.to(device=device, dtype=dtype)
-
-
-def _gapless_bound_dev(seq_pk, seq_off, edges, starts, bases, lengths,
-                       mt: int, mm: int):
-    """Score of the gapless alignment at the voted (signed) offset over
-    the on-edge overlap only: query bases past either edge end are
-    clipped, not penalized (the reference's clip acceptance, asm_reg2aln,
-    src/barcode_builder.c:497-563).
-
-    Each lane's target window is contiguous in the nibble-packed pool,
-    so one word-aligned window of W words is gathered per lane, shifted
-    down by the start's nibble offset and unpacked.  Queries wider than
-    the sentinel pad gather one nibble per position instead.
-
-    Returns (bound (N,), feas (N,) bool); feas lanes have a non-empty
-    on-edge overlap, so bound lower-bounds the clipped DP optimum."""
-    N, Lq = bases.shape
-    dev = bases.device
-    W = -(-(Lq + 7) // 8) + 1
-    nwords = seq_pk.shape[0]
-    e = torch.clamp(edges.long(), min=0)
-    elen = seq_off[e + 1] - seq_off[e]
-    j = torch.arange(Lq, device=dev)[None, :]
-    tpos = starts.long()[:, None] + j
-    on_edge = (tpos >= 0) & (tpos < elen[:, None]) & \
-        (j < lengths.long()[:, None])
-    if W > POOL_PAD_W:
-        gb = torch.clamp(seq_off[e][:, None] + tpos + 8 * POOL_PAD_W,
-                         0, 8 * nwords - 1)
-        tch = (seq_pk[gb >> 3] >> (4 * (gb & 7))) & 0xF
-    else:
-        b = torch.clamp(seq_off[e] + starts.long() + 8 * POOL_PAD_W,
-                        0, 8 * (nwords - W))
-        win = seq_pk[(b >> 3)[:, None] + torch.arange(W, device=dev)[None, :]]
-        sh = (4 * (b & 7))[:, None]
-        nxt = torch.cat([win[:, 1:], torch.zeros_like(win[:, :1])], dim=1)
-        wal = (win >> sh) | ((nxt << (32 - sh)) & lb.M32)
-        nib = (wal[:, :, None] >> (4 * torch.arange(8, device=dev))) & 0xF
-        tch = nib.reshape(N, 8 * W)[:, :Lq]
-    nmatch = ((bases.long() == tch) & on_edge).sum(dim=1)
-    n_on = on_edge.sum(dim=1)
-    bound = nmatch * mt + (n_on - nmatch) * mm
-    return bound, (n_on > 0) & (edges >= 0)
 
 
 def rescore_hits(seq_data: np.ndarray, seq_off: np.ndarray,
@@ -512,7 +270,7 @@ def rescore_hits(seq_data: np.ndarray, seq_off: np.ndarray,
     mapped = edges >= 0
     if not mapped.any():
         return accept, scores
-    sd, sod = _device_pool(seq_data, seq_off, dev)
+    sd, sod, codes = _device_pool(seq_data, seq_off, dev)
     edges_d = _on_device(edges, torch.int64, dev)
     starts_d = _on_device(starts, torch.int64, dev)
     bases_d = _on_device(bases, torch.uint8, dev)
@@ -527,9 +285,8 @@ def rescore_hits(seq_data: np.ndarray, seq_off: np.ndarray,
     accept[fast] = True
     rest = np.flatnonzero(mapped & ~fast)
     if len(rest):
-        sc = _dp_verify_rest(_dp_codes(sd, seq_data), sod, edges_d,
-                             starts_d, bases_d, lens_d, rest, scoring, pad,
-                             device=dev)
+        sc = _dp_verify_rest(codes, sod, edges_d, starts_d, bases_d, lens_d,
+                             rest, scoring, pad, device=dev)
         scores[rest] = sc
         accept[rest] = sc >= thr_all[rest]
     return accept, scores
@@ -639,7 +396,8 @@ def _map_on(dev, index, bases, lengths, batch_size, graph, min_score,
     out = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(3)]
     with tracing.span("map.vote"):
         if verified:
-            sd, sod = _device_pool(graph.seq_data, graph.seq_off, dev)
+            sd, sod, codes = _device_pool(graph.seq_data, graph.seq_off,
+                                          dev)
             mt, mm = int(dp.SCORING_BWA[0]), int(dp.SCORING_BWA[1])
             thr_h = np.asarray(min_score, np.int64)
             if thr_h.ndim and dev.type != "cpu":
@@ -668,9 +426,9 @@ def _map_on(dev, index, bases, lengths, batch_size, graph, min_score,
             rest = torch.nonzero((edges_d >= 0) & ~accept_d).squeeze(1)
             tracing.add(pairs=len(rest))
             if len(rest):
-                sc = _dp_verify_rest(_dp_codes(sd, graph.seq_data), sod,
-                                     edges_d, starts_d, bases_d, lens_d,
-                                     rest, dp.SCORING_BWA, device=dev)
+                sc = _dp_verify_rest(codes, sod, edges_d, starts_d, bases_d,
+                                     lens_d, rest, dp.SCORING_BWA,
+                                     device=dev)
                 if isinstance(thr, int):
                     thr_rest = thr
                 else:

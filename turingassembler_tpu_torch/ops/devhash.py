@@ -44,15 +44,13 @@ their meaning in kmer/count.py.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
+from .._build import I, LL, P
 from ..device import resolve_device
 from . import kmer_sort as ks
 from .kmer_sort import to_i32
@@ -76,51 +74,15 @@ def record_words(nl: int) -> int:
     return w
 
 
-@dataclass
-class LaunchCount:
-    """Kernel launches of each insert entry (rows, reads) and the lanes
-    they took (CUDA path only)."""
-    rows: int = 0
-    reads: int = 0
-    lanes: int = 0
-    lock: threading.Lock = field(default_factory=threading.Lock,
-                                 repr=False, compare=False)
+# Launches of each insert entry, each launch's shape (("insert", N),
+# ("insert_reads", B, L, k1)) and the lanes they took (CUDA path only).
+COUNT = _build.LaunchCount({"insert": ("lanes",), "insert_reads": ("lanes",)})
 
-    @property
-    def launches(self) -> int:
-        return self.rows + self.reads
-
-    def reset(self) -> None:
-        with self.lock:
-            self.rows = self.reads = self.lanes = 0
-
-    def add(self, entry: str, n: int) -> None:
-        with self.lock:
-            setattr(self, entry, getattr(self, entry) + 1)
-            self.lanes += n
-
-
-COUNT = LaunchCount()
-
-# pointers and the stream as c_void_p: an undeclared int argument would be
-# passed as a 32-bit C int and cut the pointer
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = {
-    "devhash_insert_launch": [_P, _P, _LL, _I, _LL, _P, _P, _P],
-    "devhash_count_reads_launch": [_P, _P, _LL, _I, _I, _LL, _P, _P, _P],
-    "devhash_hashes_launch": [_P, _LL, _I, _LL, _P, _P],
-}
-
-
-def _launch(entry: str, dev: torch.device, *args) -> None:
-    """Call one C entry of csrc/devhash.cu on dev's current stream."""
-    fn = getattr(_build.load("devhash"), entry)
-    fn.argtypes = _ARGTYPES[entry]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+LIB = _build.Kernels("devhash", {
+    "devhash_insert_launch": [P, P, LL, I, LL, P, P],
+    "devhash_count_reads_launch": [P, P, LL, I, I, LL, P, P],
+    "devhash_hashes_launch": [P, LL, I, LL, P],
+})
 
 
 def _check(dev: torch.device, **named) -> None:
@@ -211,9 +173,10 @@ def insert_kernel(table: torch.Tensor, nl: int, kmers: torch.Tensor,
         raise ValueError("devhash: kmers (N, nl) and valid (N,) disagree")
     if n == 0:
         return
-    _launch("devhash_insert_launch", dev, kmers.data_ptr(), valid.data_ptr(),
-            n, nl, table.shape[0], table.data_ptr(), ovf.data_ptr())
-    COUNT.add("rows", n)
+    LIB.launch("devhash_insert_launch", dev, kmers.data_ptr(),
+               valid.data_ptr(), n, nl, table.shape[0], table.data_ptr(),
+               ovf.data_ptr())
+    COUNT.add("insert", n, lanes=n)
 
 
 def count_reads_kernel(table: torch.Tensor, nl: int, bases: torch.Tensor,
@@ -234,10 +197,10 @@ def count_reads_kernel(table: torch.Tensor, nl: int, bases: torch.Tensor,
     B, L = bases.shape
     if B == 0 or L < k1:
         return
-    _launch("devhash_count_reads_launch", dev, bases.data_ptr(),
-            lengths.data_ptr(), B, L, k1, table.shape[0], table.data_ptr(),
-            ovf.data_ptr())
-    COUNT.add("reads", B * (L - k1 + 1))
+    LIB.launch("devhash_count_reads_launch", dev, bases.data_ptr(),
+               lengths.data_ptr(), B, L, k1, table.shape[0], table.data_ptr(),
+               ovf.data_ptr())
+    COUNT.add("insert_reads", B, L, k1, lanes=B * (L - k1 + 1))
 
 
 def kernel_hashes(kmers: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -250,8 +213,8 @@ def kernel_hashes(kmers: torch.Tensor, capacity: int) -> torch.Tensor:
         raise ValueError(f"devhash: nl={nl} past {MAX_NL}")
     out = torch.empty((4, n), dtype=torch.int32, device=kmers.device)
     if n:
-        _launch("devhash_hashes_launch", kmers.device, kmers.data_ptr(), n,
-                nl, capacity, out.data_ptr())
+        LIB.launch("devhash_hashes_launch", kmers.device, kmers.data_ptr(), n,
+                   nl, capacity, out.data_ptr())
     return out
 
 

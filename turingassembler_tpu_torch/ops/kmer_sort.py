@@ -37,28 +37,27 @@ sort_count and merge_runs give (uniq (n, nl) int64 ascending, counts (n,)
 int32) on both; lex_order an int64 permutation.  int64 limbs must lie
 in [0, 2^32): the card raises on any other value.  COUNT records every
 launch with its shape, and the routes of sort_count, lex_order and
-merge_runs (ROUTES); each entry syncs with the host once or twice (the
-rows or runs it made; the live digits that decide the passes; merge_runs'
-order flag; lex_order's buckets over capacity), sort_count three times
-more when buckets go over capacity (the segment's live digits, its runs,
-the unique rows again), however many they are, and lex_order once more
-for each bucket over capacity.  tracing.py counts each sync on the span
-open (host_sync), sort_count's routes and merge_runs' beside COUNT's,
-and times sort_count's route for the buckets over capacity, up to its
-last sync, as `count.sort.lsd`.
+merge_runs (ROUTES), which also land on the span open.  Each entry syncs
+with the host once or twice (the rows or runs it made; the live digits
+that decide the passes; merge_runs' order flag; lex_order's buckets over
+capacity), sort_count three times more when buckets go over capacity
+(the segment's live digits, its runs, the unique rows again), however
+many they are, and lex_order once more for each bucket over capacity.
+tracing.py counts each sync on the span open (host_sync) and times
+sort_count's route for the buckets over capacity, up to its last sync,
+as `count.sort.lsd`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
-from dataclasses import dataclass, field
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build, tracing
+from .._build import I, LL, P
 from . import kmers as km
 from . import limbs as lb
 
@@ -67,7 +66,6 @@ RADIX = 1 << RADIX_BITS
 MAX_NL = 4                # the kernels' widest row (k1 <= 64)
 MAX_ROWS = (1 << 31) - 1  # rows a sort takes (32-bit digit offsets)
 TILE = 4096               # keys a block of the sort and run passes
-ENTRIES = ("extract_keys", "sort_count", "merge_runs", "lex_order")
 # rows a block of the bucket kernel holds, by nl (csrc/kmer_sort.cu:
 # bucket_capacity; sort_count checks it against the built kernel)
 BUCKET_CAPACITY = {1: 16384, 2: 13408, 3: 10720, 4: 8928}
@@ -80,109 +78,47 @@ MAX_PARTITION = 2         # partition digits at most (65,536 buckets)
 MERGE_TILE = 2048         # merged rows a tile of merge_runs' merge path
 # merge_runs' flags (the count step's meta[2])
 MERGE_DESCENT, MERGE_WIDE = 1, 2
-# each entry's routes on the card (LaunchCount.routes)
-ROUTES = {"sort_count": ("partition_passes", "bucket_groups", "over_capacity"),
+# each entry's routes on the card (its counts in COUNT)
+ROUTES = {"extract_keys": (),
+          "sort_count": ("partition_passes", "bucket_groups", "over_capacity"),
           "lex_order": ("partition_passes", "warp_buckets", "block_buckets",
                         "over_capacity"),
           "merge_runs": ("merge_path", "lsd")}
 
+# Launches of each entry and each launch's shape (CUDA path only):
+# ("extract_keys", B, L, k1), ("sort_count", n, nl),
+# ("merge_runs", na, nb, nl), ("lex_order", n, nl); and the routes, by
+# entry (ROUTES): sort_count's partition passes, the groups of buckets
+# its bucket kernel took, the buckets over capacity that took the LSD
+# route; lex_order's partition passes, the buckets ranked by a warp, by
+# a block, over capacity (the LSD route); merge_runs' calls that took the
+# merge path or, an input out of order, the LSD route.
+COUNT = _build.LaunchCount(ROUTES)
 
-def _no_routes() -> dict:
-    return {entry: dict.fromkeys(routes, 0) for entry, routes in ROUTES.items()}
-
-
-@dataclass
-class LaunchCount:
-    """Launches of each entry and each launch's shape (CUDA path only):
-    ("extract_keys", B, L, k1), ("sort_count", n, nl),
-    ("merge_runs", na, nb, nl), ("lex_order", n, nl); and the routes, by
-    entry (ROUTES): sort_count's partition passes, the groups of buckets
-    its bucket kernel took, the buckets over capacity that took the LSD
-    route; lex_order's partition passes, the buckets ranked by a warp, by
-    a block, over capacity (the LSD route); merge_runs' calls that took
-    the merge path or, an input out of order, the LSD route.  Safe to add
-    to from several threads."""
-    by_entry: dict = field(default_factory=lambda: dict.fromkeys(ENTRIES, 0))
-    shapes: list = field(default_factory=list)
-    routes: dict = field(default_factory=_no_routes)
-    lock: threading.Lock = field(default_factory=threading.Lock,
-                                 repr=False, compare=False)
-
-    @property
-    def launches(self) -> int:
-        return sum(self.by_entry.values())
-
-    def reset(self) -> None:
-        with self.lock:
-            self.by_entry = dict.fromkeys(ENTRIES, 0)
-            self.shapes = []
-            self.routes = _no_routes()
-
-    def add(self, entry: str, *shape: int) -> None:
-        with self.lock:
-            self.by_entry[entry] += 1
-            self.shapes.append((entry, *shape))
-
-    def add_routes(self, entry: str, **counts: int) -> None:
-        with self.lock:
-            for route, n in counts.items():
-                self.routes[entry][route] += n
-
-
-COUNT = LaunchCount()
-
-# pointers and the stream as c_void_p: an undeclared int argument would be
-# passed as a 32-bit C int and cut the pointer
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = {
-    "ks_extract_launch": [_P, _P, _LL, _I, _I, _P, _P, _P],
-    "ks_load_launch": [_P, _P, _LL, _LL, _I, _I, _LL, _P, _P, _I, _P, _I,
-                       _P, _P, _P],
-    "ks_sort_passes_launch": [_P, _P, _P, _P, _LL, _I, _P, _P, _I, _P, _P],
-    "ks_bounds_launch": [_P, _LL, _I, _P, _I, _P],
-    "ks_groups_launch": [_P, _LL, _LL, _I, _P, _P],
-    "ks_bucket_launch": [_P, _LL, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
-    "ks_gather_launch": [_P, _LL, _I, _P, _LL, _P, _P],
-    "ks_place_runs_launch": [_P, _P, _P, _LL, _I, _P, _P, _LL, _P, _P],
-    "ks_compact_count_launch": [_P, _P, _P],
-    "ks_compact_write_launch": [_P, _P, _LL, _I, _P, _P, _P, _P, _P],
-    "ks_runs_count_launch": [_P, _P, _LL, _I, _P, _P],
-    "ks_runs_write_launch": [_P, _P, _LL, _I, _P, _P, _LL, _P, _P, _P],
-    "ks_lex_buckets_launch": [_P, _LL, _I, _P, _P, _LL, _I, _P, _I, _P, _P,
-                              _P, _P],
-    "ks_merge_count_launch": [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P],
-    "ks_merge_write_launch": [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P,
-                              _LL, _P, _P, _P],
-}
-
-
-def _fn(entry: str):
-    fn = getattr(_build.load("kmer_sort"), entry)
-    fn.argtypes = _ARGTYPES[entry] + [_P]      # ... then the stream
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(entry: str, dev: torch.device, *args) -> None:
-    """Call one C entry of csrc/kmer_sort.cu on dev's current stream."""
-    fn = _fn(entry)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
-
-
-def _scratch_words(n: int) -> int:
-    fn = _build.load("kmer_sort").ks_sort_scratch_words
-    fn.argtypes, fn.restype = [_LL], _LL
-    return fn(n)
+LIB = _build.Kernels("kmer_sort", {
+    "ks_extract_launch": [P, P, LL, I, I, P, P, P],
+    "ks_load_launch": [P, P, LL, LL, I, I, LL, P, P, I, P, I, P, P, P],
+    "ks_sort_passes_launch": [P, P, P, P, LL, I, P, P, I, P, P],
+    "ks_bounds_launch": [P, LL, I, P, I, P],
+    "ks_groups_launch": [P, LL, LL, I, P, P],
+    "ks_bucket_launch": [P, LL, I, P, P, I, P, I, I, P, P, P],
+    "ks_gather_launch": [P, LL, I, P, LL, P, P],
+    "ks_place_runs_launch": [P, P, P, LL, I, P, P, LL, P, P],
+    "ks_compact_count_launch": [P, P, P],
+    "ks_compact_write_launch": [P, P, LL, I, P, P, P, P, P],
+    "ks_runs_count_launch": [P, P, LL, I, P, P],
+    "ks_runs_write_launch": [P, P, LL, I, P, P, LL, P, P, P],
+    "ks_lex_buckets_launch": [P, LL, I, P, P, LL, I, P, I, P, P, P, P],
+    "ks_merge_count_launch": [P, P, LL, LL, I, I, P, P, P, P, P],
+    "ks_merge_write_launch": [P, P, LL, LL, I, I, P, P, P, P, P, LL, P, P,
+                              P],
+}, {"ks_sort_scratch_words": ([LL], LL), "ks_bucket_capacity": ([I], I),
+    "ks_lex_capacity": ([I], I), "ks_merge_tile": ([], I)})
 
 
 def _check_built(what: str, entry: str, want: int, *arg: int) -> None:
     """Raise unless the built kernel's constant equals the wrapper's."""
-    fn = getattr(_build.load("kmer_sort"), entry)
-    fn.argtypes, fn.restype = [_I] * len(arg), _I
-    got = fn(*arg)
+    got = LIB.query(entry, *arg)
     if got != want:
         raise RuntimeError(f"kmer_sort: the kernel's {what} is {got}, not "
                            f"{want}")
@@ -374,8 +310,8 @@ def extract_keys(bases: torch.Tensor, lengths: torch.Tensor,
     # the blocks' look-back status words and the block ticket
     scratch = torch.empty(B + 1, dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
-    _launch("ks_extract_launch", dev, bases.data_ptr(), lengths.data_ptr(),
-            B, L, k1, scratch.data_ptr(), total.data_ptr(), out.data_ptr())
+    LIB.launch("ks_extract_launch", dev, bases.data_ptr(), lengths.data_ptr(),
+               B, L, k1, scratch.data_ptr(), total.data_ptr(), out.data_ptr())
     COUNT.add("extract_keys", B, L, k1)
     tracing.host_sync()
     return out[:int(total.item())]
@@ -409,13 +345,13 @@ def _load(rows: Tuple[torch.Tensor, ...], plan, pay_mode: int,
     hist = torch.empty(npass * RADIX + 1 + nl, dtype=torch.int32, device=dev)
     pa = pays[0] if pays else None
     pb = pays[1] if len(pays) > 1 else pa
-    _launch("ks_load_launch", dev, a.data_ptr(), b.data_ptr(), na, n, nl,
-            int(a.dtype == torch.int64), stride,
-            pa.data_ptr() if pa is not None else None,
-            pb.data_ptr() if pb is not None else None, pay_mode,
-            _ints([v for step in plan for v in step]), npass,
-            keys[0].data_ptr(),
-            pay[0].data_ptr() if pay is not None else None, hist.data_ptr())
+    LIB.launch("ks_load_launch", dev, a.data_ptr(), b.data_ptr(), na, n, nl,
+               int(a.dtype == torch.int64), stride,
+               pa.data_ptr() if pa is not None else None,
+               pb.data_ptr() if pb is not None else None, pay_mode,
+               _ints([v for step in plan for v in step]), npass,
+               keys[0].data_ptr(),
+               pay[0].data_ptr() if pay is not None else None, hist.data_ptr())
     tracing.host_sync()
     wide, *diff = hist[npass * RADIX:].tolist()
     if wide:
@@ -436,15 +372,16 @@ def _passes(keys: torch.Tensor, pay, plan, run, hist):
     the sorted SoA keys (nl, n) int32 and the payload (n,) or None."""
     nl, n = keys.shape[1:]
     dev = keys.device
-    scratch = torch.empty(_scratch_words(n), dtype=torch.int32, device=dev)
-    _launch("ks_sort_passes_launch", dev, keys[0].data_ptr(),
-            keys[1].data_ptr(),
-            pay[0].data_ptr() if pay is not None else None,
-            pay[1].data_ptr() if pay is not None else None, n, nl,
-            _ints([v for step in plan for v in step]),
-            _ints([int(r) for r in run]), len(plan),
-            hist.data_ptr() if hist is not None else None,
-            scratch.data_ptr())
+    scratch = torch.empty(LIB.query("ks_sort_scratch_words", n),
+                          dtype=torch.int32, device=dev)
+    LIB.launch("ks_sort_passes_launch", dev, keys[0].data_ptr(),
+               keys[1].data_ptr(),
+               pay[0].data_ptr() if pay is not None else None,
+               pay[1].data_ptr() if pay is not None else None, n, nl,
+               _ints([v for step in plan for v in step]),
+               _ints([int(r) for r in run]), len(plan),
+               hist.data_ptr() if hist is not None else None,
+               scratch.data_ptr())
     out = sum(map(bool, run)) % 2
     return keys[out], (pay[out] if pay is not None else None)
 
@@ -474,16 +411,16 @@ def _run_table(keys: torch.Tensor, pay: torch.Tensor | None):
     tiles = torch.empty(2 * n_tiles, dtype=torch.int64, device=dev)
     totals = torch.empty(2, dtype=torch.int64, device=dev)
     pay_p = pay.data_ptr() if pay is not None else None
-    _launch("ks_runs_count_launch", dev, keys.data_ptr(), pay_p, n, nl,
-            tiles.data_ptr(), totals.data_ptr())
+    LIB.launch("ks_runs_count_launch", dev, keys.data_ptr(), pay_p, n, nl,
+               tiles.data_ptr(), totals.data_ptr())
     tracing.host_sync()
     n_u = int(totals[0].item())
     uniq = torch.empty((n_u, nl), dtype=torch.int64, device=dev)
     counts = torch.empty(n_u, dtype=torch.int32, device=dev)
     starts = torch.empty(n_u, dtype=torch.int64, device=dev)
-    _launch("ks_runs_write_launch", dev, keys.data_ptr(), pay_p, n, nl,
-            tiles.data_ptr(), totals.data_ptr(), n_u, uniq.data_ptr(),
-            counts.data_ptr(), starts.data_ptr())
+    LIB.launch("ks_runs_write_launch", dev, keys.data_ptr(), pay_p, n, nl,
+               tiles.data_ptr(), totals.data_ptr(), n_u, uniq.data_ptr(),
+               counts.data_ptr(), starts.data_ptr())
     return uniq, counts, starts
 
 
@@ -493,9 +430,9 @@ def _bounds(src: torch.Tensor, plan, part) -> torch.Tensor:
     nl, n = src.shape
     starts = torch.empty(RADIX ** len(part) + 1, dtype=torch.int32,
                          device=src.device)
-    _launch("ks_bounds_launch", src.device, src.data_ptr(), n, nl,
-            _ints([v for p in reversed(part) for v in plan[p][:2]]),
-            len(part), starts.data_ptr())
+    LIB.launch("ks_bounds_launch", src.device, src.data_ptr(), n, nl,
+               _ints([v for p in reversed(part) for v in plan[p][:2]]),
+               len(part), starts.data_ptr())
     return starts
 
 
@@ -520,16 +457,16 @@ def _over_capacity(src: torch.Tensor, part, plan, info: torch.Tensor,
     if part:
         seg = torch.empty((2, nl, rows), dtype=torch.int32, device=dev)
         diff = torch.empty(nl, dtype=torch.int32, device=dev)
-        _launch("ks_gather_launch", dev, src.data_ptr(), n, nl,
-                info.data_ptr(), rows, seg[0].data_ptr(), diff.data_ptr())
+        LIB.launch("ks_gather_launch", dev, src.data_ptr(), n, nl,
+                   info.data_ptr(), rows, seg[0].data_ptr(), diff.data_ptr())
         tracing.host_sync()
         keys = _passes(seg, None, plan, _live(diff.tolist(), plan), None)[0]
     else:
         keys = src
     uniq, counts, starts = _run_table(keys, None)
-    _launch("ks_place_runs_launch", dev, uniq.data_ptr(), counts.data_ptr(),
-            starts.data_ptr(), uniq.shape[0], nl, info.data_ptr(),
-            run_keys.data_ptr(), n, run_counts.data_ptr(), gruns.data_ptr())
+    LIB.launch("ks_place_runs_launch", dev, uniq.data_ptr(), counts.data_ptr(),
+               starts.data_ptr(), uniq.shape[0], nl, info.data_ptr(),
+               run_keys.data_ptr(), n, run_counts.data_ptr(), gruns.data_ptr())
 
 
 def sort_count(keys: torch.Tensor):
@@ -564,19 +501,19 @@ def sort_count(keys: torch.Tensor):
     # (g, r0, r1, offset in their gathered segment) of each, in order]
     gstart = torch.empty(nb + 1, dtype=torch.int32, device=dev)
     info = torch.empty(4 + 4 * nb, dtype=torch.int64, device=dev)
-    _launch("ks_groups_launch", dev,
-            starts.data_ptr() if starts is not None else None, nb, n, cap,
-            gstart.data_ptr(), info.data_ptr())
+    LIB.launch("ks_groups_launch", dev,
+               starts.data_ptr() if starts is not None else None, nb, n, cap,
+               gstart.data_ptr(), info.data_ptr())
     run_counts = torch.empty(n, dtype=torch.int32, device=dev)
     gruns = torch.empty(nb, dtype=torch.int64, device=dev)
     goff = torch.empty(nb, dtype=torch.int64, device=dev)
-    _launch("ks_bucket_launch", dev, src.data_ptr(), n, nl,
-            gstart.data_ptr(), info.data_ptr(), cap,
-            _ints([v for p in rest for v in plan[p]]), len(rest),
-            int(bool(part)), run_keys.data_ptr(), run_counts.data_ptr(),
-            gruns.data_ptr())
-    _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
-            info.data_ptr(), goff.data_ptr())
+    LIB.launch("ks_bucket_launch", dev, src.data_ptr(), n, nl,
+               gstart.data_ptr(), info.data_ptr(), cap,
+               _ints([v for p in rest for v in plan[p]]), len(rest),
+               int(bool(part)), run_keys.data_ptr(), run_counts.data_ptr(),
+               gruns.data_ptr())
+    LIB.launch("ks_compact_count_launch", dev, gruns.data_ptr(),
+               info.data_ptr(), goff.data_ptr())
     tracing.host_sync()
     G, n_over, n_u, rows = info[:4].tolist()
     if n_over:
@@ -585,20 +522,19 @@ def sort_count(keys: torch.Tensor):
         with tracing.span("count.sort.lsd", buckets=n_over, rows=rows):
             _over_capacity(src, part, plan, info, run_keys, run_counts,
                            gruns, rows)
-            _launch("ks_compact_count_launch", dev, gruns.data_ptr(),
-                    info.data_ptr(), goff.data_ptr())
+            LIB.launch("ks_compact_count_launch", dev, gruns.data_ptr(),
+                       info.data_ptr(), goff.data_ptr())
             tracing.host_sync()
             n_u = int(info[2].item())
     uniq = torch.empty((n_u, nl), dtype=torch.int64, device=dev)
     counts = torch.empty(n_u, dtype=torch.int32, device=dev)
-    _launch("ks_compact_write_launch", dev, run_keys.data_ptr(),
-            run_counts.data_ptr(), n, nl, gstart.data_ptr(), goff.data_ptr(),
-            info.data_ptr(), uniq.data_ptr(), counts.data_ptr())
+    LIB.launch("ks_compact_write_launch", dev, run_keys.data_ptr(),
+               run_counts.data_ptr(), n, nl, gstart.data_ptr(),
+               goff.data_ptr(), info.data_ptr(), uniq.data_ptr(),
+               counts.data_ptr())
     COUNT.add("sort_count", n, nl)
-    COUNT.add_routes("sort_count", partition_passes=len(part),
-                     bucket_groups=G - n_over, over_capacity=n_over)
-    tracing.add(partition_passes=len(part), groups=G - n_over,
-                over_capacity=n_over)
+    COUNT.route("sort_count", partition_passes=len(part),
+                bucket_groups=G - n_over, over_capacity=n_over)
     return uniq, counts
 
 
@@ -633,7 +569,7 @@ def merge_runs(ka, ca, kb, cb):
     args = (ka.data_ptr(), kb.data_ptr(), na, nb, nl,
             int(ka.dtype == torch.int64), ca.data_ptr(), cb.data_ptr(),
             splits.data_ptr(), tiles.data_ptr(), meta.data_ptr())
-    _launch("ks_merge_count_launch", dev, *args)
+    LIB.launch("ks_merge_count_launch", dev, *args)
     tracing.host_sync()
     n_u, _, flags = meta.tolist()
     if flags & MERGE_WIDE:
@@ -645,12 +581,11 @@ def merge_runs(ka, ca, kb, cb):
         out = (torch.empty((n_u, nl), dtype=torch.int64, device=dev),
                torch.empty(n_u, dtype=torch.int32, device=dev))
         S = torch.empty(n_u, dtype=torch.int64, device=dev)
-        _launch("ks_merge_write_launch", dev, *args, n_u, out[0].data_ptr(),
-                out[1].data_ptr(), S.data_ptr())
+        LIB.launch("ks_merge_write_launch", dev, *args, n_u, out[0].data_ptr(),
+                   out[1].data_ptr(), S.data_ptr())
         route = "merge_path"
     COUNT.add("merge_runs", na, nb, nl)
-    COUNT.add_routes("merge_runs", **{route: 1})
-    tracing.add(**{route: 1})
+    COUNT.route("merge_runs", **{route: 1})
     return out
 
 
@@ -687,12 +622,12 @@ def lex_order(keys: torch.Tensor) -> torch.Tensor:
         out = torch.empty(n, dtype=torch.int64, device=dev)
         info = torch.empty(3, dtype=torch.int64, device=dev)
         lists = torch.empty((2, nb, 2), dtype=torch.int64, device=dev)
-        _launch("ks_lex_buckets_launch", dev, src.data_ptr(), n, nl,
-                psrc.data_ptr(),
-                starts.data_ptr() if starts is not None else None, nb, cap,
-                _ints([v for p in rest for v in plan[p]]), len(rest),
-                out.data_ptr(), info.data_ptr(), lists[0].data_ptr(),
-                lists[1].data_ptr())
+        LIB.launch("ks_lex_buckets_launch", dev, src.data_ptr(), n, nl,
+                   psrc.data_ptr(),
+                   starts.data_ptr() if starts is not None else None, nb, cap,
+                   _ints([v for p in rest for v in plan[p]]), len(rest),
+                   out.data_ptr(), info.data_ptr(), lists[0].data_ptr(),
+                   lists[1].data_ptr())
         tracing.host_sync()
         n_big, n_over, n_warp = info.tolist()
         if n_over:
@@ -704,5 +639,5 @@ def lex_order(keys: torch.Tensor) -> torch.Tensor:
         routes.update(partition_passes=len(part), warp_buckets=n_warp,
                       block_buckets=n_big, over_capacity=n_over)
     COUNT.add("lex_order", n, nl)
-    COUNT.add_routes("lex_order", **routes)
+    COUNT.route("lex_order", **routes)
     return out

@@ -30,13 +30,10 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-from dataclasses import dataclass, field
-
 import torch
 
 from .. import _build
+from .._build import I, P
 from .align import affine_global_score_batch
 
 OPS_PER_CELL = 11
@@ -46,41 +43,11 @@ FILL_BLOCKS = 264                 # two blocks on each of an H100's 132 SMs
 MAX_SHARED = 232_448              # bytes of shared memory a block can use
 
 
-@dataclass
-class LaunchCount:
-    """Launches of the kernel, pairs they scored and each launch's
-    (B, Lq, Lt) (CUDA path only).  Safe to add to from several threads
-    (the bridge stage launches from its worker threads)."""
-    launches: int = 0
-    pairs: int = 0
-    shapes: list = field(default_factory=list)
-    lock: threading.Lock = field(default_factory=threading.Lock,
-                                 repr=False, compare=False)
+# Launches of the kernel, each launch's ("banded_affine_score", B, Lq, Lt)
+# and the pairs they scored (CUDA path only).
+COUNT = _build.LaunchCount({"banded_affine_score": ("pairs",)})
 
-    def reset(self) -> None:
-        with self.lock:
-            self.launches = 0
-            self.pairs = 0
-            self.shapes = []
-
-    def add(self, B: int, Lq: int, Lt: int) -> None:
-        with self.lock:
-            self.launches += 1
-            self.pairs += B
-            self.shapes.append((B, Lq, Lt))
-
-
-COUNT = LaunchCount()
-
-
-def _lib():
-    fn = _build.load("nw_align").nw_align_launch
-    # pointers and the stream as c_void_p: an undeclared int argument
-    # would be passed as a 32-bit C int and cut the pointer
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+LIB = _build.Kernels("nw_align", {"nw_align_launch": [P] * 5 + [I] * 10})
 
 
 def _check(q, qlen, t, tlen):
@@ -153,13 +120,8 @@ def banded_affine_score(q: torch.Tensor, qlen: torch.Tensor,
     out = torch.empty(B, dtype=torch.int32, device=q.device)
     if B == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib()(q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
-                    tlen.data_ptr(), out.data_ptr(), B, Lq, Lt, match,
-                    mismatch, go, ge, int(mode == "fit"), strip, warps,
-                    stream)
-    if rc != 0:
-        raise RuntimeError(f"nw_align kernel launch failed: CUDA error {rc}")
-    COUNT.add(B, Lq, Lt)
+    LIB.launch("nw_align_launch", q.device, q.data_ptr(), t.data_ptr(),
+               qlen.data_ptr(), tlen.data_ptr(), out.data_ptr(), B, Lq, Lt,
+               match, mismatch, go, ge, int(mode == "fit"), strip, warps)
+    COUNT.add("banded_affine_score", B, Lq, Lt, pairs=B)
     return out

@@ -34,13 +34,12 @@ with its shape.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import torch
 
 from .. import _build, tracing
+from .._build import I, LL, P
 from . import kmer_sort as ks
 from . import kmers as km
 from . import limbs as lb
@@ -57,64 +56,18 @@ def rounds(D: int) -> int:
     return (max(D, 2) - 1).bit_length() + 1
 
 
-@dataclass
-class LaunchCount:
-    """Launches of each entry and each launch's shape (CUDA path only):
-    ("front_keys", n, k), ("link_nodes", n), ("rank_chains", D),
-    ("assemble_unitigs", n, k, n_e).  Safe to add to from several
-    threads."""
-    by_entry: dict = field(default_factory=lambda: dict.fromkeys(ENTRIES, 0))
-    shapes: list = field(default_factory=list)
-    lock: threading.Lock = field(default_factory=threading.Lock,
-                                 repr=False, compare=False)
+# Launches of each entry and each launch's shape (CUDA path only):
+# ("front_keys", n, k), ("link_nodes", n), ("rank_chains", D),
+# ("assemble_unitigs", n, k, n_e).
+COUNT = _build.LaunchCount(dict.fromkeys(ENTRIES, ()))
 
-    @property
-    def launches(self) -> int:
-        return sum(self.by_entry.values())
-
-    def reset(self) -> None:
-        with self.lock:
-            self.by_entry = dict.fromkeys(ENTRIES, 0)
-            self.shapes = []
-
-    def add(self, entry: str, *shape: int) -> None:
-        with self.lock:
-            self.by_entry[entry] += 1
-            self.shapes.append((entry, *shape))
-
-
-COUNT = LaunchCount()
-
-# pointers and the stream as c_void_p: an undeclared int argument would be
-# passed as a 32-bit C int and cut the pointer
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = {
-    "ub_front_launch": [_P, _LL, _I, _P, _P, _P],
-    "ub_link_launch": [_P, _P, _P, _LL, _P, _P, _P, _P, _P],
-    "ub_rank_launch": [_P, _LL, _I, _P, _P, _P, _P, _P],
-    "ub_assemble_launch": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
-                           _P, _P],
-}
-_SCRATCH = {"ub_link_scratch_bytes": [_LL], "ub_rank_scratch_bytes": [_LL],
-            "ub_assemble_scratch_bytes": [_LL, _LL]}
-
-
-def _launch(entry: str, dev: torch.device, *args) -> None:
-    """Call one C entry of csrc/unitig_build.cu on dev's current stream."""
-    fn = getattr(_build.load("unitig_build"), entry)
-    fn.argtypes = _ARGTYPES[entry] + [_P]      # ... then the stream
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
-
-
-def _scratch(entry: str, dev: torch.device, *args) -> torch.Tensor:
-    """The scratch bytes a C entry carves its temporaries from."""
-    fn = getattr(_build.load("unitig_build"), entry)
-    fn.argtypes, fn.restype = _SCRATCH[entry], _LL
-    return torch.empty(fn(*args), dtype=torch.uint8, device=dev)
+LIB = _build.Kernels("unitig_build", {
+    "ub_front_launch": [P, LL, I, P, P, P],
+    "ub_link_launch": [P, P, P, LL, P, P, P, P, P],
+    "ub_rank_launch": [P, LL, I, P, P, P, P, P],
+    "ub_assemble_launch": [P, P, LL, I, I, P, P, P, P, P, LL, P, P, P],
+}, {"ub_link_scratch_bytes": ([LL], LL), "ub_rank_scratch_bytes": ([LL], LL),
+    "ub_assemble_scratch_bytes": ([LL, LL], LL)})
 
 
 @dataclass
@@ -356,8 +309,8 @@ def front_keys(uniq: torch.Tensor, k: int):
     fp = torch.empty((2 * n, 2), dtype=torch.int32, device=dev)
     flags = torch.empty(n, dtype=torch.uint8, device=dev)
     info = torch.zeros(3, dtype=torch.int32, device=dev)
-    _launch("ub_front_launch", dev, uniq.data_ptr(), n, k, fp.data_ptr(),
-            flags.data_ptr(), info.data_ptr())
+    LIB.launch("ub_front_launch", dev, uniq.data_ptr(), n, k, fp.data_ptr(),
+               flags.data_ptr(), info.data_ptr())
     COUNT.add("front_keys", n, k)
     return fp, flags, info
 
@@ -379,13 +332,15 @@ def link_nodes(fp: torch.Tensor, order: torch.Tensor, flags: torch.Tensor):
     dev = fp.device
     fp, flags = fp.contiguous(), flags.contiguous()
     order = _lanes(order, D, torch.int64, "order")
-    scratch = _scratch("ub_link_scratch_bytes", dev, n)
+    # the bytes the entry carves its temporaries from
+    scratch = torch.empty(LIB.query("ub_link_scratch_bytes", n),
+                          dtype=torch.uint8, device=dev)
     src_key, tgt_key, prev_ptr = (torch.empty(D, dtype=torch.int32,
                                               device=dev) for _ in range(3))
     lastbase = torch.empty(D, dtype=torch.uint8, device=dev)
-    _launch("ub_link_launch", dev, fp.data_ptr(), order.data_ptr(),
-            flags.data_ptr(), n, scratch.data_ptr(), src_key.data_ptr(),
-            tgt_key.data_ptr(), lastbase.data_ptr(), prev_ptr.data_ptr())
+    LIB.launch("ub_link_launch", dev, fp.data_ptr(), order.data_ptr(),
+               flags.data_ptr(), n, scratch.data_ptr(), src_key.data_ptr(),
+               tgt_key.data_ptr(), lastbase.data_ptr(), prev_ptr.data_ptr())
     COUNT.add("link_nodes", n)
     return src_key, tgt_key, lastbase, prev_ptr
 
@@ -422,12 +377,13 @@ def rank_chains(prev_ptr: torch.Tensor, info=None, walks=None):
                               or walks.device != dev):
         raise ValueError("unitig_build: walks must be (4,) int32 on the "
                          "lanes' device")
-    scratch = _scratch("ub_rank_scratch_bytes", dev, D)
+    scratch = torch.empty(LIB.query("ub_rank_scratch_bytes", D),
+                          dtype=torch.uint8, device=dev)
     head_of = torch.empty(D, dtype=torch.int32, device=dev)
     dist = torch.empty(D, dtype=torch.int32, device=dev)
-    _launch("ub_rank_launch", dev, prev_ptr.data_ptr(), D, rounds(D),
-            scratch.data_ptr(), head_of.data_ptr(), dist.data_ptr(),
-            info.data_ptr(), None if walks is None else walks.data_ptr())
+    LIB.launch("ub_rank_launch", dev, prev_ptr.data_ptr(), D, rounds(D),
+               scratch.data_ptr(), head_of.data_ptr(), dist.data_ptr(),
+               info.data_ptr(), None if walks is None else walks.data_ptr())
     COUNT.add("rank_chains", D)
     return head_of, dist, info
 
@@ -455,11 +411,12 @@ def assemble_unitigs(uniq, counts, src_key, tgt_key, lastbase, head_of,
         ((src_key, "src_key"), (tgt_key, "tgt_key"), (head_of, "head_of"),
          (dist, "dist")))
     lastbase = _lanes(lastbase, D, torch.uint8, "lastbase")
-    scratch = _scratch("ub_assemble_scratch_bytes", dev, n, n_e)
+    scratch = torch.empty(LIB.query("ub_assemble_scratch_bytes", n, n_e),
+                          dtype=torch.uint8, device=dev)
     out = _new_unitigs(n_e, D + k * n_e, dev)
-    _launch("ub_assemble_launch", dev, uniq.data_ptr(), counts.data_ptr(), n,
-            uniq.shape[1], k, src_key.data_ptr(), tgt_key.data_ptr(),
-            lastbase.data_ptr(), head_of.data_ptr(), dist.data_ptr(), n_e,
-            scratch.data_ptr(), out.ints.data_ptr(), out.seq.data_ptr())
+    LIB.launch("ub_assemble_launch", dev, uniq.data_ptr(), counts.data_ptr(),
+               n, uniq.shape[1], k, src_key.data_ptr(), tgt_key.data_ptr(),
+               lastbase.data_ptr(), head_of.data_ptr(), dist.data_ptr(), n_e,
+               scratch.data_ptr(), out.ints.data_ptr(), out.seq.data_ptr())
     COUNT.add("assemble_unitigs", n, k, n_e)
     return out

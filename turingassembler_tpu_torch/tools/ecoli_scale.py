@@ -225,7 +225,8 @@ def main(argv=None):
         print(f"assembly3 failed rc={rc}", file=sys.stderr)
         return rc
     walls = logging_utils.stage_walls()
-    nw = {"launches": nw_align.COUNT.launches, "pairs": nw_align.COUNT.pairs}
+    nw = {"launches": nw_align.COUNT.launches,
+          "pairs": nw_align.COUNT.total("pairs")}
 
     final = os.path.join(out_dir, "scaffold.full.fasta")
     contigs = [s for _, s in read_fasta(final)]
